@@ -1,0 +1,506 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py           # every phase, one card
+    python3 chip_smoke.py --profile # also trace two more rounds
+
+Phases, each printing its result on its own line; any failure ends the run
+with a nonzero exit:
+
+1. environment — card name and power limit, torch/CUDA versions, TF32
+   settings (both off), and the kernel build time (``nvcc`` for sm_90a);
+2. kernel parity — each segmented CUDA kernel against its plain PyTorch
+   version at the main path's shape (the cohort-packed LeNet-28 delta,
+   32 x 106 rows x 1024, S = 128) and on one 2^26-element buffer with 64
+   segments: counts exact, apply bitwise;
+3. main path — the paper's fig5 round (dynamic sampling, kernel top-k
+   masking, COO wire, FedAvg) on LeNet-28 with M = 32 clients for 8 rounds
+   through ``FederatedServer.from_strategy(...).run(...)``: m_t, buckets,
+   exact wire bytes, a finite falling loss and the kernels' launch counts;
+   then a small run on the card against the same run on the CPU;
+4. timing — each kernel's median time (CUDA events) on inputs that are not
+   in the L2 cache, and on one buffer that stays there (``warm_ms``), beside
+   its bound (bytes moved over 3.35 TB/s, or compares over 67 TFLOP/s
+   fp32), the launches per round of the main path's run, the
+   wrapper's time per call, its plain version's time, and the steady
+   per-round wall time;
+5. (``--profile`` only) ``torch.profiler`` over two more rounds: device
+   busy time by kernel and the device's idle share of the wall time.
+
+The last lines are the kernels' JSON record, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
+repository beside it, the script exits nonzero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
+FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
+SEG_LANE = 1024
+
+MAIN_M, MAIN_ROUNDS, MAIN_BATCH = 32, 8, 32
+MAIN_SAMPLED = [29, 26, 24, 21, 19, 18, 16, 14]
+MAIN_BUCKETS = [32] * 6 + [16] * 2
+MAIN_UPLOAD_BYTES = 431_184
+MAIN_LAUNCHES = {"segmented_histogram": 8, "segmented_count": 16,
+                 "segmented_apply": 8}
+SMALL_RTOL = 1e-3                # card vs CPU: reduction order differs
+
+
+def fail(msg: str) -> None:
+    """End the run with a nonzero exit and ``msg``."""
+    raise SystemExit(f"FAIL: {msg}")
+
+
+def phase(name: str, **fields) -> None:
+    """Print one phase's result as a JSON line."""
+    print(json.dumps({"phase": name, **fields}), flush=True)
+
+
+def gpu_line() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fns, reps: int = 20) -> float:
+    """Median milliseconds of one call over ``reps`` CUDA-event-timed calls,
+    after two warm-up calls; call i runs ``fns[i % len(fns)]``."""
+    import torch
+    for fn in fns[:2]:
+        fn()
+    times = []
+    for i in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fns[i % len(fns)]()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+# Inputs for the kernels
+# ---------------------------------------------------------------------------
+def lenet_cohort_buffer(seed: int):
+    """The main path's mask input: 32 clients' LeNet-28 delta leaves that
+    reach the kernels (conv2.w, fc1.w, fc2.w, out.w), packed cohort-major,
+    with zeros, negatives, tiny (< 2^-96) and huge (> 2^28) entries."""
+    import torch
+    from repro_torch.kernels import packing as pk
+    gen = torch.Generator().manual_seed(seed)
+    shapes = [(5, 5, 6, 16), (784, 120), (120, 84), (84, 10)]
+    leaves = []
+    for shape in shapes:
+        x = 1e-3 * torch.randn((MAIN_M,) + shape, generator=gen)
+        flat = x.view(MAIN_M, -1)
+        flat[:, ::97] = 0.0
+        flat[:, 1::211] = 1e-31
+        flat[:, 2::1009] = 3e8
+        leaves.append(x)
+    spec = pk.build_pack_spec([leaf[0] for leaf in leaves])
+    x2d = pk.pack_stacked(leaves, spec)
+    seg_ids = spec.seg_ids(MAIN_M)
+    k = torch.tensor([max(1, round(0.5 * ls.size)) for ls in spec.leaves],
+                     dtype=torch.int32).repeat(MAIN_M)
+    return x2d, seg_ids, k
+
+
+def large_buffer(seed: int, num_segments: int = 64):
+    """2^26 elements in ``num_segments`` equal segments of different
+    scales."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    rows = (1 << 26) // SEG_LANE
+    x2d = torch.randn((rows, SEG_LANE), generator=gen)
+    scale = torch.logspace(-6, 2, num_segments)
+    seg_ids = torch.arange(num_segments, dtype=torch.int32
+                           ).repeat_interleave(rows // num_segments)
+    x2d *= scale[seg_ids.long()][:, None]
+    k = torch.full((num_segments,), rows // num_segments * SEG_LANE // 10,
+                   dtype=torch.int32)
+    return x2d, seg_ids, k
+
+
+def taus_for(x2d, seg_ids, k, num_segments):
+    """The count and apply kernels' inputs as the masking path makes them:
+    16 geometric candidates per segment and one final tau."""
+    import torch
+    from repro_torch.kernels import segmented as seg
+    hist = seg.segmented_histogram_plain(x2d, seg_ids, num_segments)
+    lo, hi, cnt_lo, cnt_hi = seg.select_thresholds(hist, k)
+    cand = seg.candidate_taus(lo, hi, 16, geometric=True)
+    counts = seg.segmented_count_plain(x2d, seg_ids, cand)
+    lo, hi, cnt_lo, cnt_hi = seg.shrink_brackets(lo, hi, cnt_lo, cnt_hi,
+                                                 cand, counts, k)
+    tau = torch.where(cnt_hi >= 1, hi, lo)
+    return cand.contiguous(), tau.contiguous()
+
+
+def check_kernels(label: str, x2d, seg_ids, k) -> dict:
+    """Each kernel against its plain version on the card; returns the
+    largest absolute differences."""
+    import torch
+    from repro_torch.kernels import segmented as seg
+    S = k.numel()
+    cand, tau = taus_for(x2d, seg_ids, k, S)
+    hist_k = seg.segmented_histogram(x2d, seg_ids, S)
+    hist_p = seg.segmented_histogram_plain(x2d, seg_ids, S)
+    cnt_k = seg.segmented_count(x2d, seg_ids, cand)
+    cnt_p = seg.segmented_count_plain(x2d, seg_ids, cand)
+    out_k, kept_k = seg.segmented_apply(x2d, seg_ids, tau)
+    out_p, kept_p = seg.segmented_apply_plain(x2d, seg_ids, tau)
+    if x2d.is_cuda:
+        torch.cuda.synchronize()
+    errs = {
+        "segmented_histogram": int((hist_k - hist_p).abs().max()),
+        "segmented_count": int((cnt_k - cnt_p).abs().max()),
+        "segmented_apply": float((out_k - out_p).abs().max()),
+    }
+    bitwise = bool(torch.equal(out_k.view(torch.int32),
+                               out_p.view(torch.int32)))
+    kept_ok = bool(torch.equal(kept_k, kept_p))
+    phase("kernel_parity", shape=label, rows=x2d.shape[0], segments=S,
+          max_abs_err=errs, apply_bitwise=bitwise, kept_equal=kept_ok,
+          hist_total=int(hist_k[:, 0].sum()))
+    if errs["segmented_histogram"] or errs["segmented_count"]:
+        fail(f"count kernels disagree with their plain versions ({label})")
+    if not (bitwise and kept_ok):
+        fail(f"apply kernel is not bitwise equal to its plain version "
+             f"({label})")
+    return errs
+
+
+def cuda_loop_ms(fns, launches: int = 50, reps: int = 5) -> float:
+    """Milliseconds per call of ``launches`` calls issued back to back
+    between two CUDA events (median over ``reps``), call i running
+    ``fns[i % len(fns)]``: the device time of a kernel whose host-side
+    launch is cheaper than its run."""
+    import torch
+    for fn in fns[:3]:
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(launches):
+            rc = fns[i % len(fns)]()
+            if rc:
+                fail(f"kernel launch returned cudaError {rc}")
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
+def time_kernels(label: str, x2d, seg_ids, k) -> dict:
+    """Per kernel: its device time (C launcher called back to back on
+    preallocated outputs), the wrapper's time per call (argument checks,
+    output allocation and zeroing, launch), the plain version's time and
+    the bound.
+
+    The bound counts device-memory bytes, so every timed call reads an input
+    the L2 cache does not hold: the calls rotate over copies of ``x2d``
+    (and of the outputs) that together exceed four times the L2 size.
+    ``warm_ms`` is the same kernel called on one buffer, which after the
+    first call sits in L2 when it fits there."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import segmented as seg
+    lib = build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    S = k.numel()
+    n = x2d.numel()
+    rows = x2d.shape[0]
+    cand, tau = taus_for(x2d, seg_ids, k, S)
+    C = cand.shape[1]
+    l2 = torch.cuda.get_device_properties(x2d.device).L2_cache_size
+    copies = max(2, -(-4 * l2 // x2d.nbytes))
+    xs = [x2d] + [x2d.clone() for _ in range(copies - 1)]
+    outs = [torch.empty_like(x2d) for _ in range(copies)]
+    hist = torch.zeros((S, 32), dtype=torch.int32, device=x2d.device)
+    cnt = torch.zeros((S, C), dtype=torch.int32, device=x2d.device)
+    kept = torch.zeros((S, 1), dtype=torch.int32, device=x2d.device)
+    sp = seg_ids.data_ptr()
+
+    def hist_kernel(x, out):
+        return lambda: lib.seg_histogram_launch(
+            x.data_ptr(), sp, rows, S, hist.data_ptr(), stream)
+
+    def count_kernel(x, out):
+        return lambda: lib.seg_count_launch(
+            x.data_ptr(), sp, cand.data_ptr(), rows, S, cnt.data_ptr(),
+            stream)
+
+    def apply_kernel(x, out):
+        return lambda: lib.seg_apply_launch(
+            x.data_ptr(), sp, tau.data_ptr(), rows, S, out.data_ptr(),
+            kept.data_ptr(), stream)
+
+    work = {
+        "segmented_histogram": (
+            hist_kernel, lambda x: seg.segmented_histogram(x, seg_ids, S),
+            lambda x: seg.segmented_histogram_plain(x, seg_ids, S),
+            4 * n + 4 * rows + 4 * S * 32, 32 * n),
+        "segmented_count": (
+            count_kernel, lambda x: seg.segmented_count(x, seg_ids, cand),
+            lambda x: seg.segmented_count_plain(x, seg_ids, cand),
+            4 * n + 4 * rows + 8 * S * C, C * n),
+        "segmented_apply": (
+            apply_kernel, lambda x: seg.segmented_apply(x, seg_ids, tau),
+            lambda x: seg.segmented_apply_plain(x, seg_ids, tau),
+            8 * n + 4 * rows + 8 * S, n),
+    }
+    results = {}
+    for name, (kernel, wrapper, plain, nbytes, ops) in work.items():
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / FP32_OPS_PER_S * 1e3
+        kernels = [kernel(x, out) for x, out in zip(xs, outs)]
+        rec = {"ms": cuda_loop_ms(kernels),
+               "warm_ms": cuda_loop_ms(kernels[:1]),
+               "wrapper_ms": cuda_ms([lambda x=x: wrapper(x) for x in xs]),
+               "plain_ms": cuda_ms([lambda x=x: plain(x) for x in xs],
+                                   reps=5),
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "library_ms": None, "bytes": nbytes, "compares": ops,
+               "buffers": copies, "l2_bytes": l2}
+        results[name] = rec
+        phase("kernel_time", shape=label, kernel=name, **rec)
+    del xs, outs
+    return results
+
+
+# ---------------------------------------------------------------------------
+# The main path
+# ---------------------------------------------------------------------------
+def fig5_server(M: int, image_size: int, num_train: int, batch: int,
+                device: str):
+    """A fig5 server (kernel masking, LeNet at ``image_size``) over M
+    clients' synthetic shards, with its batches, sizes and test set."""
+    from repro_torch.core import strategy
+    from repro_torch.core.server import FederatedServer
+    from repro_torch.data.partition import iid_partition_images
+    from repro_torch.data.synthetic import class_gaussian_images
+    from repro_torch.models import paper_models as pm
+    import torch
+    ds = class_gaussian_images(num_train=num_train, image_size=image_size,
+                               seed=0)
+    xs, ys, ns = iid_partition_images(ds.train_x, ds.train_y, M, batch,
+                                      seed=0)
+    st = strategy.get("fig5", masking=strategy.MaskPolicy.selective(
+        0.5, backend="kernel"))
+    params = pm.init_lenet(torch.Generator().manual_seed(0),
+                           image_size=image_size, device=device)
+    eval_data = (torch.as_tensor(ds.test_x).to(device),
+                 torch.as_tensor(ds.test_y).to(device))
+    server = FederatedServer.from_strategy(
+        st, pm.classifier_loss(pm.lenet_forward), params, M,
+        eval_fn=pm.classifier_accuracy(pm.lenet_forward), seed=0,
+        device=device)
+    return server, (xs, ys), ns, eval_data
+
+
+def run_main_path(device: str = "cuda") -> dict:
+    """Phase 3: the fig5 main path, with every assertion on its result."""
+    from repro_torch.kernels import segmented as seg
+    server, batches, ns, eval_data = fig5_server(
+        MAIN_M, 28, MAIN_M * 8 * MAIN_BATCH, MAIN_BATCH, device)
+    if server._num_params != 107_786:
+        fail(f"LeNet-28 has {server._num_params} parameters, not 107786")
+    seg.reset_launch_counts()
+    t0 = time.perf_counter()
+    server.run(batches, ns, MAIN_ROUNDS, eval_every=MAIN_ROUNDS,
+               eval_data=eval_data)
+    wall = time.perf_counter() - t0
+    launches = seg.launch_counts()
+    summ = server.summary()
+    hist = server.history
+    sampled = [r.num_sampled for r in hist]
+    buckets = [r.cohort_size for r in hist]
+    losses = [r.mean_loss for r in hist]
+    phase("main_path", rounds=len(hist), num_sampled=sampled,
+          buckets=buckets, losses=losses,
+          transport_bytes=summ["transport_bytes"],
+          client_upload_bytes=summ["client_upload_bytes"],
+          final_eval=summ["final_eval"], launches=launches,
+          round_wall_s=[r.wall_s for r in hist], run_wall_s=wall)
+    if sampled != MAIN_SAMPLED:
+        fail(f"num_sampled {sampled} != {MAIN_SAMPLED}")
+    if buckets != MAIN_BUCKETS:
+        fail(f"buckets {buckets} != {MAIN_BUCKETS}")
+    if summ["client_upload_bytes"] != MAIN_UPLOAD_BYTES:
+        fail(f"upload bytes {summ['client_upload_bytes']}")
+    if summ["transport_bytes"] != sum(MAIN_SAMPLED) * MAIN_UPLOAD_BYTES:
+        fail(f"transport_bytes {summ['transport_bytes']}")
+    if not all(map(lambda v: v == v and abs(v) < float("inf"), losses)):
+        fail(f"non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"loss did not fall: {losses}")
+    for name, n in MAIN_LAUNCHES.items():
+        if launches[name] != n:
+            fail(f"{name} launched {launches[name]} times, expected {n}")
+    for name, leaf in server.params.items():
+        if not bool(leaf.isfinite().all()):
+            fail(f"non-finite parameter {name}")
+    return {"launches": launches, "history": hist, "server": server,
+            "batches": batches, "n_samples": ns}
+
+
+def profile_rounds(main: dict, rounds: int = 2) -> None:
+    """Trace ``rounds`` more main-path rounds: device time by kernel and
+    the device's idle share of the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    server = main["server"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        server.run(main["batches"], main["n_samples"], rounds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def device_us(event):
+        return getattr(event, "self_device_time_total",
+                       getattr(event, "self_cuda_time_total", 0.0))
+
+    from torch.autograd import DeviceType
+    # Kernel and memcpy rows only: the aten rows repeat their kernels' time.
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    busy_s = sum(device_us(e) for e in events) / 1e6
+    top = sorted(events, key=device_us, reverse=True)[:12]
+    phase("profile", rounds=rounds, wall_s=wall, device_busy_s=busy_s,
+          device_idle_share=1.0 - busy_s / wall,
+          top_ms_per_round=[[e.key[:60], device_us(e) / 1e3 / rounds,
+                             e.count // rounds] for e in top])
+
+
+def small_agreement(devices=("cuda", "cpu")) -> None:
+    """The fig5 kernel path on the card against the same run on the CPU
+    (plain versions) at a small size: participants and bytes exact, losses
+    and parameters within SMALL_RTOL."""
+    import torch
+    runs = {}
+    for device in devices:
+        server, batches, ns, _ = fig5_server(8, 12, 512, 16, device)
+        server.run(batches, ns, 4)
+        runs[device] = server
+    gpu, cpu = (runs[d] for d in devices)
+    sampled = [[r.num_sampled for r in s.history] for s in (gpu, cpu)]
+    loss = [[r.mean_loss for r in s.history] for s in (gpu, cpu)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(*loss))
+    param_err = max(float((gpu.params[k].cpu() - v).abs().max())
+                    for k, v in cpu.params.items())
+    phase("small_agreement", num_sampled=sampled[0], loss_rel_err=rel,
+          max_param_abs_err=param_err,
+          transport_bytes=[gpu.summary()["transport_bytes"],
+                           cpu.summary()["transport_bytes"]])
+    if sampled[0] != sampled[1]:
+        fail(f"participants differ card vs CPU: {sampled}")
+    if gpu.summary()["transport_bytes"] != cpu.summary()["transport_bytes"]:
+        fail("transport bytes differ card vs CPU")
+    if rel > SMALL_RTOL or param_err > SMALL_RTOL:
+        fail(f"card and CPU runs disagree: loss rel {rel}, "
+             f"param {param_err}")
+    if not all(bool(torch.isfinite(v).all()) for v in gpu.params.values()):
+        fail("non-finite parameters on the card")
+
+
+def main(argv) -> int:
+    """Run the phases; returns the exit code."""
+    trace = "--profile" in argv
+    try:
+        import torch
+    except ImportError:
+        print("FAIL: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"FAIL: the repository's src/repro_torch is not beside "
+              f"{Path(__file__).name}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+
+    # ---- 1. environment -------------------------------------------------
+    card = gpu_line()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    build.library()
+    build_s = time.perf_counter() - t0
+    ptxas = [line.strip() for line in build.build_log().read_text().splitlines()
+             if "registers" in line or "Compiling entry" in line]
+    phase("environment", card=card, torch=torch.__version__,
+          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
+          count=torch.cuda.device_count(),
+          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+          matmul_precision=torch.get_float32_matmul_precision(),
+          kernel_build_s=build_s, ptxas=ptxas)
+
+    # ---- 2. kernel parity ----------------------------------------------
+    main_in = [t.cuda() for t in lenet_cohort_buffer(seed=1)]
+    if tuple(main_in[0].shape) != (MAIN_M * 106, SEG_LANE):
+        fail(f"main-path buffer is {tuple(main_in[0].shape)}")
+    errs = check_kernels("lenet28_cohort32", *main_in)
+    large_in = [t.cuda() for t in large_buffer(seed=2)]
+    check_kernels("2^26", *large_in)
+    # ---- 3. main path ---------------------------------------------------
+    main = run_main_path()
+    small_agreement()
+
+    # ---- 4. timing -------------------------------------------------------
+    times = time_kernels("lenet28_cohort32", *main_in)
+    time_kernels("2^26", *large_in)
+    walls = [r.wall_s for r in main["history"]]
+    phase("round_time", steady_round_s_median=statistics.median(walls[1:]),
+          full_rounds_s=walls[1:6], cohort16_rounds_s=walls[6:],
+          first_round_s=walls[0])
+    if trace:
+        profile_rounds(main)
+
+    replaces = {"segmented_histogram": "src/repro/kernels/segmented.py:145",
+                "segmented_count": "src/repro/kernels/segmented.py:202",
+                "segmented_apply": "src/repro/kernels/segmented.py:248"}
+    rounds = len(main["history"])
+    kernels = []
+    for name, rec in times.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/segmented.cu",
+            "replaces": replaces[name],
+            "launches": main["launches"][name],
+            "launches_per_round": main["launches"][name] / rounds,
+            "max_abs_err": errs[name], "ms": rec["ms"],
+            "wrapper_ms": rec["wrapper_ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,0 +1,209 @@
+"""Central-server training loop (paper Alg. 1 / Alg. 3 outer procedure;
+counterpart of ``repro/core/server.py``).
+
+``FederatedServer`` owns the global model, runs R communication rounds,
+meters transport bytes and evaluates on held-out data.  Its scenario is one
+:class:`repro_torch.core.strategy.FedStrategy`.
+
+The loop is eager: every round picks its cohort bucket on the host and calls
+the matching round (``engine="cohort"``: the bucketed cohort body, or the
+oracle body when the bucket is the whole population; ``engine="full"``:
+always the oracle).  The reference's AOT compilation and ``lax.scan``
+segments are XLA dispatch machinery and have no counterpart here.
+
+Randomness: each round's (M,) uniform participant scores come from the
+server's own CPU ``torch.Generator`` seeded with ``seed`` — the same draws
+on every device — or from a caller's ``scores(t, M)`` callable, which is how
+the parity tests hand in the reference's ``jax.random`` draws.
+
+Transport is metered by the strategy's codec: ``RoundRecord.transport_bytes``
+counts the EXACT wire bytes of every upload.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.client import local_update_flops
+from repro_torch.core.client_store import DenseStore
+from repro_torch.core.compression import pytree_num_params
+from repro_torch.device import resolve_device
+
+Tree = Dict[str, torch.Tensor]
+
+__all__ = ["RoundRecord", "FederatedServer"]
+
+
+@dataclasses.dataclass
+class RoundRecord:
+    """Per-round ledger entry: who participated and what it cost."""
+
+    round: int
+    num_sampled: int
+    mean_loss: float
+    transport_units: float      # full-model-upload units this round (Eq. 6)
+    transport_bytes: int        # EXACT wire bytes (codec-encoded uploads)
+    eval_metric: Optional[float] = None
+    wall_s: float = 0.0         # round time, device synchronized
+    cohort_size: int = 0        # padded cohort buffer actually executed
+    flop_proxy: float = 0.0     # 6·params·examples·epochs·cohort_size
+    quarantined: int = 0        # uploads rejected at the decode gate
+
+
+class FederatedServer:
+    """Owns Θ_t; runs rounds; meters communication."""
+
+    def __init__(self, strategy, loss_fn: Callable, init_params: Tree,
+                 num_clients: int, *, eval_fn: Optional[Callable] = None,
+                 seed: int = 0, engine: str = "cohort", device=None,
+                 scores: Optional[Callable[[int, int], Any]] = None):
+        """See :meth:`from_strategy`."""
+        if engine not in ("cohort", "full"):
+            raise ValueError(f"unknown engine {engine!r} (the port runs "
+                             "'cohort' and 'full')")
+        self.device = resolve_device(device)
+        self.strategy = strategy
+        self.cfg = strategy.federated_config(num_clients)
+        self.schedule = strategy.sampling
+        self.engine = engine
+        self.eval_fn = eval_fn
+        self.params = {k: v.to(self.device) for k, v in init_params.items()}
+        self.store = DenseStore(num_clients, self.params)
+        self._loss_fn = loss_fn
+        self._scores = scores
+        self._generator = torch.Generator().manual_seed(seed)
+        self._rounds: Dict[int, Callable] = {}
+        self._round = 0
+        self.history: List[RoundRecord] = []
+        self._num_params = pytree_num_params(self.params)
+        self.client_upload_bytes = strategy.codec.wire_bytes(self.params)
+
+    @classmethod
+    def from_strategy(cls, strategy, loss_fn: Callable, init_params: Tree,
+                      num_clients: int, eval_fn: Optional[Callable] = None,
+                      seed: int = 0, engine: str = "cohort", *, device=None,
+                      scores: Optional[Callable[[int, int], Any]] = None
+                      ) -> "FederatedServer":
+        """Build a server from one strategy record.  ``device``: ``cuda``
+        unless named (raises without a card).  ``scores(t, M)``, when given,
+        supplies round t's (M,) uniform participant scores instead of the
+        server's generator."""
+        return cls(strategy, loss_fn, init_params, num_clients,
+                   eval_fn=eval_fn, seed=seed, engine=engine, device=device,
+                   scores=scores)
+
+    def _round_fn(self, bucket: int) -> Callable:
+        """The (cached) round for one cohort bucket."""
+        fn = self._rounds.get(bucket)
+        if fn is None:
+            from repro_torch.core.strategy import build_round
+            M = self.cfg.num_clients
+            if bucket >= M:
+                fn = build_round(self.strategy, self._loss_fn, M, form="full")
+            else:
+                fn = build_round(self.strategy, self._loss_fn, M,
+                                 form="cohort", cohort_size=bucket)
+            self._rounds[bucket] = fn
+        return fn
+
+    def _round_scores(self, t: int) -> torch.Tensor:
+        M = self.cfg.num_clients
+        if self._scores is not None:
+            scores = torch.from_numpy(
+                np.array(self._scores(t, M), dtype=np.float32))
+        else:
+            scores = torch.rand((M,), generator=self._generator)
+        if tuple(scores.shape) != (M,):
+            raise ValueError(f"round {t} scores must have shape ({M},), got "
+                             f"{tuple(scores.shape)}")
+        return scores
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def run(self, client_batches: Sequence[Any], n_samples, rounds: int,
+            eval_every: int = 0, eval_data: Any = None) -> List[RoundRecord]:
+        """Run ``rounds`` communication rounds, appending to ``history``.
+
+        ``client_batches``: arrays with leading (num_clients, num_batches,
+        B, ...) axes (e.g. ``(xs, ys)``); ``n_samples``: (num_clients,)
+        dataset sizes; ``eval_every``: evaluate ``eval_fn(params,
+        eval_data)`` every that many rounds and on the last.
+        """
+        masking = self.cfg.client.masking
+        gamma = masking.gamma if masking.mode != "none" else 1.0
+        batches = [torch.as_tensor(np.asarray(x)).to(self.device)
+                   for x in client_batches]
+        n_samples = torch.as_tensor(np.asarray(n_samples),
+                                    dtype=torch.float32).to(self.device)
+        flops_per_client = local_update_flops(batches, self._num_params,
+                                              self.cfg.client)
+        M = self.cfg.num_clients
+        start = self._round
+        last = start + rounds
+        for t in range(start + 1, last + 1):
+            scores = self._round_scores(t)
+            m = self.schedule.num_clients_host(t, M)
+            bucket = self.strategy.sampler.cohort_bucket(self.schedule, m, M)
+            bucket = bucket if self.engine == "cohort" else M
+            round_fn = self._round_fn(bucket)
+            self._sync()
+            t0 = time.perf_counter()
+            self.params, residuals, metrics = round_fn(
+                self.params, self.store.residuals_dense(), batches,
+                n_samples, t, scores)
+            self.store.set_dense(residuals)
+            self._sync()
+            wall = time.perf_counter() - t0
+            num_sampled = int(metrics["num_sampled"])
+            rec = RoundRecord(
+                round=t, num_sampled=num_sampled,
+                mean_loss=float(metrics["mean_loss"]),
+                transport_units=num_sampled * gamma,
+                transport_bytes=num_sampled * self.client_upload_bytes,
+                wall_s=wall, cohort_size=bucket,
+                flop_proxy=float(flops_per_client) * bucket,
+                quarantined=int(metrics["quarantined"]))
+            if self.eval_fn is not None and eval_every and (
+                    t % eval_every == 0 or t == last):
+                rec.eval_metric = float(self.eval_fn(self.params, eval_data))
+            self.history.append(rec)
+            self._round = t
+        return self.history
+
+    def total_transport_units(self) -> float:
+        """Cumulative client uploads in full-model units (Eq. 6 basis)."""
+        return float(sum(r.transport_units for r in self.history))
+
+    def total_transport_bytes(self) -> int:
+        """Cumulative EXACT wire bytes across all recorded rounds."""
+        return int(sum(r.transport_bytes for r in self.history))
+
+    def summary(self) -> Dict[str, Any]:
+        """Run-level roll-up of the history."""
+        evals = [r.eval_metric for r in self.history
+                 if r.eval_metric is not None]
+        return {
+            "rounds": len(self.history),
+            "final_loss": (self.history[-1].mean_loss if self.history
+                           else float("nan")),
+            "final_eval": evals[-1] if evals else float("nan"),
+            "transport_units": self.total_transport_units(),
+            "transport_bytes": self.total_transport_bytes(),
+            "transport_GB": self.total_transport_bytes() / 1e9,
+            "num_params": self._num_params,
+            "engine": self.engine,
+            "strategy": self.strategy.name,
+            "sampler": self.strategy.sampler.name,
+            "codec": self.strategy.codec.name,
+            "client_upload_bytes": self.client_upload_bytes,
+            "steady_wall_s": float(sum(r.wall_s for r in self.history)),
+            "quarantined": int(sum(r.quarantined for r in self.history)),
+            "device": str(self.device),
+        }

@@ -1,0 +1,63 @@
+"""Plain-torch oracles for the masking kernels (counterpart of
+``repro/kernels/ref.py``).
+
+* ``topk_mask_ref``      — exact top-k-by-|x| mask (full sort), the paper's
+  Alg. 4 as written.
+* ``threshold_mask_ref`` — keep entries with |x| >= tau.
+* ``exponent_histogram_ref`` / ``group_histogram_ref`` — per-octave and
+  4-octave magnitude counts, the quantities the histogram kernels
+  accumulate.
+
+The reference writes its masks as ``x * float(keep)``; XLA compiles that
+product into a select, so a masked-out entry comes out +0.0 whatever its
+sign.  The port writes the select itself and matches those bits.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["NBINS", "EXPO_MIN", "topk_mask_ref", "threshold_mask_ref",
+           "count_ge_ref", "exponent_histogram_ref", "group_histogram_ref"]
+
+NBINS = 128
+EXPO_MIN = -96  # bin j counts magnitudes in [2^(j+EXPO_MIN), 2^(j+EXPO_MIN+1))
+
+
+def topk_mask_ref(x: torch.Tensor, gamma: float) -> torch.Tensor:
+    """Keep the k = max(1, round(gamma*size)) largest-|x| entries (exact);
+    surplus ties at the k-th magnitude are dropped in index order."""
+    flat = x.reshape(-1)
+    k = max(1, int(round(gamma * flat.numel())))
+    mag = flat.abs()
+    thresh = torch.sort(mag).values[flat.numel() - k]
+    keep = mag >= thresh
+    keep = keep & ~(torch.cumsum(keep.to(torch.int64), 0) > k)
+    return torch.where(keep, flat, torch.zeros_like(flat)).reshape(x.shape)
+
+
+def threshold_mask_ref(x: torch.Tensor, tau) -> torch.Tensor:
+    """``x`` with every entry of magnitude below ``tau`` set to +0.0."""
+    return torch.where(x.abs() >= tau, x, torch.zeros_like(x))
+
+
+def count_ge_ref(x: torch.Tensor, tau) -> torch.Tensor:
+    """int32 count of entries with |x| >= tau."""
+    return (x.abs() >= tau).sum().to(torch.int32)
+
+
+def exponent_histogram_ref(x: torch.Tensor) -> torch.Tensor:
+    """(NBINS,) int32 counts of nonzero |x| per power-of-two bin."""
+    mag = x.reshape(-1).abs().to(torch.float32)
+    valid = mag > 0
+    e = torch.floor(torch.log2(torch.where(valid, mag, torch.ones_like(mag))))
+    b = torch.clamp(e.to(torch.int64) - EXPO_MIN, 0, NBINS - 1)
+    return torch.bincount(b[valid], minlength=NBINS).to(torch.int32)
+
+
+def group_histogram_ref(x: torch.Tensor,
+                        octaves_per_bin: int = 4) -> torch.Tensor:
+    """Octave bins grouped ``octaves_per_bin`` at a time — the per-bin
+    (not suffix) form of what the segmented histogram kernel counts."""
+    h = exponent_histogram_ref(x)
+    return h.reshape(-1, octaves_per_bin).sum(1).to(torch.int32)

@@ -73,3 +73,10 @@ except ImportError:
 
     def settings(**_kwargs):
         return lambda fn: fn
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (PyTorch port kernels); skipped without "
+        "one")

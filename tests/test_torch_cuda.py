@@ -1,0 +1,113 @@
+"""Tests of the port that need an NVIDIA card: each CUDA kernel against its
+plain PyTorch version, and the fig5 round on the card against the same round
+on the CPU.  They skip without a card.  This file imports no JAX, so on a
+machine without it run it alone:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+"""
+
+import pytest
+import torch
+
+from repro_torch.core import strategy
+from repro_torch.core.server import FederatedServer
+from repro_torch.data.partition import iid_partition_images
+from repro_torch.data.synthetic import class_gaussian_images
+from repro_torch.kernels import ops
+from repro_torch.kernels import packing as pk
+from repro_torch.kernels import segmented as seg
+from repro_torch.models import paper_models as pm
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _buffer(seed: int, clients: int = 4):
+    gen = torch.Generator().manual_seed(seed)
+    shapes = [(5, 5, 6, 16), (784, 120), (120, 84), (84, 10)]
+    leaves = []
+    for shape in shapes:
+        x = 1e-3 * torch.randn((clients,) + shape, generator=gen)
+        flat = x.view(clients, -1)
+        flat[:, ::97] = 0.0
+        flat[:, 1::211] = -1e-31
+        flat[:, 2::1009] = 3e8
+        flat[0, 5] = float("nan")
+        flat[-1, 6] = float("-inf")
+        leaves.append(x)
+    spec = pk.build_pack_spec([leaf[0] for leaf in leaves])
+    return pk.pack_stacked(leaves, spec), spec.seg_ids(clients), \
+        clients * spec.num_segments
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_kernels_match_plain_versions(cuda, seed):
+    x2d, seg_ids, S = _buffer(seed)
+    x2d, seg_ids = x2d.to(cuda), seg_ids.to(cuda)
+    hist = seg.segmented_histogram(x2d, seg_ids, S)
+    assert torch.equal(hist, seg.segmented_histogram_plain(x2d, seg_ids, S))
+    k = torch.full((S,), 200, dtype=torch.int32, device=cuda)
+    lo, hi, _, _ = seg.select_thresholds(hist, k)
+    cand = seg.candidate_taus(lo, hi, 16, geometric=True).contiguous()
+    assert torch.equal(seg.segmented_count(x2d, seg_ids, cand),
+                       seg.segmented_count_plain(x2d, seg_ids, cand))
+    out, kept = seg.segmented_apply(x2d, seg_ids, hi.contiguous())
+    want, want_kept = seg.segmented_apply_plain(x2d, seg_ids, hi)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(kept, want_kept)
+
+
+def test_wrappers_count_their_launches(cuda):
+    x2d, seg_ids, S = _buffer(2)
+    tree = {"w": x2d[:8].to(cuda)}
+    seg.reset_launch_counts()
+    ops.topk_mask_pytree(tree, 0.5, min_leaf_size=0)
+    assert seg.launch_counts() == {"segmented_histogram": 1,
+                                   "segmented_count": 2,
+                                   "segmented_apply": 1}
+
+
+def test_stacked_masking_on_card_matches_cpu(cuda):
+    gen = torch.Generator().manual_seed(3)
+    tree = {"a": 1e-2 * torch.randn((6, 300, 40), generator=gen),
+            "b": torch.randn((6, 10), generator=gen)}
+    got = ops.topk_mask_stacked({k: v.to(cuda) for k, v in tree.items()}, 0.5)
+    want = ops.topk_mask_stacked(tree, 0.5)
+    for k in tree:
+        assert torch.equal(got[k].cpu().view(torch.int32),
+                           want[k].view(torch.int32)), k
+
+
+def test_fig5_round_on_card_matches_cpu(cuda):
+    """Participants and bytes exact; losses and parameters within 1e-4
+    (cuDNN and the CPU reduce in different orders)."""
+    ds = class_gaussian_images(num_train=256, image_size=12, seed=0)
+    xs, ys, ns = iid_partition_images(ds.train_x, ds.train_y, 8, 16, seed=0)
+    st = strategy.get("fig5", masking=strategy.MaskPolicy.selective(
+        0.5, backend="kernel"))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        params = pm.init_lenet(torch.Generator().manual_seed(0),
+                               image_size=12, device=device)
+        server = FederatedServer.from_strategy(
+            st, pm.classifier_loss(pm.lenet_forward), params, 8, seed=0,
+            device=device)
+        server.run((xs, ys), ns, 3)
+        runs[device] = server
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    assert [r.num_sampled for r in gpu.history] == \
+        [r.num_sampled for r in cpu.history]
+    assert gpu.summary()["transport_bytes"] == cpu.summary()["transport_bytes"]
+    for a, b in zip(gpu.history, cpu.history):
+        assert a.mean_loss == pytest.approx(b.mean_loss, rel=1e-4)
+    for k, v in cpu.params.items():
+        torch.testing.assert_close(gpu.params[k].cpu(), v, rtol=1e-4,
+                                   atol=1e-4)
