@@ -9,23 +9,33 @@ with a nonzero exit:
 
 1. environment — card name and power limit, torch/CUDA versions, TF32
    settings (both off), and the kernel build time (``nvcc`` for sm_90a);
-2. kernel parity — each segmented CUDA kernel against its plain PyTorch
-   version at the main path's shape (the cohort-packed LeNet-28 delta,
-   32 x 106 rows x 1024, S = 128) and on one 2^26-element buffer with 64
-   segments: counts exact, apply bitwise;
-3. main path — the paper's fig5 round (dynamic sampling, kernel top-k
-   masking, COO wire, FedAvg) on LeNet-28 with M = 32 clients for 8 rounds
-   through ``FederatedServer.from_strategy(...).run(...)``: m_t, buckets,
-   exact wire bytes, a finite falling loss and the kernels' launch counts;
-   then a small run on the card against the same run on the CPU;
+2. kernel parity — each of the five segmented CUDA kernels against its
+   plain PyTorch version at the main path's shape (the cohort-packed
+   LeNet-28 delta, 32 x 106 rows x 1024, S = 128) and on one 2^26-element
+   buffer with 64 segments: histograms, counts, bitmaps and int8 codes
+   exact, masked values and maxima bitwise; the count kernel also at
+   C in {1, 8, 16, 17, 32} candidates;
+3. main paths, each through ``FederatedServer.from_strategy(...).run(...)``
+   on LeNet-28 with M = 32 clients for 8 rounds, with the launch counts set
+   to 0 just before and read just after:
+   - ``fig5`` (kernel masking, COO wire, FedAvg): m_t, buckets, exact wire
+     bytes, a finite falling loss, launches 8/16/8;
+   - ``fig5-fused-int8`` (kernel masking, the fused int8 COO wire from one
+     stats and one encode launch per round): the same checks, 268,966
+     bytes per upload, launches 8/16/8/8/8;
+   then, on one round's stacked masked delta from the card, the fused
+   codec's roundtrip against the plain codec chain's for all four wire
+   pairings (bitwise, equal wire bytes); and small runs on the card
+   against the same runs on the CPU (fig5; fig5-fused-int8 with error
+   feedback);
 4. timing — each kernel's median time (CUDA events) on inputs that are not
    in the L2 cache, and on one buffer that stays there (``warm_ms``), beside
-   its bound (bytes moved over 3.35 TB/s, or compares over 67 TFLOP/s
-   fp32), the launches per round of the main path's run, the
-   wrapper's time per call, its plain version's time, and the steady
-   per-round wall time;
-5. (``--profile`` only) ``torch.profiler`` over two more rounds: device
-   busy time by kernel and the device's idle share of the wall time.
+   its bound (bytes moved over 3.35 TB/s, or operations over 67 TFLOP/s
+   fp32), the launches per round of the main path's run, the wrapper's time
+   per call, its plain version's time, and the steady per-round wall time;
+5. (``--profile`` only) ``torch.profiler`` over two more rounds of the
+   fused main path: device busy time by kernel and the device's idle share
+   of the wall time.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -49,10 +59,21 @@ SEG_LANE = 1024
 MAIN_M, MAIN_ROUNDS, MAIN_BATCH = 32, 8, 32
 MAIN_SAMPLED = [29, 26, 24, 21, 19, 18, 16, 14]
 MAIN_BUCKETS = [32] * 6 + [16] * 2
-MAIN_UPLOAD_BYTES = 431_184
-MAIN_LAUNCHES = {"segmented_histogram": 8, "segmented_count": 16,
+MASK_LAUNCHES = {"segmented_histogram": 8, "segmented_count": 16,
                  "segmented_apply": 8}
+# Per main path: upload bytes and launches of every kernel over 8 rounds.
+MAIN_PATHS = {
+    "fig5": (431_184, {**MASK_LAUNCHES, "segmented_stats": 0,
+                       "segmented_encode": 0}),
+    "fig5-fused-int8": (268_966, {**MASK_LAUNCHES, "segmented_stats": 8,
+                                  "segmented_encode": 8}),
+}
+COUNT_CANDIDATES = (1, 8, 16, 17, 32)
 SMALL_RTOL = 1e-3                # card vs CPU: reduction order differs
+LIBRARY_NOTE = ("no single PyTorch call computes a segmented suffix "
+                "histogram, a per-segment multi-threshold count, a per-row-"
+                "tau select with counts, a segmented histogram with a "
+                "segment max, or a select with a packed bitmap and counts")
 
 
 def fail(msg: str) -> None:
@@ -136,51 +157,81 @@ def large_buffer(seed: int, num_segments: int = 64):
 
 
 def taus_for(x2d, seg_ids, k, num_segments):
-    """The count and apply kernels' inputs as the masking path makes them:
-    16 geometric candidates per segment and one final tau."""
+    """The count, apply and encode kernels' inputs as the masking and wire
+    paths make them: 16 geometric candidates per segment, one final tau,
+    and the int8 scales from the segment maxima."""
     import torch
+    from repro_torch.core.compression import int8_scales
     from repro_torch.kernels import segmented as seg
-    hist = seg.segmented_histogram_plain(x2d, seg_ids, num_segments)
+    hist, amax = seg.segmented_stats_plain(x2d, seg_ids, num_segments)
     lo, hi, cnt_lo, cnt_hi = seg.select_thresholds(hist, k)
     cand = seg.candidate_taus(lo, hi, 16, geometric=True)
     counts = seg.segmented_count_plain(x2d, seg_ids, cand)
     lo, hi, cnt_lo, cnt_hi = seg.shrink_brackets(lo, hi, cnt_lo, cnt_hi,
                                                  cand, counts, k)
     tau = torch.where(cnt_hi >= 1, hi, lo)
-    return cand.contiguous(), tau.contiguous()
+    return (cand.contiguous(), tau.contiguous(),
+            int8_scales(amax[:, 0]).contiguous())
+
+
+def _bitwise(a, b) -> bool:
+    import torch
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
 
 
 def check_kernels(label: str, x2d, seg_ids, k) -> dict:
     """Each kernel against its plain version on the card; returns the
-    largest absolute differences."""
+    largest absolute differences (int8 encode under ``segmented_encode``,
+    fp32 encode under ``segmented_encode_fp32``)."""
     import torch
     from repro_torch.kernels import segmented as seg
     S = k.numel()
-    cand, tau = taus_for(x2d, seg_ids, k, S)
-    hist_k = seg.segmented_histogram(x2d, seg_ids, S)
-    hist_p = seg.segmented_histogram_plain(x2d, seg_ids, S)
-    cnt_k = seg.segmented_count(x2d, seg_ids, cand)
-    cnt_p = seg.segmented_count_plain(x2d, seg_ids, cand)
-    out_k, kept_k = seg.segmented_apply(x2d, seg_ids, tau)
-    out_p, kept_p = seg.segmented_apply_plain(x2d, seg_ids, tau)
+    cand, tau, scales = taus_for(x2d, seg_ids, k, S)
+    got = {
+        "segmented_histogram": (seg.segmented_histogram(x2d, seg_ids, S),),
+        "segmented_count": (seg.segmented_count(x2d, seg_ids, cand),),
+        "segmented_apply": seg.segmented_apply(x2d, seg_ids, tau),
+        "segmented_stats": seg.segmented_stats(x2d, seg_ids, S),
+        "segmented_encode": seg.segmented_encode(x2d, seg_ids, tau, scales),
+        "segmented_encode_fp32": seg.segmented_encode(x2d, seg_ids, tau),
+    }
+    want = {
+        "segmented_histogram": (
+            seg.segmented_histogram_plain(x2d, seg_ids, S),),
+        "segmented_count": (seg.segmented_count_plain(x2d, seg_ids, cand),),
+        "segmented_apply": seg.segmented_apply_plain(x2d, seg_ids, tau),
+        "segmented_stats": seg.segmented_stats_plain(x2d, seg_ids, S),
+        "segmented_encode": seg.segmented_encode_plain(x2d, seg_ids, tau,
+                                                       scales),
+        "segmented_encode_fp32": seg.segmented_encode_plain(x2d, seg_ids,
+                                                            tau),
+    }
     if x2d.is_cuda:
         torch.cuda.synchronize()
-    errs = {
-        "segmented_histogram": int((hist_k - hist_p).abs().max()),
-        "segmented_count": int((cnt_k - cnt_p).abs().max()),
-        "segmented_apply": float((out_k - out_p).abs().max()),
-    }
-    bitwise = bool(torch.equal(out_k.view(torch.int32),
-                               out_p.view(torch.int32)))
-    kept_ok = bool(torch.equal(kept_k, kept_p))
+    errs, exact = {}, {}
+    for name in got:
+        errs[name] = max(float((g.double() - w.double()).abs().nan_to_num()
+                               .max()) for g, w in zip(got[name], want[name]))
+        exact[name] = all(_bitwise(g, w)
+                          for g, w in zip(got[name], want[name]))
+    lo, hi, _, _ = seg.select_thresholds(
+        got["segmented_histogram"][0], k)
+    counts = {}
+    for c in COUNT_CANDIDATES:
+        taus = seg.candidate_taus(lo, hi, c, geometric=True).contiguous()
+        counts[c] = bool(torch.equal(seg.segmented_count(x2d, seg_ids, taus),
+                                     seg.segmented_count_plain(x2d, seg_ids,
+                                                               taus)))
     phase("kernel_parity", shape=label, rows=x2d.shape[0], segments=S,
-          max_abs_err=errs, apply_bitwise=bitwise, kept_equal=kept_ok,
-          hist_total=int(hist_k[:, 0].sum()))
-    if errs["segmented_histogram"] or errs["segmented_count"]:
-        fail(f"count kernels disagree with their plain versions ({label})")
-    if not (bitwise and kept_ok):
-        fail(f"apply kernel is not bitwise equal to its plain version "
-             f"({label})")
+          max_abs_err=errs, exact=exact, count_by_candidates=counts,
+          hist_total=int(got["segmented_histogram"][0][:, 0].sum()),
+          kept_total=int(got["segmented_encode"][2].sum()))
+    bad = [name for name, ok in exact.items() if not ok]
+    bad += [f"segmented_count(C={c})" for c, ok in counts.items() if not ok]
+    if bad:
+        fail(f"kernels disagree with their plain versions ({label}): {bad}")
     return errs
 
 
@@ -226,50 +277,78 @@ def time_kernels(label: str, x2d, seg_ids, k) -> dict:
     S = k.numel()
     n = x2d.numel()
     rows = x2d.shape[0]
-    cand, tau = taus_for(x2d, seg_ids, k, S)
+    cand, tau, scales = taus_for(x2d, seg_ids, k, S)
     C = cand.shape[1]
     l2 = torch.cuda.get_device_properties(x2d.device).L2_cache_size
     copies = max(2, -(-4 * l2 // x2d.nbytes))
     xs = [x2d] + [x2d.clone() for _ in range(copies - 1)]
     outs = [torch.empty_like(x2d) for _ in range(copies)]
+    codes = [torch.empty(x2d.shape, dtype=torch.int8, device=x2d.device)
+             for _ in range(copies)]
+    bitmaps = [torch.empty((rows, SEG_LANE // 8), dtype=torch.uint8,
+                           device=x2d.device) for _ in range(copies)]
     hist = torch.zeros((S, 32), dtype=torch.int32, device=x2d.device)
+    amax = torch.zeros((S, 1), dtype=torch.float32, device=x2d.device)
     cnt = torch.zeros((S, C), dtype=torch.int32, device=x2d.device)
     kept = torch.zeros((S, 1), dtype=torch.int32, device=x2d.device)
     sp = seg_ids.data_ptr()
 
-    def hist_kernel(x, out):
-        return lambda: lib.seg_histogram_launch(
-            x.data_ptr(), sp, rows, S, hist.data_ptr(), stream)
+    def launcher(name, i):
+        x = xs[i].data_ptr()
+        if name == "segmented_histogram":
+            return lambda: lib.seg_histogram_launch(
+                x, sp, rows, S, hist.data_ptr(), stream)
+        if name == "segmented_count":
+            return lambda: lib.seg_count_launch(
+                x, sp, cand.data_ptr(), rows, S, C, cnt.data_ptr(), stream)
+        if name == "segmented_apply":
+            return lambda: lib.seg_apply_launch(
+                x, sp, tau.data_ptr(), rows, S, outs[i].data_ptr(),
+                kept.data_ptr(), stream)
+        if name == "segmented_stats":
+            return lambda: lib.seg_stats_launch(
+                x, sp, rows, S, hist.data_ptr(), amax.data_ptr(), stream)
+        if name == "segmented_encode":
+            return lambda: lib.seg_encode_launch(
+                x, sp, tau.data_ptr(), scales.data_ptr(), rows, S,
+                codes[i].data_ptr(), bitmaps[i].data_ptr(), kept.data_ptr(),
+                stream)
+        return lambda: lib.seg_encode_launch(
+            x, sp, tau.data_ptr(), None, rows, S, outs[i].data_ptr(),
+            bitmaps[i].data_ptr(), kept.data_ptr(), stream)
 
-    def count_kernel(x, out):
-        return lambda: lib.seg_count_launch(
-            x.data_ptr(), sp, cand.data_ptr(), rows, S, cnt.data_ptr(),
-            stream)
-
-    def apply_kernel(x, out):
-        return lambda: lib.seg_apply_launch(
-            x.data_ptr(), sp, tau.data_ptr(), rows, S, out.data_ptr(),
-            kept.data_ptr(), stream)
-
-    work = {
+    ids = 4 * rows
+    work = {  # wrapper, plain, bytes, operations
         "segmented_histogram": (
-            hist_kernel, lambda x: seg.segmented_histogram(x, seg_ids, S),
+            lambda x: seg.segmented_histogram(x, seg_ids, S),
             lambda x: seg.segmented_histogram_plain(x, seg_ids, S),
-            4 * n + 4 * rows + 4 * S * 32, 32 * n),
+            4 * n + ids + 4 * S * 32, 32 * n),
         "segmented_count": (
-            count_kernel, lambda x: seg.segmented_count(x, seg_ids, cand),
+            lambda x: seg.segmented_count(x, seg_ids, cand),
             lambda x: seg.segmented_count_plain(x, seg_ids, cand),
-            4 * n + 4 * rows + 8 * S * C, C * n),
+            4 * n + ids + 8 * S * C, C * n),
         "segmented_apply": (
-            apply_kernel, lambda x: seg.segmented_apply(x, seg_ids, tau),
+            lambda x: seg.segmented_apply(x, seg_ids, tau),
             lambda x: seg.segmented_apply_plain(x, seg_ids, tau),
-            8 * n + 4 * rows + 8 * S, n),
+            8 * n + ids + 8 * S, n),
+        "segmented_stats": (
+            lambda x: seg.segmented_stats(x, seg_ids, S),
+            lambda x: seg.segmented_stats_plain(x, seg_ids, S),
+            4 * n + ids + 4 * S * 32 + 4 * S, 33 * n),
+        "segmented_encode": (
+            lambda x: seg.segmented_encode(x, seg_ids, tau, scales),
+            lambda x: seg.segmented_encode_plain(x, seg_ids, tau, scales),
+            4 * n + n + n // 8 + ids + 12 * S, 3 * n),
+        "segmented_encode_fp32": (
+            lambda x: seg.segmented_encode(x, seg_ids, tau),
+            lambda x: seg.segmented_encode_plain(x, seg_ids, tau),
+            8 * n + n // 8 + ids + 8 * S, n),
     }
     results = {}
-    for name, (kernel, wrapper, plain, nbytes, ops) in work.items():
+    for name, (wrapper, plain, nbytes, ops) in work.items():
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / FP32_OPS_PER_S * 1e3
-        kernels = [kernel(x, out) for x, out in zip(xs, outs)]
+        kernels = [launcher(name, i) for i in range(copies)]
         rec = {"ms": cuda_loop_ms(kernels),
                "warm_ms": cuda_loop_ms(kernels[:1]),
                "wrapper_ms": cuda_ms([lambda x=x: wrapper(x) for x in xs]),
@@ -277,11 +356,11 @@ def time_kernels(label: str, x2d, seg_ids, k) -> dict:
                                    reps=5),
                "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-               "library_ms": None, "bytes": nbytes, "compares": ops,
+               "library_ms": None, "bytes": nbytes, "operations": ops,
                "buffers": copies, "l2_bytes": l2}
         results[name] = rec
         phase("kernel_time", shape=label, kernel=name, **rec)
-    del xs, outs
+    del xs, outs, codes, bitmaps
     return results
 
 
@@ -289,9 +368,11 @@ def time_kernels(label: str, x2d, seg_ids, k) -> dict:
 # The main path
 # ---------------------------------------------------------------------------
 def fig5_server(M: int, image_size: int, num_train: int, batch: int,
-                device: str):
-    """A fig5 server (kernel masking, LeNet at ``image_size``) over M
-    clients' synthetic shards, with its batches, sizes and test set."""
+                device: str, preset: str = "fig5",
+                error_feedback: bool = False):
+    """A server for ``preset`` (kernel masking, LeNet at ``image_size``)
+    over M clients' synthetic shards, with its batches, sizes and test
+    set."""
     from repro_torch.core import strategy
     from repro_torch.core.server import FederatedServer
     from repro_torch.data.partition import iid_partition_images
@@ -302,8 +383,9 @@ def fig5_server(M: int, image_size: int, num_train: int, batch: int,
                                seed=0)
     xs, ys, ns = iid_partition_images(ds.train_x, ds.train_y, M, batch,
                                       seed=0)
-    st = strategy.get("fig5", masking=strategy.MaskPolicy.selective(
-        0.5, backend="kernel"))
+    st = strategy.get(preset, error_feedback=error_feedback,
+                      masking=strategy.MaskPolicy.selective(
+                          0.5, backend="kernel"))
     params = pm.init_lenet(torch.Generator().manual_seed(0),
                            image_size=image_size, device=device)
     eval_data = (torch.as_tensor(ds.test_x).to(device),
@@ -315,11 +397,13 @@ def fig5_server(M: int, image_size: int, num_train: int, batch: int,
     return server, (xs, ys), ns, eval_data
 
 
-def run_main_path(device: str = "cuda") -> dict:
-    """Phase 3: the fig5 main path, with every assertion on its result."""
+def run_main_path(preset: str, device: str = "cuda") -> dict:
+    """Phase 3: one main path, with every assertion on its result.  The
+    launch counts are set to 0 just before the run and read just after."""
     from repro_torch.kernels import segmented as seg
+    upload_bytes, want_launches = MAIN_PATHS[preset]
     server, batches, ns, eval_data = fig5_server(
-        MAIN_M, 28, MAIN_M * 8 * MAIN_BATCH, MAIN_BATCH, device)
+        MAIN_M, 28, MAIN_M * 8 * MAIN_BATCH, MAIN_BATCH, device, preset)
     if server._num_params != 107_786:
         fail(f"LeNet-28 has {server._num_params} parameters, not 107786")
     seg.reset_launch_counts()
@@ -333,32 +417,70 @@ def run_main_path(device: str = "cuda") -> dict:
     sampled = [r.num_sampled for r in hist]
     buckets = [r.cohort_size for r in hist]
     losses = [r.mean_loss for r in hist]
-    phase("main_path", rounds=len(hist), num_sampled=sampled,
-          buckets=buckets, losses=losses,
+    phase("main_path", preset=preset, codec=summ["codec"], rounds=len(hist),
+          num_sampled=sampled, buckets=buckets, losses=losses,
           transport_bytes=summ["transport_bytes"],
           client_upload_bytes=summ["client_upload_bytes"],
           final_eval=summ["final_eval"], launches=launches,
+          quarantined=summ["quarantined"],
           round_wall_s=[r.wall_s for r in hist], run_wall_s=wall)
     if sampled != MAIN_SAMPLED:
-        fail(f"num_sampled {sampled} != {MAIN_SAMPLED}")
+        fail(f"{preset}: num_sampled {sampled} != {MAIN_SAMPLED}")
     if buckets != MAIN_BUCKETS:
-        fail(f"buckets {buckets} != {MAIN_BUCKETS}")
-    if summ["client_upload_bytes"] != MAIN_UPLOAD_BYTES:
-        fail(f"upload bytes {summ['client_upload_bytes']}")
-    if summ["transport_bytes"] != sum(MAIN_SAMPLED) * MAIN_UPLOAD_BYTES:
-        fail(f"transport_bytes {summ['transport_bytes']}")
+        fail(f"{preset}: buckets {buckets} != {MAIN_BUCKETS}")
+    if summ["client_upload_bytes"] != upload_bytes:
+        fail(f"{preset}: upload bytes {summ['client_upload_bytes']}")
+    if summ["transport_bytes"] != sum(MAIN_SAMPLED) * upload_bytes:
+        fail(f"{preset}: transport_bytes {summ['transport_bytes']}")
     if not all(map(lambda v: v == v and abs(v) < float("inf"), losses)):
-        fail(f"non-finite loss {losses}")
+        fail(f"{preset}: non-finite loss {losses}")
     if not losses[-1] < losses[0]:
-        fail(f"loss did not fall: {losses}")
-    for name, n in MAIN_LAUNCHES.items():
-        if launches[name] != n:
-            fail(f"{name} launched {launches[name]} times, expected {n}")
+        fail(f"{preset}: loss did not fall: {losses}")
+    if launches != want_launches:
+        fail(f"{preset}: launches {launches}, expected {want_launches}")
     for name, leaf in server.params.items():
         if not bool(leaf.isfinite().all()):
-            fail(f"non-finite parameter {name}")
+            fail(f"{preset}: non-finite parameter {name}")
     return {"launches": launches, "history": hist, "server": server,
             "batches": batches, "n_samples": ns}
+
+
+def wire_identity(main: dict) -> None:
+    """One round's stacked masked delta from the fused main path, on the
+    card: for every wire pairing the fused codec's roundtrip_stacked is
+    bitwise the plain codec chain's, and the wire bytes agree.  Both run on
+    the same input, so nothing drifts between them."""
+    import torch
+    from repro_torch.core import codecs
+    from repro_torch.core.client import stacked_client_update
+    server = main["server"]
+    batches = [torch.as_tensor(x).to(server.device)
+               for x in main["batches"]]
+    uploads, _, _ = stacked_client_update(
+        server._loss_fn, server.params, batches, server.cfg.client, None,
+        False)
+    results = {}
+    for wire in ("coo", "bitmap"):
+        for quantized in (False, True):
+            base = (codecs.BitmapCodec if wire == "bitmap"
+                    else codecs.SparseCodec)(gamma=0.5)
+            plain = (codecs.ChainCodec((base, codecs.Int8Codec()))
+                     if quantized else base)
+            fused = codecs.FusedSparseCodec(gamma=0.5, quantized=quantized,
+                                            wire=wire)
+            got = codecs.roundtrip_stacked(fused, uploads)
+            want = codecs.roundtrip_stacked(plain, uploads)
+            if server.device.type == "cuda":
+                torch.cuda.synchronize()
+            label = plain.name
+            results[label] = {
+                "bitwise": all(_bitwise(got[k], want[k]) for k in want),
+                "wire_bytes": [fused.wire_bytes(server.params),
+                               plain.wire_bytes(server.params)]}
+    phase("wire_identity", clients=int(batches[0].shape[0]), **results)
+    for label, rec in results.items():
+        if not rec["bitwise"] or len(set(rec["wire_bytes"])) != 1:
+            fail(f"fused wire differs from {label}: {rec}")
 
 
 def profile_rounds(main: dict, rounds: int = 2) -> None:
@@ -390,14 +512,16 @@ def profile_rounds(main: dict, rounds: int = 2) -> None:
                              e.count // rounds] for e in top])
 
 
-def small_agreement(devices=("cuda", "cpu")) -> None:
-    """The fig5 kernel path on the card against the same run on the CPU
-    (plain versions) at a small size: participants and bytes exact, losses
-    and parameters within SMALL_RTOL."""
+def small_agreement(preset: str = "fig5", error_feedback: bool = False,
+                    devices=("cuda", "cpu")) -> None:
+    """A kernel path on the card against the same run on the CPU (plain
+    versions) at a small size: participants and bytes exact, losses,
+    parameters and residuals within SMALL_RTOL."""
     import torch
     runs = {}
     for device in devices:
-        server, batches, ns, _ = fig5_server(8, 12, 512, 16, device)
+        server, batches, ns, _ = fig5_server(8, 12, 512, 16, device, preset,
+                                             error_feedback)
         server.run(batches, ns, 4)
         runs[device] = server
     gpu, cpu = (runs[d] for d in devices)
@@ -406,17 +530,25 @@ def small_agreement(devices=("cuda", "cpu")) -> None:
     rel = max(abs(a - b) / abs(b) for a, b in zip(*loss))
     param_err = max(float((gpu.params[k].cpu() - v).abs().max())
                     for k, v in cpu.params.items())
-    phase("small_agreement", num_sampled=sampled[0], loss_rel_err=rel,
-          max_param_abs_err=param_err,
+    res_gpu, res_cpu = (s.store.residuals_dense() for s in (gpu, cpu))
+    res_err = max(float((res_gpu[k].cpu() - v).abs().max())
+                  for k, v in res_cpu.items())
+    res_norm = float(sum(v.abs().sum() for v in res_cpu.values()))
+    phase("small_agreement", preset=preset, error_feedback=error_feedback,
+          num_sampled=sampled[0], loss_rel_err=rel,
+          max_param_abs_err=param_err, max_residual_abs_err=res_err,
+          residual_l1=res_norm,
           transport_bytes=[gpu.summary()["transport_bytes"],
                            cpu.summary()["transport_bytes"]])
     if sampled[0] != sampled[1]:
         fail(f"participants differ card vs CPU: {sampled}")
     if gpu.summary()["transport_bytes"] != cpu.summary()["transport_bytes"]:
         fail("transport bytes differ card vs CPU")
-    if rel > SMALL_RTOL or param_err > SMALL_RTOL:
+    if rel > SMALL_RTOL or param_err > SMALL_RTOL or res_err > SMALL_RTOL:
         fail(f"card and CPU runs disagree: loss rel {rel}, "
-             f"param {param_err}")
+             f"param {param_err}, residual {res_err}")
+    if error_feedback and not res_norm > 0:
+        fail("error feedback left every residual zero")
     if not all(bool(torch.isfinite(v).all()) for v in gpu.params.values()):
         fail("non-finite parameters on the card")
 
@@ -464,36 +596,52 @@ def main(argv) -> int:
     errs = check_kernels("lenet28_cohort32", *main_in)
     large_in = [t.cuda() for t in large_buffer(seed=2)]
     check_kernels("2^26", *large_in)
-    # ---- 3. main path ---------------------------------------------------
-    main = run_main_path()
-    small_agreement()
+    # ---- 3. main paths ---------------------------------------------------
+    mains = {preset: run_main_path(preset) for preset in MAIN_PATHS}
+    fused = mains["fig5-fused-int8"]
+    wire_identity(fused)
+    small_agreement("fig5")
+    small_agreement("fig5-fused-int8", error_feedback=True)
 
     # ---- 4. timing -------------------------------------------------------
     times = time_kernels("lenet28_cohort32", *main_in)
     time_kernels("2^26", *large_in)
-    walls = [r.wall_s for r in main["history"]]
-    phase("round_time", steady_round_s_median=statistics.median(walls[1:]),
-          full_rounds_s=walls[1:6], cohort16_rounds_s=walls[6:],
-          first_round_s=walls[0])
+    for preset, main_run in mains.items():
+        walls = [r.wall_s for r in main_run["history"]]
+        phase("round_time", preset=preset,
+              steady_round_s_median=statistics.median(walls[1:]),
+              full_rounds_s=walls[1:6], cohort16_rounds_s=walls[6:],
+              first_round_s=walls[0])
     if trace:
-        profile_rounds(main)
+        profile_rounds(fused)
 
     replaces = {"segmented_histogram": "src/repro/kernels/segmented.py:145",
                 "segmented_count": "src/repro/kernels/segmented.py:202",
-                "segmented_apply": "src/repro/kernels/segmented.py:248"}
-    rounds = len(main["history"])
+                "segmented_apply": "src/repro/kernels/segmented.py:248",
+                "segmented_stats": "src/repro/kernels/segmented.py:316",
+                "segmented_encode": "src/repro/kernels/segmented.py:399"}
+    rounds = len(fused["history"])
     kernels = []
-    for name, rec in times.items():
-        kernels.append({
+    for name, path in replaces.items():
+        rec = times[name]
+        entry = {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/segmented.cu",
-            "replaces": replaces[name],
-            "launches": main["launches"][name],
-            "launches_per_round": main["launches"][name] / rounds,
+            "replaces": path,
+            "launches": fused["launches"][name],
+            "launches_per_round": fused["launches"][name] / rounds,
             "max_abs_err": errs[name], "ms": rec["ms"],
-            "wrapper_ms": rec["wrapper_ms"], "plain_ms": rec["plain_ms"],
-            "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+            "warm_ms": rec["warm_ms"], "wrapper_ms": rec["wrapper_ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "library_note": LIBRARY_NOTE}
+        if name == "segmented_encode":
+            fp32 = times["segmented_encode_fp32"]
+            entry.update(variant="int8", fp32_ms=fp32["ms"],
+                         fp32_bound_ms=fp32["bound_ms"],
+                         fp32_plain_ms=fp32["plain_ms"],
+                         fp32_max_abs_err=errs["segmented_encode_fp32"])
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

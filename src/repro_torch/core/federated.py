@@ -24,6 +24,13 @@ The reference threads a ``jax.random`` key; here a round takes the (M,)
 uniform ``scores`` that key would have drawn, so a caller can hand in the
 reference's draws.  Both bodies gate the decoded payload through the
 non-finite quarantine (``metrics["quarantined"]``).
+
+With ``FederatedConfig.error_feedback`` both bodies run the reference's
+round-level error feedback (DGC-style residuals): each client adds its
+residual to its delta before masking, keeps the masked-out remainder, and —
+when the codec is lossy — also the wire loss ``u - w``.  Only participants
+whose upload passed the quarantine gate commit their new residual; every
+other row keeps the old one.
 """
 
 from __future__ import annotations
@@ -50,12 +57,13 @@ _GENERALIZED = ("only the plain round body (uniform sampler, no hetero "
 
 @dataclasses.dataclass(frozen=True)
 class FederatedConfig:
-    """Population-level round configuration: registered clients and their
-    shared :class:`ClientConfig`.  The reference's round-level error
-    feedback waits for the slice that ports its presets."""
+    """Population-level round configuration: registered clients, their
+    shared :class:`ClientConfig`, and whether error-feedback residuals
+    accumulate (beyond-paper)."""
 
     num_clients: int
     client: ClientConfig
+    error_feedback: bool = False
 
 
 def fedavg_aggregate(global_params: Tree, uploads: Tree,
@@ -87,6 +95,36 @@ def _zero_rows(stacked: Tree, keep: torch.Tensor) -> Tree:
     return {k: torch.where(keep.reshape((-1,) + (1,) * (u.dim() - 1)) > 0,
                            u, torch.zeros_like(u))
             for k, u in stacked.items()}
+
+
+def _commit_rows(old: Tree, new: Tree, commit: torch.Tensor) -> Tree:
+    """Per-row state commit: ``new[i]`` where ``commit[i] > 0``, else the
+    round-entry ``old[i]``."""
+    return {k: torch.where(commit.reshape((-1,) + (1,) * (n.dim() - 1)) > 0,
+                           n, old[k]) for k, n in new.items()}
+
+
+def _wire_feedback(new_res: Tree, uploads: Tree, wired: Tree) -> Tree:
+    """EF wire-loss feedback ``r + (u - w)``.  The reference pins ``w``
+    through a bitcast so XLA cannot contract a lossy codec's dequantisation
+    multiply into the subtraction; eager PyTorch runs the subtraction and
+    the addition as two separate kernels and never contracts across them,
+    so the two ops below give the reference's bits as they stand."""
+    return {k: r + (uploads[k] - wired[k]) for k, r in new_res.items()}
+
+
+def _residual_update(cfg: FederatedConfig, residuals: Tree, new_res: Tree,
+                     uploads: Tree, wired: Tree,
+                     commit: torch.Tensor) -> Tree:
+    """The rows' residuals after the round: the masked-out remainder plus
+    the wire loss of a lossy codec, committed where ``commit`` (valid
+    participant whose upload passed the gate); the old rows elsewhere.
+    Without error feedback the residuals pass through."""
+    if not cfg.error_feedback:
+        return residuals
+    if wired is not uploads:
+        new_res = _wire_feedback(new_res, uploads, wired)
+    return _commit_rows(residuals, new_res, commit)
 
 
 def _check_plain(sampler) -> None:
@@ -123,10 +161,10 @@ def make_federated_round(loss_fn: Callable, schedule: SamplingSchedule,
     scores) -> (params, residuals, metrics)``: ``client_batches`` are
     tensors with leading (num_clients, num_batches, B, ...) axes,
     ``n_samples`` the (num_clients,) dataset sizes, ``residuals`` the stacked
-    error-feedback state (passed through unchanged: the plain round runs no
-    error feedback) and ``scores`` the round's (num_clients,) uniform
-    draws.  ``codec`` round-trips every upload; ``aggregator`` replaces plain
-    FedAvg.
+    (num_clients, ...) error-feedback state (passed through unchanged
+    unless ``cfg.error_feedback``) and ``scores`` the round's
+    (num_clients,) uniform draws.  ``codec`` round-trips every upload;
+    ``aggregator`` replaces plain FedAvg.
     """
     _check_plain(sampler)
     agg_fn = aggregator.fn if aggregator is not None else fedavg_aggregate
@@ -136,13 +174,16 @@ def make_federated_round(loss_fn: Callable, schedule: SamplingSchedule,
                  n_samples: torch.Tensor, t, scores: torch.Tensor):
         part = participation_mask(scores, schedule, t, cfg.num_clients)
         part = part.to(n_samples.device)
-        uploads, _, losses = stacked_client_update(
-            loss_fn, params, client_batches, cfg.client, None, False)
+        uploads, new_res, losses = stacked_client_update(
+            loss_fn, params, client_batches, cfg.client, residuals,
+            cfg.error_feedback)
         wired = roundtrip_stacked(codec, uploads)
         finite = _finite_rows(wired)
         weights = part * n_samples * finite
         new_params = agg_fn(params, _zero_rows(wired, finite), weights,
                             cfg.client.upload)
+        residuals = _residual_update(cfg, residuals, new_res, uploads, wired,
+                                     part * finite)
         return new_params, residuals, _metrics(losses, part, finite)
 
     return round_fn
@@ -170,13 +211,22 @@ def make_cohort_round(loss_fn: Callable, schedule: SamplingSchedule,
         cohort_ids, valid = cohort_ids.to(device), valid.to(device)
         cohort_batches = [x.index_select(0, cohort_ids)
                           for x in client_batches]
-        uploads, _, losses = stacked_client_update(
-            loss_fn, params, cohort_batches, cfg.client, None, False)
+        cohort_res = ({k: r.index_select(0, cohort_ids)
+                       for k, r in residuals.items()}
+                      if cfg.error_feedback else None)
+        uploads, new_res, losses = stacked_client_update(
+            loss_fn, params, cohort_batches, cfg.client, cohort_res,
+            cfg.error_feedback)
         wired = roundtrip_stacked(codec, uploads)
         finite = _finite_rows(wired)
         weights = valid * n_samples.index_select(0, cohort_ids) * finite
         new_params = agg_fn(params, _zero_rows(wired, finite), weights,
                             cfg.client.upload)
+        if cfg.error_feedback:
+            rows = _residual_update(cfg, cohort_res, new_res, uploads, wired,
+                                    valid * finite)
+            residuals = {k: r.index_copy(0, cohort_ids, rows[k])
+                         for k, r in residuals.items()}
         return new_params, residuals, _metrics(losses, valid, finite)
 
     return round_fn

@@ -6,8 +6,12 @@ schedule, the :class:`MaskPolicy`, the wire codec and the
 :class:`Aggregator`, plus the client hyperparameters.  ``build_round``
 turns it into the oracle (``form="full"``) or cohort (``form="cohort"``)
 round; ``FederatedServer.from_strategy`` runs it end to end.  The registry
-holds the paper presets of this slice: ``dense-baseline``, ``fig3``,
-``fig4`` and ``fig5``.
+holds the paper presets ``dense-baseline``, ``fig3``, ``fig4`` and ``fig5``
+and the wire presets ``fig5-int8``, ``fig5-fused``, ``fig5-fused-int8`` and
+``fig5-bitmap``.  The codec has three axes (``default_codec``): int8 or
+not, the ``jnp`` codecs or the ``fused`` kernel path, the ``coo`` or the
+``bitmap`` wire; replacing the mask policy re-derives the codec on the same
+axes.
 """
 
 from __future__ import annotations
@@ -16,7 +20,9 @@ import dataclasses
 from typing import Callable, Dict, Tuple
 
 from repro_torch.core.client import ClientConfig
-from repro_torch.core.codecs import IdentityCodec, SparseCodec, UploadCodec
+from repro_torch.core.codecs import (BitmapCodec, ChainCodec,
+                                     FusedSparseCodec, IdentityCodec,
+                                     Int8Codec, SparseCodec, UploadCodec)
 from repro_torch.core.federated import (FederatedConfig, fedavg_aggregate,
                                         make_cohort_round,
                                         make_federated_round)
@@ -88,14 +94,60 @@ class Aggregator:
 FEDAVG = Aggregator("fedavg", fedavg_aggregate)
 
 
-def default_codec(masking: MaskPolicy) -> UploadCodec:
-    """The wire a mask policy implies: identity for dense uploads, COO
-    sized to gamma for masked ones (the reference's jnp/coo branch; its
-    int8, bitmap and fused wires wait for ROADMAP Queue 1 items 6 and 9)."""
+def default_codec(masking: MaskPolicy, quantized: bool = False,
+                  backend: str = "jnp", wire: str = "coo") -> UploadCodec:
+    """The wire a mask policy implies: identity for dense uploads, a sparse
+    wire sized to gamma for masked ones; ``quantized`` chains int8 on the
+    value payload.  ``backend="jnp"`` (the name the reference gives the
+    plain codecs) picks ``SparseCodec`` (``wire="coo"``) or ``BitmapCodec``
+    (``wire="bitmap"``); ``backend="fused"`` picks the kernel-backed
+    :class:`FusedSparseCodec`, which emits the same wire."""
+    if backend not in ("jnp", "fused"):
+        raise ValueError(f"unknown codec backend {backend!r}")
+    if wire not in ("coo", "bitmap"):
+        raise ValueError(f"unknown wire format {wire!r}")
     if masking.mode == "none" or masking.gamma >= 1.0:
-        return IdentityCodec()
-    return SparseCodec(gamma=masking.gamma,
-                       min_leaf_size=masking.min_leaf_size)
+        base: UploadCodec = IdentityCodec()
+        return ChainCodec((base, Int8Codec())) if quantized else base
+    if backend == "fused":
+        return FusedSparseCodec(gamma=masking.gamma,
+                                min_leaf_size=masking.min_leaf_size,
+                                quantized=quantized, wire=wire)
+    base = (BitmapCodec if wire == "bitmap" else SparseCodec)(
+        gamma=masking.gamma, min_leaf_size=masking.min_leaf_size)
+    return ChainCodec((base, Int8Codec())) if quantized else base
+
+
+def _quantizes(codec: UploadCodec) -> bool:
+    if isinstance(codec, Int8Codec):
+        return True
+    if isinstance(codec, FusedSparseCodec):
+        return codec.quantized
+    if isinstance(codec, ChainCodec):
+        return any(_quantizes(s) for s in codec.stages)
+    return False
+
+
+def _codec_backend(codec: UploadCodec) -> str:
+    """The ``default_codec`` backend axis a codec sits on."""
+    if isinstance(codec, FusedSparseCodec):
+        return "fused"
+    if isinstance(codec, ChainCodec) and any(
+            _codec_backend(s) == "fused" for s in codec.stages):
+        return "fused"
+    return "jnp"
+
+
+def _codec_wire(codec: UploadCodec) -> str:
+    """The ``default_codec`` wire axis a codec sits on (coo | bitmap)."""
+    if isinstance(codec, BitmapCodec):
+        return "bitmap"
+    if isinstance(codec, FusedSparseCodec):
+        return codec.wire
+    if isinstance(codec, ChainCodec) and any(
+            _codec_wire(s) == "bitmap" for s in codec.stages):
+        return "bitmap"
+    return "coo"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +164,7 @@ class FedStrategy:
     learning_rate: float = 0.05
     momentum: float = 0.0
     upload: str = "delta"       # delta | zero (Alg. 4 literal)
+    error_feedback: bool = False
     objective: LocalObjective = LocalObjective()
 
     def client_config(self) -> ClientConfig:
@@ -125,12 +178,22 @@ class FedStrategy:
     def federated_config(self, num_clients: int) -> FederatedConfig:
         """The population-level round config for ``num_clients`` clients."""
         return FederatedConfig(num_clients=num_clients,
-                               client=self.client_config())
+                               client=self.client_config(),
+                               error_feedback=self.error_feedback)
+
+    def replace(self, **overrides) -> "FedStrategy":
+        """Functional field update (frozen-record ``dataclasses.replace``)."""
+        return dataclasses.replace(self, **overrides)
 
     def with_masking(self, masking: MaskPolicy, **overrides) -> "FedStrategy":
-        """Replace the mask policy AND re-derive a consistent codec (COO
-        slot counts track gamma).  Pass ``codec=`` explicitly to opt out."""
-        overrides.setdefault("codec", default_codec(masking))
+        """Replace the mask policy AND re-derive a consistent codec (slot
+        counts track gamma), keeping the current codec's int8, backend and
+        wire axes.  Pass ``codec=`` explicitly to opt out."""
+        if "codec" not in overrides:
+            overrides["codec"] = default_codec(
+                masking, quantized=_quantizes(self.codec),
+                backend=_codec_backend(self.codec),
+                wire=_codec_wire(self.codec))
         return dataclasses.replace(self, masking=masking, **overrides)
 
     @classmethod
@@ -213,3 +276,33 @@ register(FedStrategy.from_components(
 register(FedStrategy.from_components(
     "fig5", DynamicSampling(initial_rate=1.0, beta=0.1, min_clients=2),
     MaskPolicy.selective(0.5)))
+
+# "fig5-int8": fig5 with the COO value payload int8-quantised (4 -> 1 bytes
+# per kept value; lossy, error <= scale / 2 per entry).
+register(get("fig5").with_masking(
+    MaskPolicy.selective(0.5),
+    codec=ChainCodec((SparseCodec(gamma=0.5), Int8Codec())),
+    name="fig5-int8"))
+
+# "fig5-fused": fig5's operating point on the kernel-backed wire path: the
+# COO payload comes out of one segmented_encode sweep; wire bytes and
+# decoded values are fig5's.
+register(get("fig5").replace(
+    name="fig5-fused",
+    codec=default_codec(MaskPolicy.selective(0.5), backend="fused")))
+
+# "fig5-fused-int8": the fused wire with int8 values quantised in the same
+# sweep (the scales come from one segmented_stats sweep); byte-identical to
+# fig5-int8's wire.
+register(get("fig5").replace(
+    name="fig5-fused-int8",
+    codec=default_codec(MaskPolicy.selective(0.5), quantized=True,
+                        backend="fused")))
+
+# "fig5-bitmap": fig5 over the 1-bit/coordinate membership bitmap wire (the
+# plain BitmapCodec); at gamma = 0.5 it costs n/8 bytes of membership where
+# COO indices cost 4k = 2n.  The fused bitmap wire is
+# default_codec(..., backend="fused", wire="bitmap").
+register(get("fig5").replace(
+    name="fig5-bitmap",
+    codec=default_codec(MaskPolicy.selective(0.5), wire="bitmap")))

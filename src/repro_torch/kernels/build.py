@@ -84,11 +84,16 @@ def library() -> ctypes.CDLL:
         _compile(lib_path)
     lib = ctypes.CDLL(str(lib_path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.seg_histogram_launch.argtypes = [ptr, ptr, i32, i32, ptr, ptr]
-    lib.seg_count_launch.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr]
-    lib.seg_apply_launch.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr, ptr]
-    lib.seg_count_num_candidates.argtypes = []
-    for fn in (lib.seg_histogram_launch, lib.seg_count_launch,
-               lib.seg_apply_launch, lib.seg_count_num_candidates):
+    signatures = {
+        "seg_histogram_launch": [ptr, ptr, i32, i32, ptr, ptr],
+        "seg_count_launch": [ptr, ptr, ptr, i32, i32, i32, ptr, ptr],
+        "seg_apply_launch": [ptr, ptr, ptr, i32, i32, ptr, ptr, ptr],
+        "seg_stats_launch": [ptr, ptr, i32, i32, ptr, ptr, ptr],
+        "seg_encode_launch": [ptr, ptr, ptr, ptr, i32, i32, ptr, ptr, ptr,
+                              ptr],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
         fn.restype = i32
     return lib

@@ -1,34 +1,43 @@
 // Segmented magnitude-masking kernels for Hopper (sm_90a), bound to Python
 // through a plain C interface (ctypes).
 //
-// Replaces the three TPU kernels of src/repro/kernels/segmented.py that the
-// selective top-k masking path runs once per round:
-//   seg_hist_kernel  <- _seg_hist_kernel  / segmented_histogram
-//   seg_count_kernel <- _seg_count_kernel / segmented_count
-//   seg_apply_kernel <- _seg_apply_kernel / segmented_apply
+// Replaces the five TPU kernels of src/repro/kernels/segmented.py.  The
+// selective top-k masking path runs the first three once per round, the
+// fused wire path (FusedSparseCodec) the last two:
+//   seg_hist_kernel   <- _seg_hist_kernel   / segmented_histogram
+//   seg_count_kernel  <- _seg_count_kernel  / segmented_count
+//   seg_apply_kernel  <- _seg_apply_kernel  / segmented_apply
+//   seg_stats_kernel  <- _seg_stats_kernel  / segmented_stats
+//   seg_encode_kernel <- _seg_encode_kernel / segmented_encode
 //
 // Layout.  x is an (R, 1024) fp32 buffer; row r belongs to segment seg[r].
 // A row whose id lies outside [0, S) belongs to no segment: it counts
 // nowhere and is masked against tau = 0, which is what the TPU kernels'
 // one-hot gathers/scatters give such a row.
 //
-// What bounds them.  Each kernel reads every element once (4 bytes) and the
-// apply kernel writes it once more; the per-element work is 1 (apply),
-// ~1 (histogram: an exponent extraction) and 16 compares (count), far below
-// the card's 67 TFLOP/s fp32 rate.  So all three are bound by device-memory
-// bytes (3.35 TB/s on an H100 SXM).  The design therefore keeps everything
-// but the single streaming pass on chip:
+// What bounds them.  Each kernel reads every element once (4 bytes); apply
+// writes it once more (4 bytes), encode writes 4 bytes (fp32) or 1 byte
+// (int8) plus one bitmap bit.  The per-element work is a compare or two, an
+// exponent extraction (histogram, stats), C compares (count) or one IEEE
+// division (int8 encode), far below the card's 67 TFLOP/s fp32 rate.  So
+// all five are bound by device-memory bytes (3.35 TB/s on an H100 SXM).
+// The design therefore keeps everything but the single streaming pass on
+// chip:
 //   * one block owns a contiguous run of rows (about one wave of blocks in
 //     all), reads them with coalesced 4-byte loads and accumulates into
 //     shared memory;
 //   * warp-aggregated shared atomics (__match_any_sync for the histogram,
 //     __ballot_sync per candidate for the counts, __reduce_add_sync for the
-//     kept count) keep shared-memory traffic to a few operations per warp;
+//     kept count, __reduce_max_sync for the stats max) keep shared-memory
+//     traffic to a few operations per warp;
 //   * a block flushes its shared counters to the (S, .) outputs with one
 //     global atomicAdd per counter each time its segment changes.  Packed
 //     rows are segment-contiguous, so that is a handful of atomics per block.
 // Integer atomics are exact and a sum of suffix counts is the suffix count
-// of the sum, so the results are bit-identical whatever order blocks run in.
+// of the sum; the stats max is an atomicMax over the bits of |x| as
+// unsigned integers, which order non-negative floats (NaN above inf above
+// every finite value).  So the results are bit-identical whatever order
+// blocks run in.
 //
 // The TPU kernels' one-hot matmul gathers/scatters and VMEM slabs are TPU
 // idioms and are not carried over; nothing here needs the rows padded to a
@@ -45,7 +54,6 @@ constexpr int kPerThread = kLane / kThreads;
 constexpr int kBins = 32;             // SEG_NBINS
 constexpr int kExpoMin = -96;         // EXPO_MIN
 constexpr int kOctavesPerBin = 4;
-constexpr int kCandidates = 16;       // DEFAULT_CANDIDATES
 constexpr unsigned kFull = 0xffffffffu;
 
 // Highest suffix bin that |v| reaches: the largest j with
@@ -127,70 +135,104 @@ seg_hist_kernel(const float* __restrict__ x, const int* __restrict__ seg,
 }
 
 // ---------------------------------------------------------------------------
-// Count: out[s, c] += #{|x| >= taus[s, c]} for kCandidates taus per segment.
-// Lane c of every warp holds the warp's running count for candidate c.
+// Count: out[s, c] += #{|x| >= taus[s, c]} for C >= 1 candidates per
+// segment.  A segment's C taus sit in shared memory (reloaded when the
+// segment changes).  Candidates go in groups of kWidth (16 for C <= 16, 32
+// above): group g's taus sit in registers, one __ballot_sync per candidate
+// counts a warp's 32 elements, and lane c keeps the count of candidate
+// g * kWidth + c.  Registers past C hold NaN, which no |x| reaches.  With
+// one group the per-lane counts live across rows; with more, they go to
+// the shared counters after each row's pass over the group.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void load_taus(float* t, const float* taus, int s,
-                                          int num_segments) {
+__device__ void load_taus(float* tsh, const float* taus, int s,
+                          int num_segments, int num_cand) {
   const bool ok = in_range(s, num_segments);
+  for (int i = threadIdx.x; i < num_cand; i += kThreads) {
+    tsh[i] = ok ? taus[static_cast<size_t>(s) * num_cand + i] : 0.0f;
+  }
+  __syncthreads();
+}
+
+template <int kWidth>
+__device__ __forceinline__ void load_group(float* t, const float* tsh,
+                                           int g, int num_cand) {
 #pragma unroll
-  for (int c = 0; c < kCandidates; ++c) {
-    t[c] = ok ? taus[static_cast<size_t>(s) * kCandidates + c] : 0.0f;
+  for (int c = 0; c < kWidth; ++c) {
+    const int j = g * kWidth + c;
+    t[c] = j < num_cand ? tsh[j] : __int_as_float(0x7fc00000);
   }
 }
 
-__device__ void flush_count(int* cnt, int* acc, int* out, int s,
-                            int num_segments) {
+__device__ void flush_count(int* cnt, int* acc, int lanes, int* out, int s,
+                            int num_segments, int num_cand) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  if (lane < kCandidates && *acc != 0) atomicAdd(&cnt[lane], *acc);
+  if (lane < lanes && *acc != 0) atomicAdd(&cnt[lane], *acc);
   *acc = 0;
   __syncthreads();
-  if (tid < kCandidates) {
-    const int v = cnt[tid];
-    cnt[tid] = 0;
+  for (int i = tid; i < num_cand; i += kThreads) {
+    const int v = cnt[i];
+    cnt[i] = 0;
     if (v != 0 && in_range(s, num_segments)) {
-      atomicAdd(&out[static_cast<size_t>(s) * kCandidates + tid], v);
+      atomicAdd(&out[static_cast<size_t>(s) * num_cand + i], v);
     }
   }
   __syncthreads();
 }
 
+template <int kWidth>
 __global__ void __launch_bounds__(kThreads)
 seg_count_kernel(const float* __restrict__ x, const int* __restrict__ seg,
                  const float* __restrict__ taus, int rows, int rows_per_block,
-                 int num_segments, int* __restrict__ out) {
-  __shared__ int cnt[kCandidates];
+                 int num_segments, int num_cand, int* __restrict__ out) {
+  extern __shared__ int smem[];
+  int* cnt = smem;                                          // num_cand
+  float* tsh = reinterpret_cast<float*>(smem + num_cand);   // num_cand
   int r0, r1;
   block_rows(rows, rows_per_block, &r0, &r1);
   if (r0 >= r1) return;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  if (tid < kCandidates) cnt[tid] = 0;
-  __syncthreads();
+  const int groups = (num_cand + kWidth - 1) / kWidth;
+  // Lanes whose count lives across rows (one group), else none.
+  const int carry_lanes = groups == 1 ? num_cand : 0;
+  for (int i = tid; i < num_cand; i += kThreads) cnt[i] = 0;
   int cur = seg[r0];
-  float t[kCandidates];
-  load_taus(t, taus, cur, num_segments);
+  load_taus(tsh, taus, cur, num_segments, num_cand);
+  float t[kWidth];
+  if (groups == 1) load_group<kWidth>(t, tsh, 0, num_cand);
   int acc = 0;
   for (int r = r0; r < r1; ++r) {
     const int s = seg[r];
     if (s != cur) {
-      flush_count(cnt, &acc, out, cur, num_segments);
+      flush_count(cnt, &acc, carry_lanes, out, cur, num_segments, num_cand);
       cur = s;
-      load_taus(t, taus, cur, num_segments);
+      load_taus(tsh, taus, cur, num_segments, num_cand);
+      if (groups == 1) load_group<kWidth>(t, tsh, 0, num_cand);
     }
     const float* row = x + static_cast<size_t>(r) * kLane;
+    float a[kPerThread];
 #pragma unroll
-    for (int i = 0; i < kPerThread; ++i) {
-      const float a = fabsf(row[tid + i * kThreads]);
+    for (int i = 0; i < kPerThread; ++i) a[i] = fabsf(row[tid + i * kThreads]);
+    for (int g = 0; g < groups; ++g) {
+      if (groups > 1) load_group<kWidth>(t, tsh, g, num_cand);
 #pragma unroll
-      for (int c = 0; c < kCandidates; ++c) {
-        const int n = __popc(__ballot_sync(kFull, a >= t[c]));
-        acc += (lane == c) ? n : 0;
+      for (int i = 0; i < kPerThread; ++i) {
+#pragma unroll
+        for (int c = 0; c < kWidth; ++c) {
+          const int n = __popc(__ballot_sync(kFull, a[i] >= t[c]));
+          acc += (lane == c) ? n : 0;
+        }
+      }
+      if (groups > 1) {
+        if (g * kWidth + lane < num_cand && lane < kWidth && acc != 0) {
+          atomicAdd(&cnt[g * kWidth + lane], acc);
+        }
+        acc = 0;
       }
     }
   }
-  flush_count(cnt, &acc, out, cur, num_segments);
+  flush_count(cnt, &acc, carry_lanes, out, cur, num_segments, num_cand);
 }
 
 // ---------------------------------------------------------------------------
@@ -249,6 +291,152 @@ seg_apply_kernel(const float* __restrict__ x, const int* __restrict__ seg,
   flush_kept(&cnt, &acc, kept, cur, num_segments);
 }
 
+// ---------------------------------------------------------------------------
+// Stats: the histogram kernel's pass plus amax[s] = max |x| over segment s.
+// Each thread keeps the largest bits of |x| as an unsigned integer (NaN made
+// canonical, so it orders above inf); __reduce_max_sync folds a warp, one
+// shared atomicMax a block, one global atomicMax per segment change the
+// grid.  The float output starts at 0.0, which is also the max of an empty
+// or all-zero segment.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ unsigned abs_bits(float v) {
+  const unsigned b = __float_as_uint(v) & 0x7fffffffu;
+  return b > 0x7f800000u ? 0x7fc00000u : b;
+}
+
+__device__ void flush_stats(int* hist, unsigned* amax_sh, unsigned* m,
+                            int* out, unsigned* amax_out, int s,
+                            int num_segments) {
+  const int tid = threadIdx.x;
+  const unsigned warp_max = __reduce_max_sync(kFull, *m);
+  if ((tid & 31) == 0 && warp_max != 0) atomicMax(amax_sh, warp_max);
+  *m = 0;
+  __syncthreads();
+  int suffix = 0;
+  if (tid < kBins) {
+    for (int i = tid; i < kBins; ++i) suffix += hist[i];
+  }
+  const unsigned block_max = *amax_sh;
+  __syncthreads();
+  if (tid < kBins) {
+    hist[tid] = 0;
+    if (suffix != 0 && in_range(s, num_segments)) {
+      atomicAdd(&out[static_cast<size_t>(s) * kBins + tid], suffix);
+    }
+  }
+  if (tid == 0) {
+    *amax_sh = 0;
+    if (block_max != 0 && in_range(s, num_segments)) {
+      atomicMax(&amax_out[s], block_max);
+    }
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads)
+seg_stats_kernel(const float* __restrict__ x, const int* __restrict__ seg,
+                 int rows, int rows_per_block, int num_segments,
+                 int* __restrict__ out, unsigned* __restrict__ amax_out) {
+  __shared__ int hist[kBins];
+  __shared__ unsigned amax_sh;
+  int r0, r1;
+  block_rows(rows, rows_per_block, &r0, &r1);
+  if (r0 >= r1) return;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  if (tid < kBins) hist[tid] = 0;
+  if (tid == 0) amax_sh = 0;
+  __syncthreads();
+  unsigned m = 0;
+  int cur = seg[r0];
+  for (int r = r0; r < r1; ++r) {
+    const int s = seg[r];
+    if (s != cur) {
+      flush_stats(hist, &amax_sh, &m, out, amax_out, cur, num_segments);
+      cur = s;
+    }
+    const float* row = x + static_cast<size_t>(r) * kLane;
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      const float v = row[tid + i * kThreads];
+      m = max(m, abs_bits(v));
+      const int j = top_bin(v);
+      const unsigned peers = __match_any_sync(kFull, j);
+      if (j >= 0 && lane == __ffs(peers) - 1) {
+        atomicAdd(&hist[j], __popc(peers));
+      }
+    }
+  }
+  flush_stats(hist, &amax_sh, &m, out, amax_out, cur, num_segments);
+}
+
+// ---------------------------------------------------------------------------
+// Encode: keep = |x| >= tau[s]; out = keep ? x : +0.0 (fp32), or with scales
+// the int8 code of (keep ? x : +0.0) / scale[s]: IEEE division (__fdiv_rn),
+// rintf (half to even), clip to [-127, 127], NaN -> 0, which is what XLA's
+// round, clip and float-to-int conversion give the reference.  Element
+// tid + i * 256 of a row puts the 32 lanes of a warp on 32 consecutive
+// elements, so the warp's __ballot_sync of keep is 4 bitmap bytes in
+// LSB-first order (bit l = element base + l): lane 0 stores it as one
+// 32-bit word and adds its popcount to the kept count.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ signed char int8_code(float v) {
+  const float r = rintf(v);
+  if (isnan(r)) return 0;
+  return static_cast<signed char>(fminf(fmaxf(r, -127.0f), 127.0f));
+}
+
+template <bool kQuantize>
+__global__ void __launch_bounds__(kThreads)
+seg_encode_kernel(const float* __restrict__ x, const int* __restrict__ seg,
+                  const float* __restrict__ tau,
+                  const float* __restrict__ scale, int rows,
+                  int rows_per_block, int num_segments, void* __restrict__ out,
+                  unsigned* __restrict__ bitmap, int* __restrict__ kept) {
+  __shared__ int cnt;
+  int r0, r1;
+  block_rows(rows, rows_per_block, &r0, &r1);
+  if (r0 >= r1) return;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  if (tid == 0) cnt = 0;
+  __syncthreads();
+  int cur = seg[r0];
+  bool ok = in_range(cur, num_segments);
+  float t = ok ? tau[cur] : 0.0f;
+  float sc = kQuantize && ok ? scale[cur] : 0.0f;
+  int acc = 0;
+  for (int r = r0; r < r1; ++r) {
+    const int s = seg[r];
+    if (s != cur) {
+      flush_kept(&cnt, &acc, kept, cur, num_segments);
+      cur = s;
+      ok = in_range(cur, num_segments);
+      t = ok ? tau[cur] : 0.0f;
+      sc = kQuantize && ok ? scale[cur] : 0.0f;
+    }
+    const size_t base = static_cast<size_t>(r) * kLane;
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      const size_t idx = base + tid + i * kThreads;
+      const float v = x[idx];
+      const bool keep = fabsf(v) >= t;
+      const float masked = keep ? v : 0.0f;
+      if (kQuantize) {
+        static_cast<signed char*>(out)[idx] = int8_code(__fdiv_rn(masked, sc));
+      } else {
+        static_cast<float*>(out)[idx] = masked;
+      }
+      const unsigned word = __ballot_sync(kFull, keep);
+      if (lane == 0) {
+        bitmap[idx / 32] = word;
+        acc += __popc(word);
+      }
+    }
+  }
+  flush_kept(&cnt, &acc, kept, cur, num_segments);
+}
+
 int rows_per_block_for(int rows) {
   // About 1024 blocks in all: one wave of 256-thread blocks on 132 SMs.
   const int target_blocks = 1024;
@@ -271,14 +459,20 @@ int seg_histogram_launch(const float* x, const int* seg, int rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-int seg_count_num_candidates() { return kCandidates; }
-
 int seg_count_launch(const float* x, const int* seg, const float* taus,
-                     int rows, int num_segments, int* out, void* stream) {
+                     int rows, int num_segments, int num_cand, int* out,
+                     void* stream) {
   const int rpb = rows_per_block_for(rows);
   const int grid = (rows + rpb - 1) / rpb;
-  seg_count_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, seg, taus, rows, rpb, num_segments, out);
+  const size_t smem = 2 * static_cast<size_t>(num_cand) * sizeof(int);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (num_cand <= 16) {
+    seg_count_kernel<16><<<grid, kThreads, smem, st>>>(
+        x, seg, taus, rows, rpb, num_segments, num_cand, out);
+  } else {
+    seg_count_kernel<32><<<grid, kThreads, smem, st>>>(
+        x, seg, taus, rows, rpb, num_segments, num_cand, out);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -289,6 +483,35 @@ int seg_apply_launch(const float* x, const int* seg, const float* tau,
   const int grid = (rows + rpb - 1) / rpb;
   seg_apply_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       x, seg, tau, rows, rpb, num_segments, out, kept);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int seg_stats_launch(const float* x, const int* seg, int rows,
+                     int num_segments, int* hist, float* amax, void* stream) {
+  const int rpb = rows_per_block_for(rows);
+  const int grid = (rows + rpb - 1) / rpb;
+  seg_stats_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, seg, rows, rpb, num_segments, hist,
+      reinterpret_cast<unsigned*>(amax));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `scale` may be null: then `out` is fp32, else int8.
+int seg_encode_launch(const float* x, const int* seg, const float* tau,
+                      const float* scale, int rows, int num_segments,
+                      void* out, unsigned char* bitmap, int* kept,
+                      void* stream) {
+  const int rpb = rows_per_block_for(rows);
+  const int grid = (rows + rpb - 1) / rpb;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  unsigned* words = reinterpret_cast<unsigned*>(bitmap);
+  if (scale == nullptr) {
+    seg_encode_kernel<false><<<grid, kThreads, 0, st>>>(
+        x, seg, tau, scale, rows, rpb, num_segments, out, words, kept);
+  } else {
+    seg_encode_kernel<true><<<grid, kThreads, 0, st>>>(
+        x, seg, tau, scale, rows, rpb, num_segments, out, words, kept);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

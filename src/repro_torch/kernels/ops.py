@@ -11,23 +11,35 @@ carry a leading client axis packs as ``clients x leaves`` segments, so one
 sweep of each kernel masks the whole cohort — each segment with its own k
 and thresholds, identical to masking every client on its own.
 
+``topk_encode_pytree`` / ``topk_encode_stacked`` are the fused wire path
+(DESIGN.md §10): the last sweep is ``segmented_encode``, which emits the
+masked values (int8 codes against per-segment scales from one
+``segmented_stats`` sweep), a keep bitmap and kept counts, and a per-leaf
+compaction batched over clients turns those narrow outputs into COO or
+bitmap payloads without re-reading the fp32 data.
+
 Trees are flat ``{name: tensor}`` dicts in the reference's leaf order
 (``repro_torch.bridge``).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import torch
 
+from repro_torch.core.compression import (int8_scales, pack_bits_rows,
+                                          unpack_bits_rows)
 from repro_torch.kernels import packing as pk
 from repro_torch.kernels import segmented as seg
+from repro_torch.kernels.ref import EXPO_MIN
 
 Tree = Dict[str, torch.Tensor]
 
 __all__ = ["DEFAULT_REFINE_SWEEPS", "DEFAULT_CANDIDATES",
-           "pytree_sweep_count", "topk_mask_pytree", "topk_mask_stacked"]
+           "pytree_sweep_count", "topk_mask_pytree", "topk_mask_stacked",
+           "topk_encode_pytree", "topk_encode_stacked", "client_encode_scales",
+           "wirepath_sweep_count", "wirepath_bytes_moved"]
 
 DEFAULT_REFINE_SWEEPS = 2
 DEFAULT_CANDIDATES = 16
@@ -47,6 +59,43 @@ def pytree_sweep_count(num_leaves: int, *, segmented: bool = True,
     return num_leaves * (iters + 2)
 
 
+def _packed_cohort(tree: Tree, min_leaf_size: int):
+    """Pack the maskable leaves of a client-stacked tree: ``(names, spec,
+    x2d, seg_ids, num_clients)``, or None when no leaf is maskable."""
+    names = [n for n, leaf in tree.items() if leaf[0].numel() >= min_leaf_size]
+    if not names:
+        return None
+    leaves = [tree[n] for n in names]
+    num_clients = leaves[0].shape[0]
+    spec = pk.build_pack_spec([leaf[0] for leaf in leaves])
+    x2d = pk.pack_stacked(leaves, spec)
+    seg_ids = spec.seg_ids(num_clients, device=x2d.device)
+    return names, spec, x2d, seg_ids, num_clients
+
+
+def _segment_k(spec: pk.PackSpec, gamma: float, num_clients: int,
+               device) -> torch.Tensor:
+    return torch.tensor([max(1, int(round(gamma * ls.size)))
+                         for ls in spec.leaves], dtype=torch.int32
+                        ).repeat(num_clients).to(device)
+
+
+def _refine_taus(x2d, seg_ids, hist, k, refine_sweeps: int,
+                 candidates: int) -> torch.Tensor:
+    """Per-segment final thresholds from the suffix histogram: bracket the
+    k-th magnitude, refine it with ``refine_sweeps`` count sweeps and take
+    the conservative endpoint (lo when hi would keep nothing)."""
+    lo, hi, cnt_lo, cnt_hi = seg.select_thresholds(hist, k)
+    for sweep in range(refine_sweeps):
+        # Sweep 0 subdivides the histogram's 16x bracket geometrically;
+        # later sweeps refine the now-narrow bracket linearly.
+        cand = seg.candidate_taus(lo, hi, candidates, geometric=(sweep == 0))
+        counts = seg.segmented_count(x2d, seg_ids, cand)
+        lo, hi, cnt_lo, cnt_hi = seg.shrink_brackets(
+            lo, hi, cnt_lo, cnt_hi, cand, counts, k)
+    return torch.where(cnt_hi >= 1, hi, lo)
+
+
 def topk_mask_stacked(tree: Tree, gamma: float, *, min_leaf_size: int = 256,
                       refine_sweeps: int = DEFAULT_REFINE_SWEEPS,
                       candidates: int = DEFAULT_CANDIDATES) -> Tree:
@@ -58,30 +107,14 @@ def topk_mask_stacked(tree: Tree, gamma: float, *, min_leaf_size: int = 256,
     entries kept when the k-th and (k+1)-th magnitudes differ by more than
     the final bracket (~1% of tau), all tied entries kept otherwise.
     """
-    names = [n for n, leaf in tree.items() if leaf[0].numel() >= min_leaf_size]
-    if gamma >= 1.0 or not names:
+    packed = None if gamma >= 1.0 else _packed_cohort(tree, min_leaf_size)
+    if packed is None:
         return tree
-    leaves = [tree[n] for n in names]
-    num_clients = leaves[0].shape[0]
-    device = leaves[0].device
-    spec = pk.build_pack_spec([leaf[0] for leaf in leaves])
-    x2d = pk.pack_stacked(leaves, spec)
-    seg_ids = spec.seg_ids(num_clients, device=device)
-    k = torch.tensor([max(1, int(round(gamma * ls.size)))
-                      for ls in spec.leaves], dtype=torch.int32
-                     ).repeat(num_clients).to(device)
+    names, spec, x2d, seg_ids, num_clients = packed
+    k = _segment_k(spec, gamma, num_clients, x2d.device)
 
     hist = seg.segmented_histogram(x2d, seg_ids, k.numel())
-    lo, hi, cnt_lo, cnt_hi = seg.select_thresholds(hist, k)
-    for sweep in range(refine_sweeps):
-        # Sweep 0 subdivides the histogram's 16x bracket geometrically;
-        # later sweeps refine the now-narrow bracket linearly.
-        cand = seg.candidate_taus(lo, hi, candidates, geometric=(sweep == 0))
-        counts = seg.segmented_count(x2d, seg_ids, cand)
-        lo, hi, cnt_lo, cnt_hi = seg.shrink_brackets(
-            lo, hi, cnt_lo, cnt_hi, cand, counts, k)
-    # Conservative endpoint per segment; lo when hi would keep nothing.
-    tau = torch.where(cnt_hi >= 1, hi, lo)
+    tau = _refine_taus(x2d, seg_ids, hist, k, refine_sweeps, candidates)
     out2d, _kept = seg.segmented_apply(x2d, seg_ids, tau)
 
     out = dict(tree)
@@ -100,3 +133,208 @@ def topk_mask_pytree(tree: Tree, gamma: float, *, min_leaf_size: int = 256,
                                 refine_sweeps=refine_sweeps,
                                 candidates=candidates)
     return {n: leaf[0] for n, leaf in stacked.items()}
+
+
+# --------------------------------------------------------------------------
+# Fused wire path: masked delta -> COO / bitmap wire payload (DESIGN.md §10).
+# --------------------------------------------------------------------------
+# "Keep everything nonzero" threshold for the assume-masked path: one bin
+# below the histogram's smallest edge, as in the underfull branch of
+# ``seg.select_thresholds``.  Magnitudes below 2^(EXPO_MIN-1) ship as zero.
+_WIRE_FLOOR_TAU = float(2.0 ** (EXPO_MIN - 1))
+
+
+def client_encode_scales(scales: torch.Tensor,
+                         num_clients: int) -> torch.Tensor:
+    """The per-segment scales ``segmented_encode`` divides by: a client
+    with any non-finite scale gets NaN for all its segments.
+
+    The reference gathers scales onto rows through a one-hot matmul, so
+    one NaN or infinite scale makes ``0 * scale`` NaN in every row of its
+    buffer — one client's, since the codec is vmapped — and every code of
+    that client becomes 0 (NaN -> 0).  The wire still carries the
+    per-segment scales, so such a client decodes to NaN where its own scale
+    is non-finite and to 0 elsewhere.  The port packs the whole cohort in
+    one buffer, so it spreads the NaN per client here, never across
+    clients."""
+    per = scales.reshape(num_clients, -1)
+    bad = ~torch.isfinite(per).all(1, keepdim=True)
+    return torch.where(bad, torch.full_like(per, float("nan")),
+                       per).reshape(-1)
+
+
+def _leaf_wire(vals: torch.Tensor, bits: torch.Tensor, ls: pk.LeafSpec,
+               gamma: float, wire: str, scales: torch.Tensor | None):
+    """Compact ONE packed leaf's encode outputs, for every client at once,
+    into its stacked wire payload.
+
+    ``vals``: (C, rows * SEG_LANE) fp32 or int8 encode output; ``bits``:
+    the matching (C, rows * SEG_LANE // 8) uint8 keep bitmap.  Each kept
+    entry takes its index-order slot from a cumulative sum; entries past
+    the k-slot budget are shed by highest index (the COO and bitmap codecs
+    shed the smallest magnitudes instead, which differs only on tie
+    plateaus that overflow the budget).  No sort, no re-read of fp32 data.
+    """
+    size = ls.size
+    k = min(max(1, int(round(gamma * size))), size)
+    num_clients = vals.shape[0]
+    v = vals[:, ls.offset:ls.offset + size]
+    byte0 = ls.offset // 8                     # offset is a SEG_LANE multiple
+    keep = unpack_bits_rows(bits[:, byte0:byte0 + (size + 7) // 8], size)
+    slot = torch.cumsum(keep.to(torch.int64), 1) - 1
+    live = keep & (slot < k)
+    dest = torch.where(live, slot, torch.full_like(slot, k))   # trash slot k
+    val_buf = torch.zeros((num_clients, k + 1), dtype=v.dtype, device=v.device)
+    val_buf.scatter_(1, dest, torch.where(live, v, torch.zeros_like(v)))
+    if scales is not None:
+        values = {"q": val_buf[:, :k], "scale": scales}
+    else:
+        values = val_buf[:, :k].to(ls.dtype)
+    shape = torch.tensor(ls.shape, dtype=torch.int32)
+    if wire == "coo":
+        index = torch.arange(size, dtype=torch.int32, device=v.device)
+        idx_buf = torch.zeros((num_clients, k + 1), dtype=torch.int32,
+                              device=v.device)
+        idx_buf.scatter_(1, dest, torch.where(
+            live, index.expand(num_clients, size), torch.zeros_like(index)))
+        return {"indices": idx_buf[:, :k], "values": values, "shape": shape}
+    # Bitmap wire: repack the budget-capped bits, so the popcount never
+    # exceeds the value slots.
+    return {"bitmap": pack_bits_rows(live), "values": values, "shape": shape}
+
+
+def topk_encode_stacked(tree: Tree, gamma: float, *,
+                        min_leaf_size: int = 256,
+                        refine_sweeps: int = DEFAULT_REFINE_SWEEPS,
+                        candidates: int = DEFAULT_CANDIDATES,
+                        quantize: bool = False, wire: str = "coo",
+                        assume_masked: bool = False) -> Dict[str, Any]:
+    """Client-stacked delta tree -> stacked upload wire in one fused
+    pipeline for the whole cohort.
+
+    Per maskable leaf (``size >= min_leaf_size``) the result holds, with a
+    leading client axis on every array but the shape vector,
+
+    * ``wire="coo"``    — ``{"indices", "values", "shape"}``;
+    * ``wire="bitmap"`` — ``{"bitmap", "values", "shape"}``;
+
+    with ``values = {"q": int8, "scale": (C,) fp32}`` when ``quantize``
+    (the scale is ``max|leaf| * float32(1/127)``, floored at 1e-12, from
+    the stats sweep).  Smaller leaves pass through dense and unquantised:
+    the codec layer owns them.
+
+    ``assume_masked=True`` skips threshold selection (the input is already
+    masked): every entry above 2^(EXPO_MIN-1) ships, for 1 encode launch
+    (+ 1 stats launch with ``quantize``).  Otherwise the stats sweep's
+    histogram seeds the masking path's refinement, for 1 stats +
+    ``refine_sweeps`` count + 1 encode launches.  Non-float leaves go
+    through the packed buffer's fp32 cast.
+    """
+    if wire not in ("coo", "bitmap"):
+        raise ValueError(f"unknown wire format {wire!r}")
+    packed = None if gamma >= 1.0 else _packed_cohort(tree, min_leaf_size)
+    if packed is None:
+        return tree
+    names, spec, x2d, seg_ids, num_clients = packed
+    num_segments = num_clients * spec.num_segments
+
+    amax = None
+    if assume_masked:
+        tau = torch.full((num_segments,), _WIRE_FLOOR_TAU,
+                         dtype=torch.float32, device=x2d.device)
+        if quantize:
+            _, amax = seg.segmented_stats(x2d, seg_ids, num_segments)
+    else:
+        k = _segment_k(spec, gamma, num_clients, x2d.device)
+        hist, amax = seg.segmented_stats(x2d, seg_ids, num_segments)
+        tau = _refine_taus(x2d, seg_ids, hist, k, refine_sweeps, candidates)
+    scales = int8_scales(amax[:, 0]).contiguous() if quantize else None
+    out2d, bm2d, _kept = seg.segmented_encode(
+        x2d, seg_ids, tau.contiguous(),
+        None if scales is None else client_encode_scales(scales, num_clients))
+
+    vals = out2d.reshape(num_clients, -1)
+    bits = bm2d.reshape(num_clients, -1)
+    scales_cl = (scales.reshape(num_clients, spec.num_segments)
+                 if quantize else None)
+    out: Dict[str, Any] = dict(tree)
+    for s, (name, ls) in enumerate(zip(names, spec.leaves)):
+        out[name] = _leaf_wire(vals, bits, ls, gamma, wire,
+                               None if scales_cl is None else scales_cl[:, s])
+    return out
+
+
+def _unstack(wire: Any):
+    if isinstance(wire, dict):
+        return {k: v if k == "shape" else _unstack(v)
+                for k, v in wire.items()}
+    return wire[0]
+
+
+def topk_encode_pytree(tree: Tree, gamma: float, **kw) -> Dict[str, Any]:
+    """:func:`topk_encode_stacked` of ONE client's delta tree: the same
+    payloads without the client axis (the int8 scale is a scalar)."""
+    stacked = topk_encode_stacked({n: leaf[None] for n, leaf in tree.items()},
+                                  gamma, **kw)
+    return {n: _unstack(w) for n, w in stacked.items()}
+
+
+def wirepath_sweep_count(*, fused: bool,
+                         refine_sweeps: int = DEFAULT_REFINE_SWEEPS,
+                         assume_masked: bool = False,
+                         quantize: bool = True) -> int:
+    """Full-width passes over an n-param delta to build ONE upload's wire
+    payload (analytic).
+
+    * fused — 1 stats (histogram + absmax) + ``refine_sweeps`` counts + 1
+      encode; with ``assume_masked`` the selection sweeps vanish (1 encode,
+      + 1 absmax sweep when ``quantize``).
+    * codec path — the same masking front half plus a dense fp32 write
+      (apply), then the codec re-reads the masked tree three more times
+      (sort-key build, argsort, gather).
+    """
+    if fused:
+        if assume_masked:
+            return 2 if quantize else 1
+        return 1 + refine_sweeps + 1
+    select = 0 if assume_masked else 1 + refine_sweeps
+    return select + 2 + 3
+
+
+def wirepath_bytes_moved(n_params: int, gamma: float, *, fused: bool,
+                         quantize: bool = True, wire: str = "coo",
+                         refine_sweeps: int = DEFAULT_REFINE_SWEEPS,
+                         assume_masked: bool = False) -> dict:
+    """Analytic device-memory bytes (reads + writes) to wire-encode one
+    n-param delta: ``reads``, ``writes``, ``total``, ``payload_bytes`` and
+    the per-stage ``breakdown``."""
+    n = int(n_params)
+    dense = 4 * n
+    k = min(max(1, int(round(gamma * n))), n)
+    vb = 1 if quantize else 4
+    payload = (k * (4 + vb)) if wire == "coo" else (k * vb + (n + 7) // 8)
+    if quantize:
+        payload += 4                                   # fp32 scale
+    breakdown = {}
+    if not assume_masked:
+        breakdown["select_reads"] = (1 + refine_sweeps) * dense
+    elif fused and quantize:
+        breakdown["select_reads"] = dense              # absmax-only sweep
+    if fused:
+        narrow = (n if quantize else dense) + (n + 7) // 8
+        breakdown["encode_read"] = dense
+        breakdown["encode_writes"] = narrow            # int8/fp32 + bitmap
+        breakdown["compact_reads"] = narrow            # never fp32 again
+        breakdown["payload_writes"] = payload
+    else:
+        breakdown["apply_read"] = dense
+        breakdown["apply_write"] = dense               # masked fp32 tree
+        breakdown["codec_rereads"] = 3 * dense         # key, argsort, gather
+        breakdown["payload_writes"] = payload
+    reads = sum(breakdown.get(key, 0) for key in (
+        "select_reads", "encode_read", "compact_reads", "apply_read",
+        "codec_rereads"))
+    writes = sum(breakdown.get(key, 0) for key in (
+        "encode_writes", "apply_write", "payload_writes"))
+    return {"reads": reads, "writes": writes, "total": reads + writes,
+            "payload_bytes": payload, "breakdown": breakdown}

@@ -1,13 +1,19 @@
-"""Segmented masking kernels (counterpart of ``repro/kernels/segmented.py``).
+"""Segmented kernels over the packed buffer (counterpart of
+``repro/kernels/segmented.py``).
 
 The packed buffer from ``kernels.packing`` — every SEG_LANE-wide row belongs
 to exactly one segment — is swept a leaf-count-independent number of times:
 
 1. ``segmented_histogram`` — (S, SEG_NBINS) magnitude histogram in SUFFIX
    form, ``out[s, j] = #{|x| >= 2^(EXPO_MIN + 4 j)}``;
-2. ``segmented_count``     — counts of ``|x| >= taus[s, c]`` for C
+2. ``segmented_count``     — counts of ``|x| >= taus[s, c]`` for any C >= 1
    candidate thresholds per segment in one sweep;
-3. ``segmented_apply``     — ``x * [|x| >= tau[s]]`` plus kept counts.
+3. ``segmented_apply``     — ``x * [|x| >= tau[s]]`` plus kept counts;
+4. ``segmented_stats``     — the histogram plus a per-segment ``max|x|``,
+   the int8 wire scale's input;
+5. ``segmented_encode``    — the wire-path sweep: threshold select,
+   optional int8 quantisation against per-segment scales, an LSB-first
+   keep bitmap and kept counts, from one read of the buffer.
 
 Each is a wrapper around a hand-written CUDA kernel
 (``csrc/segmented.cu``) with a plain PyTorch version beside it
@@ -29,6 +35,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.core.compression import int8_codes, pack_bits_rows
 from repro_torch.kernels.packing import SEG_LANE
 from repro_torch.kernels.ref import EXPO_MIN, NBINS
 
@@ -38,9 +45,13 @@ __all__ = [
     "segmented_histogram",
     "segmented_count",
     "segmented_apply",
+    "segmented_stats",
+    "segmented_encode",
     "segmented_histogram_plain",
     "segmented_count_plain",
     "segmented_apply_plain",
+    "segmented_stats_plain",
+    "segmented_encode_plain",
     "launch_counts",
     "reset_launch_counts",
     "select_thresholds",
@@ -53,7 +64,11 @@ SEG_NBINS = NBINS // OCTAVES_PER_BIN
 
 _LAUNCHES: Dict[str, int] = {"segmented_histogram": 0,
                              "segmented_count": 0,
-                             "segmented_apply": 0}
+                             "segmented_apply": 0,
+                             "segmented_stats": 0,
+                             "segmented_encode": 0}
+# The CUDA count kernel keeps a segment's candidates in shared memory.
+MAX_CANDIDATES = 4096
 
 
 def launch_counts() -> Dict[str, int]:
@@ -97,13 +112,15 @@ def _check_buffer(x2d: torch.Tensor, seg_ids: torch.Tensor) -> torch.Tensor:
     return seg_ids.reshape(-1)
 
 
-def _check_taus(taus: torch.Tensor, x2d: torch.Tensor, shape) -> None:
+def _check_taus(taus: torch.Tensor, x2d: torch.Tensor, shape,
+                name: str = "taus") -> None:
     if taus.dtype != torch.float32:
-        raise TypeError(f"taus must be float32, got {taus.dtype}")
+        raise TypeError(f"{name} must be float32, got {taus.dtype}")
     if tuple(taus.shape) != tuple(shape):
-        raise ValueError(f"taus must be {tuple(shape)}, got {tuple(taus.shape)}")
+        raise ValueError(f"{name} must be {tuple(shape)}, got "
+                         f"{tuple(taus.shape)}")
     if taus.device != x2d.device or not taus.is_contiguous():
-        raise ValueError("taus must be contiguous and on x2d's device")
+        raise ValueError(f"{name} must be contiguous and on x2d's device")
 
 
 def _launch(name: str, fn, *args) -> None:
@@ -173,6 +190,42 @@ def segmented_apply_plain(x2d: torch.Tensor, seg_ids: torch.Tensor,
     return out, kept
 
 
+def segmented_stats_plain(x2d: torch.Tensor, seg_ids: torch.Tensor,
+                          num_segments: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`segmented_stats`."""
+    seg = seg_ids.reshape(-1)
+    hist = segmented_histogram_plain(x2d, seg, num_segments)
+    valid = (seg >= 0) & (seg < num_segments)
+    rows = x2d.abs().amax(1)[valid]
+    ids = seg[valid].long()
+    nan = torch.isnan(rows)
+    amax = torch.zeros((num_segments,), dtype=torch.float32,
+                       device=x2d.device)
+    amax.scatter_reduce_(0, ids, torch.where(nan, torch.zeros_like(rows),
+                                             rows), "amax")
+    has_nan = torch.zeros((num_segments,), dtype=torch.int32,
+                          device=x2d.device)
+    has_nan.index_add_(0, ids, nan.to(torch.int32))
+    amax = torch.where(has_nan > 0, torch.full_like(amax, float("nan")), amax)
+    return hist, amax[:, None]
+
+
+def segmented_encode_plain(x2d: torch.Tensor, seg_ids: torch.Tensor,
+                           taus: torch.Tensor,
+                           scales: torch.Tensor | None = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Plain version of :func:`segmented_encode`."""
+    seg = seg_ids.reshape(-1)
+    keep = x2d.abs() >= _row_taus(taus.reshape(-1, 1), seg)
+    out = torch.where(keep, x2d, torch.zeros_like(x2d))
+    if scales is not None:
+        out = int8_codes(out / _row_taus(scales.reshape(-1, 1), seg))
+    kept = _segment_sum(keep.sum(1, keepdim=True), seg, taus.numel())
+    return out, pack_bits_rows(keep), kept
+
+
 # --------------------------------------------------------------------------
 # The kernel wrappers.
 # --------------------------------------------------------------------------
@@ -201,25 +254,20 @@ def segmented_histogram(x2d: torch.Tensor, seg_ids: torch.Tensor,
 def segmented_count(x2d: torch.Tensor, seg_ids: torch.Tensor,
                     taus: torch.Tensor) -> torch.Tensor:
     """Counts of |x| >= tau per segment for ALL C candidate taus in one
-    sweep.  taus: (num_segments, C) fp32 (> 0 so padding never counts).
-    Returns (num_segments, C) int32.  The CUDA kernel takes C = 16, the
-    masking path's candidate count."""
+    sweep.  taus: (num_segments, C) fp32 with 1 <= C <= MAX_CANDIDATES
+    (> 0 so padding never counts).  Returns (num_segments, C) int32."""
     seg = _check_buffer(x2d, seg_ids)
-    if taus.dim() != 2:
-        raise ValueError(f"taus must be (S, C), got {tuple(taus.shape)}")
+    if taus.dim() != 2 or not 1 <= taus.shape[1] <= MAX_CANDIDATES:
+        raise ValueError(f"taus must be (S, C) with 1 <= C <= "
+                         f"{MAX_CANDIDATES}, got {tuple(taus.shape)}")
     _check_taus(taus, x2d, taus.shape)
     if x2d.device.type == "cpu":
         return segmented_count_plain(x2d, seg, taus)
-    lib = _library()
-    supported = lib.seg_count_num_candidates()
-    if taus.shape[1] != supported:
-        raise ValueError(f"the CUDA count kernel takes {supported} candidates "
-                         f"per segment, got {taus.shape[1]}")
     out = torch.zeros(tuple(taus.shape), dtype=torch.int32, device=x2d.device)
     if x2d.shape[0]:
-        _launch("segmented_count", lib.seg_count_launch, x2d.data_ptr(),
-                seg.data_ptr(), taus.data_ptr(), x2d.shape[0], taus.shape[0],
-                out.data_ptr())
+        _launch("segmented_count", _library().seg_count_launch,
+                x2d.data_ptr(), seg.data_ptr(), taus.data_ptr(),
+                x2d.shape[0], taus.shape[0], taus.shape[1], out.data_ptr())
     return out
 
 
@@ -244,6 +292,61 @@ def segmented_apply(x2d: torch.Tensor, seg_ids: torch.Tensor,
                 seg.data_ptr(), taus.data_ptr(), x2d.shape[0], taus.numel(),
                 out.data_ptr(), kept.data_ptr())
     return out, kept
+
+
+def segmented_stats(x2d: torch.Tensor, seg_ids: torch.Tensor,
+                    num_segments: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`segmented_histogram` plus the (num_segments, 1) fp32
+    per-segment ``max|x|`` from the same sweep.  The max is NaN when the
+    segment holds a NaN and inf when it holds an infinity, each in its own
+    segment only, as the reference's compiled kernel gives; an empty
+    segment's max is 0."""
+    seg = _check_buffer(x2d, seg_ids)
+    if x2d.device.type == "cpu":
+        return segmented_stats_plain(x2d, seg, num_segments)
+    hist = torch.zeros((num_segments, SEG_NBINS), dtype=torch.int32,
+                       device=x2d.device)
+    amax = torch.zeros((num_segments, 1), dtype=torch.float32,
+                       device=x2d.device)
+    if x2d.shape[0]:
+        _launch("segmented_stats", _library().seg_stats_launch,
+                x2d.data_ptr(), seg.data_ptr(), x2d.shape[0], num_segments,
+                hist.data_ptr(), amax.data_ptr())
+    return hist, amax
+
+
+def segmented_encode(x2d: torch.Tensor, seg_ids: torch.Tensor,
+                     taus: torch.Tensor, scales: torch.Tensor | None = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused wire-path sweep: apply the per-segment thresholds ``taus``
+    ((S,) fp32, > 0) and return
+
+    * ``out``    — (R, SEG_LANE): the masked fp32 values (x where |x| >=
+      tau, +0.0 elsewhere), or with ``scales`` ((S,) fp32) the int8 codes
+      ``clip(round_half_even(masked / scale), -127, 127)``, NaN -> 0;
+    * ``bitmap`` — (R, SEG_LANE // 8) uint8 keep mask, LSB-first;
+    * ``kept``   — (S, 1) int32 kept entries per segment.
+    """
+    seg = _check_buffer(x2d, seg_ids)
+    num_segments = taus.numel()
+    _check_taus(taus, x2d, (num_segments,))
+    if scales is not None:
+        _check_taus(scales, x2d, (num_segments,), name="scales")
+    if x2d.device.type == "cpu":
+        return segmented_encode_plain(x2d, seg, taus, scales)
+    out = torch.empty(x2d.shape, device=x2d.device,
+                      dtype=torch.float32 if scales is None else torch.int8)
+    bitmap = torch.empty((x2d.shape[0], SEG_LANE // 8), dtype=torch.uint8,
+                         device=x2d.device)
+    kept = torch.zeros((num_segments, 1), dtype=torch.int32,
+                       device=x2d.device)
+    if x2d.shape[0]:
+        _launch("segmented_encode", _library().seg_encode_launch,
+                x2d.data_ptr(), seg.data_ptr(), taus.data_ptr(),
+                None if scales is None else scales.data_ptr(),
+                x2d.shape[0], num_segments, out.data_ptr(),
+                bitmap.data_ptr(), kept.data_ptr())
+    return out, bitmap, kept
 
 
 # --------------------------------------------------------------------------

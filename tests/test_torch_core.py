@@ -377,7 +377,9 @@ def test_data_byte_identical(kw):
 
 # -------------------------------------------------------------- strategies
 def test_registry_and_codec_derivation():
-    assert set(tst.names()) == {"dense-baseline", "fig3", "fig4", "fig5"}
+    assert set(tst.names()) == {"dense-baseline", "fig3", "fig4", "fig5",
+                                "fig5-int8", "fig5-fused", "fig5-fused-int8",
+                                "fig5-bitmap"}
     st = tst.get("fig5", masking=tst.MaskPolicy.selective(0.5,
                                                           backend="kernel"))
     assert isinstance(st.codec, tcodecs.SparseCodec) and st.codec.gamma == 0.5

@@ -1,7 +1,7 @@
 """Tests of the port that need an NVIDIA card: each CUDA kernel against its
-plain PyTorch version, and the fig5 round on the card against the same round
-on the CPU.  They skip without a card.  This file imports no JAX, so on a
-machine without it run it alone:
+plain PyTorch version, and the fig5 and fig5-fused-int8 rounds on the card
+against the same rounds on the CPU.  They skip without a card.  This file
+imports no JAX, so on a machine without it run it alone:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -65,6 +65,40 @@ def test_kernels_match_plain_versions(cuda, seed):
     assert torch.equal(kept, want_kept)
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_wire_kernels_match_plain_versions(cuda, seed):
+    """Stats exact (maxima bitwise, NaN and inf included); encode fp32
+    bitwise and int8 codes exact, with bitmaps and kept counts."""
+    from repro_torch.core.compression import int8_scales
+    x2d, seg_ids, S = _buffer(seed)
+    x2d, seg_ids = x2d.to(cuda), seg_ids.to(cuda)
+    hist, amax = seg.segmented_stats(x2d, seg_ids, S)
+    want_hist, want_amax = seg.segmented_stats_plain(x2d, seg_ids, S)
+    assert torch.equal(hist, want_hist)
+    assert torch.equal(amax.view(torch.int32), want_amax.view(torch.int32))
+    tau = torch.full((S,), 1e-3, device=cuda)
+    scales = int8_scales(amax[:, 0]).contiguous()
+    for sc in (None, scales):
+        got = seg.segmented_encode(x2d, seg_ids, tau, sc)
+        want = seg.segmented_encode_plain(x2d, seg_ids, tau, sc)
+        out, want_out = got[0], want[0]
+        if sc is None:
+            out, want_out = out.view(torch.int32), want_out.view(torch.int32)
+        assert torch.equal(out, want_out)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("candidates", [1, 8, 16, 17, 32])
+def test_count_kernel_takes_any_candidate_count(cuda, candidates):
+    x2d, seg_ids, S = _buffer(3)
+    x2d, seg_ids = x2d.to(cuda), seg_ids.to(cuda)
+    gen = torch.Generator().manual_seed(candidates)
+    taus = torch.sort(10.0 ** (-5 + 4 * torch.rand(
+        (S, candidates), generator=gen)), 1).values.to(cuda).contiguous()
+    assert torch.equal(seg.segmented_count(x2d, seg_ids, taus),
+                       seg.segmented_count_plain(x2d, seg_ids, taus))
+
+
 def test_wrappers_count_their_launches(cuda):
     x2d, seg_ids, S = _buffer(2)
     tree = {"w": x2d[:8].to(cuda)}
@@ -72,7 +106,23 @@ def test_wrappers_count_their_launches(cuda):
     ops.topk_mask_pytree(tree, 0.5, min_leaf_size=0)
     assert seg.launch_counts() == {"segmented_histogram": 1,
                                    "segmented_count": 2,
-                                   "segmented_apply": 1}
+                                   "segmented_apply": 1,
+                                   "segmented_stats": 0,
+                                   "segmented_encode": 0}
+
+
+def test_wire_wrappers_count_their_launches(cuda):
+    x2d, seg_ids, S = _buffer(2)
+    tree = {"w": x2d[:8].to(cuda)}
+    seg.reset_launch_counts()
+    ops.topk_encode_pytree(tree, 0.5, min_leaf_size=0, quantize=True,
+                           assume_masked=True)
+    ops.topk_encode_pytree(tree, 0.5, min_leaf_size=0)
+    assert seg.launch_counts() == {"segmented_histogram": 0,
+                                   "segmented_count": 2,
+                                   "segmented_apply": 0,
+                                   "segmented_stats": 2,
+                                   "segmented_encode": 2}
 
 
 def test_stacked_masking_on_card_matches_cpu(cuda):
@@ -86,13 +136,16 @@ def test_stacked_masking_on_card_matches_cpu(cuda):
                            want[k].view(torch.int32)), k
 
 
-def test_fig5_round_on_card_matches_cpu(cuda):
-    """Participants and bytes exact; losses and parameters within 1e-4
-    (cuDNN and the CPU reduce in different orders)."""
+@pytest.mark.parametrize("preset,error_feedback",
+                         [("fig5", False), ("fig5-fused-int8", True)])
+def test_fig5_round_on_card_matches_cpu(cuda, preset, error_feedback):
+    """Participants and bytes exact; losses, parameters and residuals
+    within 1e-4 (cuDNN and the CPU reduce in different orders)."""
     ds = class_gaussian_images(num_train=256, image_size=12, seed=0)
     xs, ys, ns = iid_partition_images(ds.train_x, ds.train_y, 8, 16, seed=0)
-    st = strategy.get("fig5", masking=strategy.MaskPolicy.selective(
-        0.5, backend="kernel"))
+    st = strategy.get(preset, error_feedback=error_feedback,
+                      masking=strategy.MaskPolicy.selective(
+                          0.5, backend="kernel"))
     runs = {}
     for device in ("cuda", "cpu"):
         params = pm.init_lenet(torch.Generator().manual_seed(0),
@@ -111,3 +164,6 @@ def test_fig5_round_on_card_matches_cpu(cuda):
     for k, v in cpu.params.items():
         torch.testing.assert_close(gpu.params[k].cpu(), v, rtol=1e-4,
                                    atol=1e-4)
+    res = cpu.store.residuals_dense()
+    for k, v in gpu.store.residuals_dense().items():
+        torch.testing.assert_close(v.cpu(), res[k], rtol=1e-4, atol=1e-4)
