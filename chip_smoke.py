@@ -2,13 +2,15 @@
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py           # every phase, one card
-    python3 chip_smoke.py --profile # also trace two more rounds
+    python3 chip_smoke.py --profile # also trace two more rounds of the
+                                    # fused LeNet path and of vgg-fig5
 
 Phases, each printing its result on its own line; any failure ends the run
 with a nonzero exit:
 
 1. environment — card name and power limit, torch/CUDA versions, TF32
-   settings (both off), and the kernel build time (``nvcc`` for sm_90a);
+   settings (both off), and the kernel build time (one ``nvcc`` per source
+   for sm_90a, all started together);
 2. kernel parity — each of the five segmented CUDA kernels against its
    plain PyTorch version at the main path's shape (the cohort-packed
    LeNet-28 delta, 32 x 106 rows x 1024, S = 128) and on one 2^26-element
@@ -16,26 +18,43 @@ with a nonzero exit:
    exact, masked values and maxima bitwise; the count kernel also at
    C in {1, 8, 16, 17, 32} candidates;
 3. main paths, each through ``FederatedServer.from_strategy(...).run(...)``
-   on LeNet-28 with M = 32 clients for 8 rounds, with the launch counts set
-   to 0 just before and read just after:
-   - ``fig5`` (kernel masking, COO wire, FedAvg): m_t, buckets, exact wire
-     bytes, a finite falling loss, launches 8/16/8;
-   - ``fig5-fused-int8`` (kernel masking, the fused int8 COO wire from one
-     stats and one encode launch per round): the same checks, 268,966
-     bytes per upload, launches 8/16/8/8/8;
+   with M = 32 clients for 8 rounds, with the launch counts set to 0 just
+   before and read just after:
+   - LeNet-28 ``fig5`` (kernel masking, COO wire, FedAvg): m_t, buckets,
+     exact wire bytes, a finite falling loss, launches 8/16/8;
+   - LeNet-28 ``fig5-fused-int8`` (the fused int8 COO wire from one stats
+     and one encode launch per round): the same checks, 268,966 bytes per
+     upload, launches 8/16/8/8/8;
+   - ``vgg-fig5`` (VGG, 617,770 parameters, 32 px CIFAR-shaped images),
+     ``gru-fig5`` and ``gru-random`` (GRU-LM, 180,608 parameters, Markov
+     text, random masking): m_t, buckets, exact bytes, a finite falling
+     loss, the eval metric on held-out data, segmented launches 8/16/8 on
+     the fig5 paths and 0 on gru-random, per-array launches 0 everywhere;
+     for gru-random the exact kept count of every client's upload;
    then, on one round's stacked masked delta from the card, the fused
    codec's roundtrip against the plain codec chain's for all four wire
    pairings (bitwise, equal wire bytes); and small runs on the card
-   against the same runs on the CPU (fig5; fig5-fused-int8 with error
-   feedback);
-4. timing — each kernel's median time (CUDA events) on inputs that are not
+   against the same runs on the CPU (LeNet fig5; fig5-fused-int8 with
+   error feedback; VGG-16 px and GRU-small on fig5; GRU-small on random
+   with the same injected mask scores);
+4. the per-array path — ``ops.topk_mask(leaf, 0.5)`` on every maskable leaf
+   of one client's VGG and GRU delta from the main paths, launch counts set
+   to 0 just before and read just after (1/8/1 per leaf): kept <= k per
+   leaf, and the entries where it and the round's segmented mask differ;
+   then the three per-array kernels against their plain versions on those
+   leaves, on the whole VGG delta as one vector, on a 2^26-element vector
+   and on edge inputs (subnormals, +-inf, NaN), and ``ops.topk_mask`` on
+   the kernels against the same pipeline on the plain versions (bitwise);
+5. timing — each kernel's median time (CUDA events) on inputs that are not
    in the L2 cache, and on one buffer that stays there (``warm_ms``), beside
    its bound (bytes moved over 3.35 TB/s, or operations over 67 TFLOP/s
-   fp32), the launches per round of the main path's run, the wrapper's time
-   per call, its plain version's time, and the steady per-round wall time;
-5. (``--profile`` only) ``torch.profiler`` over two more rounds of the
-   fused main path: device busy time by kernel and the device's idle share
-   of the wall time.
+   fp32), the launches of its path's run, the wrapper's time per call, its
+   plain version's time; for ``ops.topk_mask`` also the library yardstick
+   ``torch.topk(|x|, k)`` plus a scatter; and the steady per-round wall
+   time of every main path;
+6. (``--profile`` only) ``torch.profiler`` over two more rounds of the
+   fused LeNet path and of ``vgg-fig5``: device busy time by kernel and the
+   device's idle share of the wall time.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -68,12 +87,28 @@ MAIN_PATHS = {
     "fig5-fused-int8": (268_966, {**MASK_LAUNCHES, "segmented_stats": 8,
                                   "segmented_encode": 8}),
 }
+# The paper's other two models through the round (M = 32, 8 rounds): model,
+# mask policy, bytes per upload and segmented launches over the run.
+LM_PATHS = {
+    "vgg-fig5": ("vgg", "selective", 2_471_228, MASK_LAUNCHES),
+    "gru-fig5": ("gru", "selective", 722_472, MASK_LAUNCHES),
+    "gru-random": ("gru", "random", 722_472, {}),
+}
+LM_PARAMS = {"vgg": 617_770, "gru": 180_608}
+PER_ARRAY = ("exponent_histogram", "count_ge", "apply_threshold")
+PER_ARRAY_ITERS = 8
+LARGEST_VGG_LEAF = 147_456       # conv2b.w, conv3a.w, conv3b.w: 3x3x128x128
 COUNT_CANDIDATES = (1, 8, 16, 17, 32)
 SMALL_RTOL = 1e-3                # card vs CPU: reduction order differs
 LIBRARY_NOTE = ("no single PyTorch call computes a segmented suffix "
                 "histogram, a per-segment multi-threshold count, a per-row-"
                 "tau select with counts, a segmented histogram with a "
                 "segment max, or a select with a packed bitmap and counts")
+PER_ARRAY_LIBRARY_NOTE = (
+    "no single PyTorch call computes an exponent histogram, a count of "
+    "|x| >= tau or a select against a device tau; the whole topk_mask "
+    "pipeline's yardstick is torch.topk(|x|, k) plus a scatter "
+    "(phase topk_mask_time)")
 
 
 def fail(msg: str) -> None:
@@ -483,7 +518,7 @@ def wire_identity(main: dict) -> None:
             fail(f"fused wire differs from {label}: {rec}")
 
 
-def profile_rounds(main: dict, rounds: int = 2) -> None:
+def profile_rounds(main: dict, label: str, rounds: int = 2) -> None:
     """Trace ``rounds`` more main-path rounds: device time by kernel and
     the device's idle share of the wall time."""
     import torch
@@ -506,7 +541,8 @@ def profile_rounds(main: dict, rounds: int = 2) -> None:
               if e.device_type == DeviceType.CUDA and device_us(e) > 0]
     busy_s = sum(device_us(e) for e in events) / 1e6
     top = sorted(events, key=device_us, reverse=True)[:12]
-    phase("profile", rounds=rounds, wall_s=wall, device_busy_s=busy_s,
+    phase("profile", path=label, rounds=rounds, wall_s=wall,
+          device_busy_s=busy_s,
           device_idle_share=1.0 - busy_s / wall,
           top_ms_per_round=[[e.key[:60], device_us(e) / 1e3 / rounds,
                              e.count // rounds] for e in top])
@@ -549,6 +585,417 @@ def small_agreement(preset: str = "fig5", error_feedback: bool = False,
              f"param {param_err}, residual {res_err}")
     if error_feedback and not res_norm > 0:
         fail("error feedback left every residual zero")
+    if not all(bool(torch.isfinite(v).all()) for v in gpu.params.values()):
+        fail("non-finite parameters on the card")
+
+
+# ---------------------------------------------------------------------------
+# The paper's VGG and GRU-LM through the round
+# ---------------------------------------------------------------------------
+def model_setup(model: str, full: bool = True):
+    """One model's data and functions: at full width (M = 32) or at the
+    small size of the CPU parity tests (M = 8).  Returns ``(batches,
+    n_samples, eval_data, init(device), loss_fn, eval_fn, M)`` with numpy
+    batches and eval data."""
+    import numpy as np
+    import torch
+    from repro_torch.data.partition import (iid_partition_images,
+                                            partition_text)
+    from repro_torch.data.synthetic import class_gaussian_images, markov_text
+    from repro_torch.models import paper_models as pm
+    if model == "vgg":
+        size, widths, M, batch, num_train = (
+            (32, (32, 64, 128, 128), MAIN_M, MAIN_BATCH, 8192) if full
+            else (16, (16, 32, 64), 8, 16, 512))
+        ds = class_gaussian_images(num_train=num_train, image_size=size,
+                                   channels=3, noise=0.6, seed=0)
+        xs, ys, ns = iid_partition_images(ds.train_x, ds.train_y, M, batch,
+                                          seed=0)
+
+        def init(device):
+            return pm.init_vgg(torch.Generator().manual_seed(0), size, 3,
+                               widths=widths, device=device)
+        return ((xs, ys), ns, (ds.test_x, ds.test_y), init,
+                pm.classifier_loss(pm.vgg_forward),
+                pm.classifier_accuracy(pm.vgg_forward), M)
+    vocab, width, M = (512, 128, MAIN_M) if full else (256, 64, 8)
+    ds = markov_text(num_train=M * (3200 if full else 400), vocab_size=vocab,
+                     seed=0)
+    xs, ys, ns = partition_text(ds.train_tokens, M, 8, 24, seed=0)
+    test = ds.test_tokens
+    wins = np.stack([test[i * 24:(i + 1) * 24 + 1]
+                     for i in range((test.shape[0] - 1) // 24)])
+
+    def init(device):
+        return pm.init_gru_lm(torch.Generator().manual_seed(0), vocab, width,
+                              width, device=device)
+    return ((xs, ys), ns, (wins[:, :-1], wins[:, 1:]), init, pm.gru_lm_loss,
+            pm.perplexity, M)
+
+
+def lm_server(model: str, policy: str, device: str, full: bool = True,
+              mask_scores=None):
+    """A ``fig5`` server for ``model`` with kernel selective masking or
+    random masking (``policy``), with its batches, sizes and eval data."""
+    import torch
+    from repro_torch.core import strategy
+    from repro_torch.core.server import FederatedServer
+    batches, ns, evald, init, loss_fn, eval_fn, M = model_setup(model, full)
+    masking = (strategy.MaskPolicy.random(0.5) if policy == "random" else
+               strategy.MaskPolicy.selective(0.5, backend="kernel"))
+    server = FederatedServer.from_strategy(
+        strategy.get("fig5", masking=masking), loss_fn, init(device), M,
+        eval_fn=eval_fn, seed=0, device=device, mask_scores=mask_scores)
+    eval_data = tuple(torch.as_tensor(a).to(device) for a in evald)
+    return server, batches, ns, eval_data
+
+
+def reset_all_counts() -> None:
+    from repro_torch.kernels import segmented as seg
+    from repro_torch.kernels import topk_mask as tk
+    seg.reset_launch_counts()
+    tk.reset_launch_counts()
+
+
+def run_lm_path(name: str) -> dict:
+    """One of the VGG/GRU main paths, with every assertion on its result.
+    The launch counts of all eight kernels are set to 0 just before the run
+    and read just after."""
+    from repro_torch.core.masking import random_keep
+    from repro_torch.kernels import segmented as seg
+    from repro_torch.kernels import topk_mask as tk
+    model, policy, upload_bytes, seg_launches = LM_PATHS[name]
+    server, batches, ns, eval_data = lm_server(model, policy, "cuda")
+    if server._num_params != LM_PARAMS[model]:
+        fail(f"{name}: {server._num_params} parameters, not "
+             f"{LM_PARAMS[model]}")
+    reset_all_counts()
+    t0 = time.perf_counter()
+    server.run(batches, ns, MAIN_ROUNDS, eval_every=MAIN_ROUNDS,
+               eval_data=eval_data)
+    wall = time.perf_counter() - t0
+    launches = {**seg.launch_counts(), **tk.launch_counts()}
+    want_launches = {k: seg_launches.get(k, 0) for k in launches}
+    summ = server.summary()
+    hist = server.history
+    sampled = [r.num_sampled for r in hist]
+    buckets = [r.cohort_size for r in hist]
+    losses = [r.mean_loss for r in hist]
+    kept = {}
+    if policy == "random":
+        # Every client's upload keeps exactly k entries of every maskable
+        # leaf: the kept sets of one more round's draws, on the card.
+        scores = server.round_mask_scores(MAIN_ROUNDS + 1)
+        for leaf, sc in scores.items():
+            n = sc[0].numel()
+            counts = random_keep(sc.reshape(MAIN_M, n), 0.5).sum(1)
+            kept[leaf] = [int(counts.min()), int(counts.max()),
+                          max(1, round(0.5 * n))]
+    phase("main_path", preset=name, codec=summ["codec"], rounds=len(hist),
+          params=server._num_params, num_sampled=sampled, buckets=buckets,
+          losses=losses, transport_bytes=summ["transport_bytes"],
+          client_upload_bytes=summ["client_upload_bytes"],
+          final_eval=summ["final_eval"],
+          eval_metric="accuracy" if model == "vgg" else "perplexity",
+          launches=launches, quarantined=summ["quarantined"],
+          kept_per_upload_min_max_k=kept,
+          round_wall_s=[r.wall_s for r in hist], run_wall_s=wall)
+    if sampled != MAIN_SAMPLED:
+        fail(f"{name}: num_sampled {sampled} != {MAIN_SAMPLED}")
+    if buckets != MAIN_BUCKETS:
+        fail(f"{name}: buckets {buckets} != {MAIN_BUCKETS}")
+    if summ["client_upload_bytes"] != upload_bytes:
+        fail(f"{name}: upload bytes {summ['client_upload_bytes']}")
+    if summ["transport_bytes"] != sum(MAIN_SAMPLED) * upload_bytes:
+        fail(f"{name}: transport_bytes {summ['transport_bytes']}")
+    if not all(map(lambda v: v == v and abs(v) < float("inf"), losses)):
+        fail(f"{name}: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{name}: loss did not fall: {losses}")
+    ev = summ["final_eval"]
+    if not (ev == ev and (0.0 <= ev <= 1.0 if model == "vgg"
+                          else 1.0 <= ev < float("inf"))):
+        fail(f"{name}: eval metric {ev}")
+    if launches != want_launches:
+        fail(f"{name}: launches {launches}, expected {want_launches}")
+    if any(lo != k or hi != k for lo, hi, k in kept.values()):
+        fail(f"{name}: kept counts per upload {kept}")
+    for leaf_name, leaf in server.params.items():
+        if not bool(leaf.isfinite().all()):
+            fail(f"{name}: non-finite parameter {leaf_name}")
+    return {"launches": launches, "history": hist, "server": server,
+            "batches": batches, "n_samples": ns}
+
+
+def client_delta(main: dict, client: int = 0) -> dict:
+    """One client's unmasked delta tree from the server's current model, on
+    the card."""
+    import dataclasses
+    import torch
+    from repro_torch.core.client import stacked_client_update
+    from repro_torch.core.masking import MaskingConfig
+    server = main["server"]
+    cfg = dataclasses.replace(server.cfg.client, masking=MaskingConfig())
+    batches = [torch.as_tensor(x[client:client + 1]).to(server.device)
+               for x in main["batches"]]
+    uploads, _, _ = stacked_client_update(server._loss_fn, server.params,
+                                          batches, cfg, None, False)
+    return {k: v[0] for k, v in uploads.items()}
+
+
+class plain_kernels:
+    """Within the block ``ops.topk_mask`` runs on the three kernels' plain
+    versions (on whatever device its input lies)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import topk_mask as tk
+        self.saved = {name: getattr(tk, name) for name in PER_ARRAY}
+        for name in PER_ARRAY:
+            setattr(tk, name, getattr(tk, name + "_plain"))
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import topk_mask as tk
+        for name, fn in self.saved.items():
+            setattr(tk, name, fn)
+
+
+def per_array_path(deltas: dict) -> dict:
+    """Phase 4a: ``ops.topk_mask(leaf, 0.5)`` on every maskable leaf of one
+    client's VGG and GRU delta, with the per-array launch counts set to 0
+    just before and read just after; kept <= k per leaf, and where it and
+    the round's segmented mask (``ops.topk_mask_pytree``) differ."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import topk_mask as tk
+    leaves = {(model, name): leaf for model, tree in deltas.items()
+              for name, leaf in tree.items() if leaf.numel() >= 256}
+    reset_all_counts()
+    masked = {key: ops.topk_mask(leaf, 0.5, PER_ARRAY_ITERS)
+              for key, leaf in leaves.items()}
+    torch.cuda.synchronize()
+    launches = tk.launch_counts()
+    segmented = {model: ops.topk_mask_pytree(tree, 0.5)
+                 for model, tree in deltas.items()}
+    report = {}
+    for (model, name), out in masked.items():
+        k = max(1, round(0.5 * out.numel()))
+        kept = int((out != 0).sum())
+        seg_keep = segmented[model][name] != 0
+        report[f"{model}:{name}"] = {
+            "n": out.numel(), "k": k, "kept": kept,
+            "nonzero": int((leaves[(model, name)] != 0).sum()),
+            "differ_from_segmented": int(((out != 0) != seg_keep).sum())}
+    L = len(leaves)
+    want = {"exponent_histogram": L, "count_ge": PER_ARRAY_ITERS * L,
+            "apply_threshold": L}
+    phase("per_array_path", leaves=L, launches=launches, per_leaf=report)
+    if launches != want:
+        fail(f"per-array path launches {launches}, expected {want}")
+    over = [key for key, rec in report.items() if rec["kept"] > rec["k"]]
+    if over:
+        fail(f"per-array topk_mask kept more than k: {over}")
+    return {"launches": launches, "leaves": leaves}
+
+
+def edge_vector(n: int, seed: int):
+    """n fp32 values: normals at scales 1e-6..10, zeros and -0.0, values
+    above 2^28 and below 2^-96, subnormals, +-inf and NaN."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, generator=gen) * 10.0 ** (
+        7 * torch.rand(n, generator=gen) - 6)
+    x[::31] = 0.0
+    x[1::37] = -0.0
+    x[2::41] = 3e8
+    x[3::43] = -1e-31
+    x[4::47] = 1e-40
+    x[5::53] = float("inf")
+    x[6::59] = float("-inf")
+    x[7::61] = float("nan")
+    return x
+
+
+def large_vector(seed: int):
+    """2^26 normals in 64 chunks of scales 1e-6..1e2."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(1 << 26, generator=gen).view(64, -1)
+    x *= torch.logspace(-6, 2, 64)[:, None]
+    return x.reshape(-1)
+
+
+def check_topk_kernels(label: str, x, errs: dict) -> dict:
+    """Kernels 6–8 against their plain versions on the card at one input
+    (histogram and counts exact, apply bitwise) and ``ops.topk_mask`` on
+    the kernels against the same pipeline on the plain versions (bitwise).
+    Folds the largest absolute differences into ``errs``."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import topk_mask as tk
+    with plain_kernels():
+        want_mask = ops.topk_mask(x, 0.5, PER_ARRAY_ITERS)
+    got_mask = ops.topk_mask(x, 0.5, PER_ARRAY_ITERS)
+    finite = x[torch.isfinite(x)].abs()
+    taus = [0.0, 2.0 ** -100, float(finite.median()) if finite.numel()
+            else 1.0, float(finite.max()) if finite.numel() else 2.0]
+    exact = {"exponent_histogram": bool(torch.equal(
+        tk.exponent_histogram(x), tk.exponent_histogram_plain(x)))}
+    count_ok, apply_ok, apply_err = True, True, 0.0
+    for tau in taus:
+        t = torch.tensor(tau, device=x.device)
+        count_ok &= int(tk.count_ge(x, t)) == int(tk.count_ge_plain(x, t))
+        got, want = tk.apply_threshold(x, t), tk.apply_threshold_plain(x, t)
+        apply_ok &= _bitwise(got, want)
+        apply_err = max(apply_err, float((got.double() - want.double())
+                                         .abs().nan_to_num().max()))
+    exact.update(count_ge=count_ok, apply_threshold=apply_ok,
+                 topk_mask=_bitwise(got_mask, want_mask))
+    for name in PER_ARRAY:
+        errs[name] = max(errs.get(name, 0.0),
+                         0.0 if name != "apply_threshold" else apply_err)
+    phase("topk_kernel_parity", input=label, n=x.numel(), taus=taus,
+          exact=exact, kept=int((got_mask != 0).sum()))
+    bad = [name for name, ok in exact.items() if not ok]
+    if bad:
+        fail(f"per-array kernels disagree with their plain versions "
+             f"({label}): {bad}")
+    return exact
+
+
+def time_topk(label: str, x, launches: dict) -> dict:
+    """Kernels 6–8 and the whole ``ops.topk_mask`` at one input: device
+    time out of L2 (C launchers back to back over rotating copies) and
+    warm, the wrapper's and the plain version's time per call, the bytes
+    bound and, for the pipeline, ``torch.topk(|x|, k)`` plus a scatter."""
+    import torch
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import topk_mask as tk
+    lib = build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    n = x.numel()
+    l2 = torch.cuda.get_device_properties(x.device).L2_cache_size
+    copies = max(2, -(-4 * l2 // x.nbytes))
+    xs = [x] + [x.clone() for _ in range(copies - 1)]
+    outs = [torch.empty_like(x) for _ in range(copies)]
+    hist = torch.empty(128, dtype=torch.int32, device=x.device)
+    cnt = torch.empty((), dtype=torch.int32, device=x.device)
+    tau = torch.tensor(float(x.abs().median()), device=x.device)
+
+    def launcher(name, i):
+        p = xs[i].data_ptr()
+        if name == "exponent_histogram":
+            return lambda: lib.topk_histogram_launch(p, n, hist.data_ptr(),
+                                                     stream)
+        if name == "count_ge":
+            return lambda: lib.topk_count_launch(p, n, tau.data_ptr(),
+                                                 cnt.data_ptr(), stream)
+        return lambda: lib.topk_apply_launch(p, n, tau.data_ptr(),
+                                             outs[i].data_ptr(), stream)
+
+    work = {  # wrapper, plain, bytes
+        "exponent_histogram": (tk.exponent_histogram,
+                               tk.exponent_histogram_plain, 4 * n + 512),
+        "count_ge": (lambda v: tk.count_ge(v, tau),
+                     lambda v: tk.count_ge_plain(v, tau), 4 * n + 8),
+        "apply_threshold": (lambda v: tk.apply_threshold(v, tau),
+                            lambda v: tk.apply_threshold_plain(v, tau),
+                            8 * n + 4),
+    }
+    results = {}
+    for name, (wrapper, plain, nbytes) in work.items():
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = n / FP32_OPS_PER_S * 1e3
+        kernels = [launcher(name, i) for i in range(copies)]
+        rec = {"ms": cuda_loop_ms(kernels),
+               "warm_ms": cuda_loop_ms(kernels[:1]),
+               "wrapper_ms": cuda_ms([lambda v=v: wrapper(v) for v in xs]),
+               "plain_ms": cuda_ms([lambda v=v: plain(v) for v in xs],
+                                   reps=5),
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "library_ms": None, "bytes": nbytes, "launches_per_call": 1,
+               "path_launches": launches[name], "buffers": copies}
+        results[name] = rec
+        phase("kernel_time", shape=label, kernel=name, **rec)
+    k = max(1, round(0.5 * n))
+
+    def library(v):
+        idx = torch.topk(v.abs(), k, sorted=False).indices
+        return torch.zeros_like(v).scatter_(0, idx, v.gather(0, idx))
+
+    with plain_kernels():
+        plain_ms = cuda_ms([lambda v=v: ops.topk_mask(v, 0.5) for v in xs],
+                           reps=5)
+    reset_all_counts()
+    ops.topk_mask(x, 0.5)
+    per_call = sum(tk.launch_counts().values())
+    nbytes = (2 + PER_ARRAY_ITERS) * 4 * n + 4 * n
+    rec = {"ms": cuda_ms([lambda v=v: ops.topk_mask(v, 0.5) for v in xs]),
+           "warm_ms": cuda_ms([lambda: ops.topk_mask(x, 0.5)]),
+           "plain_ms": plain_ms,
+           "library_ms": cuda_ms([lambda v=v: library(v) for v in xs]),
+           "library": "torch.topk(|x|, k, sorted=False) + scatter",
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "bytes": nbytes, "launches_per_call": per_call,
+           "launches_want": PER_ARRAY_ITERS + 2}
+    phase("topk_mask_time", shape=label, n=n, k=k, **rec)
+    if per_call != PER_ARRAY_ITERS + 2:
+        fail(f"topk_mask launched {per_call} kernels per call")
+    results["topk_mask"] = rec
+    del xs, outs
+    return results
+
+
+def small_lm_agreement(model: str, policy: str) -> None:
+    """A VGG/GRU path on the card against the same run on the CPU at the
+    small size, with the same injected mask scores under random masking:
+    participants and bytes exact, losses and parameters within SMALL_RTOL.
+    The GRU's embedding backward accumulates with atomics on the card, so
+    a second card run is compared with the first and its difference
+    reported as it is."""
+    import torch
+    mask_scores = None
+    if policy == "random":
+        _, _, _, init, _, _, M = model_setup(model, full=False)
+        shapes = {k: tuple(v.shape) for k, v in init("cpu").items()
+                  if v.numel() >= 256}
+
+        def mask_scores(t, m):
+            gen = torch.Generator().manual_seed(1000 + t)
+            return {k: torch.rand((m,) + s, generator=gen).numpy()
+                    for k, s in shapes.items()}
+    runs = {}
+    devices = ("cuda", "cuda", "cpu") if model == "gru" else ("cuda", "cpu")
+    for i, device in enumerate(devices):
+        server, batches, ns, _ = lm_server(model, policy, device, full=False,
+                                           mask_scores=mask_scores)
+        server.run(batches, ns, 4)
+        runs[(device, i)] = server
+    gpu, cpu = runs[("cuda", 0)], runs[(devices[-1], len(devices) - 1)]
+    sampled = [[r.num_sampled for r in s.history] for s in (gpu, cpu)]
+    loss = [[r.mean_loss for r in s.history] for s in (gpu, cpu)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(*loss))
+    param_err = max(float((gpu.params[k].cpu() - v).abs().max())
+                    for k, v in cpu.params.items())
+    rec = {"model": model, "policy": policy, "num_sampled": sampled[0],
+           "loss_rel_err": rel, "max_param_abs_err": param_err,
+           "transport_bytes": [gpu.summary()["transport_bytes"],
+                               cpu.summary()["transport_bytes"]]}
+    if ("cuda", 1) in runs:
+        again = runs[("cuda", 1)]
+        rec["card_run_to_run_max_param_abs_diff"] = max(
+            float((again.params[k] - v).abs().max())
+            for k, v in gpu.params.items())
+        rec["note"] = ("the embedding backward accumulates with atomics on "
+                       "the card: two card runs may differ in the last bits")
+    phase("small_agreement", **rec)
+    if sampled[0] != sampled[1]:
+        fail(f"participants differ card vs CPU: {sampled}")
+    if rec["transport_bytes"][0] != rec["transport_bytes"][1]:
+        fail("transport bytes differ card vs CPU")
+    if rel > SMALL_RTOL or param_err > SMALL_RTOL:
+        fail(f"{model}/{policy}: card and CPU runs disagree: loss rel {rel}, "
+             f"param {param_err}")
     if not all(bool(torch.isfinite(v).all()) for v in gpu.params.values()):
         fail("non-finite parameters on the card")
 
@@ -602,18 +1049,45 @@ def main(argv) -> int:
     wire_identity(fused)
     small_agreement("fig5")
     small_agreement("fig5-fused-int8", error_feedback=True)
+    lms = {name: run_lm_path(name) for name in LM_PATHS}
+    small_lm_agreement("vgg", "selective")
+    small_lm_agreement("gru", "selective")
+    small_lm_agreement("gru", "random")
 
-    # ---- 4. timing -------------------------------------------------------
+    # ---- 4. the per-array path and kernels 6–8 ---------------------------
+    deltas = {"vgg": client_delta(lms["vgg-fig5"]),
+              "gru": client_delta(lms["gru-fig5"])}
+    per_array = per_array_path(deltas)
+    topk_errs = {}
+    for (model, name), leaf in per_array["leaves"].items():
+        check_topk_kernels(f"{model}:{name}", leaf.reshape(-1).contiguous(),
+                           topk_errs)
+    vgg_flat = torch.cat([v.reshape(-1) for v in deltas["vgg"].values()])
+    check_topk_kernels(f"vgg_delta_{vgg_flat.numel()}", vgg_flat, topk_errs)
+    big = large_vector(seed=3).cuda()
+    check_topk_kernels("2^26", big, topk_errs)
+    check_topk_kernels("edges_2^20", edge_vector(1 << 20, seed=4).cuda(),
+                       topk_errs)
+
+    # ---- 5. timing -------------------------------------------------------
     times = time_kernels("lenet28_cohort32", *main_in)
     time_kernels("2^26", *large_in)
-    for preset, main_run in mains.items():
+    leaf = deltas["vgg"]["conv3b.w"].reshape(-1).contiguous()
+    if leaf.numel() != LARGEST_VGG_LEAF:
+        fail(f"largest VGG leaf has {leaf.numel()} entries")
+    topk_times = time_topk(f"vgg_leaf_{LARGEST_VGG_LEAF}", leaf,
+                           per_array["launches"])
+    time_topk("2^26", big, per_array["launches"])
+    del big
+    for preset, main_run in {**mains, **lms}.items():
         walls = [r.wall_s for r in main_run["history"]]
         phase("round_time", preset=preset,
               steady_round_s_median=statistics.median(walls[1:]),
               full_rounds_s=walls[1:6], cohort16_rounds_s=walls[6:],
               first_round_s=walls[0])
     if trace:
-        profile_rounds(fused)
+        profile_rounds(fused, "fig5-fused-int8")
+        profile_rounds(lms["vgg-fig5"], "vgg-fig5")
 
     replaces = {"segmented_histogram": "src/repro/kernels/segmented.py:145",
                 "segmented_count": "src/repro/kernels/segmented.py:202",
@@ -642,6 +1116,24 @@ def main(argv) -> int:
                          fp32_plain_ms=fp32["plain_ms"],
                          fp32_max_abs_err=errs["segmented_encode_fp32"])
         kernels.append(entry)
+    topk_replaces = {"exponent_histogram": "src/repro/kernels/topk_mask.py:89",
+                     "count_ge": "src/repro/kernels/topk_mask.py:118",
+                     "apply_threshold": "src/repro/kernels/topk_mask.py:144"}
+    for name, path in topk_replaces.items():
+        rec = topk_times[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/topk_mask.cu",
+            "replaces": path, "launches": per_array["launches"][name],
+            "launches_per_leaf": per_array["launches"][name]
+            / len(per_array["leaves"]),
+            "path": "per-array ops.topk_mask on one client's VGG and GRU "
+                    "deltas", "shape": LARGEST_VGG_LEAF,
+            "max_abs_err": topk_errs[name], "ms": rec["ms"],
+            "warm_ms": rec["warm_ms"], "wrapper_ms": rec["wrapper_ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "library_note": PER_ARRAY_LIBRARY_NOTE})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -21,9 +21,12 @@ Two execution forms of the same round:
   it is padding.
 
 The reference threads a ``jax.random`` key; here a round takes the (M,)
-uniform ``scores`` that key would have drawn, so a caller can hand in the
-reference's draws.  Both bodies gate the decoded payload through the
-non-finite quarantine (``metrics["quarantined"]``).
+uniform ``scores`` that key would have drawn, and under random masking the
+per-client mask scores (``{leaf: (M, *shape)}``), so a caller can hand in
+the reference's draws.  The cohort body masks client i with row i of them,
+as the reference's ``take(split(mask_key, M), cohort_ids)`` does.  Both
+bodies gate the decoded payload through the non-finite quarantine
+(``metrics["quarantined"]``).
 
 With ``FederatedConfig.error_feedback`` both bodies run the reference's
 round-level error feedback (DGC-style residuals): each client adds its
@@ -36,7 +39,7 @@ other row keeps the old one.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -158,12 +161,14 @@ def make_federated_round(loss_fn: Callable, schedule: SamplingSchedule,
     """Build the full-population (oracle) round.
 
     Returns ``round_fn(params, residuals, client_batches, n_samples, t,
-    scores) -> (params, residuals, metrics)``: ``client_batches`` are
-    tensors with leading (num_clients, num_batches, B, ...) axes,
-    ``n_samples`` the (num_clients,) dataset sizes, ``residuals`` the stacked
-    (num_clients, ...) error-feedback state (passed through unchanged
-    unless ``cfg.error_feedback``) and ``scores`` the round's
-    (num_clients,) uniform draws.  ``codec`` round-trips every upload;
+    scores, mask_scores=None) -> (params, residuals, metrics)``:
+    ``client_batches`` are tensors with leading (num_clients, num_batches,
+    B, ...) axes, ``n_samples`` the (num_clients,) dataset sizes,
+    ``residuals`` the stacked (num_clients, ...) error-feedback state
+    (passed through unchanged unless ``cfg.error_feedback``), ``scores`` the
+    round's (num_clients,) uniform draws and ``mask_scores`` the random
+    mask's per-entry draws, one (num_clients, *shape) tensor per maskable
+    leaf (random masking only).  ``codec`` round-trips every upload;
     ``aggregator`` replaces plain FedAvg.
     """
     _check_plain(sampler)
@@ -171,12 +176,13 @@ def make_federated_round(loss_fn: Callable, schedule: SamplingSchedule,
 
     def round_fn(params: Tree, residuals: Tree,
                  client_batches: Sequence[torch.Tensor],
-                 n_samples: torch.Tensor, t, scores: torch.Tensor):
+                 n_samples: torch.Tensor, t, scores: torch.Tensor,
+                 mask_scores: Optional[Tree] = None):
         part = participation_mask(scores, schedule, t, cfg.num_clients)
         part = part.to(n_samples.device)
         uploads, new_res, losses = stacked_client_update(
             loss_fn, params, client_batches, cfg.client, residuals,
-            cfg.error_feedback)
+            cfg.error_feedback, mask_scores)
         wired = roundtrip_stacked(codec, uploads)
         finite = _finite_rows(wired)
         weights = part * n_samples * finite
@@ -204,7 +210,8 @@ def make_cohort_round(loss_fn: Callable, schedule: SamplingSchedule,
 
     def round_fn(params: Tree, residuals: Tree,
                  client_batches: Sequence[torch.Tensor],
-                 n_samples: torch.Tensor, t, scores: torch.Tensor):
+                 n_samples: torch.Tensor, t, scores: torch.Tensor,
+                 mask_scores: Optional[Tree] = None):
         cohort_ids, valid = cohort_select(scores, schedule, t,
                                           cfg.num_clients, cohort_size)
         device = n_samples.device
@@ -214,9 +221,12 @@ def make_cohort_round(loss_fn: Callable, schedule: SamplingSchedule,
         cohort_res = ({k: r.index_select(0, cohort_ids)
                        for k, r in residuals.items()}
                       if cfg.error_feedback else None)
+        cohort_scores = (None if mask_scores is None else
+                         {k: s.index_select(0, cohort_ids)
+                          for k, s in mask_scores.items()})
         uploads, new_res, losses = stacked_client_update(
             loss_fn, params, cohort_batches, cfg.client, cohort_res,
-            cfg.error_feedback)
+            cfg.error_feedback, cohort_scores)
         wired = roundtrip_stacked(codec, uploads)
         finite = _finite_rows(wired)
         weights = valid * n_samples.index_select(0, cohort_ids) * finite

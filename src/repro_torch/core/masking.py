@@ -25,6 +25,7 @@ Tree = Dict[str, torch.Tensor]
 
 __all__ = [
     "MaskingConfig",
+    "random_keep",
     "random_mask",
     "selective_mask_exact",
     "threshold_for_topk",
@@ -60,15 +61,22 @@ def _keep(x: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
     return torch.where(keep, x, torch.zeros_like(x))
 
 
+def random_keep(scores: torch.Tensor, gamma: float) -> torch.Tensor:
+    """Paper Alg. 2's kept set with an exact count, for each row of the
+    (C, n) uniform ``scores``: True at the k = max(1, round(gamma * n))
+    lowest scores of the row (one ``torch.topk`` for all rows)."""
+    k = _kept_count(scores.shape[1], gamma)
+    _, idx = torch.topk(-scores, k, dim=1)
+    keep = torch.zeros(scores.shape, dtype=torch.bool, device=scores.device)
+    return keep.scatter_(1, idx, True)
+
+
 def random_mask(delta: torch.Tensor, gamma: float,
                 scores: torch.Tensor) -> torch.Tensor:
     """Paper Alg. 2 with an exact kept count: keep the k entries with the
     lowest uniform ``scores`` (one per entry, injected by the caller)."""
-    flat = delta.reshape(-1)
-    k = _kept_count(flat.numel(), gamma)
-    _, idx = torch.topk(-scores.reshape(-1), k)
-    keep = torch.zeros(flat.shape, dtype=torch.bool, device=flat.device)
-    keep[idx] = True
+    flat = delta.reshape(1, -1)
+    keep = random_keep(scores.reshape(1, -1).to(flat.device), gamma)
     return _keep(flat, keep).reshape(delta.shape)
 
 
@@ -123,7 +131,8 @@ def mask_stacked(delta: Tree, cfg: MaskingConfig,
 
     Selective masking with ``cfg.use_kernel`` masks the whole cohort in
     one pass of each segmented kernel.  Random masking needs the per-entry
-    uniform ``scores`` (a tree shaped like ``delta``).
+    uniform ``scores``: a tree with one (C, *shape) tensor per maskable
+    leaf of ``delta``.
     """
     if cfg.mode == "none" or cfg.gamma >= 1.0:
         return delta
@@ -135,7 +144,8 @@ def mask_stacked(delta: Tree, cfg: MaskingConfig,
     if cfg.mode not in ("random", "selective"):
         raise ValueError(f"unknown masking mode {cfg.mode!r}")
     if cfg.mode == "random" and scores is None:
-        raise ValueError("random masking needs injected per-entry scores")
+        raise ValueError("random masking needs per-entry scores (the server "
+                         "draws them each round)")
     out = {}
     for name, leaf in delta.items():
         n = leaf[0].numel()
@@ -144,13 +154,12 @@ def mask_stacked(delta: Tree, cfg: MaskingConfig,
             continue
         flat = leaf.reshape(leaf.shape[0], n)
         if cfg.mode == "random":
-            rows = [random_mask(row, cfg.gamma, sc)
-                    for row, sc in zip(flat, scores[name].reshape(flat.shape))]
-            out[name] = torch.stack(rows).reshape(leaf.shape)
-            continue
-        tau = threshold_for_topk(flat.abs(), _kept_count(n, cfg.gamma),
-                                 cfg.bisect_iters)
-        out[name] = _keep(flat, flat.abs() >= tau[:, None]).reshape(leaf.shape)
+            keep = random_keep(scores[name].reshape(flat.shape), cfg.gamma)
+        else:
+            tau = threshold_for_topk(flat.abs(), _kept_count(n, cfg.gamma),
+                                     cfg.bisect_iters)
+            keep = flat.abs() >= tau[:, None]
+        out[name] = _keep(flat, keep).reshape(leaf.shape)
     return out
 
 

@@ -14,7 +14,12 @@ segments are XLA dispatch machinery and have no counterpart here.
 Randomness: each round's (M,) uniform participant scores come from the
 server's own CPU ``torch.Generator`` seeded with ``seed`` — the same draws
 on every device — or from a caller's ``scores(t, M)`` callable, which is how
-the parity tests hand in the reference's ``jax.random`` draws.
+the parity tests hand in the reference's ``jax.random`` draws.  Under
+random masking each round also needs per-entry mask scores for every
+client, one (M, *shape) tensor per maskable leaf: drawn on the server's
+device from a device ``torch.Generator`` seeded with ``seed + 1`` (drawing
+them on the host would copy M x params floats to the card every round), or
+from a caller's ``mask_scores(t, M)`` callable.
 
 Transport is metered by the strategy's codec: ``RoundRecord.transport_bytes``
 counts the EXACT wire bytes of every upload.
@@ -61,7 +66,8 @@ class FederatedServer:
     def __init__(self, strategy, loss_fn: Callable, init_params: Tree,
                  num_clients: int, *, eval_fn: Optional[Callable] = None,
                  seed: int = 0, engine: str = "cohort", device=None,
-                 scores: Optional[Callable[[int, int], Any]] = None):
+                 scores: Optional[Callable[[int, int], Any]] = None,
+                 mask_scores: Optional[Callable[[int, int], Any]] = None):
         """See :meth:`from_strategy`."""
         if engine not in ("cohort", "full"):
             raise ValueError(f"unknown engine {engine!r} (the port runs "
@@ -76,7 +82,16 @@ class FederatedServer:
         self.store = DenseStore(num_clients, self.params)
         self._loss_fn = loss_fn
         self._scores = scores
+        self._mask_scores = mask_scores
         self._generator = torch.Generator().manual_seed(seed)
+        masking = self.cfg.client.masking
+        self._mask_leaves = (
+            {k: tuple(v.shape) for k, v in self.params.items()
+             if v.numel() >= masking.min_leaf_size}
+            if masking.mode == "random" and masking.gamma < 1.0 else {})
+        self._mask_generator = (
+            torch.Generator(device=self.device).manual_seed(seed + 1)
+            if self._mask_leaves else None)
         self._rounds: Dict[int, Callable] = {}
         self._round = 0
         self.history: List[RoundRecord] = []
@@ -87,15 +102,18 @@ class FederatedServer:
     def from_strategy(cls, strategy, loss_fn: Callable, init_params: Tree,
                       num_clients: int, eval_fn: Optional[Callable] = None,
                       seed: int = 0, engine: str = "cohort", *, device=None,
-                      scores: Optional[Callable[[int, int], Any]] = None
+                      scores: Optional[Callable[[int, int], Any]] = None,
+                      mask_scores: Optional[Callable[[int, int], Any]] = None
                       ) -> "FederatedServer":
         """Build a server from one strategy record.  ``device``: ``cuda``
         unless named (raises without a card).  ``scores(t, M)``, when given,
         supplies round t's (M,) uniform participant scores instead of the
-        server's generator."""
+        server's generator; ``mask_scores(t, M)`` supplies round t's random
+        mask scores, ``{leaf: (M, *shape)}`` for every maskable leaf, instead
+        of the server's device generator (random masking only)."""
         return cls(strategy, loss_fn, init_params, num_clients,
                    eval_fn=eval_fn, seed=seed, engine=engine, device=device,
-                   scores=scores)
+                   scores=scores, mask_scores=mask_scores)
 
     def _round_fn(self, bucket: int) -> Callable:
         """The (cached) round for one cohort bucket."""
@@ -122,6 +140,32 @@ class FederatedServer:
             raise ValueError(f"round {t} scores must have shape ({M},), got "
                              f"{tuple(scores.shape)}")
         return scores
+
+    def round_mask_scores(self, t: int) -> Optional[Tree]:
+        """Round t's random-mask scores, ``{leaf: (M, *shape)}`` fp32 on the
+        server's device, or None unless the policy masks at random.  Without
+        a ``mask_scores`` callable each call draws anew from the server's
+        device generator."""
+        if not self._mask_leaves:
+            return None
+        M = self.cfg.num_clients
+        if self._mask_scores is None:
+            return {k: torch.rand((M,) + shape, generator=self._mask_generator,
+                                  device=self.device)
+                    for k, shape in self._mask_leaves.items()}
+        given = self._mask_scores(t, M)
+        out = {}
+        for k, shape in self._mask_leaves.items():
+            v = given[k]
+            if not isinstance(v, torch.Tensor):
+                v = torch.from_numpy(np.asarray(v, dtype=np.float32))
+            out[k] = v.to(self.device, torch.float32)
+            if out[k].numel() != M * int(np.prod(shape)):
+                raise ValueError(f"round {t} mask scores of {k!r} must hold "
+                                 f"{M} x {shape} values, got "
+                                 f"{tuple(out[k].shape)}")
+            out[k] = out[k].reshape((M,) + shape)
+        return out
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -155,9 +199,10 @@ class FederatedServer:
             round_fn = self._round_fn(bucket)
             self._sync()
             t0 = time.perf_counter()
+            mask_scores = self.round_mask_scores(t)
             self.params, residuals, metrics = round_fn(
                 self.params, self.store.residuals_dense(), batches,
-                n_samples, t, scores)
+                n_samples, t, scores, mask_scores)
             self.store.set_dense(residuals)
             self._sync()
             wall = time.perf_counter() - t0

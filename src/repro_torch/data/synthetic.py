@@ -1,9 +1,13 @@
-"""Synthetic stand-in for MNIST (counterpart of ``repro/data/synthetic.py``).
+"""Synthetic stand-ins for MNIST / CIFAR-10 / WikiText-2 (counterpart of
+``repro/data/synthetic.py``).
 
-``class_gaussian_images`` is a K-class dataset where each class is a
-Gaussian blob around a class-specific low-frequency template image.  It is
-numpy only and gives byte-identical arrays to the reference for the same
-arguments and seed.
+* ``class_gaussian_images`` — a K-class dataset where each class is a
+  Gaussian blob around a class-specific low-frequency template image.
+* ``markov_text`` — an order-2 Markov-chain token stream over a Zipf-weighted
+  vocabulary, an LM task with a non-uniform optimal perplexity.
+
+Both are numpy only and give byte-identical arrays to the reference for the
+same arguments and seed.
 """
 
 from __future__ import annotations
@@ -12,7 +16,8 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["ImageDataset", "class_gaussian_images"]
+__all__ = ["ImageDataset", "TextDataset", "class_gaussian_images",
+           "markov_text"]
 
 
 @dataclasses.dataclass
@@ -24,6 +29,15 @@ class ImageDataset:
     test_x: np.ndarray
     test_y: np.ndarray
     num_classes: int
+
+
+@dataclasses.dataclass
+class TextDataset:
+    """Train/test token streams (N,) int32 over ``vocab_size`` tokens."""
+
+    train_tokens: np.ndarray
+    test_tokens: np.ndarray
+    vocab_size: int
 
 
 def _class_templates(rng: np.random.Generator, num_classes: int, h: int,
@@ -65,3 +79,29 @@ def class_gaussian_images(num_train: int = 4000, num_test: int = 1000,
     tx, ty = gen(num_train)
     ex, ey = gen(num_test)
     return ImageDataset(tx, ty, ex, ey, num_classes)
+
+
+def markov_text(num_train: int = 200_000, num_test: int = 20_000,
+                vocab_size: int = 512, branching: int = 8,
+                seed: int = 0) -> TextDataset:
+    """Order-2 Markov chain: each (prev2, prev1) context admits
+    ``branching`` possible next tokens with Zipf-ish weights."""
+    rng = np.random.default_rng(seed)
+    num_ctx = 4096                       # hashed contexts: a small dense table
+    # Quadratic bias toward low token ids gives a Zipf-like marginal.
+    nexts = (vocab_size * rng.random((num_ctx, branching)) ** 2.5
+             ).astype(np.int32).clip(0, vocab_size - 1)
+    probs = 1.0 / np.arange(1, branching + 1)
+    probs /= probs.sum()
+
+    def gen(n):
+        toks = np.empty(n, np.int32)
+        toks[0], toks[1] = rng.integers(0, vocab_size, size=2)
+        _ = rng.integers(0, num_ctx)     # the reference's RNG warm start draw
+        choices = rng.choice(branching, size=n, p=probs)
+        for i in range(2, n):
+            ctx = (toks[i - 2] * 31 + toks[i - 1] * 7) % num_ctx
+            toks[i] = nexts[ctx, choices[i]]
+        return toks
+
+    return TextDataset(gen(num_train), gen(num_test), vocab_size)

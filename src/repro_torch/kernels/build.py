@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/segmented.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface and loaded through ``ctypes``.  The build
-happens at first use, into ``build/repro_torch/`` at the repository root
+Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` (one ``nvcc``
+per source, all started together) and linked into one shared library with
+a plain C interface, loaded through ``ctypes``.  The build happens at first
+use, into ``build/repro_torch/`` at the repository root
 (``REPRO_TORCH_BUILD_DIR`` overrides it); the library's file name carries a
-hash of the source and flags, so an edited source builds anew.  Nothing is
-compiled or imported when this module is imported.
+hash of every source and the flags, so an edited source builds anew.
+Nothing is compiled or imported when this module is imported.
 """
 
 from __future__ import annotations
@@ -19,11 +20,12 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "SOURCE", "build_dir", "build_log", "library"]
+__all__ = ["NVCC_FLAGS", "SOURCES", "build_dir", "build_log", "library"]
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "segmented.cu"
+SOURCES = tuple(sorted(
+    (Path(__file__).resolve().parent / "csrc").glob("*.cu")))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def build_dir() -> Path:
@@ -46,34 +48,45 @@ def _nvcc() -> str:
 
 
 def _lib_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return build_dir() / f"libsegmented-{digest}.so"
+    digest = hashlib.sha256()
+    for src in SOURCES:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"libkernels-{digest.hexdigest()[:16]}.so"
 
 
 def build_log() -> Path:
     """The compiler's output (``-Xptxas -v``: registers, shared memory and
-    spills per kernel) for the current library."""
+    spills per kernel) for the current library, all sources in turn."""
     return _lib_path().with_suffix(".log")
 
 
 def _compile(lib: Path) -> None:
     lib.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(SOURCES, objs)]
+        logs = [(src, proc.communicate()[0], proc.returncode)
+                for src, proc in zip(SOURCES, procs)]
+        build_log().write_text("".join(f"== {src.name}\n{out}"
+                                       for src, out, _ in logs))
+        for src, out, rc in logs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}) on {src}:\n"
+                                   f"{out[-4000:]}")
+        tmp_lib = Path(tmp) / lib.name
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", str(tmp_lib), *map(str, objs)],
             capture_output=True, text=True, check=False)
-        build_log().write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
-                f"{proc.stderr[-4000:]}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stderr[-4000:]}")
+        os.replace(tmp_lib, lib)
 
 
 @functools.cache
@@ -83,7 +96,7 @@ def library() -> ctypes.CDLL:
     if not lib_path.exists():
         _compile(lib_path)
     lib = ctypes.CDLL(str(lib_path))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     signatures = {
         "seg_histogram_launch": [ptr, ptr, i32, i32, ptr, ptr],
         "seg_count_launch": [ptr, ptr, ptr, i32, i32, i32, ptr, ptr],
@@ -91,6 +104,9 @@ def library() -> ctypes.CDLL:
         "seg_stats_launch": [ptr, ptr, i32, i32, ptr, ptr, ptr],
         "seg_encode_launch": [ptr, ptr, ptr, ptr, i32, i32, ptr, ptr, ptr,
                               ptr],
+        "topk_histogram_launch": [ptr, i64, ptr, ptr],
+        "topk_count_launch": [ptr, i64, ptr, ptr, ptr],
+        "topk_apply_launch": [ptr, i64, ptr, ptr, ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -1,5 +1,10 @@
-"""Whole-model selective masking on the segmented kernels (counterpart of
+"""Selective masking on the CUDA kernels (counterpart of
 ``repro/kernels/ops.py``).
+
+``topk_mask(x, gamma)`` masks ONE array on the per-array kernels
+(``kernels.topk_mask``): 1 histogram + ``iters`` counts + 1 apply, the whole
+pipeline on the device with no host sync; ``masked_count(x, tau)`` is one
+count.
 
 ``topk_mask_pytree(tree, gamma)`` masks every maskable leaf of a delta tree
 in a leaf-count-independent number of sweeps (DESIGN.md §3.4):
@@ -32,14 +37,54 @@ from repro_torch.core.compression import (int8_scales, pack_bits_rows,
                                           unpack_bits_rows)
 from repro_torch.kernels import packing as pk
 from repro_torch.kernels import segmented as seg
+from repro_torch.kernels import topk_mask as tk
 from repro_torch.kernels.ref import EXPO_MIN
 
 Tree = Dict[str, torch.Tensor]
 
-__all__ = ["DEFAULT_REFINE_SWEEPS", "DEFAULT_CANDIDATES",
-           "pytree_sweep_count", "topk_mask_pytree", "topk_mask_stacked",
+__all__ = ["DEFAULT_REFINE_SWEEPS", "DEFAULT_CANDIDATES", "topk_mask",
+           "masked_count", "pytree_sweep_count", "topk_mask_pytree",
+           "topk_mask_stacked",
            "topk_encode_pytree", "topk_encode_stacked", "client_encode_scales",
            "wirepath_sweep_count", "wirepath_bytes_moved"]
+
+
+def topk_mask(x: torch.Tensor, gamma: float, iters: int = 8) -> torch.Tensor:
+    """Threshold-select the ~gamma fraction of largest-|x| entries of ``x``
+    (any shape, any float dtype; computed in fp32 and cast back).
+
+    1 histogram sweep brackets the k-th magnitude (k = max(1, round(gamma *
+    size))) to an octave whose end counts come from the histogram's suffix
+    sums; ``iters`` bisection steps each count ``|x| >= mid`` in one sweep;
+    the apply sweep keeps ``|x| >= tau`` with ``tau = hi`` unless hi would
+    keep nothing.  Kept <= k whenever the k-th and (k+1)-th magnitudes are
+    further apart than the final bracket; tied entries stay together.
+    """
+    k = max(1, int(round(gamma * x.numel())))
+    flat = x.reshape(-1).to(torch.float32).contiguous()
+    hist = tk.exponent_histogram(flat)
+    lo, hi, _, cnt_hi = tk.select_threshold_counts(hist, k)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        cnt = tk.count_ge(flat, mid)
+        raise_lo = cnt > k
+        lo = torch.where(raise_lo, mid, lo)
+        hi = torch.where(raise_lo, hi, mid)
+        cnt_hi = torch.where(raise_lo, cnt_hi, cnt)   # hi moved: count is cnt
+    # hi is the conservative end: count(>= hi) <= k <= count(>= lo); lo when
+    # hi would keep nothing (a tie plateau).
+    tau = torch.where(cnt_hi >= 1, hi, lo)
+    return tk.apply_threshold(flat, tau).reshape(x.shape).to(x.dtype)
+
+
+def masked_count(x: torch.Tensor, tau) -> torch.Tensor:
+    """0-d int32 number of entries of ``x`` with ``|x| >= tau``, over x's
+    own entries only, for any tau (the reference also counts its block
+    padding when tau <= 0)."""
+    flat = x.reshape(-1).to(torch.float32).contiguous()
+    tau = torch.as_tensor(tau, dtype=torch.float32, device=flat.device)
+    return tk.count_ge(flat, tau.reshape(()).contiguous())
+
 
 DEFAULT_REFINE_SWEEPS = 2
 DEFAULT_CANDIDATES = 16

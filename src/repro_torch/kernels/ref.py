@@ -18,7 +18,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["NBINS", "EXPO_MIN", "topk_mask_ref", "threshold_mask_ref",
-           "count_ge_ref", "exponent_histogram_ref", "group_histogram_ref"]
+           "count_ge_ref", "exponent_bins", "exponent_histogram_ref",
+           "group_histogram_ref"]
 
 NBINS = 128
 EXPO_MIN = -96  # bin j counts magnitudes in [2^(j+EXPO_MIN), 2^(j+EXPO_MIN+1))
@@ -46,13 +47,22 @@ def count_ge_ref(x: torch.Tensor, tau) -> torch.Tensor:
     return (x.abs() >= tau).sum().to(torch.int32)
 
 
+def exponent_bins(mag: torch.Tensor) -> torch.Tensor:
+    """int64 bin of each fp32 magnitude: its exponent field minus the bias,
+    minus EXPO_MIN, clamped to [0, NBINS).  Exact at every power of two,
+    where ``floor(log2(.))`` in fp32 is not: it puts ``nextafter(2^j, 0)``
+    in bin j for many j.  Subnormals go to bin 0, inf to NBINS - 1."""
+    field = (mag.contiguous().view(torch.int32) >> 23) & 0xFF
+    return torch.clamp(field.to(torch.int64) - 127 - EXPO_MIN, 0, NBINS - 1)
+
+
 def exponent_histogram_ref(x: torch.Tensor) -> torch.Tensor:
-    """(NBINS,) int32 counts of nonzero |x| per power-of-two bin."""
+    """(NBINS,) int32 counts of nonzero |x| per power-of-two bin; NaN
+    counts nowhere."""
     mag = x.reshape(-1).abs().to(torch.float32)
     valid = mag > 0
-    e = torch.floor(torch.log2(torch.where(valid, mag, torch.ones_like(mag))))
-    b = torch.clamp(e.to(torch.int64) - EXPO_MIN, 0, NBINS - 1)
-    return torch.bincount(b[valid], minlength=NBINS).to(torch.int32)
+    return torch.bincount(exponent_bins(mag)[valid],
+                          minlength=NBINS).to(torch.int32)
 
 
 def group_histogram_ref(x: torch.Tensor,

@@ -123,12 +123,14 @@ def _check_taus(taus: torch.Tensor, x2d: torch.Tensor, shape,
         raise ValueError(f"{name} must be contiguous and on x2d's device")
 
 
-def _launch(name: str, fn, *args) -> None:
-    """Run one C launcher on the current stream; count it; raise on error."""
+def _launch(name: str, fn, *args, counts: Dict[str, int] = _LAUNCHES
+            ) -> None:
+    """Run one C launcher on the current stream; add one to ``counts[name]``
+    (the wrappers' launch counts); raise on error."""
     err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    _LAUNCHES[name] += 1
+    counts[name] += 1
 
 
 def _library():

@@ -1,6 +1,8 @@
 """Tests of the port that need an NVIDIA card: each CUDA kernel against its
-plain PyTorch version, and the fig5 and fig5-fused-int8 rounds on the card
-against the same rounds on the CPU.  They skip without a card.  This file
+plain PyTorch version, ``ops.topk_mask`` on the card against the same
+pipeline on the CPU, and the fig5 and fig5-fused-int8 rounds (LeNet) and
+the random-mask round (GRU-LM) on the card against the same rounds on the
+CPU.  They skip without a card.  This file
 imports no JAX, so on a machine without it run it alone:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -11,11 +13,12 @@ import torch
 
 from repro_torch.core import strategy
 from repro_torch.core.server import FederatedServer
-from repro_torch.data.partition import iid_partition_images
-from repro_torch.data.synthetic import class_gaussian_images
+from repro_torch.data.partition import iid_partition_images, partition_text
+from repro_torch.data.synthetic import class_gaussian_images, markov_text
 from repro_torch.kernels import ops
 from repro_torch.kernels import packing as pk
 from repro_torch.kernels import segmented as seg
+from repro_torch.kernels import topk_mask as tk
 from repro_torch.models import paper_models as pm
 
 pytestmark = pytest.mark.cuda
@@ -167,3 +170,90 @@ def test_fig5_round_on_card_matches_cpu(cuda, preset, error_feedback):
     res = cpu.store.residuals_dense()
     for k, v in gpu.store.residuals_dense().items():
         torch.testing.assert_close(v.cpu(), res[k], rtol=1e-4, atol=1e-4)
+
+
+def _flat_edges(n: int, seed: int) -> torch.Tensor:
+    """n fp32 values: normals at scales 1e-6..10, zeros and -0.0, values
+    above 2^28 and below 2^-96, subnormals, +-inf and NaN."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, generator=gen) * 10.0 ** (
+        7 * torch.rand(n, generator=gen) - 6)
+    x[::31] = 0.0
+    x[1::37] = -0.0
+    x[2::41] = 3e8
+    x[3::43] = -1e-31
+    x[4::47] = 1e-40
+    x[5::53] = float("inf")
+    x[6::59] = float("-inf")
+    x[7::61] = float("nan")
+    return x
+
+
+@pytest.mark.parametrize("n", [1, 3001, 147_456, 1 << 20])
+def test_topk_kernels_match_plain_versions(cuda, n):
+    """Histograms and counts exact, apply bitwise, tails included."""
+    x = _flat_edges(n, seed=n).to(cuda)
+    assert torch.equal(tk.exponent_histogram(x),
+                       tk.exponent_histogram_plain(x))
+    for tau in (-1.0, 0.0, 1e-40, 2.0 ** -100, 1e-4, 0.3, 3e8,
+                float("inf"), float("nan")):
+        t = torch.tensor(tau, device=cuda)
+        assert int(tk.count_ge(x, t)) == int(tk.count_ge_plain(x, t)), tau
+        assert torch.equal(tk.apply_threshold(x, t).view(torch.int32),
+                           tk.apply_threshold_plain(x, t).view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(512,), (300, 77), (3, 3, 128, 128)])
+def test_topk_mask_on_card_matches_cpu(cuda, shape, dtype):
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(1)
+                    ).to(dtype)
+    got = ops.topk_mask(x.to(cuda), 0.25).cpu()
+    want = ops.topk_mask(x, 0.25)
+    assert torch.equal(got.float().view(torch.int32),
+                       want.float().view(torch.int32))
+    assert int(ops.masked_count(x.to(cuda), 0.5)) == int(
+        ops.masked_count(x, 0.5))
+
+
+def test_topk_wrappers_count_their_launches(cuda):
+    x = torch.randn(5000, device=cuda)
+    tk.reset_launch_counts()
+    ops.topk_mask(x, 0.5)
+    ops.masked_count(x, 0.1)
+    assert tk.launch_counts() == {"exponent_histogram": 1, "count_ge": 9,
+                                  "apply_threshold": 1}
+
+
+def test_gru_random_round_on_card_matches_cpu(cuda):
+    """The same injected mask scores on both devices: participants, kept
+    counts and bytes exact; losses and parameters within 1e-4 (the
+    embedding backward accumulates with atomics on the card)."""
+    ds = markov_text(num_train=8 * 400, vocab_size=256, seed=0)
+    xs, ys, ns = partition_text(ds.train_tokens, 8, 8, 24, seed=0)
+    params = pm.init_gru_lm(torch.Generator().manual_seed(0), 256, 64, 64,
+                            device="cpu")
+    maskable = {k: v.shape for k, v in params.items() if v.numel() >= 256}
+
+    def mask_scores(t, m):
+        gen = torch.Generator().manual_seed(100 + t)
+        return {k: torch.rand((m,) + tuple(s), generator=gen)
+                for k, s in maskable.items()}
+
+    st = strategy.get("fig5", masking=strategy.MaskPolicy.random(0.5))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        server = FederatedServer.from_strategy(
+            st, pm.gru_lm_loss, params, 8, seed=0, device=device,
+            mask_scores=mask_scores)
+        server.run((xs, ys), ns, 3)
+        runs[device] = server
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    assert [r.num_sampled for r in gpu.history] == \
+        [r.num_sampled for r in cpu.history]
+    assert gpu.summary()["transport_bytes"] == cpu.summary()["transport_bytes"]
+    for a, b in zip(gpu.history, cpu.history):
+        assert a.mean_loss == pytest.approx(b.mean_loss, rel=1e-4)
+    for k, v in cpu.params.items():
+        torch.testing.assert_close(gpu.params[k].cpu(), v, rtol=1e-4,
+                                   atol=1e-4)
