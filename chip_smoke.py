@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py           # every phase, one card
     python3 chip_smoke.py --profile # also trace two more rounds of the
-                                    # fused LeNet path and of vgg-fig5
+                                    # fused LeNet path and of vgg-fig5,
+                                    # and one prefill and 11 decode
+                                    # steps of each served arch
 
 Phases, each printing its result on its own line; any failure ends the run
 with a nonzero exit:
 
 1. environment — card name and power limit, torch/CUDA versions, TF32
    settings (both off), and the kernel build time (one ``nvcc`` per source
-   for sm_90a, all started together);
+   for sm_90a, all started together: segmented, topk_mask, wkv6,
+   ssm_scan);
 2. kernel parity — each of the five segmented CUDA kernels against its
    plain PyTorch version at the main path's shape (the cohort-packed
    LeNet-28 delta, 32 x 106 rows x 1024, S = 128) and on one 2^26-element
@@ -52,8 +55,27 @@ with a nonzero exit:
    plain version's time; for ``ops.topk_mask`` also the library yardstick
    ``torch.topk(|x|, k)`` plus a scatter; and the steady per-round wall
    time of every main path;
-6. (``--profile`` only) ``torch.profiler`` over two more rounds of the
-   fused LeNet path and of ``vgg-fig5``: device busy time by kernel and the
+6. the model zoo's serving slice, rwkv6-1.6b and hymba-1.5b:
+   - ``zoo_kernel_parity``: the wkv6 and ssm_scan CUDA kernels against
+     their plain versions at the full-width serving shapes ((8, 2048, 32,
+     64) and (8, 2048, 1600, 16)), at head dim 32, at T = 100 and T = 1,
+     and (wkv6) at the model's strongest decay, which must stay finite and
+     match the step recurrence;
+   - ``serve_path`` per arch at full width and depth, bf16 params and
+     compute, initialised on the card: the exact parameter count,
+     ``make_prefill_step`` on 8 x 2048 tokens (finite padded-vocab logits;
+     with the counts set to 0 just before and read just after, wkv6 24 or
+     ssm_scan 32 launches and nothing else), then ``generate`` on 8
+     prompts of 64 tokens plus 32 greedy tokens, twice (identical tokens in
+     range, no kernel launch); prefill wall time (median of 3) and decode
+     time per step;
+   - ``serve_consistency`` per arch at full width in fp32: ``forward`` over
+     160 tokens against 160 ``decode_step``s at every position, atol 2e-3 /
+     rtol 1e-3 (the reference's own check);
+   - ``kernel_time`` of both kernels at the serving shapes, as in phase 5;
+7. (``--profile`` only) ``torch.profiler`` over two more rounds of the
+   fused LeNet path and of ``vgg-fig5``, and over one prefill and 11
+   decode steps of each served arch: device busy time by kernel and the
    device's idle share of the wall time.
 
 The last lines are the kernels' JSON record, the card's name and power
@@ -100,6 +122,23 @@ PER_ARRAY_ITERS = 8
 LARGEST_VGG_LEAF = 147_456       # conv2b.w, conv3a.w, conv3b.w: 3x3x128x128
 COUNT_CANDIDATES = (1, 8, 16, 17, 32)
 SMALL_RTOL = 1e-3                # card vs CPU: reduction order differs
+# The model zoo's serving slice: arch -> (its kernel, launches per prefill,
+# parameters at full width).
+ZOO_ARCHS = {"rwkv6-1.6b": ("wkv6", 24, 1_483_280_384),
+             "hymba-1.5b": ("ssm_scan", 32, 1_403_905_600)}
+SERVE_B, SERVE_T = 8, 2048       # prefill: 8 prompts of 2048 tokens
+GEN_PROMPT, GEN_TOKENS = 64, 32  # generate: 64-token prompts, 32 greedy
+PREFILL_REPS = 3
+CONSISTENCY_T = 160              # 2.5 wkv6 chunks
+WKV6_SHAPE = (SERVE_B, SERVE_T, 32, 64)      # rwkv6-1.6b: 32 heads of 64
+SSM_SHAPE = (SERVE_B, SERVE_T, 1600, 16)     # hymba-1.5b: d 1600, N 16
+# Kernel against plain version: both fp32, other summation orders and FMA
+# contraction (wkv6 outputs reach about 100 at the serving shape).
+WKV6_TOL = {"atol": 1e-3, "rtol": 1e-4}
+SSM_TOL = {"atol": 1e-4, "rtol": 1e-5}
+CONSISTENCY_TOL = {"atol": 2e-3, "rtol": 1e-3}   # tests/test_models.py
+ZOO_LIBRARY_NOTE = ("no single PyTorch call computes the RWKV6 wkv "
+                    "recurrence or a selective-SSM scan")
 LIBRARY_NOTE = ("no single PyTorch call computes a segmented suffix "
                 "histogram, a per-segment multi-threshold count, a per-row-"
                 "tau select with counts, a segmented histogram with a "
@@ -518,16 +557,17 @@ def wire_identity(main: dict) -> None:
             fail(f"fused wire differs from {label}: {rec}")
 
 
-def profile_rounds(main: dict, label: str, rounds: int = 2) -> None:
-    """Trace ``rounds`` more main-path rounds: device time by kernel and
-    the device's idle share of the wall time."""
+def profile_device(label: str, fn, count: int, unit: str) -> None:
+    """Trace one call of ``fn``, which runs ``count`` units of work (rounds,
+    prefills): device time by kernel per unit and the device's idle share
+    of the wall time."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    server = main["server"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        server.run(main["batches"], main["n_samples"], rounds)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -535,17 +575,24 @@ def profile_rounds(main: dict, label: str, rounds: int = 2) -> None:
         return getattr(event, "self_device_time_total",
                        getattr(event, "self_cuda_time_total", 0.0))
 
-    from torch.autograd import DeviceType
     # Kernel and memcpy rows only: the aten rows repeat their kernels' time.
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and device_us(e) > 0]
     busy_s = sum(device_us(e) for e in events) / 1e6
     top = sorted(events, key=device_us, reverse=True)[:12]
-    phase("profile", path=label, rounds=rounds, wall_s=wall,
+    phase("profile", path=label, **{f"{unit}s": count}, wall_s=wall,
           device_busy_s=busy_s,
           device_idle_share=1.0 - busy_s / wall,
-          top_ms_per_round=[[e.key[:60], device_us(e) / 1e3 / rounds,
-                             e.count // rounds] for e in top])
+          **{f"top_ms_per_{unit}": [[e.key[:60], device_us(e) / 1e3 / count,
+                                     e.count // count] for e in top]})
+
+
+def profile_rounds(main: dict, label: str, rounds: int = 2) -> None:
+    """Trace ``rounds`` more main-path rounds (see :func:`profile_device`)."""
+    server = main["server"]
+    profile_device(label, lambda: server.run(main["batches"],
+                                             main["n_samples"], rounds),
+                   rounds, "round")
 
 
 def small_agreement(preset: str = "fig5", error_feedback: bool = False,
@@ -650,11 +697,16 @@ def lm_server(model: str, policy: str, device: str, full: bool = True,
     return server, batches, ns, eval_data
 
 
+def kernel_modules() -> tuple:
+    """Every module of the port that holds a kernel with a launch count."""
+    from repro_torch.kernels import segmented, ssm_scan, topk_mask, wkv6
+    return segmented, topk_mask, wkv6, ssm_scan
+
+
 def reset_all_counts() -> None:
-    from repro_torch.kernels import segmented as seg
-    from repro_torch.kernels import topk_mask as tk
-    seg.reset_launch_counts()
-    tk.reset_launch_counts()
+    """Set the launch count of every kernel to 0."""
+    for module in kernel_modules():
+        module.reset_launch_counts()
 
 
 def run_lm_path(name: str) -> dict:
@@ -1000,6 +1052,347 @@ def small_lm_agreement(model: str, policy: str) -> None:
         fail("non-finite parameters on the card")
 
 
+# ---------------------------------------------------------------------------
+# The model zoo's serving slice: rwkv6-1.6b and hymba-1.5b
+# ---------------------------------------------------------------------------
+def zoo_counts() -> dict:
+    """Launch counts of every kernel the port has."""
+    counts = {}
+    for module in kernel_modules():
+        counts.update(module.launch_counts())
+    return counts
+
+
+def wkv6_inputs(B: int, T: int, H: int, D: int, seed: int,
+                strong: bool = False):
+    """r, k, v ~ N(0, 1), logw = -exp(U(-4, 1)) (decays from -0.02 to -2.7
+    a step, past the reference's overflow point), u = 0.1 N(0, 1),
+    s0 ~ N(0, 1), drawn on the card; ``strong`` puts the model's clip,
+    logw = -e^4, on half the channels."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r, k, v = (torch.randn((B, T, H, D), generator=gen, device="cuda")
+               for _ in range(3))
+    logw = -torch.exp(torch.empty((B, T, H, D), device="cuda").uniform_(
+        -4.0, 1.0, generator=gen))
+    if strong:
+        logw[..., : D // 2] = -float(torch.tensor(4.0).exp())
+    u = 0.1 * torch.randn((H, D), generator=gen, device="cuda")
+    s0 = torch.randn((B, H, D, D), generator=gen, device="cuda")
+    return [r, k, v, logw, u, s0]
+
+
+def ssm_inputs(B: int, T: int, d: int, N: int, seed: int):
+    """a = sigmoid(N(0, 1)), bx, c, h0 ~ N(0, 1), drawn on the card."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.sigmoid(torch.randn((B, T, d, N), generator=gen,
+                                  device="cuda"))
+    bx = torch.randn((B, T, d, N), generator=gen, device="cuda")
+    c = torch.randn((B, T, N), generator=gen, device="cuda")
+    h0 = torch.randn((B, d, N), generator=gen, device="cuda")
+    return [a, bx, c, h0]
+
+
+def wkv6_step_loop(r, k, v, logw, u, s0):
+    """The model's single-token recurrence (rwkv.wkv6_step), T times."""
+    import torch
+    from repro_torch.models import rwkv
+    S, ys = s0, []
+    for t in range(r.shape[1]):
+        y, S = rwkv.wkv6_step(r[:, t:t + 1], k[:, t:t + 1], v[:, t:t + 1],
+                              logw[:, t:t + 1], u, S)
+        ys.append(y)
+    return torch.cat(ys, 1), S
+
+
+def zoo_kernel_parity() -> dict:
+    """wkv6 and ssm_scan against their plain versions on the card: at the
+    full-width serving shapes, at D = 32, at T not a multiple of 64, at
+    T = 1, and (wkv6) at the model's strongest decay, which must stay
+    finite and match the step recurrence.  Returns the largest abs error
+    of each kernel at its serving shape."""
+    import torch
+    from repro_torch.kernels import ssm_scan as ssk
+    from repro_torch.kernels import wkv6 as wk
+    errs = {}
+    wkv6_cases = {"serving": (WKV6_SHAPE, False), "D32": ((2, 300, 4, 32),
+                                                          False),
+                  "T100": ((2, 100, 4, 64), False), "T1": ((3, 1, 4, 64),
+                                                           False),
+                  "strong_decay": ((2, 200, 4, 64), True)}
+    for label, (shape, strong) in wkv6_cases.items():
+        x = wkv6_inputs(*shape, seed=7, strong=strong)
+        y, s = wk.wkv6(*x)
+        torch.cuda.synchronize()
+        yp, sp = wk.wkv6_plain(*x)
+        err = max(float((y - yp).abs().max()), float((s - sp).abs().max()))
+        ok = bool(torch.allclose(y, yp, **WKV6_TOL)
+                  and torch.allclose(s, sp, **WKV6_TOL))
+        finite = bool(y.isfinite().all() and s.isfinite().all())
+        rec = {"max_abs_err": err, "max_abs_y": float(yp.abs().max()),
+               "finite": finite}
+        if strong:
+            ys, ss = wkv6_step_loop(*x)
+            rec["step_max_abs_err"] = max(float((y - ys).abs().max()),
+                                          float((s - ss).abs().max()))
+            ok = ok and bool(torch.allclose(y, ys, **WKV6_TOL)
+                             and torch.allclose(s, ss, **WKV6_TOL))
+        phase("zoo_kernel_parity", kernel="wkv6", case=label, shape=shape,
+              tol=WKV6_TOL, **rec)
+        if not (ok and finite):
+            fail(f"wkv6 kernel disagrees with its plain version ({label})")
+        if label == "serving":
+            errs["wkv6"] = err
+        del x, y, s, yp, sp
+    ssm_cases = {"serving": SSM_SHAPE, "T100": (2, 100, 1600, 16),
+                 "T1": (2, 1, 1600, 16), "N4_odd_d": (2, 77, 19, 4)}
+    for label, shape in ssm_cases.items():
+        x = ssm_inputs(*shape, seed=8)
+        y, h = ssk.ssm_scan(*x)
+        torch.cuda.synchronize()
+        yp, hp = ssk.ssm_scan_plain(*x)
+        err = max(float((y - yp).abs().max()), float((h - hp).abs().max()))
+        ok = bool(torch.allclose(y, yp, **SSM_TOL)
+                  and torch.allclose(h, hp, **SSM_TOL))
+        phase("zoo_kernel_parity", kernel="ssm_scan", case=label,
+              shape=shape, tol=SSM_TOL, max_abs_err=err,
+              max_abs_y=float(yp.abs().max()))
+        if not ok:
+            fail(f"ssm_scan kernel disagrees with its plain version "
+                 f"({label})")
+        if label == "serving":
+            errs["ssm_scan"] = err
+        del x, y, h, yp, hp
+    return errs
+
+
+def serve_path(arch: str, trace: bool = False) -> dict:
+    """The serving path of one arch at full width and depth with bf16
+    params and compute: init on the card, ``make_prefill_step`` on
+    8 x 2048 tokens (counts set to 0 just before, read just after: its
+    kernel once per layer, nothing else), then ``generate`` on 8 prompts of
+    64 tokens plus 32 greedy tokens twice (no kernel launch, identical
+    tokens).  With ``trace``, one more prefill and a short generate (11
+    decode steps) under the profiler.  Returns the launch counts and the
+    times."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import transformer as tr
+    kernel, layers, n_params = ZOO_ARCHS[arch]
+    cfg = get_arch(arch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = tr.init_params(gen, cfg, cfg.param_dtype_serve, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    count = tr.param_count(params)
+    if count != n_params:
+        fail(f"{arch}: {count} parameters, not {n_params}")
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_T),
+                            generator=gen, device="cuda")
+    prefill = steps.make_prefill_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    t0 = time.perf_counter()
+    logits = prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = zoo_counts()
+    want = {name: 0 for name in launches}
+    want[kernel] = layers
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    walls = []
+    for _ in range(PREFILL_REPS):
+        t0 = time.perf_counter()
+        prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    finite = bool(logits.isfinite().all())
+
+    gen_prompts = prompts[:, :GEN_PROMPT].contiguous()
+    max_seq = GEN_PROMPT + GEN_TOKENS + 1
+    reset_all_counts()
+    runs, gen_walls = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        runs.append(serve.generate(cfg, params, gen_prompts, GEN_TOKENS,
+                                   max_seq))
+        torch.cuda.synchronize()
+        gen_walls.append(time.perf_counter() - t0)
+    gen_launches = zoo_counts()
+    toks = runs[0]
+    steps_per_run = GEN_PROMPT + GEN_TOKENS - 1
+    decode_step_ms = gen_walls[1] / steps_per_run * 1e3
+    phase("serve_path", arch=arch, dtype=cfg.param_dtype_serve,
+          params=count, init_s=init_s, batch=SERVE_B, prompt_tokens=SERVE_T,
+          logits_shape=list(logits.shape), logits_finite=finite,
+          logits_abs_max=float(logits.abs().max()),
+          prefill_launches=launches, first_prefill_s=first_s,
+          prefill_s=walls, prefill_s_median=statistics.median(walls),
+          prefill_tokens_per_s=SERVE_B * SERVE_T / statistics.median(walls),
+          prefill_peak_gb=peak_gb,
+          generate_prompt=GEN_PROMPT, generate_tokens=GEN_TOKENS,
+          generate_launches=gen_launches, generate_wall_s=gen_walls,
+          decode_step_ms=decode_step_ms,
+          decode_ms_per_token=decode_step_ms / SERVE_B,
+          tokens_first_row=toks[0].tolist())
+    if list(logits.shape) != [SERVE_B, tr.padded_vocab(cfg)] or not finite:
+        fail(f"{arch}: prefill logits {list(logits.shape)}, finite {finite}")
+    if launches != want:
+        fail(f"{arch}: prefill launches {launches}, expected {want}")
+    if any(gen_launches.values()):
+        fail(f"{arch}: generate launched kernels {gen_launches}")
+    if toks.shape != (SERVE_B, GEN_TOKENS) or int(toks.min()) < 0 or \
+            int(toks.max()) >= cfg.vocab_size:
+        fail(f"{arch}: generated tokens {tuple(toks.shape)} out of range")
+    if not torch.equal(runs[0], runs[1]):
+        fail(f"{arch}: two generate runs differ")
+    if trace:
+        profile_device(f"{arch} prefill", lambda: prefill(
+            params, {"tokens": prompts}), 1, "prefill")
+        profile_device(f"{arch} decode", lambda: serve.generate(
+            cfg, params, gen_prompts[:, :8], 4, 13), 11, "decode_step")
+    del params, logits
+    torch.cuda.empty_cache()
+    return {"launches": launches, "prefill_s": statistics.median(walls),
+            "decode_step_ms": decode_step_ms}
+
+
+def serve_consistency(arch: str) -> dict:
+    """The reference's serve == prefill check at full width and depth in
+    fp32 (params and compute): ``forward`` over 160 tokens (2.5 wkv6
+    chunks, so the tail runs) and 160 ``decode_step``s agree at every
+    position within atol 2e-3, rtol 1e-3."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tr
+    kernel, layers, _ = ZOO_ARCHS[arch]
+    cfg = dataclasses.replace(get_arch(arch), compute_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = tr.init_params(gen, cfg, "float32", device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, CONSISTENCY_T),
+                         generator=gen, device="cuda")
+    with torch.no_grad():
+        reset_all_counts()
+        fwd = tr.forward(params, cfg, toks)[0][..., :cfg.vocab_size]
+        launches = zoo_counts()[kernel]
+        state = tr.init_decode_state(cfg, 2, CONSISTENCY_T + 1, "float32",
+                                     device="cuda")
+        dec = []
+        view = tr.layer_view(params, cfg)
+        for t in range(CONSISTENCY_T):
+            lg, state = tr.decode_step(view, cfg, state, toks[:, t:t + 1])
+            dec.append(lg)
+        dec = torch.cat(dec, 1)
+    err = (fwd - dec).abs()
+    ok = bool(torch.allclose(dec, fwd, **CONSISTENCY_TOL))
+    worst = (err - CONSISTENCY_TOL["rtol"] * fwd.abs()).max()
+    phase("serve_consistency", arch=arch, dtype="float32",
+          tokens=CONSISTENCY_T, batch=2, launches={kernel: launches},
+          max_abs_err=float(err.max()), logits_abs_max=float(fwd.abs().max()),
+          max_excess_over_rtol=float(worst), tol=CONSISTENCY_TOL,
+          err_by_quarter=[float(q.max()) for q in err.chunk(4, dim=1)])
+    if launches != layers:
+        fail(f"{arch}: forward launched {kernel} {launches} times")
+    if not ok:
+        fail(f"{arch}: forward and decode disagree by {float(err.max())}")
+    del params, fwd, dec, state
+    torch.cuda.empty_cache()
+    return {"max_abs_err": float(err.max())}
+
+
+def wkv6_work(B: int, T: int, H: int, D: int):
+    """Bytes the wkv6 function must move (r, k, v, logw, u, s0 read once; y
+    and sT written once), the operations the function needs and those of
+    the kernel's own formulation.  The function needs what the step
+    recurrence does per token and head: k v^T (D^2), r^T S (2 D^2) and the
+    decayed update w S + k v^T (2 D^2), plus the O(D) terms (w = exp(logw),
+    the bonus r (u k) v).  The kernel does more for this T: per chunk of L
+    steps and head, q S and the state update (2 L D^2 each), the pair
+    matrix (L (L-1)/2 D pairs of a subtract, an exp, two multiplies and an
+    add) and A v (L (L-1) D), plus its O(L D) terms.  The bound is set by
+    the function's work; the kernel's is reported beside it."""
+    bytes_ = 4 * (5 * B * T * H * D + 2 * B * H * D * D + H * D)
+    ops = B * H * T * (5 * D * D + 5 * D)
+    kernel_ops = 0
+    for t0 in range(0, T, 64):
+        L = min(64, T - t0)
+        pairs = L * (L - 1) // 2
+        kernel_ops += (4 * L * D * D + 5 * pairs * D + 2 * pairs * D
+                       + 10 * L * D)
+    return bytes_, ops, kernel_ops * B * H
+
+
+def ssm_work(B: int, T: int, d: int, N: int):
+    """Bytes (a, bx, c, h0 read once; y, hT written once) and operations
+    (a multiply-add for h, a multiply and an add for y per (t, c, n)),
+    which the kernel does as they are."""
+    bytes_ = 4 * (2 * B * T * d * N + B * T * N + 2 * B * d * N + B * T * d)
+    ops = 4 * B * T * d * N
+    return bytes_, ops, ops
+
+
+def time_zoo_kernels() -> dict:
+    """Each kernel at its serving shape: ``ms`` (the C launcher back to
+    back on rotating copies of inputs and outputs over four times the L2
+    size), ``warm_ms`` (one buffer), ``wrapper_ms`` (one Python wrapper
+    call with its checks and allocations), ``plain_ms`` and the bound."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ssm_scan as ssk
+    from repro_torch.kernels import wkv6 as wk
+    lib = build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    B, T, H, D = WKV6_SHAPE
+    Bs, Ts, d, N = SSM_SHAPE
+    specs = {  # inputs, output shapes, C launcher + its ints, wrapper, plain
+        "wkv6": (wkv6_inputs(*WKV6_SHAPE, seed=9),
+                 [WKV6_SHAPE, (B, H, D, D)], lib.wkv6_launch,
+                 (B, T, H, D), wk.wkv6, wk.wkv6_plain,
+                 wkv6_work(*WKV6_SHAPE)),
+        "ssm_scan": (ssm_inputs(*SSM_SHAPE, seed=9),
+                     [(Bs, Ts, d), (Bs, d, N)], lib.ssm_scan_launch,
+                     (Bs, Ts, d, N), ssk.ssm_scan, ssk.ssm_scan_plain,
+                     ssm_work(*SSM_SHAPE)),
+    }
+    results = {}
+    for name, (x, out_shapes, fn, ints, wrapper, plain, work) in \
+            specs.items():
+        nbytes, ops, kernel_ops = work
+        copies = max(2, -(-4 * l2 // sum(t.nbytes for t in x)))
+        xs = [x] + [[t.clone() for t in x] for _ in range(copies - 1)]
+        ys = [[torch.empty(s, device="cuda") for s in out_shapes]
+              for _ in range(copies)]
+        ptrs = [[t.data_ptr() for t in xs[i] + ys[i]] for i in range(copies)]
+        kernels = [lambda p=p: fn(*p, *ints, stream) for p in ptrs]
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / FP32_OPS_PER_S * 1e3
+        rec = {"shape": list(ints), "ms": cuda_loop_ms(kernels, launches=20),
+               "warm_ms": cuda_loop_ms(kernels[:1], launches=20),
+               "wrapper_ms": cuda_ms([lambda v=v: wrapper(*v) for v in xs],
+                                     reps=10),
+               "plain_ms": cuda_ms([lambda v=v: plain(*v) for v in xs],
+                                   reps=3),
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "bytes_ms": bytes_ms, "ops_ms": ops_ms, "library_ms": None,
+               "bytes": nbytes, "operations": ops,
+               "kernel_operations": kernel_ops,
+               "kernel_ops_ms": kernel_ops / FP32_OPS_PER_S * 1e3,
+               "buffers": copies,
+               "l2_bytes": l2}
+        results[name] = rec
+        phase("kernel_time", case="serving", kernel=name, **rec)
+        del x, xs, ys, kernels
+        specs[name] = None
+        torch.cuda.empty_cache()
+    return results
+
+
 def main(argv) -> int:
     """Run the phases; returns the exit code."""
     trace = "--profile" in argv
@@ -1085,6 +1478,15 @@ def main(argv) -> int:
               steady_round_s_median=statistics.median(walls[1:]),
               full_rounds_s=walls[1:6], cohort16_rounds_s=walls[6:],
               first_round_s=walls[0])
+
+    # ---- 6. the model zoo's serving slice ---------------------------------
+    del main_in, large_in
+    torch.cuda.empty_cache()
+    zoo_errs = zoo_kernel_parity()
+    serves = {arch: serve_path(arch, trace) for arch in ZOO_ARCHS}
+    for arch in ZOO_ARCHS:
+        serve_consistency(arch)
+    zoo_times = time_zoo_kernels()
     if trace:
         profile_rounds(fused, "fig5-fused-int8")
         profile_rounds(lms["vgg-fig5"], "vgg-fig5")
@@ -1134,6 +1536,26 @@ def main(argv) -> int:
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "library_note": PER_ARRAY_LIBRARY_NOTE})
+    zoo_replaces = {"wkv6": ("src/repro/kernels/wkv6.py:72", "rwkv6-1.6b"),
+                    "ssm_scan": ("src/repro/kernels/ssm_scan.py:62",
+                                 "hymba-1.5b")}
+    for name, (path, arch) in zoo_replaces.items():
+        rec = zoo_times[name]
+        launches = serves[arch]["launches"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": path,
+            "path": f"{arch} prefill step, bf16, {SERVE_B} x {SERVE_T} "
+                    f"tokens, full width and depth",
+            "launches": launches, "launches_per_prefill": launches,
+            "shape": rec["shape"], "max_abs_err": zoo_errs[name],
+            "ms": rec["ms"], "warm_ms": rec["warm_ms"],
+            "wrapper_ms": rec["wrapper_ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"],
+            "kernel_operations": rec["kernel_operations"],
+            "library_note": ZOO_LIBRARY_NOTE})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

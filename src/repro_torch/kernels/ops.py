@@ -23,6 +23,10 @@ masked values (int8 codes against per-segment scales from one
 compaction batched over clients turns those narrow outputs into COO or
 bitmap payloads without re-reading the fp32 data.
 
+``ssm_scan(a, bx, c, h0)`` and ``wkv6(r, k, v, logw, u, s0)`` are the two
+recurrences of the model zoo (``kernels.ssm_scan``, ``kernels.wkv6``) in the
+models' own layouts, any T, no padding.
+
 Trees are flat ``{name: tensor}`` dicts in the reference's leaf order
 (``repro_torch.bridge``).
 """
@@ -37,7 +41,9 @@ from repro_torch.core.compression import (int8_scales, pack_bits_rows,
                                           unpack_bits_rows)
 from repro_torch.kernels import packing as pk
 from repro_torch.kernels import segmented as seg
+from repro_torch.kernels import ssm_scan as ssk
 from repro_torch.kernels import topk_mask as tk
+from repro_torch.kernels import wkv6 as wk
 from repro_torch.kernels.ref import EXPO_MIN
 
 Tree = Dict[str, torch.Tensor]
@@ -46,7 +52,8 @@ __all__ = ["DEFAULT_REFINE_SWEEPS", "DEFAULT_CANDIDATES", "topk_mask",
            "masked_count", "pytree_sweep_count", "topk_mask_pytree",
            "topk_mask_stacked",
            "topk_encode_pytree", "topk_encode_stacked", "client_encode_scales",
-           "wirepath_sweep_count", "wirepath_bytes_moved"]
+           "wirepath_sweep_count", "wirepath_bytes_moved", "ssm_scan",
+           "wkv6"]
 
 
 def topk_mask(x: torch.Tensor, gamma: float, iters: int = 8) -> torch.Tensor:
@@ -383,3 +390,26 @@ def wirepath_bytes_moved(n_params: int, gamma: float, *, fused: bool,
         "encode_writes", "apply_write", "payload_writes"))
     return {"reads": reads, "writes": writes, "total": reads + writes,
             "payload_bytes": payload, "breakdown": breakdown}
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    return x.float().contiguous()
+
+
+def ssm_scan(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
+             h0: torch.Tensor):
+    """Selective-SSM recurrence on the CUDA kernel (``kernels.ssm_scan``).
+
+    a, bx: (B, T, d, N) decay and input terms (the layout models/ssm.py
+    uses); c: (B, T, N); h0: (B, d, N), any float dtype (computed in fp32).
+    Returns (y (B, T, d), hT (B, d, N)) fp32."""
+    return ssk.ssm_scan(_f32(a), _f32(bx), _f32(c), _f32(h0))
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         logw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor):
+    """RWKV6 wkv recurrence on the CUDA kernel (``kernels.wkv6``).
+
+    r/k/v/logw: (B, T, H, D); u: (H, D); s0: (B, H, D, D), any float dtype
+    (computed in fp32).  Returns (y (B, T, H, D), sT (B, H, D, D)) fp32."""
+    return wk.wkv6(_f32(r), _f32(k), _f32(v), _f32(logw), _f32(u), _f32(s0))

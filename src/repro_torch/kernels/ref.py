@@ -7,6 +7,8 @@
 * ``exponent_histogram_ref`` / ``group_histogram_ref`` — per-octave and
   4-octave magnitude counts, the quantities the histogram kernels
   accumulate.
+* ``ssm_scan_ref``       — the selective-SSM recurrence one step at a time,
+  in the reference oracle's (B, T, N, D) layout.
 
 The reference writes its masks as ``x * float(keep)``; XLA compiles that
 product into a select, so a masked-out entry comes out +0.0 whatever its
@@ -19,7 +21,7 @@ import torch
 
 __all__ = ["NBINS", "EXPO_MIN", "topk_mask_ref", "threshold_mask_ref",
            "count_ge_ref", "exponent_bins", "exponent_histogram_ref",
-           "group_histogram_ref"]
+           "group_histogram_ref", "ssm_scan_ref"]
 
 NBINS = 128
 EXPO_MIN = -96  # bin j counts magnitudes in [2^(j+EXPO_MIN), 2^(j+EXPO_MIN+1))
@@ -71,3 +73,15 @@ def group_histogram_ref(x: torch.Tensor,
     (not suffix) form of what the segmented histogram kernel counts."""
     h = exponent_histogram_ref(x)
     return h.reshape(-1, octaves_per_bin).sum(1).to(torch.int32)
+
+
+def ssm_scan_ref(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
+                 h0: torch.Tensor):
+    """Oracle for the SSM-scan kernel.  a, bx: (B, T, N, D); c: (B, T, N);
+    h0: (B, N, D).  Returns (y (B, T, D), hT (B, N, D)), fp32."""
+    h = h0.float()
+    ys = []
+    for t in range(a.shape[1]):
+        h = a[:, t].float() * h + bx[:, t].float()
+        ys.append(torch.einsum("bnd,bn->bd", h, c[:, t].float()))
+    return torch.stack(ys, 1), h

@@ -1,8 +1,9 @@
 """Tests of the port that need an NVIDIA card: each CUDA kernel against its
 plain PyTorch version, ``ops.topk_mask`` on the card against the same
-pipeline on the CPU, and the fig5 and fig5-fused-int8 rounds (LeNet) and
+pipeline on the CPU, the fig5 and fig5-fused-int8 rounds (LeNet) and
 the random-mask round (GRU-LM) on the card against the same rounds on the
-CPU.  They skip without a card.  This file
+CPU, and the reduced rwkv6 and hymba serving paths on the card (wkv6 and
+ssm_scan kernels) against the same paths on the CPU (plain versions).  They skip without a card.  This file
 imports no JAX, so on a machine without it run it alone:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -17,9 +18,14 @@ from repro_torch.data.partition import iid_partition_images, partition_text
 from repro_torch.data.synthetic import class_gaussian_images, markov_text
 from repro_torch.kernels import ops
 from repro_torch.kernels import packing as pk
+from repro_torch.configs import get_arch
 from repro_torch.kernels import segmented as seg
+from repro_torch.kernels import ssm_scan as ssk
 from repro_torch.kernels import topk_mask as tk
+from repro_torch.kernels import wkv6 as wk
+from repro_torch.launch import serve, steps
 from repro_torch.models import paper_models as pm
+from repro_torch.models import transformer as tr
 
 pytestmark = pytest.mark.cuda
 
@@ -257,3 +263,95 @@ def test_gru_random_round_on_card_matches_cpu(cuda):
     for k, v in cpu.params.items():
         torch.testing.assert_close(gpu.params[k].cpu(), v, rtol=1e-4,
                                    atol=1e-4)
+
+
+# ---------------------------------------------------------------- model zoo
+def _wkv6_inputs(B, T, H, D, seed, strong=False):
+    gen = torch.Generator().manual_seed(seed)
+    r, k, v = (torch.randn((B, T, H, D), generator=gen) for _ in range(3))
+    logw = -torch.exp(torch.empty((B, T, H, D)).uniform_(-4.0, 1.0,
+                                                         generator=gen))
+    if strong:                      # the model's clip, e^4, on half the lanes
+        logw[..., : D // 2] = -float(torch.tensor(4.0).exp())
+    u = 0.1 * torch.randn((H, D), generator=gen)
+    s0 = torch.randn((B, H, D, D), generator=gen)
+    return [r, k, v, logw, u, s0]
+
+
+@pytest.mark.parametrize("shape", [(2, 100, 3, 64), (1, 1, 2, 32),
+                                   (2, 64, 4, 32), (1, 257, 2, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("strong", [False, True])
+def test_wkv6_kernel_matches_plain_version(cuda, shape, strong):
+    """Both fp32, summed in other orders: atol 1e-3 on outputs up to about
+    100, rtol 1e-4."""
+    x = [t.to(cuda) for t in _wkv6_inputs(*shape, seed=0, strong=strong)]
+    y, s = wk.wkv6(*x)
+    torch.cuda.synchronize()
+    y_plain, s_plain = wk.wkv6_plain(*x)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    torch.testing.assert_close(y, y_plain, atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(s, s_plain, atol=1e-3, rtol=1e-4)
+
+
+def test_wkv6_kernel_refuses_other_head_dims(cuda):
+    x = [t.to(cuda) for t in _wkv6_inputs(1, 8, 2, 16, seed=0)]
+    with pytest.raises(ValueError, match="head dims"):
+        wk.wkv6(*x)
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 4, 2), (2, 37, 19, 4),
+                                   (2, 300, 33, 16), (1, 256, 256, 8),
+                                   (1, 5, 3, 1), (1, 9, 2, 32)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ssm_scan_kernel_matches_plain_version(cuda, shape):
+    """Both fp32; the kernel fuses the update into an FMA and sums the
+    state lanes as a butterfly: atol 1e-4, rtol 1e-5."""
+    B, T, d, N = shape
+    gen = torch.Generator().manual_seed(1)
+    a = torch.sigmoid(torch.randn((B, T, d, N), generator=gen)).to(cuda)
+    bx = torch.randn((B, T, d, N), generator=gen).to(cuda)
+    c = torch.randn((B, T, N), generator=gen).to(cuda)
+    h0 = torch.randn((B, d, N), generator=gen).to(cuda)
+    y, hT = ssk.ssm_scan(a, bx, c, h0)
+    torch.cuda.synchronize()
+    y_plain, h_plain = ssk.ssm_scan_plain(a, bx, c, h0)
+    torch.testing.assert_close(y, y_plain, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(hT, h_plain, atol=1e-4, rtol=1e-5)
+
+
+def test_ssm_scan_kernel_refuses_other_state_dims(cuda):
+    x = torch.zeros((1, 4, 3, 3), device=cuda)
+    with pytest.raises(ValueError, match="divide 32"):
+        ssk.ssm_scan(x, x, torch.zeros((1, 4, 3), device=cuda),
+                     torch.zeros((1, 3, 3), device=cuda))
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
+def test_reduced_serving_on_card_matches_cpu(cuda, arch):
+    """fp32 prefill and greedy generate of the reduced config on the card
+    (kernels) and on the CPU (plain versions): logits within 1e-4, tokens
+    equal; the prefill launches its kernel once per recurrent layer and
+    generate never."""
+    import dataclasses
+    cfg = dataclasses.replace(get_arch(arch).reduced(),
+                              compute_dtype="float32")
+    params = tr.init_params(torch.Generator().manual_seed(0), cfg,
+                            "float32", device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 100),
+                         generator=torch.Generator().manual_seed(1))
+    prefill = steps.make_prefill_step(cfg)
+    counts = wk if arch.startswith("rwkv") else ssk
+    counts.reset_launch_counts()
+    got = prefill({k: v.to(cuda) for k, v in params.items()},
+                  {"tokens": toks.to(cuda)})
+    assert sum(counts.launch_counts().values()) == cfg.num_layers
+    want = prefill(params, {"tokens": toks})
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    counts.reset_launch_counts()
+    gen_card = serve.generate(cfg, {k: v.to(cuda) for k, v in
+                                    params.items()}, toks[:, :40].to(cuda),
+                              8, 49)
+    assert sum(counts.launch_counts().values()) == 0
+    gen_cpu = serve.generate(cfg, params, toks[:, :40], 8, 49)
+    assert torch.equal(gen_card.cpu(), gen_cpu)

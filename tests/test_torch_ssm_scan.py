@@ -1,0 +1,119 @@
+"""The port's selective-SSM scan (kernels/ssm_scan.py behind ops.ssm_scan)
+and SSM branch (models/ssm.py) against the reference on the CPU.
+
+On the CPU the wrapper runs ``ssm_scan_plain`` (tests/test_torch_cuda.py
+holds the CUDA kernel against it on the card).  Inputs are made once with
+numpy and handed to both packages.  Tolerances: atol 1e-5 for the scan,
+as tests/test_kernels.py holds the Pallas kernel to its oracle; 1e-4 for
+the whole branch (a softplus, exponentials and two projections before the
+scan, summed in other orders).
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models import ssm as jssm
+from repro_torch import bridge
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssm_scan as ssk
+from repro_torch.models import ssm
+
+
+def _inputs(B, T, d, N, seed=0):
+    rng = np.random.default_rng(seed)
+    a = (1.0 / (1.0 + np.exp(-rng.standard_normal((B, T, d, N))))
+         ).astype(np.float32)
+    bx = rng.standard_normal((B, T, d, N)).astype(np.float32)
+    c = rng.standard_normal((B, T, N)).astype(np.float32)
+    h0 = rng.standard_normal((B, d, N)).astype(np.float32)
+    return a, bx, c, h0
+
+
+SHAPES = [(1, 8, 4, 2), (2, 37, 19, 4), (2, 300, 33, 16), (1, 256, 256, 8)]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_ssm_scan_matches_pallas_kernel_and_oracles(shape):
+    a, bx, c, h0 = _inputs(*shape)
+    y, hT = ops.ssm_scan(*(torch.from_numpy(x) for x in (a, bx, c, h0)))
+    y_pallas, h_pallas = jops.ssm_scan(a, bx, c, h0, interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_pallas), atol=1e-5)
+    np.testing.assert_allclose(hT.numpy(), np.asarray(h_pallas), atol=1e-5)
+    # both oracles take the (B, T, N, D) layout of the TPU kernel
+    tr = (a.transpose(0, 1, 3, 2), bx.transpose(0, 1, 3, 2), c,
+          h0.transpose(0, 2, 1))
+    y_ref, h_ref = jref.ssm_scan_ref(*tr)
+    y_port_ref, h_port_ref = ref.ssm_scan_ref(
+        *(torch.from_numpy(np.ascontiguousarray(x)) for x in tr))
+    for yr, hr in ((np.asarray(y_ref), np.asarray(h_ref)),
+                   (y_port_ref.numpy(), h_port_ref.numpy())):
+        np.testing.assert_allclose(y.numpy(), yr, atol=1e-5)
+        np.testing.assert_allclose(hT.numpy(), hr.transpose(0, 2, 1),
+                                   atol=1e-5)
+    assert ssk.launch_counts() == {"ssm_scan": 0}     # CPU: plain version
+
+
+@pytest.mark.parametrize("bad", ["rank", "c", "h0", "dtype"])
+def test_ssm_scan_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    x = [torch.from_numpy(v) for v in _inputs(1, 8, 4, 2)]
+    if bad == "rank":
+        x[0] = x[0][0]
+    elif bad == "c":
+        x[2] = x[2][:, :4]
+    elif bad == "h0":
+        x[3] = x[3][:, :3]
+    else:
+        x[1] = x[1].double()
+    with pytest.raises(ValueError):
+        ssk.ssm_scan(*x)
+
+
+@pytest.fixture(scope="module")
+def branch():
+    """One SSM branch (d_model = d_inner = 16, N = 4), the reference's
+    params carried across the bridge, and a (2, 64, 32) input."""
+    key = jax.random.PRNGKey(5)
+    params = jssm.init_ssm_params(key, 16, 16, 4, jnp.float32)
+    xz = np.array(jax.random.normal(jax.random.fold_in(key, 1),
+                                    (2, 64, 32)))
+    port = bridge.params_from_numpy(jax.tree.map(np.asarray, params),
+                                    device="cpu")
+    return params, port, xz
+
+
+@pytest.mark.parametrize("T", [64, 37])
+def test_ssm_forward_matches_reference(branch, T):
+    params, port, xz = branch
+    xz = xz[:, :T]
+    h0 = np.random.default_rng(1).standard_normal((2, 16, 4)
+                                                  ).astype(np.float32)
+    y_ref, h_ref = jssm.ssm_forward(params, xz, h0)
+    y, hT = ssm.ssm_forward(port, torch.from_numpy(xz), torch.from_numpy(h0))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(hT.numpy(), np.asarray(h_ref), atol=1e-4,
+                               rtol=1e-4)
+
+
+def test_ssm_step_matches_reference_and_forward(branch):
+    params, port, xz = branch
+    h_ref = jnp.zeros((2, 16, 4))
+    h = torch.zeros((2, 16, 4))
+    ys = []
+    for t in range(xz.shape[1]):
+        y_ref, h_ref = jssm.ssm_step(params, xz[:, t:t + 1], h_ref)
+        y, h = ssm.ssm_step(port, torch.from_numpy(xz[:, t:t + 1]), h)
+        np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), atol=1e-4,
+                                   rtol=1e-4)
+        ys.append(y)
+    y_fwd, h_fwd = ssm.ssm_forward(port, torch.from_numpy(xz),
+                                   torch.zeros((2, 16, 4)))
+    np.testing.assert_allclose(torch.cat(ys, 1).numpy(), y_fwd.numpy(),
+                               atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(h.numpy(), h_fwd.numpy(), atol=1e-4,
+                               rtol=1e-4)

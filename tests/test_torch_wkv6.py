@@ -1,0 +1,154 @@
+"""The port's wkv6 (kernels/wkv6.py, behind ops.wkv6 and
+models/rwkv.wkv6_chunked) against the reference on the CPU.
+
+On the CPU the wrapper runs ``wkv6_plain``, the same chunks and exponents
+as the CUDA kernel (tests/test_torch_cuda.py holds the kernel against it on
+the card).  The inputs are made once with numpy and handed to both
+packages.  Tolerances: 2e-3 (abs and rel) against the reference's chunked
+forms, as tests/test_kernels.py holds them against each other; 1e-4 abs
+and 1e-5 rel against the step-by-step recurrence (outputs up to about 45
+in size), which both chunked forms must reproduce.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from repro.kernels import ops as jops
+from repro.models import rwkv as jrwkv
+from repro_torch.kernels import ops
+from repro_torch.kernels import wkv6 as wk
+from repro_torch.models import rwkv
+
+
+def _inputs(B, T, H, D, seed=11):
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, T, H, D)).astype(np.float32)
+               for _ in range(3))
+    logw = -np.exp(rng.uniform(-4.0, 1.0, (B, T, H, D))).astype(np.float32)
+    u = (0.1 * rng.standard_normal((H, D))).astype(np.float32)
+    s0 = rng.standard_normal((B, H, D, D)).astype(np.float32)
+    return [r, k, v, logw, u, s0]
+
+
+def _port(x):
+    y, s = ops.wkv6(*(torch.from_numpy(a) for a in x))
+    return y.numpy(), s.numpy()
+
+
+def _reference_steps(r, k, v, logw, u, s0):
+    """The reference's single-token recurrence, T times."""
+    S = jnp.asarray(s0)
+    ys = []
+    for t in range(r.shape[1]):
+        sl = slice(t, t + 1)
+        y, S = jrwkv.wkv6_step(r[:, sl], k[:, sl], v[:, sl], logw[:, sl],
+                               u, S)
+        ys.append(np.asarray(y))
+    return np.concatenate(ys, 1), np.asarray(S)
+
+
+def _port_steps(r, k, v, logw, u, s0):
+    """The port's own single-token recurrence, T times."""
+    S = torch.from_numpy(s0)
+    ys = []
+    for t in range(r.shape[1]):
+        y, S = rwkv.wkv6_step(*(torch.from_numpy(a[:, t:t + 1])
+                                for a in (r, k, v, logw)),
+                              torch.from_numpy(u), S)
+        ys.append(y.numpy())
+    return np.concatenate(ys, 1), S.numpy()
+
+
+SHAPES = [(2, 8, 3, 8), (2, 64, 3, 8), (2, 100, 3, 8), (1, 100, 2, 32)]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_wkv6_plain_matches_pallas_kernel_and_chunked_form(shape):
+    x = _inputs(*shape)
+    y, s = _port(x)
+    for yr, sr in (jops.wkv6(*x, interpret=True),
+                   jrwkv.wkv6_chunked(*x)):
+        np.testing.assert_allclose(y, np.asarray(yr), atol=2e-3, rtol=2e-3)
+        np.testing.assert_allclose(s, np.asarray(sr), atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_wkv6_plain_matches_step_recurrence(shape):
+    x = _inputs(*shape)
+    y, s = _port(x)
+    for yr, sr in (_reference_steps(*x), _port_steps(*x)):
+        np.testing.assert_allclose(y, yr, atol=1e-4, rtol=1e-5)
+        np.testing.assert_allclose(s, sr, atol=1e-4, rtol=1e-5)
+
+
+def test_wkv6_chunked_routes_through_the_wrapper():
+    x = _inputs(2, 70, 2, 8)
+    y, s = rwkv.wkv6_chunked(*(torch.from_numpy(a) for a in x))
+    y2, s2 = _port(x)
+    assert np.array_equal(y.numpy(), y2) and np.array_equal(s.numpy(), s2)
+    assert wk.launch_counts() == {"wkv6": 0}     # CPU: plain version
+
+
+def test_reference_chunked_wkv6_overflows_where_the_port_does_not():
+    """ROADMAP Queue 3: with logw = -1.5 at every step, e^{-cum} passes the
+    fp32 range inside one 64-step chunk.  The reference's chunked form and
+    its Pallas kernel give NaN; the port's exponents are differences of
+    prefix sums and stay finite, matching the step recurrence."""
+    B, T, H, D = 1, 64, 1, 4
+    x = _inputs(B, T, H, D)
+    x[3] = np.full((B, T, H, D), -1.5, np.float32)
+    x[4] = np.zeros((H, D), np.float32)
+    x[5] = np.zeros((B, H, D, D), np.float32)
+    y_chunked, _ = jrwkv.wkv6_chunked(*x)
+    y_pallas, _ = jops.wkv6(*x, interpret=True)
+    assert np.isnan(np.asarray(y_chunked)).any()
+    assert np.isnan(np.asarray(y_pallas)).any()
+    y_steps, s_steps = _reference_steps(*x)
+    assert np.isfinite(y_steps).all()
+    y, s = _port(x)
+    assert np.isfinite(y).all() and np.isfinite(s).all()
+    np.testing.assert_allclose(y, y_steps, atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(s, s_steps, atol=1e-4, rtol=1e-5)
+    # where the decay is mild, the reference's chunked form agrees
+    x[3] = np.full((B, T, H, D), -0.5, np.float32)
+    y_chunked, _ = jrwkv.wkv6_chunked(*x)
+    np.testing.assert_allclose(_port(x)[0], np.asarray(y_chunked),
+                               atol=2e-3, rtol=2e-3)
+
+
+def test_wkv6_finite_at_the_models_strongest_decay():
+    """logw = -e^4, the model's clip, on half the channels."""
+    x = _inputs(2, 100, 2, 32)
+    x[3][..., :16] = -np.exp(4.0)
+    y, s = _port(x)
+    assert np.isfinite(y).all() and np.isfinite(s).all()
+    yr, sr = _reference_steps(*x)
+    np.testing.assert_allclose(y, yr, atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(s, sr, atol=1e-4, rtol=1e-5)
+
+
+def test_wkv6_single_step_and_zero_state():
+    x = _inputs(3, 1, 2, 8)
+    y, s = _port(x)
+    yr, sr = _reference_steps(*x)
+    np.testing.assert_allclose(y, yr, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(s, sr, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("bad", ["rank", "u", "s0", "dtype", "layout"])
+def test_wkv6_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    x = [torch.from_numpy(a) for a in _inputs(1, 8, 2, 8)]
+    if bad == "rank":
+        x[0] = x[0][0]
+    elif bad == "u":
+        x[4] = x[4][:1]
+    elif bad == "s0":
+        x[5] = x[5][..., :4]
+    elif bad == "dtype":
+        x[1] = x[1].double()
+    else:
+        x[2] = x[2].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError):
+        wk.wkv6(*x)
