@@ -13,7 +13,10 @@ with a nonzero exit:
 1. environment — card name and power limit, torch/CUDA versions, TF32
    settings (both off), and the kernel build time (one ``nvcc`` per source
    for sm_90a, all started together: segmented, topk_mask, wkv6,
-   ssm_scan);
+   ssm_scan); then ``wkv6_build``: each wkv6 kernel's registers, stack
+   and spills from the ``-Xptxas -v`` log, its threads, blocks a head and
+   dynamic shared memory, and its TF32 HMMA and MUFU.EX2 counts in the
+   SASS (``cuobjdump``; a kernel without HMMA fails the run);
 2. kernel parity — each of the five segmented CUDA kernels against its
    plain PyTorch version at the main path's shape (the cohort-packed
    LeNet-28 delta, 32 x 106 rows x 1024, S = 128) and on one 2^26-element
@@ -1306,24 +1309,95 @@ def serve_consistency(arch: str) -> dict:
 
 def wkv6_work(B: int, T: int, H: int, D: int):
     """Bytes the wkv6 function must move (r, k, v, logw, u, s0 read once; y
-    and sT written once), the operations the function needs and those of
-    the kernel's own formulation.  The function needs what the step
-    recurrence does per token and head: k v^T (D^2), r^T S (2 D^2) and the
-    decayed update w S + k v^T (2 D^2), plus the O(D) terms (w = exp(logw),
-    the bonus r (u k) v).  The kernel does more for this T: per chunk of L
-    steps and head, q S and the state update (2 L D^2 each), the pair
-    matrix (L (L-1)/2 D pairs of a subtract, an exp, two multiplies and an
-    add) and A v (L (L-1) D), plus its O(L D) terms.  The bound is set by
-    the function's work; the kernel's is reported beside it."""
+    and sT written once), the operations the function needs, and the
+    kernel's own work.  The function needs what the step recurrence does
+    per token and head: k v^T (D^2), r^T S (2 D^2) and the decayed update
+    w S + k v^T (2 D^2), plus the O(D) terms (w = exp(logw), the bonus
+    r (u k) v).  The bound is set by the function's work.
+
+    The kernel (csrc/wkv6.cu) runs every chunk as 64 rows (the tail
+    zero-filled) in blocks of one (b, h) and EV = D / 2 value columns, and
+    each of the D / EV blocks of a head recomputes the prefix sums, the pair
+    matrix A, q, kc and the bonus.  Per chunk and block: exponentials (an
+    exp2, a subtract, a multiply each) for the diagonal blocks (4 x 56 x D:
+    14 for the split lower-left quarter, 42 pairs of the two diagonal
+    quarters; the pair s = t - 1 takes none), q~ (48 D), k~ (96 D),
+    q (63 D), kc (64 D) and the decay (D); the diagonal pair terms (a
+    multiply and an add each, 4 x 120 x D); the products, each counted once
+    though 3xTF32 runs it as three TF32 products: the off-diagonal blocks
+    of A (2 D 16 x 16 x 6), q S (2 C D EV), A v over the lower blocks
+    (2 EV 16 x 16 x 10) and kc^T v (2 C D EV); the scan (2 C D), the bonus
+    (3 C D), y's bonus term (2 C EV) and the decay of S (D EV)."""
+    C, EV = 64, D // 2
     bytes_ = 4 * (5 * B * T * H * D + 2 * B * H * D * D + H * D)
     ops = B * H * T * (5 * D * D + 5 * D)
-    kernel_ops = 0
-    for t0 in range(0, T, 64):
-        L = min(64, T - t0)
-        pairs = L * (L - 1) // 2
-        kernel_ops += (4 * L * D * D + 5 * pairs * D + 2 * pairs * D
-                       + 10 * L * D)
-    return bytes_, ops, kernel_ops * B * H
+    exps = (4 * 56 + 48 + 96 + 63 + 64 + 1) * D
+    block_ops = (3 * exps + 2 * 4 * 120 * D
+                 + 2 * D * 16 * 16 * 6 + 2 * C * D * EV
+                 + 2 * EV * 16 * 16 * 10 + 2 * C * D * EV
+                 + 2 * C * D + 3 * C * D + 2 * C * EV + D * EV)
+    blocks = B * H * (D // EV) * -(-T // C)
+    return {"bytes": bytes_, "operations": ops,
+            "kernel_operations": block_ops * blocks,
+            "kernel_exponentials": exps * blocks}
+
+
+def wkv6_build_record(lib) -> dict:
+    """The wkv6 kernels' resources from the build's ``-Xptxas -v`` log
+    (registers, stack, spills), the launch shape from ``wkv6_config``
+    (threads, blocks a head, dynamic shared memory), and, where the toolkit
+    has ``cuobjdump``, the count of TF32 tensor-core products (HMMA) and of
+    exponentials (MUFU.EX2) in each kernel's SASS."""
+    import ctypes
+    import re
+    import shutil
+    from repro_torch.kernels import build
+    log = build.build_log().read_text()
+    kernels = {}
+    for m in re.finditer(r"Compiling entry function '(\S*wkv6_kernel\S*)'"
+                         r"(.*?)(?=Compiling entry function|== |\Z)", log,
+                         re.S):
+        body = m.group(2)
+        nums = {key: re.search(pat, body) for key, pat in (
+            ("registers", r"Used (\d+) registers"),
+            ("stack_bytes", r"(\d+) bytes stack frame"),
+            ("spill_stores", r"(\d+) bytes spill stores"),
+            ("spill_loads", r"(\d+) bytes spill loads"))}
+        head_dim = int(re.search(r"ILi(\d+)E", m.group(1)).group(1))
+        kernels[head_dim] = {key: int(v.group(1)) if v else None
+                             for key, v in nums.items()}
+    for head_dim, rec in kernels.items():
+        threads, slices, smem = (ctypes.c_int(), ctypes.c_int(),
+                                 ctypes.c_int())
+        err = lib.wkv6_config(head_dim, ctypes.byref(threads),
+                              ctypes.byref(slices), ctypes.byref(smem))
+        if err:
+            fail(f"wkv6_config({head_dim}) returned {err}")
+        rec.update(threads=threads.value, blocks_per_head=slices.value,
+                   dynamic_smem_bytes=smem.value)
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass_counts = None
+    if Path(cuobjdump).exists():
+        sass = subprocess.run([cuobjdump, "-sass", lib._name],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        sass_counts = {}
+        for part in re.split(r"\n\s*Function : ", sass)[1:]:
+            name = part.split("\n", 1)[0]
+            if "wkv6_kernel" in name:
+                head_dim = int(re.search(r"ILi(\d+)E", name).group(1))
+                sass_counts[head_dim] = {
+                    "hmma_tf32": len(re.findall(r"\bHMMA\.\w*\.F32\.TF32",
+                                                part)),
+                    "mufu_ex2": len(re.findall(r"\bMUFU\.EX2", part))}
+        for head_dim, counts in sass_counts.items():
+            kernels[head_dim]["sass"] = counts
+            if counts["hmma_tf32"] == 0:
+                fail(f"wkv6 kernel (D = {head_dim}) has no TF32 HMMA")
+    if sorted(kernels) != [32, 64]:
+        fail(f"wkv6 kernels in the build log: {sorted(kernels)}")
+    return {"kernels": {str(d): kernels[d] for d in sorted(kernels)},
+            "cuobjdump": sass_counts is not None}
 
 
 def ssm_work(B: int, T: int, d: int, N: int):
@@ -1332,7 +1406,7 @@ def ssm_work(B: int, T: int, d: int, N: int):
     which the kernel does as they are."""
     bytes_ = 4 * (2 * B * T * d * N + B * T * N + 2 * B * d * N + B * T * d)
     ops = 4 * B * T * d * N
-    return bytes_, ops, ops
+    return {"bytes": bytes_, "operations": ops, "kernel_operations": ops}
 
 
 def time_zoo_kernels() -> dict:
@@ -1362,7 +1436,7 @@ def time_zoo_kernels() -> dict:
     results = {}
     for name, (x, out_shapes, fn, ints, wrapper, plain, work) in \
             specs.items():
-        nbytes, ops, kernel_ops = work
+        nbytes, ops = work["bytes"], work["operations"]
         copies = max(2, -(-4 * l2 // sum(t.nbytes for t in x)))
         xs = [x] + [[t.clone() for t in x] for _ in range(copies - 1)]
         ys = [[torch.empty(s, device="cuda") for s in out_shapes]
@@ -1380,9 +1454,9 @@ def time_zoo_kernels() -> dict:
                "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                "bytes_ms": bytes_ms, "ops_ms": ops_ms, "library_ms": None,
-               "bytes": nbytes, "operations": ops,
-               "kernel_operations": kernel_ops,
-               "kernel_ops_ms": kernel_ops / FP32_OPS_PER_S * 1e3,
+               **work,
+               "kernel_ops_ms": work["kernel_operations"] / FP32_OPS_PER_S
+               * 1e3,
                "buffers": copies,
                "l2_bytes": l2}
         results[name] = rec
@@ -1428,6 +1502,7 @@ def main(argv) -> int:
           matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
           matmul_precision=torch.get_float32_matmul_precision(),
           kernel_build_s=build_s, ptxas=ptxas)
+    phase("wkv6_build", **wkv6_build_record(build.library()))
 
     # ---- 2. kernel parity ----------------------------------------------
     main_in = [t.cuda() for t in lenet_cohort_buffer(seed=1)]
@@ -1555,6 +1630,8 @@ def main(argv) -> int:
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
             "kernel_operations": rec["kernel_operations"],
+            **({"kernel_exponentials": rec["kernel_exponentials"]}
+               if "kernel_exponentials" in rec else {}),
             "library_note": ZOO_LIBRARY_NOTE})
     print(json.dumps({"kernels": kernels}))
     print(card)

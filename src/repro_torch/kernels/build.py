@@ -108,6 +108,7 @@ def library() -> ctypes.CDLL:
         "topk_count_launch": [ptr, i64, ptr, ptr, ptr],
         "topk_apply_launch": [ptr, i64, ptr, ptr, ptr],
         "wkv6_launch": [ptr] * 8 + [i32] * 4 + [ptr],
+        "wkv6_config": [i32, ptr, ptr, ptr],
         "ssm_scan_launch": [ptr] * 6 + [i32] * 4 + [ptr],
     }
     for name, argtypes in signatures.items():

@@ -20,10 +20,36 @@ overflows fp32 once a channel's decay summed over one chunk goes below
 about -88.7 (ROADMAP Queue 3); this module does not.
 
 ``wkv6`` is the wrapper around the hand-written CUDA kernel
-(``csrc/wkv6.cu``, head dims 32 and 64); ``wkv6_plain`` is the same function
-in plain PyTorch.  The wrapper takes the plain version only for a tensor on
-the CPU; for a CUDA tensor it launches the kernel or raises.  Every launch
-adds one to the count (:func:`launch_counts`).
+(``csrc/wkv6.cu``, head dims 32 and 64), which replaces the TPU kernel
+``src/repro/kernels/wkv6.py:72`` (``wkv6_tiled``).  Its bound on an H100 is
+the function's bytes (r, k, v, logw read once, y written once: 679.5 MB,
+0.2028 ms at rwkv6-1.6b's prefill of 8 x 2048 tokens); the issue of its
+phases, not its exponentials or its products, sets its pace (PERF.md).
+The kernel:
+
+- cuts each chunk into sub-chunks of ``SUBCHUNK`` steps and splits the pair
+  decay of a row t in sub-chunk i at the boundary ``b = 16 i - 1``:
+  ``e^{cp_t - cum_s} = e^{cp_t - cum_b} e^{cum_b - cum_s}``, both factors
+  <= 1, so A's off-diagonal blocks are products; inside each diagonal
+  block the lower-left 8 x 8 quarter splits again, and only the diagonal
+  8 x 8 quarters take a per-pair exponent (none for s >= t);
+- takes exponentials as ``exp2`` of log2e-scaled prefix sums, added in
+  order so that they never increase and no exponent is positive;
+- runs q S, A v, the state update and the off-diagonal blocks on the tensor
+  cores as 3xTF32 (``a = a_hi + a_lo``, three TF32 products summed in fp32,
+  about fp32 accuracy; plain TF32 would miss atol 1e-3 on outputs near 134);
+- gives each block one (b, h) and half of the value columns, D/2 columns of
+  S in registers (512 blocks at the serving shape), and streams the next
+  chunk into a second shared-memory stage while the current one computes:
+  r, k and logw as TMA boxes on an mbarrier, the v slice with ``cp.async``
+  (222,208 bytes of shared memory a block at D = 64).
+
+``wkv6_plain`` is the same function in plain PyTorch with one exponent per
+pair, an oracle independent of that factorization; ``_wkv6_subchunk_plain``
+mirrors the kernel's own formulation on the CPU and is called only by the
+tests.  The wrapper takes the plain version only for a tensor on the CPU;
+for a CUDA tensor it launches the kernel or raises.  Every launch adds one
+to the count (:func:`launch_counts`).
 """
 
 from __future__ import annotations
@@ -34,11 +60,13 @@ import torch
 
 from repro_torch.kernels.segmented import _launch, _library
 
-__all__ = ["CHUNK", "CUDA_HEAD_DIMS", "wkv6", "wkv6_plain", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["CHUNK", "SUBCHUNK", "CUDA_HEAD_DIMS", "wkv6", "wkv6_plain",
+           "launch_counts", "reset_launch_counts"]
 
 CHUNK = 64
+SUBCHUNK = 16
 CUDA_HEAD_DIMS = (32, 64)
+LOG2E = 1.4426950408889634
 
 _LAUNCHES: Dict[str, int] = {"wkv6": 0}
 
@@ -101,6 +129,56 @@ def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y.transpose(1, 2).contiguous(), S
 
 
+def _wkv6_subchunk_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         logw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA kernel's formulation in plain PyTorch: log2e-scaled prefix
+    sums taken in order, ``exp2``, sub-chunks of ``SUBCHUNK`` with the pair
+    decay split at each boundary (off-diagonal blocks as products), and
+    inside each diagonal block the lower-left quarter split again at its
+    middle; per-pair exponents only in the diagonal quarters.  For the
+    tests; nothing on the main path calls it."""
+    B, T, H, D = r.shape
+    rh, kh, vh, lh = (x.float().transpose(1, 2) for x in (r, k, v, logw))
+    S = s0.float().clone()
+    uu = u.float()[None, :, None, :]
+    y = torch.empty((B, H, T, D), dtype=torch.float32, device=r.device)
+    for t0 in range(0, T, CHUNK):
+        rb, kb, vb, lb = (x[:, :, t0:t0 + CHUNK] for x in (rh, kh, vh, lh))
+        L = rb.shape[2]
+        cum = torch.cumsum(lb * LOG2E, dim=2)
+        cp = torch.cat([torch.zeros_like(cum[:, :, :1]), cum[:, :, :-1]], 2)
+        A = torch.zeros((B, H, L, L), dtype=torch.float32, device=r.device)
+        for i0 in range(0, L, SUBCHUNK):
+            i1 = min(i0 + SUBCHUNK, L)
+            n = i1 - i0
+            lower = torch.ones((n, n), dtype=torch.bool, device=r.device
+                               ).tril(-1)[:, :, None]
+            expo = torch.where(lower, cp[:, :, i0:i1, None]
+                               - cum[:, :, None, i0:i1], -torch.inf)
+            pair = (rb[:, :, i0:i1, None] * kb[:, :, None, i0:i1]) \
+                * torch.exp2(expo)
+            A[:, :, i0:i1, i0:i1] = pair.sum(-1)
+            h = i0 + SUBCHUNK // 2
+            if i1 > h:                  # the lower-left quarter, split again
+                mid = cum[:, :, h - 1:h]
+                q_lo = rb[:, :, h:i1] * torch.exp2(cp[:, :, h:i1] - mid)
+                k_lo = kb[:, :, i0:h] * torch.exp2(mid - cum[:, :, i0:h])
+                A[:, :, h:i1, i0:h] = q_lo @ k_lo.transpose(2, 3)
+            if i0:
+                bnd = cum[:, :, i0 - 1:i0]                    # (B,H,1,D)
+                qt = rb[:, :, i0:i1] * torch.exp2(cp[:, :, i0:i1] - bnd)
+                kt = kb[:, :, :i0] * torch.exp2(bnd - cum[:, :, :i0])
+                A[:, :, i0:i1, :i0] = qt @ kt.transpose(2, 3)
+        diag = (rb * uu * kb).sum(-1, keepdim=True)
+        y[:, :, t0:t0 + L] = ((rb * torch.exp2(cp)) @ S + A @ vb
+                              + diag * vb)
+        last = cum[:, :, -1:]
+        kc = kb * torch.exp2(last - cum)
+        S = torch.exp2(last).transpose(2, 3) * S + kc.transpose(2, 3) @ vb
+    return y.transpose(1, 2).contiguous(), S
+
+
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          logw: torch.Tensor, u: torch.Tensor,
          s0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -114,6 +192,11 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if D not in CUDA_HEAD_DIMS:
         raise ValueError(f"the CUDA wkv6 kernel takes head dims "
                          f"{CUDA_HEAD_DIMS}, got {D}")
+    for name, x in (("r", r), ("k", k), ("v", v), ("logw", logw),
+                    ("s0", s0)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary for "
+                             f"the CUDA wkv6 kernel")
     y = torch.empty_like(r)
     sT = torch.empty_like(s0)
     _launch("wkv6", _library().wkv6_launch, r.data_ptr(), k.data_ptr(),

@@ -279,7 +279,10 @@ def _wkv6_inputs(B, T, H, D, seed, strong=False):
 
 
 @pytest.mark.parametrize("shape", [(2, 100, 3, 64), (1, 1, 2, 32),
-                                   (2, 64, 4, 32), (1, 257, 2, 64)],
+                                   (2, 64, 4, 32), (1, 257, 2, 64),
+                                   (2, 17, 3, 64), (2, 31, 2, 32),
+                                   (2, 65, 2, 64), (1, 300, 1, 64),
+                                   (1, 100, 1, 32)],
                          ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("strong", [False, True])
 def test_wkv6_kernel_matches_plain_version(cuda, shape, strong):
@@ -292,6 +295,22 @@ def test_wkv6_kernel_matches_plain_version(cuda, shape, strong):
     assert torch.isfinite(y).all() and torch.isfinite(s).all()
     torch.testing.assert_close(y, y_plain, atol=1e-3, rtol=1e-4)
     torch.testing.assert_close(s, s_plain, atol=1e-3, rtol=1e-4)
+
+
+def test_wkv6_call_is_one_launch(cuda):
+    x = [t.to(cuda) for t in _wkv6_inputs(2, 130, 2, 64, seed=0)]
+    wk.reset_launch_counts()
+    wk.wkv6(*x)
+    torch.cuda.synchronize()
+    assert wk.launch_counts() == {"wkv6": 1}
+
+
+def test_wkv6_kernel_refuses_unaligned_inputs(cuda):
+    x = [t.to(cuda) for t in _wkv6_inputs(1, 8, 2, 32, seed=0)]
+    flat = torch.zeros(x[0].numel() + 1, device=cuda)
+    x[0] = flat[1:].view(x[0].shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        wk.wkv6(*x)
 
 
 def test_wkv6_kernel_refuses_other_head_dims(cuda):

@@ -1,9 +1,13 @@
 """The port's wkv6 (kernels/wkv6.py, behind ops.wkv6 and
 models/rwkv.wkv6_chunked) against the reference on the CPU.
 
-On the CPU the wrapper runs ``wkv6_plain``, the same chunks and exponents
-as the CUDA kernel (tests/test_torch_cuda.py holds the kernel against it on
-the card).  The inputs are made once with numpy and handed to both
+On the CPU the wrapper runs ``wkv6_plain``, one exponent per pair
+(tests/test_torch_cuda.py holds the CUDA kernel against it on the card).
+``_wkv6_subchunk_plain`` mirrors the kernel's own formulation (sub-chunks
+of 16, the pair decay split at each boundary and again inside the
+diagonal blocks, exp2 of log2e-scaled sums) and is held here against
+``wkv6_plain``, the step recurrence and the Pallas kernel, at sub-chunk
+and chunk edges.  The inputs are made once with numpy and handed to both
 packages.  Tolerances: 2e-3 (abs and rel) against the reference's chunked
 forms, as tests/test_kernels.py holds them against each other; 1e-4 abs
 and 1e-5 rel against the step-by-step recurrence (outputs up to about 45
@@ -17,7 +21,7 @@ import jax.numpy as jnp
 
 from repro.kernels import ops as jops
 from repro.models import rwkv as jrwkv
-from repro_torch.kernels import ops
+from repro_torch.kernels import build, ops, profile_wkv6
 from repro_torch.kernels import wkv6 as wk
 from repro_torch.models import rwkv
 
@@ -152,3 +156,64 @@ def test_wkv6_wrapper_rejects_what_the_kernel_does_not_take(bad):
         x[2] = x[2].transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError):
         wk.wkv6(*x)
+
+
+SUB_T = [1, 15, 16, 17, 63, 64, 65, 100]
+SUB_D = [32, 64]
+
+
+def _subchunk(x):
+    y, s = wk._wkv6_subchunk_plain(*(torch.from_numpy(a) for a in x))
+    return y.numpy(), s.numpy()
+
+
+@pytest.mark.parametrize("D", SUB_D)
+@pytest.mark.parametrize("T", SUB_T)
+def test_wkv6_subchunk_form_matches_plain_version(T, D):
+    x = _inputs(2, T, 2, D)
+    y, s = _subchunk(x)
+    yp, sp = _port(x)
+    np.testing.assert_allclose(y, yp, atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(s, sp, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("D", SUB_D)
+@pytest.mark.parametrize("T", SUB_T)
+def test_wkv6_subchunk_form_matches_step_recurrence(T, D):
+    x = _inputs(2, T, 2, D)
+    y, s = _subchunk(x)
+    ys, ss = _port_steps(*x)
+    np.testing.assert_allclose(y, ys, atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(s, ss, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("D", SUB_D)
+@pytest.mark.parametrize("T", SUB_T)
+def test_wkv6_subchunk_form_matches_pallas_kernel(T, D):
+    x = _inputs(2, T, 2, D)
+    y, s = _subchunk(x)
+    yr, sr = jops.wkv6(*x, interpret=True)
+    np.testing.assert_allclose(y, np.asarray(yr), atol=2e-3, rtol=2e-3)
+    np.testing.assert_allclose(s, np.asarray(sr), atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("D", SUB_D)
+def test_wkv6_subchunk_form_finite_at_the_models_strongest_decay(D):
+    """logw = -e^4 on half the channels: every split factor stays <= 1."""
+    x = _inputs(2, 100, 2, D)
+    x[3][..., : D // 2] = -np.exp(4.0)
+    y, s = _subchunk(x)
+    assert np.isfinite(y).all() and np.isfinite(s).all()
+    ys, ss = _port_steps(*x)
+    np.testing.assert_allclose(y, ys, atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(s, ss, atol=1e-4, rtol=1e-5)
+
+
+def test_profile_marks_cover_every_phase_and_stay_out_of_the_build():
+    """kernels/profile_wkv6.py reads one clock count per WKV6_MARK; the
+    production build compiles the marks to nothing."""
+    src = (build.SOURCES[0].parent / "wkv6.cu").read_text()
+    assert len(profile_wkv6.PHASES) == profile_wkv6.MARKS
+    for m in range(profile_wkv6.MARKS):
+        assert f"WKV6_MARK({m});" in src
+    assert not any("WKV6_PROFILE" in flag for flag in build.NVCC_FLAGS)
