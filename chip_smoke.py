@@ -22,7 +22,8 @@ with a nonzero exit:
    LeNet-28 delta, 32 x 106 rows x 1024, S = 128) and on one 2^26-element
    buffer with 64 segments: histograms, counts, bitmaps and int8 codes
    exact, masked values and maxima bitwise; the count kernel also at
-   C in {1, 8, 16, 17, 32} candidates;
+   C in {1, 8, 16, 17, 32, 4096} candidates, sorted, and shuffled with
+   duplicates, NaN, inf, -0.0 and negative taus;
 3. main paths, each through ``FederatedServer.from_strategy(...).run(...)``
    with M = 32 clients for 8 rounds, with the launch counts set to 0 just
    before and read just after:
@@ -49,15 +50,22 @@ with a nonzero exit:
    leaf, and the entries where it and the round's segmented mask differ;
    then the three per-array kernels against their plain versions on those
    leaves, on the whole VGG delta as one vector, on a 2^26-element vector
-   and on edge inputs (subnormals, +-inf, NaN), and ``ops.topk_mask`` on
-   the kernels against the same pipeline on the plain versions (bitwise);
+   and on edge inputs (subnormals, +-inf, NaN), ``count_ge`` also on views
+   of each that start 1-3 elements in, at odd lengths, and ``ops.topk_mask``
+   on the kernels against the same pipeline on the plain versions
+   (bitwise);
 5. timing — each kernel's median time (CUDA events) on inputs that are not
-   in the L2 cache, and on one buffer that stays there (``warm_ms``), beside
+   in the L2 cache, and on one buffer that stays there (``warm_ms``), its
+   traced time per launch (``device_ms``: no launch gaps) with the trace's
+   device records, the kernel's own records and the calls made, beside
    its bound (bytes moved over 3.35 TB/s, or operations over 67 TFLOP/s
    fp32), the launches of its path's run, the wrapper's time per call, its
-   plain version's time; for ``ops.topk_mask`` also the library yardstick
-   ``torch.topk(|x|, k)`` plus a scatter; and the steady per-round wall
-   time of every main path;
+   plain version's time (the count kernel at 2^26 also with C = 32 and
+   4096); for ``ops.topk_mask`` also the library yardstick
+   ``torch.topk(|x|, k)`` plus a scatter; the steady per-round wall time
+   and ``compile_s`` of every main path; and ``fresh_process_round_time``:
+   the fig5 path in a fresh process with an empty build directory, whose
+   round 1 ``compile_s`` takes the kernel library's nvcc build;
 6. the model zoo's serving slice, rwkv6-1.6b and hymba-1.5b:
    - ``zoo_kernel_parity``: the wkv6 and ssm_scan CUDA kernels against
      their plain versions at the full-width serving shapes ((8, 2048, 32,
@@ -89,6 +97,7 @@ repository beside it, the script exits nonzero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -121,9 +130,20 @@ LM_PATHS = {
 }
 LM_PARAMS = {"vgg": 617_770, "gru": 180_608}
 PER_ARRAY = ("exponent_histogram", "count_ge", "apply_threshold")
+# Each timed kernel's name in a trace (``segmented_count_c32`` and
+# ``segmented_encode_fp32`` time the same kernels at other arguments).
+KERNEL_SYMBOLS = {"segmented_histogram": "seg_hist_kernel",
+                  "segmented_count": "seg_count_kernel",
+                  "segmented_apply": "seg_apply_kernel",
+                  "segmented_stats": "seg_stats_kernel",
+                  "segmented_encode": "seg_encode_kernel",
+                  "exponent_histogram": "exponent_hist_kernel",
+                  "count_ge": "count_ge_kernel",
+                  "apply_threshold": "apply_threshold_kernel"}
 PER_ARRAY_ITERS = 8
 LARGEST_VGG_LEAF = 147_456       # conv2b.w, conv3a.w, conv3b.w: 3x3x128x128
-COUNT_CANDIDATES = (1, 8, 16, 17, 32)
+COUNT_CANDIDATES = (1, 8, 16, 17, 32, 4096)
+LARGE_COUNT_CANDIDATES = (32, 4096)   # timed at 2^26 beside the path's 16
 SMALL_RTOL = 1e-3                # card vs CPU: reduction order differs
 # The model zoo's serving slice: arch -> (its kernel, launches per prefill,
 # parameters at full width).
@@ -251,6 +271,23 @@ def taus_for(x2d, seg_ids, k, num_segments):
             int8_scales(amax[:, 0]).contiguous())
 
 
+def unsorted_taus(taus, seed: int):
+    """``taus`` ((S, C) candidates) shuffled along C, with duplicated
+    neighbours, and NaN, inf, -0.0 and negative taus in every seventh
+    place: the count kernel's sort path."""
+    import torch
+    S, C = taus.shape
+    gen = torch.Generator().manual_seed(seed)
+    out = taus.cpu()[:, torch.randperm(C, generator=gen)].clone()
+    if C > 2:
+        out[:, 1::2] = out[:, 0::2][:, :out[:, 1::2].shape[1]]
+    special = torch.tensor([float("nan"), float("inf"), -0.0, -1.0])
+    flat = out.reshape(-1)
+    flat[3::7] = special.repeat(flat[3::7].numel() // 4 + 1)[
+        :flat[3::7].numel()]
+    return out.to(taus.device)
+
+
 def _bitwise(a, b) -> bool:
     import torch
     if a.dtype == torch.float32:
@@ -297,10 +334,13 @@ def check_kernels(label: str, x2d, seg_ids, k) -> dict:
         got["segmented_histogram"][0], k)
     counts = {}
     for c in COUNT_CANDIDATES:
-        taus = seg.candidate_taus(lo, hi, c, geometric=True).contiguous()
-        counts[c] = bool(torch.equal(seg.segmented_count(x2d, seg_ids, taus),
-                                     seg.segmented_count_plain(x2d, seg_ids,
-                                                               taus)))
+        sorted_taus = seg.candidate_taus(lo, hi, c, geometric=True)
+        for order, taus in (("sorted", sorted_taus),
+                            ("unsorted", unsorted_taus(sorted_taus, c))):
+            taus = taus.contiguous()
+            counts[f"{c}-{order}"] = bool(torch.equal(
+                seg.segmented_count(x2d, seg_ids, taus),
+                seg.segmented_count_plain(x2d, seg_ids, taus)))
     phase("kernel_parity", shape=label, rows=x2d.shape[0], segments=S,
           max_abs_err=errs, exact=exact, count_by_candidates=counts,
           hist_total=int(got["segmented_histogram"][0][:, 0].sum()),
@@ -335,11 +375,49 @@ def cuda_loop_ms(fns, launches: int = 50, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def time_kernels(label: str, x2d, seg_ids, k) -> dict:
+def device_ms(fns, symbol: str, launches: int = 50) -> dict:
+    """``launches`` calls back to back, as in :func:`cuda_loop_ms`, under
+    ``torch.profiler`` (after one short session that starts the tracer):
+    the traced time per record of the kernel named ``symbol`` (no launch
+    gaps, whatever the host's pace), the device records of the trace, the
+    kernel's records and the calls made.  A call that puts more than the
+    kernel on the stream shows as more records than kernel records."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for fn in fns[:3]:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        fns[0]()
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(launches):
+            fns[i % len(fns)]()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    mine = [e for e in events if symbol in e.name]
+    if not mine:
+        fail(f"the trace holds no record of {symbol}")
+    return {"device_ms": sum(e.time_range.elapsed_us() for e in mine)
+            / 1e3 / len(mine),
+            "device_records": len(events), "kernel_records": len(mine),
+            "calls": launches}
+
+
+def kernel_symbol(name: str) -> str:
+    """The CUDA kernel that the timing entry ``name`` launches."""
+    return next(sym for key, sym in KERNEL_SYMBOLS.items()
+                if name.startswith(key))
+
+
+def time_kernels(label: str, x2d, seg_ids, k, count_candidates=()) -> dict:
     """Per kernel: its device time (C launcher called back to back on
     preallocated outputs), the wrapper's time per call (argument checks,
     output allocation and zeroing, launch), the plain version's time and
-    the bound.
+    the bound.  The count kernel also with each C of ``count_candidates``
+    (``segmented_count_c<C>``: C geometric candidates a segment, ascending,
+    as the masking path makes them).
 
     The bound counts device-memory bytes, so every timed call reads an input
     the L2 cache does not hold: the calls rotate over copies of ``x2d``
@@ -355,7 +433,12 @@ def time_kernels(label: str, x2d, seg_ids, k) -> dict:
     n = x2d.numel()
     rows = x2d.shape[0]
     cand, tau, scales = taus_for(x2d, seg_ids, k, S)
-    C = cand.shape[1]
+    lo, hi, _, _ = seg.select_thresholds(
+        seg.segmented_histogram(x2d, seg_ids, S), k)
+    cands = {"segmented_count": cand, **{
+        f"segmented_count_c{c}":
+        seg.candidate_taus(lo, hi, c, geometric=True).contiguous()
+        for c in count_candidates}}
     l2 = torch.cuda.get_device_properties(x2d.device).L2_cache_size
     copies = max(2, -(-4 * l2 // x2d.nbytes))
     xs = [x2d] + [x2d.clone() for _ in range(copies - 1)]
@@ -366,7 +449,8 @@ def time_kernels(label: str, x2d, seg_ids, k) -> dict:
                            device=x2d.device) for _ in range(copies)]
     hist = torch.zeros((S, 32), dtype=torch.int32, device=x2d.device)
     amax = torch.zeros((S, 1), dtype=torch.float32, device=x2d.device)
-    cnt = torch.zeros((S, C), dtype=torch.int32, device=x2d.device)
+    cnts = {name: torch.zeros(c.shape, dtype=torch.int32, device=x2d.device)
+            for name, c in cands.items()}
     kept = torch.zeros((S, 1), dtype=torch.int32, device=x2d.device)
     sp = seg_ids.data_ptr()
 
@@ -375,9 +459,10 @@ def time_kernels(label: str, x2d, seg_ids, k) -> dict:
         if name == "segmented_histogram":
             return lambda: lib.seg_histogram_launch(
                 x, sp, rows, S, hist.data_ptr(), stream)
-        if name == "segmented_count":
+        if name in cands:
             return lambda: lib.seg_count_launch(
-                x, sp, cand.data_ptr(), rows, S, C, cnt.data_ptr(), stream)
+                x, sp, cands[name].data_ptr(), rows, S, cands[name].shape[1],
+                cnts[name].data_ptr(), stream)
         if name == "segmented_apply":
             return lambda: lib.seg_apply_launch(
                 x, sp, tau.data_ptr(), rows, S, outs[i].data_ptr(),
@@ -400,10 +485,14 @@ def time_kernels(label: str, x2d, seg_ids, k) -> dict:
             lambda x: seg.segmented_histogram(x, seg_ids, S),
             lambda x: seg.segmented_histogram_plain(x, seg_ids, S),
             4 * n + ids + 4 * S * 32, 32 * n),
-        "segmented_count": (
-            lambda x: seg.segmented_count(x, seg_ids, cand),
-            lambda x: seg.segmented_count_plain(x, seg_ids, cand),
-            4 * n + ids + 8 * S * C, C * n),
+        # An element's C counts follow from its rank among the candidates:
+        # ceil(log2(C + 1)) compares.
+        **{name: (
+            lambda x, c=c: seg.segmented_count(x, seg_ids, c),
+            lambda x, c=c: seg.segmented_count_plain(x, seg_ids, c),
+            4 * n + ids + 8 * c.numel(),
+            n * math.ceil(math.log2(c.shape[1] + 1)))
+           for name, c in cands.items()},
         "segmented_apply": (
             lambda x: seg.segmented_apply(x, seg_ids, tau),
             lambda x: seg.segmented_apply_plain(x, seg_ids, tau),
@@ -428,6 +517,7 @@ def time_kernels(label: str, x2d, seg_ids, k) -> dict:
         kernels = [launcher(name, i) for i in range(copies)]
         rec = {"ms": cuda_loop_ms(kernels),
                "warm_ms": cuda_loop_ms(kernels[:1]),
+               **device_ms(kernels, kernel_symbol(name)),
                "wrapper_ms": cuda_ms([lambda x=x: wrapper(x) for x in xs]),
                "plain_ms": cuda_ms([lambda x=x: plain(x) for x in xs],
                                    reps=5),
@@ -879,6 +969,24 @@ def large_vector(seed: int):
     return x.reshape(-1)
 
 
+def count_views_agree(x, taus) -> dict:
+    """``count_ge`` against its plain version on views of ``x`` that start
+    1, 2 or 3 elements in (off the 16-byte boundary) and on lengths 0, 1,
+    3, 5, 4095 and the rest of ``x``: "offset:length" -> exact."""
+    import torch
+    from repro_torch.kernels import topk_mask as tk
+    out = {}
+    for offset in (1, 2, 3):
+        rest = max(0, x.numel() - offset)
+        for n in sorted({min(m, rest) for m in (0, 1, 3, 5, 4095, rest)}):
+            view = x[offset:offset + n]
+            out[f"{offset}:{n}"] = all(
+                int(tk.count_ge(view, t)) == int(tk.count_ge_plain(view, t))
+                for t in (torch.tensor(tau, device=x.device)
+                          for tau in taus))
+    return out
+
+
 def check_topk_kernels(label: str, x, errs: dict) -> dict:
     """Kernels 6–8 against their plain versions on the card at one input
     (histogram and counts exact, apply bitwise) and ``ops.topk_mask`` on
@@ -903,13 +1011,15 @@ def check_topk_kernels(label: str, x, errs: dict) -> dict:
         apply_ok &= _bitwise(got, want)
         apply_err = max(apply_err, float((got.double() - want.double())
                                          .abs().nan_to_num().max()))
-    exact.update(count_ge=count_ok, apply_threshold=apply_ok,
+    views = count_views_agree(x, taus)
+    exact.update(count_ge=count_ok and all(views.values()),
+                 apply_threshold=apply_ok,
                  topk_mask=_bitwise(got_mask, want_mask))
     for name in PER_ARRAY:
         errs[name] = max(errs.get(name, 0.0),
                          0.0 if name != "apply_threshold" else apply_err)
     phase("topk_kernel_parity", input=label, n=x.numel(), taus=taus,
-          exact=exact, kept=int((got_mask != 0).sum()))
+          exact=exact, count_ge_views=views, kept=int((got_mask != 0).sum()))
     bad = [name for name, ok in exact.items() if not ok]
     if bad:
         fail(f"per-array kernels disagree with their plain versions "
@@ -963,6 +1073,7 @@ def time_topk(label: str, x, launches: dict) -> dict:
         kernels = [launcher(name, i) for i in range(copies)]
         rec = {"ms": cuda_loop_ms(kernels),
                "warm_ms": cuda_loop_ms(kernels[:1]),
+               **device_ms(kernels, kernel_symbol(name)),
                "wrapper_ms": cuda_ms([lambda v=v: wrapper(v) for v in xs]),
                "plain_ms": cuda_ms([lambda v=v: plain(v) for v in xs],
                                    reps=5),
@@ -1467,6 +1578,46 @@ def time_zoo_kernels() -> dict:
     return results
 
 
+def fresh_process_compile_s() -> dict:
+    """The fig5 path (LeNet-28, M = 32, 8 rounds) in a fresh process with an
+    empty build directory (``python -m repro_torch.launch.round_time``):
+    the kernel library's nvcc build lands in round 1's ``compile_s``, the
+    first-call setup of eager PyTorch in its ``wall_s``.  ``compile_s``
+    must be nonzero exactly where the bucket changes."""
+    import os
+    import shutil
+    build_dir = ROOT / "build" / "compile_s_probe"
+    shutil.rmtree(build_dir, ignore_errors=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "REPRO_TORCH_BUILD_DIR": str(build_dir)}
+    try:
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.round_time",
+             "--device", "cuda"], capture_output=True, text=True, env=env,
+            cwd=ROOT, timeout=300)
+    finally:
+        shutil.rmtree(build_dir, ignore_errors=True)
+    if out.returncode != 0:
+        fail(f"round_time exited {out.returncode}: {out.stderr[-2000:]}")
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    phase("fresh_process_round_time", **rec)
+    changes = [i == 0 or b != rec["buckets"][i - 1]
+               for i, b in enumerate(rec["buckets"])]
+    if [c > 0 for c in rec["compile_s"]] != changes:
+        fail(f"compile_s {rec['compile_s']} is not nonzero exactly on the "
+             f"bucket changes of {rec['buckets']}")
+    if rec["buckets"] != MAIN_BUCKETS:
+        fail(f"fresh-process buckets {rec['buckets']} != {MAIN_BUCKETS}")
+    return rec
+
+
+def at_large(rec: dict) -> dict:
+    """A kernel's times and bound on the 2^26-element input."""
+    return {key: rec[key] for key in ("ms", "warm_ms", "device_ms",
+                                      "wrapper_ms", "plain_ms", "bound_ms",
+                                      "bound_by")}
+
+
 def main(argv) -> int:
     """Run the phases; returns the exit code."""
     trace = "--profile" in argv
@@ -1539,20 +1690,23 @@ def main(argv) -> int:
 
     # ---- 5. timing -------------------------------------------------------
     times = time_kernels("lenet28_cohort32", *main_in)
-    time_kernels("2^26", *large_in)
+    large_times = time_kernels("2^26", *large_in,
+                               count_candidates=LARGE_COUNT_CANDIDATES)
     leaf = deltas["vgg"]["conv3b.w"].reshape(-1).contiguous()
     if leaf.numel() != LARGEST_VGG_LEAF:
         fail(f"largest VGG leaf has {leaf.numel()} entries")
     topk_times = time_topk(f"vgg_leaf_{LARGEST_VGG_LEAF}", leaf,
                            per_array["launches"])
-    time_topk("2^26", big, per_array["launches"])
+    large_topk_times = time_topk("2^26", big, per_array["launches"])
     del big
     for preset, main_run in {**mains, **lms}.items():
         walls = [r.wall_s for r in main_run["history"]]
         phase("round_time", preset=preset,
               steady_round_s_median=statistics.median(walls[1:]),
               full_rounds_s=walls[1:6], cohort16_rounds_s=walls[6:],
-              first_round_s=walls[0])
+              first_round_s=walls[0],
+              compile_s=[r.compile_s for r in main_run["history"]])
+    fresh_process_compile_s()
 
     # ---- 6. the model zoo's serving slice ---------------------------------
     del main_in, large_in
@@ -1582,10 +1736,16 @@ def main(argv) -> int:
             "launches": fused["launches"][name],
             "launches_per_round": fused["launches"][name] / rounds,
             "max_abs_err": errs[name], "ms": rec["ms"],
-            "warm_ms": rec["warm_ms"], "wrapper_ms": rec["wrapper_ms"],
+            "warm_ms": rec["warm_ms"], "device_ms": rec["device_ms"],
+            "wrapper_ms": rec["wrapper_ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "library_note": LIBRARY_NOTE}
+        entry["at_2^26"] = at_large(large_times[name])
+        if name == "segmented_count":
+            for c in LARGE_COUNT_CANDIDATES:
+                entry[f"at_2^26_c{c}"] = at_large(
+                    large_times[f"segmented_count_c{c}"])
         if name == "segmented_encode":
             fp32 = times["segmented_encode_fp32"]
             entry.update(variant="int8", fp32_ms=fp32["ms"],
@@ -1607,9 +1767,11 @@ def main(argv) -> int:
             "path": "per-array ops.topk_mask on one client's VGG and GRU "
                     "deltas", "shape": LARGEST_VGG_LEAF,
             "max_abs_err": topk_errs[name], "ms": rec["ms"],
-            "warm_ms": rec["warm_ms"], "wrapper_ms": rec["wrapper_ms"],
+            "warm_ms": rec["warm_ms"], "device_ms": rec["device_ms"],
+            "wrapper_ms": rec["wrapper_ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "at_2^26": at_large(large_topk_times[name]),
             "library_note": PER_ARRAY_LIBRARY_NOTE})
     zoo_replaces = {"wkv6": ("src/repro/kernels/wkv6.py:72", "rwkv6-1.6b"),
                     "ssm_scan": ("src/repro/kernels/ssm_scan.py:62",

@@ -9,7 +9,11 @@ The loop is eager: every round picks its cohort bucket on the host and calls
 the matching round (``engine="cohort"``: the bucketed cohort body, or the
 oracle body when the bucket is the whole population; ``engine="full"``:
 always the oracle).  The reference's AOT compilation and ``lax.scan``
-segments are XLA dispatch machinery and have no counterpart here.
+segments are XLA dispatch machinery and have no counterpart here.  What is
+a build here (a bucket's round construction and, for a round that launches
+kernels, the kernel library's ``nvcc`` build or load) is timed apart as
+``RoundRecord.compile_s`` on the round that first needs it, outside
+``wall_s``.
 
 Randomness: each round's (M,) uniform participant scores come from the
 server's own CPU ``torch.Generator`` seeded with ``seed`` — the same draws
@@ -54,7 +58,8 @@ class RoundRecord:
     transport_units: float      # full-model-upload units this round (Eq. 6)
     transport_bytes: int        # EXACT wire bytes (codec-encoded uploads)
     eval_metric: Optional[float] = None
-    wall_s: float = 0.0         # round time, device synchronized
+    wall_s: float = 0.0         # round time, device synchronized (build excluded)
+    compile_s: float = 0.0      # program build time; nonzero on bucket-change rounds
     cohort_size: int = 0        # padded cohort buffer actually executed
     flop_proxy: float = 0.0     # 6·params·examples·epochs·cohort_size
     quarantined: int = 0        # uploads rejected at the decode gate
@@ -115,19 +120,29 @@ class FederatedServer:
                    eval_fn=eval_fn, seed=seed, engine=engine, device=device,
                    scores=scores, mask_scores=mask_scores)
 
-    def _round_fn(self, bucket: int) -> Callable:
-        """The (cached) round for one cohort bucket."""
+    def _round_fn(self, bucket: int) -> tuple:
+        """The (cached) round for one cohort bucket and the seconds spent
+        building it: on the bucket's first use, the round's construction
+        and, on a CUDA device when the round launches kernels, the kernel
+        library's ``nvcc`` build or load (cached for the process after its
+        first use); 0.0 for a bucket already built.  The counterpart of the reference's
+        ``_get_compiled``.  A build failure raises."""
         fn = self._rounds.get(bucket)
-        if fn is None:
-            from repro_torch.core.strategy import build_round
-            M = self.cfg.num_clients
-            if bucket >= M:
-                fn = build_round(self.strategy, self._loss_fn, M, form="full")
-            else:
-                fn = build_round(self.strategy, self._loss_fn, M,
-                                 form="cohort", cohort_size=bucket)
-            self._rounds[bucket] = fn
-        return fn
+        if fn is not None:
+            return fn, 0.0
+        from repro_torch.core.strategy import build_round, launches_kernels
+        t0 = time.perf_counter()
+        M = self.cfg.num_clients
+        if bucket >= M:
+            fn = build_round(self.strategy, self._loss_fn, M, form="full")
+        else:
+            fn = build_round(self.strategy, self._loss_fn, M,
+                             form="cohort", cohort_size=bucket)
+        if self.device.type == "cuda" and launches_kernels(self.strategy):
+            from repro_torch.kernels.build import library
+            library()
+        self._rounds[bucket] = fn
+        return fn, time.perf_counter() - t0
 
     def _round_scores(self, t: int) -> torch.Tensor:
         M = self.cfg.num_clients
@@ -196,7 +211,7 @@ class FederatedServer:
             m = self.schedule.num_clients_host(t, M)
             bucket = self.strategy.sampler.cohort_bucket(self.schedule, m, M)
             bucket = bucket if self.engine == "cohort" else M
-            round_fn = self._round_fn(bucket)
+            round_fn, compile_s = self._round_fn(bucket)
             self._sync()
             t0 = time.perf_counter()
             mask_scores = self.round_mask_scores(t)
@@ -212,7 +227,7 @@ class FederatedServer:
                 mean_loss=float(metrics["mean_loss"]),
                 transport_units=num_sampled * gamma,
                 transport_bytes=num_sampled * self.client_upload_bytes,
-                wall_s=wall, cohort_size=bucket,
+                wall_s=wall, compile_s=compile_s, cohort_size=bucket,
                 flop_proxy=float(flops_per_client) * bucket,
                 quarantined=int(metrics["quarantined"]))
             if self.eval_fn is not None and eval_every and (
@@ -248,6 +263,7 @@ class FederatedServer:
             "sampler": self.strategy.sampler.name,
             "codec": self.strategy.codec.name,
             "client_upload_bytes": self.client_upload_bytes,
+            "compile_s": float(sum(r.compile_s for r in self.history)),
             "steady_wall_s": float(sum(r.wall_s for r in self.history)),
             "quarantined": int(sum(r.quarantined for r in self.history)),
             "device": str(self.device),

@@ -33,7 +33,8 @@ from repro_torch.core.sampling import (ClientSampler, DynamicSampling,
                                        UniformSampler)
 
 __all__ = ["MaskPolicy", "Aggregator", "FEDAVG", "FedStrategy",
-           "default_codec", "build_round", "register", "get", "names"]
+           "default_codec", "build_round", "launches_kernels", "register",
+           "get", "names"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,6 +226,15 @@ def build_round(strategy: FedStrategy, loss_fn: Callable, num_clients: int,
         raise ValueError("form='cohort' requires cohort_size")
     return make_cohort_round(loss_fn, strategy.sampling, cfg, cohort_size,
                              **kw)
+
+
+def launches_kernels(strategy: FedStrategy) -> bool:
+    """Whether the round ``strategy`` builds launches the CUDA kernels:
+    selective masking on the ``kernel`` backend that keeps less than the
+    whole delta, or a codec on the ``fused`` backend."""
+    m = strategy.masking
+    masks = m.mode == "selective" and m.backend == "kernel" and m.gamma < 1.0
+    return masks or _codec_backend(strategy.codec) == "fused"
 
 
 _REGISTRY: Dict[str, FedStrategy] = {}

@@ -18,18 +18,20 @@
 // What bounds them.  Each kernel reads every element once (4 bytes); apply
 // writes it once more (4 bytes), encode writes 4 bytes (fp32) or 1 byte
 // (int8) plus one bitmap bit.  The per-element work is a compare or two, an
-// exponent extraction (histogram, stats), C compares (count) or one IEEE
-// division (int8 encode), far below the card's 67 TFLOP/s fp32 rate.  So
-// all five are bound by device-memory bytes (3.35 TB/s on an H100 SXM).
+// exponent extraction (histogram, stats), a binary search of log2 C
+// compares (count) or one IEEE division (int8 encode), far below the card's
+// 67 TFLOP/s fp32 rate.  So all five are bound by device-memory bytes (3.35
+// TB/s on an H100 SXM).
 // The design therefore keeps everything but the single streaming pass on
 // chip:
 //   * one block owns a contiguous run of rows (about one wave of blocks in
-//     all), reads them with coalesced 4-byte loads and accumulates into
-//     shared memory;
+//     all), reads them with coalesced loads (4 bytes a thread; the count
+//     16 bytes, four rows in flight) and accumulates into shared memory;
 //   * warp-aggregated shared atomics (__match_any_sync for the histogram,
-//     __ballot_sync per candidate for the counts, __reduce_add_sync for the
-//     kept count, __reduce_max_sync for the stats max) keep shared-memory
-//     traffic to a few operations per warp;
+//     __reduce_add_sync for the kept count, __reduce_max_sync for the stats
+//     max) keep shared-memory traffic to a few operations per warp; the
+//     count ranks each element among the sorted candidates instead (its
+//     section below);
 //   * a block flushes its shared counters to the (S, .) outputs with one
 //     global atomicAdd per counter each time its segment changes.  Packed
 //     rows are segment-contiguous, so that is a handful of atomics per block.
@@ -135,104 +137,247 @@ seg_hist_kernel(const float* __restrict__ x, const int* __restrict__ seg,
 }
 
 // ---------------------------------------------------------------------------
-// Count: out[s, c] += #{|x| >= taus[s, c]} for C >= 1 candidates per
-// segment.  A segment's C taus sit in shared memory (reloaded when the
-// segment changes).  Candidates go in groups of kWidth (16 for C <= 16, 32
-// above): group g's taus sit in registers, one __ballot_sync per candidate
-// counts a warp's 32 elements, and lane c keeps the count of candidate
-// g * kWidth + c.  Registers past C hold NaN, which no |x| reaches.  With
-// one group the per-lane counts live across rows; with more, they go to
-// the shared counters after each row's pass over the group.
+// Count: out[s, c] += #{|x| >= taus[s, c]} for 1 <= C <= 4096 candidates
+// per segment, in any order, duplicates included.
+//
+// An element's counts are fixed by its rank among the segment's candidates,
+// so the kernel ranks instead of comparing against all C:
+//   * keys.  Everything is compared as a signed int: |x| as its bits, NaN as
+//     -1 (below every key); a tau > 0 as its bits (inf 0x7f800000), a tau
+//     <= 0 (-0.0 included) as 0 (every non-NaN |x| reaches it), a NaN tau
+//     as INT_MAX (none does).  For non-negative floats the bit order is the
+//     float order, so key(tau) <= key(|x|) is exactly |x| >= tau.
+//   * sort.  When a block meets a segment it loads the C keys into shared
+//     memory; unless they are already ascending (one __syncthreads_or) a
+//     bitonic sort over the next power of two (INT_MAX padding) orders them
+//     with their original columns.  The path's candidates arrive ascending.
+//   * rank.  rank(x) = #{sorted keys <= key(|x|)}, a branchless upper bound
+//     over the padded keys in ceil(log2 C) + 1 shared-memory compares (5 at
+//     C = 16; unrolled up to C = 32).  Each step waits on a shared load, so
+//     a thread runs the searches of eight elements (a float4 of two rows of
+//     one segment) side by side; four or sixteen were slower at C = 16.
+//   * histogram.  Rank 0 counts for no candidate and is dropped; rank C
+//     (at or above every candidate) is counted in a register of each
+//     thread; ranks in between go to a shared histogram, one shared atomic
+//     each.
+//   * flush.  When the segment changes, count at sorted position p =
+//     #{rank > p}: a block-wide suffix sum of the histogram, exact with
+//     ties (no element can rank between two equal keys).  One global
+//     atomicAdd per nonzero count puts it in its original column.  The set-up
+//     and the flush are not inlined: they run once a segment, and the row
+//     loop keeps its registers (no spills).
+// What holds it above its bound: the searches' shared loads and atomics at
+// large sizes, and the per-segment chain (segment id, its taus, barriers,
+// flush) in the path's 4-row blocks, which meet 1-3 segments each.
+// Rows go four at a time: each thread issues its four 16-byte loads (one
+// float4 of each row) before the first compare.  Packed rows are 1024
+// floats, so every row starts on a 16-byte boundary.
 // ---------------------------------------------------------------------------
-__device__ void load_taus(float* tsh, const float* taus, int s,
-                          int num_segments, int num_cand) {
-  const bool ok = in_range(s, num_segments);
-  for (int i = threadIdx.x; i < num_cand; i += kThreads) {
-    tsh[i] = ok ? taus[static_cast<size_t>(s) * num_cand + i] : 0.0f;
-  }
-  __syncthreads();
+constexpr int kRowsInFlight = 4;
+constexpr int kNanKey = -1;
+constexpr int kNoKey = 0x7fffffff;
+
+__device__ __forceinline__ int tau_key(float t) {
+  if (isnan(t)) return kNoKey;
+  return t > 0.0f ? __float_as_int(t) : 0;
 }
 
-template <int kWidth>
-__device__ __forceinline__ void load_group(float* t, const float* tsh,
-                                           int g, int num_cand) {
-#pragma unroll
-  for (int c = 0; c < kWidth; ++c) {
-    const int j = g * kWidth + c;
-    t[c] = j < num_cand ? tsh[j] : __int_as_float(0x7fc00000);
-  }
+__device__ __forceinline__ int mag_key(float v) {
+  const int a = __float_as_int(v) & 0x7fffffff;
+  return a > 0x7f800000 ? kNanKey : a;
 }
 
-__device__ void flush_count(int* cnt, int* acc, int lanes, int* out, int s,
-                            int num_segments, int num_cand) {
+__device__ __forceinline__ int pow2_at_least(int c) {
+  int p = 1;
+  while (p < c) p <<= 1;
+  return p;
+}
+
+// Segment s's keys, ascending, with their columns; true if s is a segment.
+__device__ __noinline__ bool load_sorted_keys(int* keys, unsigned short* col,
+                                 const float* taus, int s, int num_segments,
+                                 int num_cand) {
+  if (!in_range(s, num_segments)) return false;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  if (lane < lanes && *acc != 0) atomicAdd(&cnt[lane], *acc);
-  *acc = 0;
+  const int padded = pow2_at_least(num_cand);
+  const float* row = taus + static_cast<size_t>(s) * num_cand;
+  for (int i = tid; i < padded; i += kThreads) {
+    keys[i] = i < num_cand ? tau_key(row[i]) : kNoKey;
+    col[i] = static_cast<unsigned short>(i);
+  }
   __syncthreads();
-  for (int i = tid; i < num_cand; i += kThreads) {
-    const int v = cnt[i];
-    cnt[i] = 0;
-    if (v != 0 && in_range(s, num_segments)) {
-      atomicAdd(&out[static_cast<size_t>(s) * num_cand + i], v);
+  int unsorted = 0;
+  for (int i = tid; i + 1 < num_cand; i += kThreads) {
+    unsorted |= keys[i] > keys[i + 1];
+  }
+  if (__syncthreads_or(unsorted)) {
+    for (int k = 2; k <= padded; k <<= 1) {
+      for (int j = k >> 1; j > 0; j >>= 1) {
+        for (int i = tid; i < padded; i += kThreads) {
+          const int l = i ^ j;
+          if (l > i) {
+            const int a = keys[i], b = keys[l];
+            if ((a > b) == ((i & k) == 0)) {
+              keys[i] = b;
+              keys[l] = a;
+              const unsigned short c = col[i];
+              col[i] = col[l];
+              col[l] = c;
+            }
+          }
+        }
+        __syncthreads();
+      }
     }
   }
-  __syncthreads();
+  return true;
 }
 
-template <int kWidth>
+// Counts of the segment's candidates from the rank histogram (hist[q] for
+// ranks q = 1..C; hist[C] takes the threads' rank-C totals `top` first),
+// added to out[s, col[p]]; the histogram is left zeroed.
+__device__ __noinline__ void flush_ranks(int* hist, int top,
+                                         const unsigned short* col,
+                                         int* warp_sums, int* out, int s,
+                                         bool valid, int num_cand) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int warp_top = __reduce_add_sync(kFull, top);
+  if (lane == 0 && warp_top != 0) atomicAdd(&hist[num_cand], warp_top);
+  __syncthreads();
+  // Thread t owns ranks [q0, q1); suffix sums across threads in reverse.
+  const int chunk = (num_cand + kThreads - 1) / kThreads;
+  const int q0 = 1 + tid * chunk;
+  const int q1 = min(num_cand + 1, q0 + chunk);
+  int own = 0;
+  for (int q = q0; q < q1; ++q) own += hist[q];
+  int suffix = own;                   // sum over lanes >= lane
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_down_sync(kFull, suffix, d);
+    if (lane + d < 32) suffix += v;
+  }
+  if (lane == 0) warp_sums[warp] = suffix;
+  __syncthreads();
+  int running = suffix - own;
+  for (int w = warp + 1; w < kThreads / 32; ++w) running += warp_sums[w];
+  for (int q = q1 - 1; q >= q0; --q) {
+    running += hist[q];
+    hist[q] = 0;
+    const int c = col[q - 1];
+    if (valid && running != 0 && c < num_cand) {
+      atomicAdd(&out[static_cast<size_t>(s) * num_cand + c], running);
+    }
+  }
+  __syncthreads();                    // before keys and col are rewritten
+}
+
+// Rank the 4 * kVecs values of v among the sorted keys, interleaved (the
+// searches' shared-memory loads overlap), and count them: rank-C ones in
+// `top`, ranks in between in the shared histogram.  kLogPadded: log2 of the
+// padded key count when it is at most 32 (the search unrolled), else -1.
+template <int kLogPadded, int kVecs>
+__device__ __forceinline__ void rank_and_count(const float4* v,
+                                               const int* keys, int padded,
+                                               int num_cand, int* hist,
+                                               int& top) {
+  constexpr int kN = 4 * kVecs;
+  int a[kN], base[kN];
+#pragma unroll
+  for (int w = 0; w < kVecs; ++w) {
+    a[4 * w] = mag_key(v[w].x);
+    a[4 * w + 1] = mag_key(v[w].y);
+    a[4 * w + 2] = mag_key(v[w].z);
+    a[4 * w + 3] = mag_key(v[w].w);
+  }
+#pragma unroll
+  for (int e = 0; e < kN; ++e) base[e] = 0;
+  if constexpr (kLogPadded >= 0) {
+#pragma unroll
+    for (int half = (1 << kLogPadded) >> 1; half > 0; half >>= 1) {
+#pragma unroll
+      for (int e = 0; e < kN; ++e) {
+        base[e] += keys[base[e] + half] <= a[e] ? half : 0;
+      }
+    }
+  } else {
+    for (int half = padded >> 1; half > 0; half >>= 1) {
+#pragma unroll
+      for (int e = 0; e < kN; ++e) {
+        base[e] += keys[base[e] + half] <= a[e] ? half : 0;
+      }
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < kN; ++e) {
+    const int rank = base[e] + (keys[base[e]] <= a[e] ? 1 : 0);
+    top += rank == num_cand ? 1 : 0;
+    if (rank > 0 && rank < num_cand) atomicAdd(&hist[rank], 1);
+  }
+}
+
+template <int kLogPadded>
 __global__ void __launch_bounds__(kThreads)
 seg_count_kernel(const float* __restrict__ x, const int* __restrict__ seg,
                  const float* __restrict__ taus, int rows, int rows_per_block,
                  int num_segments, int num_cand, int* __restrict__ out) {
   extern __shared__ int smem[];
-  int* cnt = smem;                                          // num_cand
-  float* tsh = reinterpret_cast<float*>(smem + num_cand);   // num_cand
+  const int padded =
+      kLogPadded >= 0 ? (1 << kLogPadded) : pow2_at_least(num_cand);
+  int* keys = smem;                                       // padded
+  int* hist = keys + padded;                              // num_cand + 1
+  unsigned short* col =
+      reinterpret_cast<unsigned short*>(hist + num_cand + 1);  // padded
+  __shared__ int warp_sums[kThreads / 32];
   int r0, r1;
   block_rows(rows, rows_per_block, &r0, &r1);
   if (r0 >= r1) return;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int groups = (num_cand + kWidth - 1) / kWidth;
-  // Lanes whose count lives across rows (one group), else none.
-  const int carry_lanes = groups == 1 ? num_cand : 0;
-  for (int i = tid; i < num_cand; i += kThreads) cnt[i] = 0;
+  for (int q = tid; q <= num_cand; q += kThreads) hist[q] = 0;
   int cur = seg[r0];
-  load_taus(tsh, taus, cur, num_segments, num_cand);
-  float t[kWidth];
-  if (groups == 1) load_group<kWidth>(t, tsh, 0, num_cand);
-  int acc = 0;
-  for (int r = r0; r < r1; ++r) {
-    const int s = seg[r];
-    if (s != cur) {
-      flush_count(cnt, &acc, carry_lanes, out, cur, num_segments, num_cand);
-      cur = s;
-      load_taus(tsh, taus, cur, num_segments, num_cand);
-      if (groups == 1) load_group<kWidth>(t, tsh, 0, num_cand);
-    }
-    const float* row = x + static_cast<size_t>(r) * kLane;
-    float a[kPerThread];
+  bool valid = load_sorted_keys(keys, col, taus, cur, num_segments, num_cand);
+  int top = 0;                        // this thread's rank-C elements
+  for (int g = r0; g < r1; g += kRowsInFlight) {
+    float4 v[kRowsInFlight];
 #pragma unroll
-    for (int i = 0; i < kPerThread; ++i) a[i] = fabsf(row[tid + i * kThreads]);
-    for (int g = 0; g < groups; ++g) {
-      if (groups > 1) load_group<kWidth>(t, tsh, g, num_cand);
-#pragma unroll
-      for (int i = 0; i < kPerThread; ++i) {
-#pragma unroll
-        for (int c = 0; c < kWidth; ++c) {
-          const int n = __popc(__ballot_sync(kFull, a[i] >= t[c]));
-          acc += (lane == c) ? n : 0;
-        }
+    for (int u = 0; u < kRowsInFlight; ++u) {
+      if (g + u < r1) {
+        v[u] = reinterpret_cast<const float4*>(
+            x + static_cast<size_t>(g + u) * kLane)[tid];
       }
-      if (groups > 1) {
-        if (g * kWidth + lane < num_cand && lane < kWidth && acc != 0) {
-          atomicAdd(&cnt[g * kWidth + lane], acc);
+    }
+    // Two rows at a time when both are the current segment's; else one by
+    // one, flushing at each change of segment.
+#pragma unroll
+    for (int u = 0; u < kRowsInFlight; u += 2) {
+      if (g + u >= r1) continue;
+      if (g + u + 1 < r1 && seg[g + u] == cur && seg[g + u + 1] == cur) {
+        if (valid) {
+          rank_and_count<kLogPadded, 2>(&v[u], keys, padded, num_cand, hist,
+                                        top);
         }
-        acc = 0;
+        continue;
+      }
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {
+        if (g + u + w >= r1) continue;
+        const int s = seg[g + u + w];
+        if (s != cur) {
+          flush_ranks(hist, top, col, warp_sums, out, cur, valid, num_cand);
+          top = 0;
+          cur = s;
+          valid = load_sorted_keys(keys, col, taus, cur, num_segments,
+                                   num_cand);
+        }
+        if (valid) {
+          rank_and_count<kLogPadded, 1>(&v[u + w], keys, padded, num_cand,
+                                        hist, top);
+        }
       }
     }
   }
-  flush_count(cnt, &acc, carry_lanes, out, cur, num_segments, num_cand);
+  flush_ranks(hist, top, col, warp_sums, out, cur, valid, num_cand);
 }
 
 // ---------------------------------------------------------------------------
@@ -464,14 +609,27 @@ int seg_count_launch(const float* x, const int* seg, const float* taus,
                      void* stream) {
   const int rpb = rows_per_block_for(rows);
   const int grid = (rows + rpb - 1) / rpb;
-  const size_t smem = 2 * static_cast<size_t>(num_cand) * sizeof(int);
+  int padded = 1;
+  while (padded < num_cand) padded <<= 1;
+  const size_t smem = (padded + num_cand + 1) * sizeof(int) +
+                      padded * sizeof(unsigned short);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (num_cand <= 16) {
-    seg_count_kernel<16><<<grid, kThreads, smem, st>>>(
-        x, seg, taus, rows, rpb, num_segments, num_cand, out);
-  } else {
-    seg_count_kernel<32><<<grid, kThreads, smem, st>>>(
-        x, seg, taus, rows, rpb, num_segments, num_cand, out);
+  switch (padded) {
+#define SEG_COUNT_CASE(P, LOG)                                          \
+  case P:                                                               \
+    seg_count_kernel<LOG><<<grid, kThreads, smem, st>>>(                \
+        x, seg, taus, rows, rpb, num_segments, num_cand, out);          \
+    break;
+    SEG_COUNT_CASE(1, 0)
+    SEG_COUNT_CASE(2, 1)
+    SEG_COUNT_CASE(4, 2)
+    SEG_COUNT_CASE(8, 3)
+    SEG_COUNT_CASE(16, 4)
+    SEG_COUNT_CASE(32, 5)
+#undef SEG_COUNT_CASE
+    default:
+      seg_count_kernel<-1><<<grid, kThreads, smem, st>>>(
+          x, seg, taus, rows, rpb, num_segments, num_cand, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

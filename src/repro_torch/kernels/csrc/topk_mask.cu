@@ -19,15 +19,17 @@
 // three are bound by device-memory bytes (3.35 TB/s on an H100 SXM).  The
 // design keeps everything but the streaming pass on chip:
 //   * a grid of about eight 256-thread blocks per SM strides over x with
-//     coalesced 4-byte loads; a warp's trip count is warp-uniform, so the
-//     warp intrinsics always see all 32 lanes;
+//     coalesced 4-byte loads (the count: 16-byte loads, its section below);
+//     a warp's trip count is warp-uniform, so the warp intrinsics always see
+//     all 32 lanes;
 //   * the histogram aggregates a warp's equal bins with __match_any_sync
 //     into a 128-bin shared histogram and flushes it with one global
-//     atomicAdd per nonzero bin per block;
-//   * the count takes __popc(__ballot_sync(.)) per warp step, sums the warps
-//     of a block in shared memory and adds one global atomicAdd per block.
-// Integer atomics are exact, so results are identical whatever order blocks
-// run in.  The launchers zero the reduction outputs on the stream first.
+//     atomicAdd per nonzero bin per block; its launcher zeroes the output on
+//     the stream first;
+//   * the count sums each block in registers and shared memory, and the
+//     last block to finish sums the blocks (its section below).
+// Integer sums are exact, so results are identical whatever order blocks
+// run in.
 //
 // Bins.  The reference bins by floor(log2|x|) in fp32, which XLA computes
 // inexactly just below (and at some) powers of two.  Here the bin is the
@@ -41,6 +43,10 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <utility>
 
 namespace {
 
@@ -86,27 +92,87 @@ exponent_hist_kernel(const float* __restrict__ x, long long n,
   }
 }
 
+// Count (count_ge): one device operation a call, the kernel itself.
+//   * Loads.  x may start at any 4-byte offset (a view of a larger
+//     tensor), so block 0 counts the head before the first 16-byte boundary
+//     and the tail after the last whole float4 (under 4 elements each); the
+//     body goes as float4 loads, kVecsInFlight of them a thread issued
+//     before the first compare.  The grid is one 16-element group a thread
+//     up to kMaxBlocks blocks (about one wave), then strides.
+//   * Total.  Each block writes its count to its own slot of a scratch
+//     array, then __threadfence() and an atomic ticket; the block that draws
+//     the last ticket sums the slots, writes `out` and sets the ticket back
+//     to 0.  So nothing zeroes `out` first and there is no memset node.
+//   * Scratch.  The slots and the ticket belong to the library, one set per
+//     (device, stream), made at the first call on that pair.  Calls on one
+//     stream run in order, and each leaves the ticket at 0 for the next;
+//     calls on two streams use two sets.  The port launches on PyTorch's
+//     current stream.
 // NaN never counts (|NaN| >= tau is false); with tau <= 0 every other one
 // of the n entries does, and nothing beyond them.
+constexpr int kVecsInFlight = 4;
+
 __global__ void __launch_bounds__(kThreads)
-count_ge_kernel(const float* __restrict__ x, long long n,
-                const float* __restrict__ tau, int* __restrict__ out) {
+count_ge_kernel(const float* __restrict__ x, long long n, int head,
+                const float* __restrict__ tau, int* __restrict__ partials,
+                unsigned* __restrict__ ticket, int* __restrict__ out) {
   __shared__ int warp_counts[kThreads / 32];
+  __shared__ bool is_last;
   const float t = *tau;
-  const int lane = threadIdx.x & 31;
-  int acc = 0;                        // the same in every lane of a warp
-  for (long long base = warp_base(); base < n; base += grid_stride()) {
-    const long long i = base + lane;
-    const bool keep = i < n && fabsf(x[i]) >= t;
-    acc += __popc(__ballot_sync(kFull, keep));
+  const int tid = threadIdx.x;
+  const long long vecs = (n - head) / 4;
+  int acc = 0;
+  if (blockIdx.x == 0) {
+    const int tail = static_cast<int>(n - head - 4 * vecs);
+    if (tid < head) acc += fabsf(x[tid]) >= t ? 1 : 0;
+    if (tid >= 4 && tid < 4 + tail) {
+      acc += fabsf(x[head + 4 * vecs + tid - 4]) >= t ? 1 : 0;
+    }
   }
-  if (lane == 0) warp_counts[threadIdx.x >> 5] = acc;
+  const float4* body = reinterpret_cast<const float4*>(x + head);
+  const long long stride =
+      static_cast<long long>(gridDim.x) * kThreads * kVecsInFlight;
+  for (long long base =
+           static_cast<long long>(blockIdx.x) * kThreads * kVecsInFlight + tid;
+       base < vecs; base += stride) {
+    float4 v[kVecsInFlight];
+#pragma unroll
+    for (int k = 0; k < kVecsInFlight; ++k) {
+      const long long i = base + k * kThreads;
+      const float nan = __int_as_float(0x7fc00000);
+      v[k] = i < vecs ? body[i] : make_float4(nan, nan, nan, nan);
+    }
+#pragma unroll
+    for (int k = 0; k < kVecsInFlight; ++k) {
+      acc += (fabsf(v[k].x) >= t ? 1 : 0) + (fabsf(v[k].y) >= t ? 1 : 0) +
+             (fabsf(v[k].z) >= t ? 1 : 0) + (fabsf(v[k].w) >= t ? 1 : 0);
+    }
+  }
+  acc = __reduce_add_sync(kFull, acc);
+  if ((tid & 31) == 0) warp_counts[tid >> 5] = acc;
   __syncthreads();
-  if (threadIdx.x == 0) {
+  if (tid == 0) {
     int total = 0;
 #pragma unroll
     for (int w = 0; w < kThreads / 32; ++w) total += warp_counts[w];
-    if (total != 0) atomicAdd(out, total);
+    partials[blockIdx.x] = total;
+    __threadfence();
+    is_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  int sum = 0;
+  for (int b = tid; b < gridDim.x; b += kThreads) sum += __ldcg(&partials[b]);
+  sum = __reduce_add_sync(kFull, sum);
+  if ((tid & 31) == 0) warp_counts[tid >> 5] = sum;
+  __syncthreads();
+  if (tid == 0) {
+    int total = 0;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) total += warp_counts[w];
+    *out = total;
+    *ticket = 0;
   }
 }
 
@@ -131,13 +197,48 @@ int blocks_for(long long n) {
                           : blocks > kMaxBlocks ? kMaxBlocks : blocks);
 }
 
+// The count's scratch (kMaxBlocks slots, then the ticket) for the current
+// device and `stream`, made and zeroed at the first call on that pair.
+struct CountScratch {
+  int* partials;
+  unsigned* ticket;
+};
+
+cudaError_t count_scratch(cudaStream_t stream, CountScratch* out) {
+  static std::mutex mutex;
+  static std::map<std::pair<int, cudaStream_t>, CountScratch> sets;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mutex);
+  const auto key = std::make_pair(device, stream);
+  const auto found = sets.find(key);
+  if (found != sets.end()) {
+    *out = found->second;
+    return cudaSuccess;
+  }
+  const size_t bytes = (kMaxBlocks + 1) * sizeof(int);
+  void* mem = nullptr;
+  err = cudaMalloc(&mem, bytes);
+  if (err == cudaSuccess) err = cudaMemset(mem, 0, bytes);
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
+  if (err != cudaSuccess) return err;
+  CountScratch set{static_cast<int*>(mem),
+                   reinterpret_cast<unsigned*>(static_cast<int*>(mem) +
+                                               kMaxBlocks)};
+  sets.emplace(key, set);
+  *out = set;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Each launcher enqueues its work on `stream` and returns the first CUDA
-// error (0 on success).  The histogram and count launchers zero their
-// output first; the kernels run only for n > 0.
+// error (0 on success).  The histogram launcher zeroes its output first;
+// the histogram and apply kernels run only for n > 0, the count always
+// (it writes `out`, 0 for n = 0).
 int topk_histogram_launch(const float* x, long long n, int* out,
                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -152,11 +253,19 @@ int topk_histogram_launch(const float* x, long long n, int* out,
 int topk_count_launch(const float* x, long long n, const float* tau,
                       int* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(out, 0, sizeof(int), st);
+  CountScratch scratch;
+  const cudaError_t err = count_scratch(st, &scratch);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n > 0) {
-    count_ge_kernel<<<blocks_for(n), kThreads, 0, st>>>(x, n, tau, out);
-  }
+  const long long misalign = reinterpret_cast<uintptr_t>(x) & 15;
+  const int head = static_cast<int>(
+      misalign == 0 ? 0 : (16 - misalign) / 4 < n ? (16 - misalign) / 4 : n);
+  const long long groups = ((n - head) / 4 + kThreads * kVecsInFlight - 1) /
+                           (kThreads * kVecsInFlight);
+  const int grid = static_cast<int>(
+      groups < 1 ? 1 : groups > kMaxBlocks ? kMaxBlocks : groups);
+  count_ge_kernel<<<grid, kThreads, 0, st>>>(x, n, head, tau,
+                                             scratch.partials,
+                                             scratch.ticket, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -67,7 +67,7 @@ _LAUNCHES: Dict[str, int] = {"segmented_histogram": 0,
                              "segmented_apply": 0,
                              "segmented_stats": 0,
                              "segmented_encode": 0}
-# The CUDA count kernel keeps a segment's candidates in shared memory.
+# The CUDA count kernel sorts a segment's candidates in shared memory.
 MAX_CANDIDATES = 4096
 
 
@@ -256,8 +256,10 @@ def segmented_histogram(x2d: torch.Tensor, seg_ids: torch.Tensor,
 def segmented_count(x2d: torch.Tensor, seg_ids: torch.Tensor,
                     taus: torch.Tensor) -> torch.Tensor:
     """Counts of |x| >= tau per segment for ALL C candidate taus in one
-    sweep.  taus: (num_segments, C) fp32 with 1 <= C <= MAX_CANDIDATES
-    (> 0 so padding never counts).  Returns (num_segments, C) int32."""
+    sweep.  taus: (num_segments, C) fp32 with 1 <= C <= MAX_CANDIDATES, in
+    any order, duplicates included.  NaN in x never counts; a NaN tau
+    counts nothing and a tau <= 0 every non-NaN entry (the reference asks
+    for taus > 0).  Returns (num_segments, C) int32."""
     seg = _check_buffer(x2d, seg_ids)
     if taus.dim() != 2 or not 1 <= taus.shape[1] <= MAX_CANDIDATES:
         raise ValueError(f"taus must be (S, C) with 1 <= C <= "
@@ -265,6 +267,9 @@ def segmented_count(x2d: torch.Tensor, seg_ids: torch.Tensor,
     _check_taus(taus, x2d, taus.shape)
     if x2d.device.type == "cpu":
         return segmented_count_plain(x2d, seg, taus)
+    if x2d.data_ptr() % 16:
+        raise ValueError("x2d must start on a 16-byte boundary for the CUDA "
+                         "count kernel (it reads rows as float4)")
     out = torch.zeros(tuple(taus.shape), dtype=torch.int32, device=x2d.device)
     if x2d.shape[0]:
         _launch("segmented_count", _library().seg_count_launch,

@@ -1,0 +1,73 @@
+"""Round times of the fig5 path in a fresh process: LeNet-28, M = 32
+clients, kernel top-k masking (gamma 0.5), 8 rounds, each round's
+``wall_s`` and ``compile_s``, and round 1's ``wall_s`` against the median of
+the later rounds'.
+
+    PYTHONPATH=src python -m repro_torch.launch.round_time --device cpu
+
+Prints one JSON line.  On a card the kernel library's ``nvcc`` build (or
+the load of a library already built) lands in round 1's ``compile_s``;
+eager PyTorch's first-call setup (cuDNN and cuBLAS handles, the first
+``vmap``) is execution and stays in round 1's ``wall_s``.  Without
+``--device`` it runs on ``cuda`` and raises when there is no card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+
+import torch
+
+from repro_torch.core import strategy
+from repro_torch.core.server import FederatedServer
+from repro_torch.data.partition import iid_partition_images
+from repro_torch.data.synthetic import class_gaussian_images
+from repro_torch.models import paper_models as pm
+
+__all__ = ["round_times", "main"]
+
+
+def round_times(device=None, clients: int = 32, rounds: int = 8,
+                batch: int = 32, image_size: int = 28) -> dict:
+    """Run the fig5 path once; per-round ``wall_s``, ``compile_s`` and
+    cohort buckets, and round 1 against the median of the others."""
+    ds = class_gaussian_images(num_train=clients * 8 * batch,
+                               image_size=image_size, seed=0)
+    xs, ys, ns = iid_partition_images(ds.train_x, ds.train_y, clients, batch,
+                                      seed=0)
+    st = strategy.get("fig5", masking=strategy.MaskPolicy.selective(
+        0.5, backend="kernel"))
+    server = FederatedServer.from_strategy(
+        st, pm.classifier_loss(pm.lenet_forward),
+        pm.init_lenet(torch.Generator().manual_seed(0),
+                      image_size=image_size, device=device),
+        clients, seed=0, device=device)
+    server.run((xs, ys), ns, rounds)
+    walls = [r.wall_s for r in server.history]
+    later = statistics.median(walls[1:]) if len(walls) > 1 else float("nan")
+    summ = server.summary()
+    return {"device": summ["device"],
+            "device_name": (torch.cuda.get_device_name(server.device)
+                            if server.device.type == "cuda" else "cpu"),
+            "buckets": [r.cohort_size for r in server.history],
+            "wall_s": walls,
+            "compile_s": [r.compile_s for r in server.history],
+            "first_round_s": walls[0], "later_median_s": later,
+            "first_over_later": walls[0] / later,
+            "summary_compile_s": summ["compile_s"],
+            "steady_wall_s": summ["steady_wall_s"]}
+
+
+def main(argv=None) -> None:
+    """Command-line entry point."""
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    print(json.dumps(round_times(args.device)))
+
+
+if __name__ == "__main__":
+    main()

@@ -97,7 +97,7 @@ def test_wire_kernels_match_plain_versions(cuda, seed):
         assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
 
 
-@pytest.mark.parametrize("candidates", [1, 8, 16, 17, 32])
+@pytest.mark.parametrize("candidates", [1, 8, 16, 17, 32, 4096])
 def test_count_kernel_takes_any_candidate_count(cuda, candidates):
     x2d, seg_ids, S = _buffer(3)
     x2d, seg_ids = x2d.to(cuda), seg_ids.to(cuda)
@@ -106,6 +106,75 @@ def test_count_kernel_takes_any_candidate_count(cuda, candidates):
         (S, candidates), generator=gen)), 1).values.to(cuda).contiguous()
     assert torch.equal(seg.segmented_count(x2d, seg_ids, taus),
                        seg.segmented_count_plain(x2d, seg_ids, taus))
+
+
+def _odd_taus(S: int, C: int, seed: int, order: str) -> torch.Tensor:
+    """(S, C) taus from 1e-5 to 10 in ``order`` ("sorted", "reversed" or
+    "shuffled"), with duplicated neighbours and, unless sorted, NaN, inf,
+    -0.0, 0.0, negative and subnormal taus mixed in."""
+    gen = torch.Generator().manual_seed(seed)
+    taus = 10.0 ** (-5 + 6 * torch.rand((S, C), generator=gen))
+    if C > 3:
+        taus[:, 1::3] = taus[:, 0::3][:, :taus[:, 1::3].shape[1]]
+    taus = torch.sort(taus, 1).values
+    if order == "reversed":
+        taus = taus.flip(1)
+    elif order == "shuffled":
+        taus = taus[:, torch.randperm(C, generator=gen)]
+        special = torch.tensor([float("nan"), float("inf"), -0.0, 0.0,
+                                -1.0, 1e-45, 3e8])
+        flat = taus.reshape(-1)
+        flat[::5] = special.repeat(flat[::5].numel() // 7 + 1)[
+            :flat[::5].numel()]
+    return taus.contiguous()
+
+
+@pytest.mark.parametrize("order", ["sorted", "reversed", "shuffled"])
+@pytest.mark.parametrize("candidates", [1, 8, 16, 17, 32, 4096])
+def test_count_kernel_takes_any_order_of_taus(cuda, candidates, order):
+    """Bitwise against the plain version: unsorted and duplicated taus, NaN,
+    inf, -0.0, <= 0 and subnormal taus, NaN and inf entries, rows outside
+    [0, S) and segment changes in the middle of a block."""
+    x2d, seg_ids, S = _buffer(4)
+    seg_ids = seg_ids.clone()
+    seg_ids[3] = S + 1
+    seg_ids[7] = -2
+    taus = _odd_taus(S, candidates, candidates, order).to(cuda)
+    x2d, seg_ids = x2d.to(cuda), seg_ids.to(cuda)
+    assert torch.equal(seg.segmented_count(x2d, seg_ids, taus),
+                       seg.segmented_count_plain(x2d, seg_ids, taus))
+
+
+@pytest.mark.parametrize("candidates", [16, 4096])
+def test_count_kernel_on_a_2_20_buffer_of_7_segments(cuda, candidates):
+    gen = torch.Generator().manual_seed(9)
+    rows = (1 << 20) // 1024
+    x2d = torch.randn((rows, 1024), generator=gen)
+    x2d *= 10.0 ** (-4 + 4 * torch.rand((rows, 1), generator=gen))
+    seg_ids = torch.sort(torch.randint(0, 7, (rows,), generator=gen,
+                                       dtype=torch.int32)).values
+    taus = _odd_taus(7, candidates, 5, "shuffled")
+    x2d, seg_ids, taus = x2d.to(cuda), seg_ids.to(cuda), taus.to(cuda)
+    assert torch.equal(seg.segmented_count(x2d, seg_ids, taus),
+                       seg.segmented_count_plain(x2d, seg_ids, taus))
+
+
+def test_count_kernel_refuses_a_buffer_off_the_16_byte_boundary(cuda):
+    """The count kernel reads rows as float4: an (R, 1024) view that starts
+    4 bytes into its storage is refused before any launch, and the context
+    stays sound for the next call."""
+    x2d, seg_ids, S = _buffer(3)
+    x2d, seg_ids = x2d.to(cuda), seg_ids.to(cuda)
+    storage = torch.empty(x2d.numel() + 4, device=cuda)
+    view = storage[1:1 + x2d.numel()].view(x2d.shape)
+    view.copy_(x2d)
+    taus = _odd_taus(S, 16, 16, "sorted").to(cuda)
+    seg.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        seg.segmented_count(view, seg_ids, taus)
+    assert seg.launch_counts()["segmented_count"] == 0
+    assert torch.equal(seg.segmented_count(x2d, seg_ids, taus),
+                       seg.segmented_count_plain(view, seg_ids, taus))
 
 
 def test_wrappers_count_their_launches(cuda):
@@ -220,6 +289,58 @@ def test_topk_mask_on_card_matches_cpu(cuda, shape, dtype):
                        want.float().view(torch.int32))
     assert int(ops.masked_count(x.to(cuda), 0.5)) == int(
         ops.masked_count(x, 0.5))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 4095, 147_456])
+def test_count_ge_on_views_at_any_offset(cuda, offset, n):
+    """Views such as ``x[1:]`` and ``x[3:]`` start off the 16-byte
+    boundary: the kernel's head and tail."""
+    x = _flat_edges(n + 8, seed=n).to(cuda)
+    view = x[offset:offset + n]
+    for tau in (-1.0, 0.0, 1e-40, 1e-4, 0.3, float("inf"), float("nan")):
+        t = torch.tensor(tau, device=cuda)
+        assert int(tk.count_ge(view, t)) == int(tk.count_ge_plain(view, t))
+
+
+def test_count_ge_ticket_resets_between_calls(cuda):
+    """The last block sets the ticket back to 0: calls back to back, a call
+    after an n = 0 call, and calls on a second stream agree."""
+    x = _flat_edges(1 << 20, seed=3).to(cuda)
+    t = torch.tensor(1e-3, device=cuda)
+    want = int(tk.count_ge_plain(x, t))
+    outs = [tk.count_ge(x, t), tk.count_ge(x[1:], t), tk.count_ge(x, t)]
+    assert int(outs[0]) == int(outs[2]) == want
+    assert int(outs[1]) == int(tk.count_ge_plain(x[1:], t))
+    assert int(tk.count_ge(x[:0], t)) == 0
+    assert int(tk.count_ge(x, t)) == want
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        got = [tk.count_ge(x, t) for _ in range(3)]
+    side.synchronize()
+    assert [int(g) for g in got] == [want] * 3
+
+
+def test_count_ge_call_is_one_device_operation(cuda):
+    """No memset before the kernel: ten count_ge calls put ten operations on
+    the stream, every one the count kernel.  A first short session starts
+    the tracer, so the counted session holds every record."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.randn(147_456, device=cuda)
+    t = torch.tensor(0.5, device=cuda)
+    tk.count_ge(x, t)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        tk.count_ge(x, t)
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            tk.count_ge(x, t)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 10, names
+    assert all("count_ge_kernel" in name for name in names), names
 
 
 def test_topk_wrappers_count_their_launches(cuda):

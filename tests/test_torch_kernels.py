@@ -145,6 +145,138 @@ def test_out_of_range_segment_rows_count_nowhere():
     np.testing.assert_array_equal(kept.numpy(), np.asarray(want_kept))
 
 
+# ------------------------------------- segmented_count: any order of taus
+def _rank_count(x2d, seg_ids, taus, seed: int = 0) -> np.ndarray:
+    """The CUDA count kernel's formulation in numpy: int keys (|x| bits,
+    NaN -1; tau bits, tau <= 0 as 0, NaN tau as INT_MAX), each segment's
+    keys sorted with their columns (ties in a random order), every rank by
+    the kernel's branchless upper bound, and count at sorted position p =
+    #{rank > p} from the rank histogram's suffix sums."""
+    x = np.asarray(x2d, np.float32)
+    seg = np.asarray(seg_ids).reshape(-1)
+    t = np.asarray(taus, np.float32)
+    S, C = t.shape
+    bits = x.view(np.int32) & 0x7fffffff
+    akey = np.where(bits > 0x7f800000, -1, bits).astype(np.int64)
+    tkey = np.where(np.isnan(t), 0x7fffffff,
+                    np.where(t > 0, t.view(np.int32), 0)).astype(np.int64)
+    rng = np.random.default_rng(seed)
+    out = np.zeros((S, C), np.int64)
+    for s in range(S):
+        a = akey[seg == s].reshape(-1)
+        order = np.lexsort((rng.permutation(C), tkey[s]))
+        keys = tkey[s][order]
+        base = np.zeros(a.shape, np.int64)
+        n = C
+        while n > 1:
+            half = n >> 1
+            base += np.where(keys[base + half] <= a, half, 0)
+            n -= half
+        rank = base + (keys[base] <= a)
+        suffix = np.cumsum(np.bincount(rank, minlength=C + 1)[::-1])[::-1]
+        out[s, order] = suffix[1:]
+    return out.astype(np.int32)
+
+
+def _data_taus(x2d, S: int, C: int, seed: int) -> np.ndarray:
+    """(S, C) positive finite taus drawn from the data's own magnitudes,
+    shuffled, with duplicates."""
+    rng = np.random.default_rng(seed)
+    mags = np.abs(x2d[np.isfinite(x2d) & (x2d != 0)])
+    taus = rng.choice(mags, (S, C)).astype(np.float32)
+    if C > 2:
+        taus[:, 1] = taus[:, -1]
+    return taus
+
+
+@pytest.mark.parametrize("C", [1, 5, 17, 33, 256])
+def test_segmented_count_matches_pallas_for_any_order_of_taus(C):
+    """Unsorted and duplicated candidates, exact against the Pallas kernel
+    and against the CUDA kernel's rank formulation."""
+    x2d, seg_ids, S = _packed(C)
+    taus = _data_taus(x2d, S, C, seed=C)
+    want = jseg.segmented_count(jnp.asarray(x2d), jnp.asarray(seg_ids),
+                                jnp.asarray(taus), interpret=True)
+    got = tseg.segmented_count(_t(x2d), _t(seg_ids), _t(taus))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(_rank_count(x2d, seg_ids, taus),
+                                  got.numpy())
+
+
+def test_segmented_count_inf_taus_match_pallas_in_one_segment():
+    """An inf tau counts the infinities only.  One segment: the reference's
+    one-hot gather multiplies the other segments' taus by 0, and 0 * inf
+    is NaN (next test)."""
+    x2d, seg_ids, _ = _packed(4, clients=1)
+    ones = np.zeros_like(seg_ids)
+    taus = np.array([[np.inf, 1e-2, np.inf, 3e8, 1e-2, 2.5e-3, 1e-31]],
+                    np.float32)
+    want = jseg.segmented_count(jnp.asarray(x2d), jnp.asarray(ones),
+                                jnp.asarray(taus), interpret=True)
+    got = tseg.segmented_count(_t(x2d), _t(ones), _t(taus))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert int(got[0, 0]) == int(np.isinf(x2d).sum()) > 0
+    np.testing.assert_array_equal(_rank_count(x2d, ones, taus), got.numpy())
+
+
+def test_reference_count_loses_a_column_to_an_inf_tau_elsewhere():
+    """The reference gathers each row's taus with a one-hot matmul
+    (``segmented.py:175``), so an inf tau in one segment makes the same
+    column NaN (0 * inf) for every other segment's rows: they count 0
+    there.  The port counts them."""
+    x2d, seg_ids, S = _packed(5)
+    taus = np.full((S, 2), 1e-3, np.float32)
+    taus[0, 1] = np.inf
+    want = np.asarray(jseg.segmented_count(
+        jnp.asarray(x2d), jnp.asarray(seg_ids), jnp.asarray(taus),
+        interpret=True))
+    got = tseg.segmented_count(_t(x2d), _t(seg_ids), _t(taus)).numpy()
+    np.testing.assert_array_equal(got[:, 0], want[:, 0])
+    assert (want[1:, 1] == 0).all() and (got[1:, 1] == got[1:, 0]).all()
+    assert (got[1:, 1] > 0).all()
+
+
+@pytest.mark.parametrize("C", [1, 16, 17, 4096])
+def test_segmented_count_nan_and_nonpositive_taus(C):
+    """Outside the reference's contract (taus > 0), held against the port's
+    plain version and the rank formulation: a NaN tau counts nothing, a tau
+    <= 0 (-0.0 included) every non-NaN entry, rows outside [0, S) nowhere."""
+    x2d, seg_ids, S = _packed(6)
+    seg_ids = seg_ids.copy()
+    seg_ids[1] = S + 3
+    seg_ids[2] = -1
+    taus = _data_taus(x2d, S, C, seed=C)
+    special = np.array([np.nan, -0.0, 0.0, -1.0, 1e-45, np.inf, -np.inf,
+                        np.nan], np.float32)
+    flat = taus.reshape(-1)
+    flat[::7] = np.resize(special, flat[::7].size)
+    got = tseg.segmented_count(_t(x2d), _t(seg_ids), _t(taus))
+    want = tseg.segmented_count_plain(_t(x2d), _t(seg_ids), _t(taus))
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    np.testing.assert_array_equal(_rank_count(x2d, seg_ids, taus),
+                                  got.numpy())
+    assert got.numpy().reshape(-1)[np.isnan(flat)].sum() == 0
+    per_seg = [int((~np.isnan(x2d[seg_ids[:, 0] == s])).sum())
+               for s in range(S)]
+    for s, c in zip(*np.nonzero(taus <= 0)):
+        assert int(got[s, c]) == per_seg[s]
+
+
+def test_segmented_count_of_a_view_off_the_16_byte_boundary_on_the_cpu():
+    """On the CPU the wrapper takes a buffer that starts 4 bytes into its
+    storage (the card's kernel refuses one) and agrees with the reference."""
+    x2d, seg_ids, S = _packed(7)
+    taus = _data_taus(x2d, S, 16, seed=7)
+    storage = torch.zeros(x2d.size + 4)
+    view = storage[1:1 + x2d.size].view(x2d.shape)
+    view.copy_(_t(x2d))
+    assert view.data_ptr() % 16
+    want = jseg.segmented_count(jnp.asarray(x2d), jnp.asarray(seg_ids),
+                                jnp.asarray(taus), interpret=True)
+    got = tseg.segmented_count(view, _t(seg_ids), _t(taus))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_wrappers_check_their_arguments():
     x = torch.zeros((4, 1024))
     seg_ids = torch.zeros((4,), dtype=torch.int32)

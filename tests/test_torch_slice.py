@@ -76,6 +76,17 @@ def test_slice_participants_buckets_and_bytes_exact(slice_runs):
     assert port.summary()["codec"] == ref.summary()["codec"]
 
 
+def test_slice_compile_s_on_the_reference_rounds(slice_runs):
+    """Both servers time a build on the same rounds (where the bucket
+    changes, 8 -> 4) and on no other, outside ``wall_s``."""
+    ref, port = slice_runs
+    built = [r.compile_s > 0 for r in port.history]
+    assert built == [r.compile_s > 0 for r in ref.history]
+    assert built == [True, False, False, False, False, True]
+    assert port.summary()["compile_s"] == pytest.approx(
+        sum(r.compile_s for r in port.history))
+
+
 def test_slice_losses_and_parameters_match(slice_runs):
     """Tolerance: per-round mean loss rtol 1e-3; final parameters within
     atol 1e-3 entrywise and 1e-3 relative L2 over the model.  XLA and

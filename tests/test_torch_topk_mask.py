@@ -92,6 +92,32 @@ def test_apply_threshold_matches_pallas_bitwise(kind, tau):
     np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
 
 
+@pytest.mark.parametrize("offset", [1, 2, 3, 5])
+@pytest.mark.parametrize("n", [1, 3, 5, 1023, 2997])
+def test_count_ge_on_offset_views_matches_pallas(offset, n):
+    """Views that start at any 4-byte offset of a larger tensor and lengths
+    that are not multiples of 4 (the CUDA kernel's head and tail)."""
+    base = _inputs("extremes", seed=offset)
+    base[offset::29] = np.nan
+    view = _t(base)[offset:offset + n]
+    assert view.is_contiguous() and view.storage_offset() == offset
+    for tau in (2.0 ** -100, 1e-4, 0.3, 3e8):
+        want = int(jtk.count_ge(_padded(base[offset:offset + n]),
+                                jnp.float32(tau), interpret=True))
+        got = tk.count_ge(view, torch.tensor(tau, dtype=torch.float32))
+        assert int(got) == want, tau
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("tau", [1e-9, 0.5, 4.0])
+def test_masked_count_of_offset_views_matches_reference(offset, tau):
+    x = np.random.default_rng(7).standard_normal(4103).astype(np.float32)
+    view = x[offset:offset + 4097]
+    want = int(jops.masked_count(jnp.asarray(view), tau, interpret=True))
+    got = ops.masked_count(_t(x)[offset:offset + 4097], tau)
+    assert int(got) == want
+
+
 def test_select_threshold_counts_matches_reference():
     """Exact where XLA's exp2 is exact (bracket ends >= 2^-13), and the
     bracket counts at both ends equal for every k."""
