@@ -16,14 +16,21 @@ with a nonzero exit:
    ssm_scan); then ``wkv6_build``: each wkv6 kernel's registers, stack
    and spills from the ``-Xptxas -v`` log, its threads, blocks a head and
    dynamic shared memory, and its TF32 HMMA and MUFU.EX2 counts in the
-   SASS (``cuobjdump``; a kernel without HMMA fails the run);
+   SASS (``cuobjdump``; a kernel without HMMA fails the run); and
+   ``wire_build``: the registers, stack and spills of the stats kernel and
+   of both encode kernels (int8, fp32);
 2. kernel parity — each of the five segmented CUDA kernels against its
    plain PyTorch version at the main path's shape (the cohort-packed
    LeNet-28 delta, 32 x 106 rows x 1024, S = 128) and on one 2^26-element
    buffer with 64 segments: histograms, counts, bitmaps and int8 codes
    exact, masked values and maxima bitwise; the count kernel also at
    C in {1, 8, 16, 17, 32, 4096} candidates, sorted, and shuffled with
-   duplicates, NaN, inf, -0.0 and negative taus;
+   duplicates, NaN, inf, -0.0 and negative taus; then ``wire_edge_parity``:
+   stats and encode (int8 and fp32) bitwise against their plain versions
+   on the edge inputs of ``kernels/measure.py`` at R in {1, 3, 5,
+   4095, 33797} rows (NaN, +-inf, -0.0, subnormals, magnitudes at and
+   beside 2^-96; segments of 1-7 rows, ids S + 1 and -2; scales of 1e-12,
+   inf and NaN);
 3. main paths, each through ``FederatedServer.from_strategy(...).run(...)``
    with M = 32 clients for 8 rounds, with the launch counts set to 0 just
    before and read just after:
@@ -143,6 +150,7 @@ KERNEL_SYMBOLS = {"segmented_histogram": "seg_hist_kernel",
 PER_ARRAY_ITERS = 8
 LARGEST_VGG_LEAF = 147_456       # conv2b.w, conv3a.w, conv3b.w: 3x3x128x128
 COUNT_CANDIDATES = (1, 8, 16, 17, 32, 4096)
+WIRE_EDGE_ROWS = (1, 3, 5, 4095, 33 * 1024 + 5)   # 33797: 32-row blocks
 LARGE_COUNT_CANDIDATES = (32, 4096)   # timed at 2^26 beside the path's 16
 SMALL_RTOL = 1e-3                # card vs CPU: reduction order differs
 # The model zoo's serving slice: arch -> (its kernel, launches per prefill,
@@ -213,64 +221,6 @@ def cuda_ms(fns, reps: int = 20) -> float:
 # ---------------------------------------------------------------------------
 # Inputs for the kernels
 # ---------------------------------------------------------------------------
-def lenet_cohort_buffer(seed: int):
-    """The main path's mask input: 32 clients' LeNet-28 delta leaves that
-    reach the kernels (conv2.w, fc1.w, fc2.w, out.w), packed cohort-major,
-    with zeros, negatives, tiny (< 2^-96) and huge (> 2^28) entries."""
-    import torch
-    from repro_torch.kernels import packing as pk
-    gen = torch.Generator().manual_seed(seed)
-    shapes = [(5, 5, 6, 16), (784, 120), (120, 84), (84, 10)]
-    leaves = []
-    for shape in shapes:
-        x = 1e-3 * torch.randn((MAIN_M,) + shape, generator=gen)
-        flat = x.view(MAIN_M, -1)
-        flat[:, ::97] = 0.0
-        flat[:, 1::211] = 1e-31
-        flat[:, 2::1009] = 3e8
-        leaves.append(x)
-    spec = pk.build_pack_spec([leaf[0] for leaf in leaves])
-    x2d = pk.pack_stacked(leaves, spec)
-    seg_ids = spec.seg_ids(MAIN_M)
-    k = torch.tensor([max(1, round(0.5 * ls.size)) for ls in spec.leaves],
-                     dtype=torch.int32).repeat(MAIN_M)
-    return x2d, seg_ids, k
-
-
-def large_buffer(seed: int, num_segments: int = 64):
-    """2^26 elements in ``num_segments`` equal segments of different
-    scales."""
-    import torch
-    gen = torch.Generator().manual_seed(seed)
-    rows = (1 << 26) // SEG_LANE
-    x2d = torch.randn((rows, SEG_LANE), generator=gen)
-    scale = torch.logspace(-6, 2, num_segments)
-    seg_ids = torch.arange(num_segments, dtype=torch.int32
-                           ).repeat_interleave(rows // num_segments)
-    x2d *= scale[seg_ids.long()][:, None]
-    k = torch.full((num_segments,), rows // num_segments * SEG_LANE // 10,
-                   dtype=torch.int32)
-    return x2d, seg_ids, k
-
-
-def taus_for(x2d, seg_ids, k, num_segments):
-    """The count, apply and encode kernels' inputs as the masking and wire
-    paths make them: 16 geometric candidates per segment, one final tau,
-    and the int8 scales from the segment maxima."""
-    import torch
-    from repro_torch.core.compression import int8_scales
-    from repro_torch.kernels import segmented as seg
-    hist, amax = seg.segmented_stats_plain(x2d, seg_ids, num_segments)
-    lo, hi, cnt_lo, cnt_hi = seg.select_thresholds(hist, k)
-    cand = seg.candidate_taus(lo, hi, 16, geometric=True)
-    counts = seg.segmented_count_plain(x2d, seg_ids, cand)
-    lo, hi, cnt_lo, cnt_hi = seg.shrink_brackets(lo, hi, cnt_lo, cnt_hi,
-                                                 cand, counts, k)
-    tau = torch.where(cnt_hi >= 1, hi, lo)
-    return (cand.contiguous(), tau.contiguous(),
-            int8_scales(amax[:, 0]).contiguous())
-
-
 def unsorted_taus(taus, seed: int):
     """``taus`` ((S, C) candidates) shuffled along C, with duplicated
     neighbours, and NaN, inf, -0.0 and negative taus in every seventh
@@ -288,21 +238,15 @@ def unsorted_taus(taus, seed: int):
     return out.to(taus.device)
 
 
-def _bitwise(a, b) -> bool:
-    import torch
-    if a.dtype == torch.float32:
-        a, b = a.view(torch.int32), b.view(torch.int32)
-    return bool(torch.equal(a, b))
-
-
 def check_kernels(label: str, x2d, seg_ids, k) -> dict:
     """Each kernel against its plain version on the card; returns the
     largest absolute differences (int8 encode under ``segmented_encode``,
     fp32 encode under ``segmented_encode_fp32``)."""
     import torch
+    from repro_torch.kernels import measure
     from repro_torch.kernels import segmented as seg
     S = k.numel()
-    cand, tau, scales = taus_for(x2d, seg_ids, k, S)
+    cand, tau, scales = measure.taus_for(x2d, seg_ids, k, S)
     got = {
         "segmented_histogram": (seg.segmented_histogram(x2d, seg_ids, S),),
         "segmented_count": (seg.segmented_count(x2d, seg_ids, cand),),
@@ -328,7 +272,7 @@ def check_kernels(label: str, x2d, seg_ids, k) -> dict:
     for name in got:
         errs[name] = max(float((g.double() - w.double()).abs().nan_to_num()
                                .max()) for g, w in zip(got[name], want[name]))
-        exact[name] = all(_bitwise(g, w)
+        exact[name] = all(measure.bitwise(g, w)
                           for g, w in zip(got[name], want[name]))
     lo, hi, _, _ = seg.select_thresholds(
         got["segmented_histogram"][0], k)
@@ -352,57 +296,45 @@ def check_kernels(label: str, x2d, seg_ids, k) -> dict:
     return errs
 
 
-def cuda_loop_ms(fns, launches: int = 50, reps: int = 5) -> float:
-    """Milliseconds per call of ``launches`` calls issued back to back
-    between two CUDA events (median over ``reps``), call i running
-    ``fns[i % len(fns)]``: the device time of a kernel whose host-side
-    launch is cheaper than its run."""
+def wire_edge_parity() -> dict:
+    """Stats and encode (int8, fp32) against their plain versions on the
+    edge inputs at each of ``WIRE_EDGE_ROWS`` rows, bitwise; any difference
+    fails the run."""
     import torch
-    for fn in fns[:3]:
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for i in range(launches):
-            rc = fns[i % len(fns)]()
-            if rc:
-                fail(f"kernel launch returned cudaError {rc}")
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / launches)
-    return statistics.median(times)
+    from repro_torch.kernels import measure
+    from repro_torch.kernels import segmented as seg
+    exact = {}
+    for rows in WIRE_EDGE_ROWS:
+        x2d, ids, taus, scales = (t.cuda() for t in
+                                  measure.wire_edge_inputs(rows, seed=rows))
+        S = taus.numel()
+        pairs = {
+            "stats": (seg.segmented_stats(x2d, ids, S),
+                      seg.segmented_stats_plain(x2d, ids, S)),
+            "int8": (seg.segmented_encode(x2d, ids, taus, scales),
+                     seg.segmented_encode_plain(x2d, ids, taus, scales)),
+            "fp32": (seg.segmented_encode(x2d, ids, taus),
+                     seg.segmented_encode_plain(x2d, ids, taus))}
+        torch.cuda.synchronize()
+        exact[str(rows)] = {
+            kind: all(measure.bitwise(g, w) for g, w in zip(*pair))
+            for kind, pair in pairs.items()}
+    phase("wire_edge_parity", exact=exact)
+    bad = [f"{kind} at R = {rows}" for rows, rec in exact.items()
+           for kind, ok in rec.items() if not ok]
+    if bad:
+        fail(f"wire kernels disagree with their plain versions: {bad}")
+    return exact
 
 
-def device_ms(fns, symbol: str, launches: int = 50) -> dict:
-    """``launches`` calls back to back, as in :func:`cuda_loop_ms`, under
-    ``torch.profiler`` (after one short session that starts the tracer):
-    the traced time per record of the kernel named ``symbol`` (no launch
-    gaps, whatever the host's pace), the device records of the trace, the
-    kernel's records and the calls made.  A call that puts more than the
-    kernel on the stream shows as more records than kernel records."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for fn in fns[:3]:
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]):
-        fns[0]()
-        torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(launches):
-            fns[i % len(fns)]()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    mine = [e for e in events if symbol in e.name]
-    if not mine:
-        fail(f"the trace holds no record of {symbol}")
-    return {"device_ms": sum(e.time_range.elapsed_us() for e in mine)
-            / 1e3 / len(mine),
-            "device_records": len(events), "kernel_records": len(mine),
-            "calls": launches}
+def wire_build_record() -> dict:
+    """The stats kernel's and both encode kernels' registers, stack and
+    spills from the build's ``-Xptxas -v`` log."""
+    from repro_torch.kernels import build, measure
+    found = measure.wire_resources(build.build_log().read_text())
+    if sorted(found) != ["fp32", "int8", "stats"]:
+        fail(f"wire kernels in the build log: {sorted(found)}")
+    return found
 
 
 def kernel_symbol(name: str) -> str:
@@ -425,14 +357,14 @@ def time_kernels(label: str, x2d, seg_ids, k, count_candidates=()) -> dict:
     ``warm_ms`` is the same kernel called on one buffer, which after the
     first call sits in L2 when it fits there."""
     import torch
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, measure
     from repro_torch.kernels import segmented as seg
     lib = build.library()
     stream = torch.cuda.current_stream().cuda_stream
     S = k.numel()
     n = x2d.numel()
     rows = x2d.shape[0]
-    cand, tau, scales = taus_for(x2d, seg_ids, k, S)
+    cand, tau, scales = measure.taus_for(x2d, seg_ids, k, S)
     lo, hi, _, _ = seg.select_thresholds(
         seg.segmented_histogram(x2d, seg_ids, S), k)
     cands = {"segmented_count": cand, **{
@@ -515,9 +447,9 @@ def time_kernels(label: str, x2d, seg_ids, k, count_candidates=()) -> dict:
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / FP32_OPS_PER_S * 1e3
         kernels = [launcher(name, i) for i in range(copies)]
-        rec = {"ms": cuda_loop_ms(kernels),
-               "warm_ms": cuda_loop_ms(kernels[:1]),
-               **device_ms(kernels, kernel_symbol(name)),
+        rec = {"ms": measure.cuda_loop_ms(kernels),
+               "warm_ms": measure.cuda_loop_ms(kernels[:1]),
+               **measure.device_ms(kernels, kernel_symbol(name)),
                "wrapper_ms": cuda_ms([lambda x=x: wrapper(x) for x in xs]),
                "plain_ms": cuda_ms([lambda x=x: plain(x) for x in xs],
                                    reps=5),
@@ -620,6 +552,7 @@ def wire_identity(main: dict) -> None:
     import torch
     from repro_torch.core import codecs
     from repro_torch.core.client import stacked_client_update
+    from repro_torch.kernels import measure
     server = main["server"]
     batches = [torch.as_tensor(x).to(server.device)
                for x in main["batches"]]
@@ -641,7 +574,7 @@ def wire_identity(main: dict) -> None:
                 torch.cuda.synchronize()
             label = plain.name
             results[label] = {
-                "bitwise": all(_bitwise(got[k], want[k]) for k in want),
+                "bitwise": all(measure.bitwise(got[k], want[k]) for k in want),
                 "wire_bytes": [fused.wire_bytes(server.params),
                                plain.wire_bytes(server.params)]}
     phase("wire_identity", clients=int(batches[0].shape[0]), **results)
@@ -993,7 +926,7 @@ def check_topk_kernels(label: str, x, errs: dict) -> dict:
     the kernels against the same pipeline on the plain versions (bitwise).
     Folds the largest absolute differences into ``errs``."""
     import torch
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import measure, ops
     from repro_torch.kernels import topk_mask as tk
     with plain_kernels():
         want_mask = ops.topk_mask(x, 0.5, PER_ARRAY_ITERS)
@@ -1008,13 +941,13 @@ def check_topk_kernels(label: str, x, errs: dict) -> dict:
         t = torch.tensor(tau, device=x.device)
         count_ok &= int(tk.count_ge(x, t)) == int(tk.count_ge_plain(x, t))
         got, want = tk.apply_threshold(x, t), tk.apply_threshold_plain(x, t)
-        apply_ok &= _bitwise(got, want)
+        apply_ok &= measure.bitwise(got, want)
         apply_err = max(apply_err, float((got.double() - want.double())
                                          .abs().nan_to_num().max()))
     views = count_views_agree(x, taus)
     exact.update(count_ge=count_ok and all(views.values()),
                  apply_threshold=apply_ok,
-                 topk_mask=_bitwise(got_mask, want_mask))
+                 topk_mask=measure.bitwise(got_mask, want_mask))
     for name in PER_ARRAY:
         errs[name] = max(errs.get(name, 0.0),
                          0.0 if name != "apply_threshold" else apply_err)
@@ -1033,7 +966,7 @@ def time_topk(label: str, x, launches: dict) -> dict:
     warm, the wrapper's and the plain version's time per call, the bytes
     bound and, for the pipeline, ``torch.topk(|x|, k)`` plus a scatter."""
     import torch
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import build, measure, ops
     from repro_torch.kernels import topk_mask as tk
     lib = build.library()
     stream = torch.cuda.current_stream().cuda_stream
@@ -1071,9 +1004,9 @@ def time_topk(label: str, x, launches: dict) -> dict:
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = n / FP32_OPS_PER_S * 1e3
         kernels = [launcher(name, i) for i in range(copies)]
-        rec = {"ms": cuda_loop_ms(kernels),
-               "warm_ms": cuda_loop_ms(kernels[:1]),
-               **device_ms(kernels, kernel_symbol(name)),
+        rec = {"ms": measure.cuda_loop_ms(kernels),
+               "warm_ms": measure.cuda_loop_ms(kernels[:1]),
+               **measure.device_ms(kernels, kernel_symbol(name)),
                "wrapper_ms": cuda_ms([lambda v=v: wrapper(v) for v in xs]),
                "plain_ms": cuda_ms([lambda v=v: plain(v) for v in xs],
                                    reps=5),
@@ -1526,7 +1459,7 @@ def time_zoo_kernels() -> dict:
     size), ``warm_ms`` (one buffer), ``wrapper_ms`` (one Python wrapper
     call with its checks and allocations), ``plain_ms`` and the bound."""
     import torch
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, measure
     from repro_torch.kernels import ssm_scan as ssk
     from repro_torch.kernels import wkv6 as wk
     lib = build.library()
@@ -1556,8 +1489,9 @@ def time_zoo_kernels() -> dict:
         kernels = [lambda p=p: fn(*p, *ints, stream) for p in ptrs]
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / FP32_OPS_PER_S * 1e3
-        rec = {"shape": list(ints), "ms": cuda_loop_ms(kernels, launches=20),
-               "warm_ms": cuda_loop_ms(kernels[:1], launches=20),
+        rec = {"shape": list(ints),
+               "ms": measure.cuda_loop_ms(kernels, launches=20),
+               "warm_ms": measure.cuda_loop_ms(kernels[:1], launches=20),
                "wrapper_ms": cuda_ms([lambda v=v: wrapper(*v) for v in xs],
                                      reps=10),
                "plain_ms": cuda_ms([lambda v=v: plain(*v) for v in xs],
@@ -1640,7 +1574,7 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, measure
     t0 = time.perf_counter()
     build.library()
     build_s = time.perf_counter() - t0
@@ -1654,14 +1588,16 @@ def main(argv) -> int:
           matmul_precision=torch.get_float32_matmul_precision(),
           kernel_build_s=build_s, ptxas=ptxas)
     phase("wkv6_build", **wkv6_build_record(build.library()))
+    phase("wire_build", kernels=wire_build_record())
 
     # ---- 2. kernel parity ----------------------------------------------
-    main_in = [t.cuda() for t in lenet_cohort_buffer(seed=1)]
+    main_in = [t.cuda() for t in measure.lenet_cohort_buffer(seed=1)]
     if tuple(main_in[0].shape) != (MAIN_M * 106, SEG_LANE):
         fail(f"main-path buffer is {tuple(main_in[0].shape)}")
     errs = check_kernels("lenet28_cohort32", *main_in)
-    large_in = [t.cuda() for t in large_buffer(seed=2)]
+    large_in = [t.cuda() for t in measure.large_buffer(seed=2)]
     check_kernels("2^26", *large_in)
+    wire_edge_parity()
     # ---- 3. main paths ---------------------------------------------------
     mains = {preset: run_main_path(preset) for preset in MAIN_PATHS}
     fused = mains["fig5-fused-int8"]
@@ -1749,9 +1685,13 @@ def main(argv) -> int:
         if name == "segmented_encode":
             fp32 = times["segmented_encode_fp32"]
             entry.update(variant="int8", fp32_ms=fp32["ms"],
+                         fp32_warm_ms=fp32["warm_ms"],
+                         fp32_device_ms=fp32["device_ms"],
                          fp32_bound_ms=fp32["bound_ms"],
                          fp32_plain_ms=fp32["plain_ms"],
                          fp32_max_abs_err=errs["segmented_encode_fp32"])
+            entry["fp32_at_2^26"] = at_large(
+                large_times["segmented_encode_fp32"])
         kernels.append(entry)
     topk_replaces = {"exponent_histogram": "src/repro/kernels/topk_mask.py:89",
                      "count_ge": "src/repro/kernels/topk_mask.py:118",

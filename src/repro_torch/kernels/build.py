@@ -20,7 +20,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "SOURCES", "build_dir", "build_log", "library"]
+__all__ = ["NVCC_FLAGS", "SIGNATURES", "SOURCES", "build_dir", "build_log",
+           "library", "load"]
 
 SOURCES = tuple(sorted(
     (Path(__file__).resolve().parent / "csrc").glob("*.cu")))
@@ -89,30 +90,39 @@ def _compile(lib: Path) -> None:
         os.replace(tmp_lib, lib)
 
 
+# The C launchers of csrc/ and their arguments; each returns a cudaError.
+_PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+SIGNATURES = {
+    "seg_histogram_launch": [_PTR, _PTR, _I32, _I32, _PTR, _PTR],
+    "seg_count_launch": [_PTR, _PTR, _PTR, _I32, _I32, _I32, _PTR, _PTR],
+    "seg_apply_launch": [_PTR, _PTR, _PTR, _I32, _I32, _PTR, _PTR, _PTR],
+    "seg_stats_launch": [_PTR, _PTR, _I32, _I32, _PTR, _PTR, _PTR],
+    "seg_encode_launch": [_PTR, _PTR, _PTR, _PTR, _I32, _I32, _PTR, _PTR,
+                          _PTR, _PTR],
+    "topk_histogram_launch": [_PTR, _I64, _PTR, _PTR],
+    "topk_count_launch": [_PTR, _I64, _PTR, _PTR, _PTR],
+    "topk_apply_launch": [_PTR, _I64, _PTR, _PTR, _PTR],
+    "wkv6_launch": [_PTR] * 8 + [_I32] * 4 + [_PTR],
+    "wkv6_config": [_I32, _PTR, _PTR, _PTR],
+    "ssm_scan_launch": [_PTR] * 6 + [_I32] * 4 + [_PTR],
+}
+
+
+def load(path: Path, names=tuple(SIGNATURES)) -> ctypes.CDLL:
+    """Load a library built from ``csrc/`` and declare its C launchers
+    ``names`` (all of :data:`SIGNATURES` by default)."""
+    lib = ctypes.CDLL(str(path))
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = _I32
+    return lib
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """The loaded kernel library, compiled first if it is not built yet."""
     lib_path = _lib_path()
     if not lib_path.exists():
         _compile(lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    signatures = {
-        "seg_histogram_launch": [ptr, ptr, i32, i32, ptr, ptr],
-        "seg_count_launch": [ptr, ptr, ptr, i32, i32, i32, ptr, ptr],
-        "seg_apply_launch": [ptr, ptr, ptr, i32, i32, ptr, ptr, ptr],
-        "seg_stats_launch": [ptr, ptr, i32, i32, ptr, ptr, ptr],
-        "seg_encode_launch": [ptr, ptr, ptr, ptr, i32, i32, ptr, ptr, ptr,
-                              ptr],
-        "topk_histogram_launch": [ptr, i64, ptr, ptr],
-        "topk_count_launch": [ptr, i64, ptr, ptr, ptr],
-        "topk_apply_launch": [ptr, i64, ptr, ptr, ptr],
-        "wkv6_launch": [ptr] * 8 + [i32] * 4 + [ptr],
-        "wkv6_config": [i32, ptr, ptr, ptr],
-        "ssm_scan_launch": [ptr] * 6 + [i32] * 4 + [ptr],
-    }
-    for name, argtypes in signatures.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = i32
-    return lib
+    return load(lib_path)

@@ -25,16 +25,18 @@
 // The design therefore keeps everything but the single streaming pass on
 // chip:
 //   * one block owns a contiguous run of rows (about one wave of blocks in
-//     all), reads them with coalesced loads (4 bytes a thread; the count
-//     16 bytes, four rows in flight) and accumulates into shared memory;
+//     all), reads them with coalesced loads (4 bytes a thread; 16 bytes for
+//     count, four rows in flight, and for stats and encode, one row ahead)
+//     and accumulates into shared memory;
 //   * warp-aggregated shared atomics (__match_any_sync for the histogram,
 //     __reduce_add_sync for the kept count, __reduce_max_sync for the stats
 //     max) keep shared-memory traffic to a few operations per warp; the
 //     count ranks each element among the sorted candidates instead (its
 //     section below);
 //   * a block flushes its shared counters to the (S, .) outputs with one
-//     global atomicAdd per counter each time its segment changes.  Packed
-//     rows are segment-contiguous, so that is a handful of atomics per block.
+//     global atomicAdd per counter each time its segment changes (stats and
+//     encode: once, at its end, for every segment it met).  Packed rows are
+//     segment-contiguous, so that is a handful of atomics per block.
 // Integer atomics are exact and a sum of suffix counts is the suffix count
 // of the sum; the stats max is an atomicMax over the bits of |x| as
 // unsigned integers, which order non-negative floats (NaN above inf above
@@ -437,149 +439,280 @@ seg_apply_kernel(const float* __restrict__ x, const int* __restrict__ seg,
 }
 
 // ---------------------------------------------------------------------------
-// Stats: the histogram kernel's pass plus amax[s] = max |x| over segment s.
-// Each thread keeps the largest bits of |x| as an unsigned integer (NaN made
-// canonical, so it orders above inf); __reduce_max_sync folds a warp, one
-// shared atomicMax a block, one global atomicMax per segment change the
-// grid.  The float output starts at 0.0, which is also the max of an empty
-// or all-zero segment.
+// The fused wire path's two sweeps, stats and encode.
+//
+// Both read every element once and do a few operations on it, so both are
+// bound by device-memory bytes.  At the path's shape (3392 rows, about 4 us
+// of bytes) what costs beside the bytes is work that waits for them: a
+// thread that holds all its rows in flight before its first compare does
+// all its work after the read (on the H100, four rows in flight took 1.3x
+// the time of one row ahead; PERF.md, bench_segmented.py).  So:
+//   * a block owns up to kWireRowsMax = 32 rows, about kWireBlocks = 1024
+//     blocks in all (4 rows each at the path's shape, 32 at 2^26 elements);
+//   * a thread reads a row as one float4 and loads row r + 1 before it
+//     works on row r, in at most 32 registers, so eight blocks share an SM;
+//   * warp 0 reads the block's segment ids (one a lane) before any row and
+//     splits the rows into runs of one id; for encode, each run's first
+//     lane loads the run's tau and scale before warp 0's own rows, one load
+//     of each per run, not queued behind the rows;
+//   * the row loop has no barrier.  Counters live in shared memory per run
+//     (stats: 32 bins of top-bin counts and the max; encode: the kept
+//     count), so a change of segment only moves the thread to the next
+//     run's counters; one barrier at the end, then one global atomic per
+//     nonzero counter and run.
+// Shared atomics are warp-aggregated: __match_any_sync over the bins,
+// __reduce_max_sync and __reduce_add_sync over the max and the counts when
+// the run changes.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ unsigned abs_bits(float v) {
+constexpr int kWireRowsMax = 32;    // rows a block owns at most
+constexpr int kWireBlocks = 1024;   // blocks aimed at
+constexpr int kWireMinBlocks = 8;   // blocks an SM holds: <= 32 registers
+
+// A block's rows split into runs of one segment id.
+struct WireRuns {
+  int run_of[kWireRowsMax];    // row -> its run
+  int seg[kWireRowsMax];       // run -> segment id
+  float tau[kWireRowsMax];     // run -> threshold (0 outside [0, S))
+  float scale[kWireRowsMax];   // run -> int8 scale (0 outside [0, S))
+  int count;
+};
+
+// Warp 0, lane l holding the id of the block's row l (l < n): the runs of
+// the block's rows; each run's first lane loads its tau and scale when
+// asked.  A row starts a run if it is the block's first or its id differs
+// from the row before.
+template <bool kTau, bool kScale>
+__device__ __forceinline__ void find_runs(int id,
+                                          const float* __restrict__ tau,
+                                          const float* __restrict__ scale,
+                                          int n, int num_segments,
+                                          WireRuns& runs) {
+  const int lane = threadIdx.x & 31;
+  const int prev = __shfl_up_sync(kFull, id, 1);
+  const bool head = lane < n && (lane == 0 || id != prev);
+  const unsigned heads = __ballot_sync(kFull, head);
+  const int run = __popc(heads & (kFull >> (31 - lane))) - 1;
+  if (lane < n) runs.run_of[lane] = run;
+  if (head) {
+    const bool ok = in_range(id, num_segments);
+    runs.seg[run] = id;
+    if (kTau) runs.tau[run] = ok ? tau[id] : 0.0f;
+    if (kScale) runs.scale[run] = ok ? scale[id] : 0.0f;
+  }
+  if (lane == 0) runs.count = __popc(heads);
+}
+
+// ---------------------------------------------------------------------------
+// Stats: the histogram kernel's sweep plus amax[s] = max |x| over segment s.
+// Each thread keeps the largest bits of |x| as an unsigned integer in a
+// register (NaN payloads order above inf); it goes to the run's shared max
+// once a run (__reduce_max_sync, any NaN made the canonical one, one shared
+// atomicMax a warp), and to amax[s] once a block (one global atomicMax).
+// The float output starts at 0.0, which is also the max of an empty or
+// all-zero segment.  Bins are counted at each element's top bin and summed
+// into suffix form at the flush.
+// ---------------------------------------------------------------------------
+constexpr unsigned kInfBits = 0x7f800000u;
+constexpr unsigned kLowestEdgeBits = (kExpoMin + 127) << 23;   // 2^-96
+
+// top_bin on the bits of |v|: the edges 2^(-96 + 4 j) have exponent fields
+// 31 + 4 j, so j = (e + 1) / 4 - 8 for 2^-96 <= |v| <= inf, and -1 for
+// smaller magnitudes and NaN (one unsigned range test).
+__device__ __forceinline__ int top_bin_bits(unsigned b) {
+  const int j = static_cast<int>((b + (1u << 23)) >> 25) - 8;
+  return b - kLowestEdgeBits <= kInfBits - kLowestEdgeBits ? min(j, kBins - 1)
+                                                           : -1;
+}
+
+// One element: the running max of |v|'s bits (NaN payloads above inf, made
+// the canonical NaN at the flush) and the warp-aggregated count of its top
+// bin (the lowest lane of each bin adds; `lt`: the lanes below this one).
+__device__ __forceinline__ void stats_value(float v, int* hist, unsigned& m,
+                                            unsigned lt) {
   const unsigned b = __float_as_uint(v) & 0x7fffffffu;
-  return b > 0x7f800000u ? 0x7fc00000u : b;
+  m = max(m, b);
+  const int j = top_bin_bits(b);
+  const unsigned peers = __match_any_sync(kFull, j);
+  if (j >= 0 && (peers & lt) == 0) atomicAdd(&hist[j], __popc(peers));
 }
 
-__device__ void flush_stats(int* hist, unsigned* amax_sh, unsigned* m,
-                            int* out, unsigned* amax_out, int s,
-                            int num_segments) {
-  const int tid = threadIdx.x;
-  const unsigned warp_max = __reduce_max_sync(kFull, *m);
-  if ((tid & 31) == 0 && warp_max != 0) atomicMax(amax_sh, warp_max);
-  *m = 0;
-  __syncthreads();
-  int suffix = 0;
-  if (tid < kBins) {
-    for (int i = tid; i < kBins; ++i) suffix += hist[i];
-  }
-  const unsigned block_max = *amax_sh;
-  __syncthreads();
-  if (tid < kBins) {
-    hist[tid] = 0;
-    if (suffix != 0 && in_range(s, num_segments)) {
-      atomicAdd(&out[static_cast<size_t>(s) * kBins + tid], suffix);
-    }
-  }
-  if (tid == 0) {
-    *amax_sh = 0;
-    if (block_max != 0 && in_range(s, num_segments)) {
-      atomicMax(&amax_out[s], block_max);
-    }
-  }
-  __syncthreads();
+__device__ __forceinline__ void flush_max(unsigned m, unsigned* amax,
+                                          int lane) {
+  unsigned warp_max = __reduce_max_sync(kFull, m);
+  if (warp_max > kInfBits) warp_max = 0x7fc00000u;   // the canonical NaN
+  if (lane == 0 && warp_max != 0) atomicMax(amax, warp_max);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kWireMinBlocks)
 seg_stats_kernel(const float* __restrict__ x, const int* __restrict__ seg,
                  int rows, int rows_per_block, int num_segments,
                  int* __restrict__ out, unsigned* __restrict__ amax_out) {
-  __shared__ int hist[kBins];
-  __shared__ unsigned amax_sh;
+  __shared__ WireRuns runs;
+  __shared__ int hist[kWireRowsMax * kBins];
+  __shared__ unsigned amax_sh[kWireRowsMax];
   int r0, r1;
   block_rows(rows, rows_per_block, &r0, &r1);
   if (r0 >= r1) return;
+  const int n = r1 - r0;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  if (tid < kBins) hist[tid] = 0;
-  if (tid == 0) amax_sh = 0;
+  const float4* xr =
+      reinterpret_cast<const float4*>(x + static_cast<size_t>(r0) * kLane) +
+      tid;
+  // Warp 0's ids go out first, so they are not queued behind the rows.
+  const int id = tid < n ? seg[r0 + tid] : 0;
+  float4 next = xr[0];
+  if (tid < 32) {
+    find_runs<false, false>(id, nullptr, nullptr, n, num_segments, runs);
+  }
+  for (int i = tid; i < n * kBins; i += kThreads) hist[i] = 0;
+  if (tid < n) amax_sh[tid] = 0;
   __syncthreads();
   unsigned m = 0;
-  int cur = seg[r0];
-  for (int r = r0; r < r1; ++r) {
-    const int s = seg[r];
-    if (s != cur) {
-      flush_stats(hist, &amax_sh, &m, out, amax_out, cur, num_segments);
-      cur = s;
+  int cur = 0;
+  const unsigned lt = (1u << lane) - 1u;
+  for (int r = 0; r < n; ++r) {
+    const float4 e = next;
+    if (r + 1 < n) next = xr[static_cast<size_t>(r + 1) * (kLane / 4)];
+    const int run = runs.run_of[r];
+    if (run != cur) {
+      flush_max(m, &amax_sh[cur], lane);
+      m = 0;
+      cur = run;
     }
-    const float* row = x + static_cast<size_t>(r) * kLane;
-#pragma unroll
-    for (int i = 0; i < kPerThread; ++i) {
-      const float v = row[tid + i * kThreads];
-      m = max(m, abs_bits(v));
-      const int j = top_bin(v);
-      const unsigned peers = __match_any_sync(kFull, j);
-      if (j >= 0 && lane == __ffs(peers) - 1) {
-        atomicAdd(&hist[j], __popc(peers));
-      }
-    }
+    int* h = hist + run * kBins;
+    stats_value(e.x, h, m, lt);
+    stats_value(e.y, h, m, lt);
+    stats_value(e.z, h, m, lt);
+    stats_value(e.w, h, m, lt);
   }
-  flush_stats(hist, &amax_sh, &m, out, amax_out, cur, num_segments);
+  flush_max(m, &amax_sh[cur], lane);
+  __syncthreads();
+  // Warp w flushes runs w, w + 8, ...: lane j's suffix count of bin j.
+  for (int q = tid >> 5; q < runs.count; q += kThreads / 32) {
+    int suffix = hist[q * kBins + lane];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_down_sync(kFull, suffix, d);
+      if (lane + d < 32) suffix += t;
+    }
+    const int s = runs.seg[q];
+    if (!in_range(s, num_segments)) continue;
+    if (suffix != 0) {
+      atomicAdd(&out[static_cast<size_t>(s) * kBins + lane], suffix);
+    }
+    if (lane == 0 && amax_sh[q] != 0) atomicMax(&amax_out[s], amax_sh[q]);
+  }
 }
 
 // ---------------------------------------------------------------------------
 // Encode: keep = |x| >= tau[s]; out = keep ? x : +0.0 (fp32), or with scales
 // the int8 code of (keep ? x : +0.0) / scale[s]: IEEE division (__fdiv_rn),
-// rintf (half to even), clip to [-127, 127], NaN -> 0, which is what XLA's
-// round, clip and float-to-int conversion give the reference.  Element
-// tid + i * 256 of a row puts the 32 lanes of a warp on 32 consecutive
-// elements, so the warp's __ballot_sync of keep is 4 bitmap bytes in
-// LSB-first order (bit l = element base + l): lane 0 stores it as one
-// 32-bit word and adds its popcount to the kept count.
+// round half to even, clip to [-127, 127], NaN -> 0, which is what XLA's
+// round, clip and float-to-int conversion give the reference.  A masked-out
+// entry's code is 0 whatever the scale (0 / s is +-0, or NaN for a zero or
+// NaN scale), so only kept entries are divided.
+// Thread t owns elements 4t .. 4t + 3 of a row: one float4 load, one float4
+// (fp32) or 4-byte (int8) store.  Its four keep bits are bits 4 (t % 8) ..
+// 4 (t % 8) + 3 of the row's bitmap word t / 8 (bit l = element 32 w + l,
+// LSB first); three __shfl_xor_sync ORs gather a word over 8 lanes and one
+// lane of the 8 stores it.
 // ---------------------------------------------------------------------------
+// cvt.rni.s32.f32 rounds half to even, saturates +-inf and gives 0 for NaN,
+// so clamping its integer is rint, clip and the cast in one.
 __device__ __forceinline__ signed char int8_code(float v) {
-  const float r = rintf(v);
-  if (isnan(r)) return 0;
-  return static_cast<signed char>(fminf(fmaxf(r, -127.0f), 127.0f));
+  return static_cast<signed char>(max(-127, min(127, __float2int_rn(v))));
+}
+
+// The code of a kept entry as a byte; 0 for one masked out.
+__device__ __forceinline__ unsigned code_byte(unsigned keep, float v,
+                                              float sc) {
+  return keep ? static_cast<unsigned char>(int8_code(__fdiv_rn(v, sc))) : 0u;
+}
+
+__device__ __forceinline__ void flush_count(int acc, int* cnt, int lane) {
+  const int warp_total = __reduce_add_sync(kFull, acc);
+  if (lane == 0 && warp_total != 0) atomicAdd(cnt, warp_total);
 }
 
 template <bool kQuantize>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kWireMinBlocks)
 seg_encode_kernel(const float* __restrict__ x, const int* __restrict__ seg,
                   const float* __restrict__ tau,
                   const float* __restrict__ scale, int rows,
                   int rows_per_block, int num_segments, void* __restrict__ out,
                   unsigned* __restrict__ bitmap, int* __restrict__ kept) {
-  __shared__ int cnt;
+  __shared__ WireRuns runs;
+  __shared__ int kept_sh[kWireRowsMax];
   int r0, r1;
   block_rows(rows, rows_per_block, &r0, &r1);
   if (r0 >= r1) return;
+  const int n = r1 - r0;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  if (tid == 0) cnt = 0;
+  const float4* xr =
+      reinterpret_cast<const float4*>(x + static_cast<size_t>(r0) * kLane) +
+      tid;
+  // Warp 0 reads the ids and then the runs' taus and scales before its own
+  // rows, so they are not queued behind the block's rows; the other warps
+  // issue their rows at once.
+  if (tid < 32) {
+    find_runs<true, kQuantize>(tid < n ? seg[r0 + tid] : 0, tau, scale, n,
+                               num_segments, runs);
+  }
+  float4 next = xr[0];
+  if (tid < n) kept_sh[tid] = 0;
   __syncthreads();
-  int cur = seg[r0];
-  bool ok = in_range(cur, num_segments);
-  float t = ok ? tau[cur] : 0.0f;
-  float sc = kQuantize && ok ? scale[cur] : 0.0f;
+  int cur = 0;
+  float t = runs.tau[0];
+  float sc = kQuantize ? runs.scale[0] : 0.0f;
   int acc = 0;
-  for (int r = r0; r < r1; ++r) {
-    const int s = seg[r];
-    if (s != cur) {
-      flush_kept(&cnt, &acc, kept, cur, num_segments);
-      cur = s;
-      ok = in_range(cur, num_segments);
-      t = ok ? tau[cur] : 0.0f;
-      sc = kQuantize && ok ? scale[cur] : 0.0f;
+  const int shift = 4 * (lane & 7);
+  // Not unrolled: unrolled, fp32 encode took 4% longer at the path's shape
+  // on the H100.
+#pragma unroll 1
+  for (int r = 0; r < n; ++r) {
+    const float4 e = next;
+    if (r + 1 < n) next = xr[static_cast<size_t>(r + 1) * (kLane / 4)];
+    const int run = runs.run_of[r];
+    if (run != cur) {
+      flush_count(acc, &kept_sh[cur], lane);
+      acc = 0;
+      cur = run;
+      t = runs.tau[run];
+      if (kQuantize) sc = runs.scale[run];
     }
-    const size_t base = static_cast<size_t>(r) * kLane;
-#pragma unroll
-    for (int i = 0; i < kPerThread; ++i) {
-      const size_t idx = base + tid + i * kThreads;
-      const float v = x[idx];
-      const bool keep = fabsf(v) >= t;
-      const float masked = keep ? v : 0.0f;
-      if (kQuantize) {
-        static_cast<signed char*>(out)[idx] = int8_code(__fdiv_rn(masked, sc));
-      } else {
-        static_cast<float*>(out)[idx] = masked;
-      }
-      const unsigned word = __ballot_sync(kFull, keep);
-      if (lane == 0) {
-        bitmap[idx / 32] = word;
-        acc += __popc(word);
-      }
+    const unsigned bits =
+        (fabsf(e.x) >= t ? 1u : 0u) | (fabsf(e.y) >= t ? 2u : 0u) |
+        (fabsf(e.z) >= t ? 4u : 0u) | (fabsf(e.w) >= t ? 8u : 0u);
+    const size_t row = static_cast<size_t>(r0 + r);
+    if (kQuantize) {
+      // Four codes, element 4t in the low byte: one 4-byte store.
+      reinterpret_cast<unsigned*>(static_cast<signed char*>(out) +
+                                  row * kLane)[tid] =
+          code_byte(bits & 1u, e.x, sc) | code_byte(bits & 2u, e.y, sc) << 8 |
+          code_byte(bits & 4u, e.z, sc) << 16 |
+          code_byte(bits & 8u, e.w, sc) << 24;
+    } else {
+      reinterpret_cast<float4*>(static_cast<float*>(out) + row * kLane)[tid] =
+          make_float4(bits & 1u ? e.x : 0.0f, bits & 2u ? e.y : 0.0f,
+                      bits & 4u ? e.z : 0.0f, bits & 8u ? e.w : 0.0f);
+    }
+    unsigned word = bits << shift;
+    word |= __shfl_xor_sync(kFull, word, 1);
+    word |= __shfl_xor_sync(kFull, word, 2);
+    word |= __shfl_xor_sync(kFull, word, 4);
+    if ((lane & 7) == 0) bitmap[row * (kLane / 32) + (tid >> 3)] = word;
+    acc += __popc(bits);
+  }
+  flush_count(acc, &kept_sh[cur], lane);
+  __syncthreads();
+  for (int q = tid; q < runs.count; q += kThreads) {
+    const int s = runs.seg[q];
+    if (kept_sh[q] != 0 && in_range(s, num_segments)) {
+      atomicAdd(&kept[s], kept_sh[q]);
     }
   }
-  flush_kept(&cnt, &acc, kept, cur, num_segments);
 }
 
 int rows_per_block_for(int rows) {
@@ -587,6 +720,12 @@ int rows_per_block_for(int rows) {
   const int target_blocks = 1024;
   const int rpb = (rows + target_blocks - 1) / target_blocks;
   return rpb < 1 ? 1 : rpb;
+}
+
+int wire_rows_per_block(int rows) {
+  // About kWireBlocks blocks, at most kWireRowsMax rows each.
+  const int rpb = (rows + kWireBlocks - 1) / kWireBlocks;
+  return rpb < 1 ? 1 : (rpb < kWireRowsMax ? rpb : kWireRowsMax);
 }
 
 }  // namespace
@@ -646,7 +785,7 @@ int seg_apply_launch(const float* x, const int* seg, const float* tau,
 
 int seg_stats_launch(const float* x, const int* seg, int rows,
                      int num_segments, int* hist, float* amax, void* stream) {
-  const int rpb = rows_per_block_for(rows);
+  const int rpb = wire_rows_per_block(rows);
   const int grid = (rows + rpb - 1) / rpb;
   seg_stats_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       x, seg, rows, rpb, num_segments, hist,
@@ -659,7 +798,7 @@ int seg_encode_launch(const float* x, const int* seg, const float* tau,
                       const float* scale, int rows, int num_segments,
                       void* out, unsigned char* bitmap, int* kept,
                       void* stream) {
-  const int rpb = rows_per_block_for(rows);
+  const int rpb = wire_rows_per_block(rows);
   const int grid = (rows + rpb - 1) / rpb;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   unsigned* words = reinterpret_cast<unsigned*>(bitmap);

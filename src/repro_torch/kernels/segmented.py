@@ -123,6 +123,13 @@ def _check_taus(taus: torch.Tensor, x2d: torch.Tensor, shape,
         raise ValueError(f"{name} must be contiguous and on x2d's device")
 
 
+def _check_aligned(x2d: torch.Tensor) -> None:
+    """The count, stats and encode kernels read rows as float4."""
+    if x2d.data_ptr() % 16:
+        raise ValueError("x2d must start on a 16-byte boundary for the CUDA "
+                         "kernels that read rows as float4")
+
+
 def _launch(name: str, fn, *args, counts: Dict[str, int] = _LAUNCHES
             ) -> None:
     """Run one C launcher on the current stream; add one to ``counts[name]``
@@ -267,9 +274,7 @@ def segmented_count(x2d: torch.Tensor, seg_ids: torch.Tensor,
     _check_taus(taus, x2d, taus.shape)
     if x2d.device.type == "cpu":
         return segmented_count_plain(x2d, seg, taus)
-    if x2d.data_ptr() % 16:
-        raise ValueError("x2d must start on a 16-byte boundary for the CUDA "
-                         "count kernel (it reads rows as float4)")
+    _check_aligned(x2d)
     out = torch.zeros(tuple(taus.shape), dtype=torch.int32, device=x2d.device)
     if x2d.shape[0]:
         _launch("segmented_count", _library().seg_count_launch,
@@ -311,6 +316,7 @@ def segmented_stats(x2d: torch.Tensor, seg_ids: torch.Tensor,
     seg = _check_buffer(x2d, seg_ids)
     if x2d.device.type == "cpu":
         return segmented_stats_plain(x2d, seg, num_segments)
+    _check_aligned(x2d)
     hist = torch.zeros((num_segments, SEG_NBINS), dtype=torch.int32,
                        device=x2d.device)
     amax = torch.zeros((num_segments, 1), dtype=torch.float32,
@@ -341,6 +347,7 @@ def segmented_encode(x2d: torch.Tensor, seg_ids: torch.Tensor,
         _check_taus(scales, x2d, (num_segments,), name="scales")
     if x2d.device.type == "cpu":
         return segmented_encode_plain(x2d, seg, taus, scales)
+    _check_aligned(x2d)
     out = torch.empty(x2d.shape, device=x2d.device,
                       dtype=torch.float32 if scales is None else torch.int8)
     bitmap = torch.empty((x2d.shape[0], SEG_LANE // 8), dtype=torch.uint8,

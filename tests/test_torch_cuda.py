@@ -16,7 +16,7 @@ from repro_torch.core import strategy
 from repro_torch.core.server import FederatedServer
 from repro_torch.data.partition import iid_partition_images, partition_text
 from repro_torch.data.synthetic import class_gaussian_images, markov_text
-from repro_torch.kernels import ops
+from repro_torch.kernels import measure, ops
 from repro_torch.kernels import packing as pk
 from repro_torch.configs import get_arch
 from repro_torch.kernels import segmented as seg
@@ -95,6 +95,54 @@ def test_wire_kernels_match_plain_versions(cuda, seed):
             out, want_out = out.view(torch.int32), want_out.view(torch.int32)
         assert torch.equal(out, want_out)
         assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+def _wire_calls(x2d, seg_ids, taus, scales, plain: bool) -> dict:
+    """Stats and encode (int8, fp32) through the wrappers or, with
+    ``plain``, through their plain versions."""
+    S = taus.numel()
+    stats = seg.segmented_stats_plain if plain else seg.segmented_stats
+    encode = seg.segmented_encode_plain if plain else seg.segmented_encode
+    return {"stats": lambda x: stats(x, seg_ids, S),
+            "int8": lambda x: encode(x, seg_ids, taus, scales),
+            "fp32": lambda x: encode(x, seg_ids, taus)}
+
+
+def _bitwise_all(got, want) -> bool:
+    return all(measure.bitwise(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("rows", [1, 3, 5, 4095, 33 * 1024 + 5])
+def test_wire_kernels_bitwise_on_edge_inputs(cuda, rows):
+    """Stats and encode (int8 and fp32) bitwise against their plain versions
+    on R rows holding NaN, +-inf, -0.0, subnormals and magnitudes at and
+    beside 2^-96; segments of 1-7 rows (single-row ones, and changes in the
+    middle of a block's rows; 32-row blocks at the largest R); ids S + 1
+    and -2; scales of 1e-12, inf and NaN."""
+    inputs = [t.to(cuda) for t in measure.wire_edge_inputs(rows, seed=rows)]
+    got = _wire_calls(*inputs, plain=False)
+    want = _wire_calls(*inputs, plain=True)
+    for kind in got:
+        assert _bitwise_all(got[kind](inputs[0]), want[kind](inputs[0])), kind
+
+
+@pytest.mark.parametrize("kind", ["stats", "int8", "fp32"])
+def test_wire_kernels_refuse_a_buffer_off_the_16_byte_boundary(cuda, kind):
+    """Stats and encode read rows as float4: a view 4 bytes into its
+    storage is refused before any launch, and the next call is right."""
+    inputs = [t.to(cuda) for t in measure.wire_edge_inputs(1030, seed=3)]
+    x2d = inputs[0]
+    storage = torch.empty(x2d.numel() + 4, device=cuda)
+    view = storage[1:1 + x2d.numel()].view(x2d.shape)
+    view.copy_(x2d)
+    name = "segmented_stats" if kind == "stats" else "segmented_encode"
+    seg.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        _wire_calls(*inputs, plain=False)[kind](view)
+    assert seg.launch_counts()[name] == 0
+    assert _bitwise_all(_wire_calls(*inputs, plain=False)[kind](x2d),
+                        _wire_calls(*inputs, plain=True)[kind](view))
+    assert seg.launch_counts()[name] == 1
 
 
 @pytest.mark.parametrize("candidates", [1, 8, 16, 17, 32, 4096])

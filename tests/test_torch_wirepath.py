@@ -154,6 +154,111 @@ def test_segmented_encode_with_nan_matches_pallas(quantize):
         assert not got[0].any()
 
 
+# The reference's own odd layouts (tests/test_kernels.py): leaves of odd
+# sizes packed and padded by its pad_rows to one slab, to slabs of 128
+# rows, and to slabs of 40 rows rounded down to 32.
+ODD_SHAPES = [(300, 77), (128, 128), (8, 8, 65), (70000,), (257,)]
+
+
+def _odd_packed(seed: int, slab):
+    rng = np.random.default_rng(seed)
+    leaves = []
+    for shape in ODD_SHAPES:
+        x = (rng.standard_normal(shape) * 10.0 ** rng.uniform(-4, 0)
+             ).astype(np.float32)
+        flat = x.reshape(-1)
+        flat[::53] = 0.0
+        flat[1::97] = -2.0 ** -96
+        flat[2::131] = 1e-31
+        leaves.append(jnp.asarray(x))
+    x2d, spec = jpk.pack_leaves(leaves)
+    x2d, seg_ids = jseg.pad_rows(x2d, jnp.asarray(spec.seg_ids()),
+                                 interpret=True, slab_rows=slab)
+    return np.asarray(x2d), np.asarray(seg_ids), spec.num_segments
+
+
+@pytest.mark.parametrize("slab", [None, 128, 40])
+@pytest.mark.parametrize("kind", ["stats", "int8", "fp32"])
+def test_wire_plain_versions_match_pallas_on_odd_layouts(kind, slab):
+    """``segmented_stats_plain`` and ``segmented_encode_plain`` (int8 and
+    fp32) against the Pallas kernels in interpret mode, on the layouts the
+    reference's pad_rows makes; exact and bitwise."""
+    x2d, seg_ids, S = _odd_packed(len(ODD_SHAPES) + (slab or 0), slab)
+    jx, jids = jnp.asarray(x2d), jnp.asarray(seg_ids)
+    if kind == "stats":
+        want = jseg.segmented_stats(jx, jids, S, interpret=True,
+                                    slab_rows=slab)
+        got = tseg.segmented_stats_plain(_t(x2d), _t(seg_ids), S)
+    else:
+        rng = np.random.default_rng(S)
+        taus = (10.0 ** rng.uniform(-3, -1, S)).astype(np.float32)
+        scales = None
+        if kind == "int8":
+            amax = jseg.segmented_stats(jx, jids, S, interpret=True,
+                                        slab_rows=slab)[1]
+            scales = np.array(jnp.maximum(
+                amax[:, 0] * jnp.float32(1.0 / 127.0), 1e-12))
+        want = jseg.segmented_encode(
+            jx, jids, jnp.asarray(taus),
+            None if scales is None else jnp.asarray(scales),
+            interpret=True, slab_rows=slab)
+        got = tseg.segmented_encode_plain(
+            _t(x2d), _t(seg_ids), _t(taus),
+            None if scales is None else _t(scales))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_bits(g), _bits(np.asarray(w)))
+
+
+def test_reference_bin_edges_are_a_few_ulps_off_on_the_cpu():
+    """A reference fault, pinned side by side: its bin ladder is
+    ``jnp.exp2`` of the edge exponents, which XLA's CPU exp2 misses by a
+    few ulps at most edges, so a magnitude one ulp below such an edge
+    counts in the reference's bin and not in the port's, whose edges are
+    exact powers of two (``torch.ldexp``)."""
+    ladder = np.asarray(jseg._bin_ladder()).reshape(-1)
+    exact = tseg.bin_edges().numpy()
+    low = np.flatnonzero(ladder < exact)
+    assert low.size > 0
+    x2d = np.zeros((1, 1024), np.float32)
+    x2d[0, :exact.size] = np.nextafter(exact, np.float32(0))
+    x2d, seg_ids = jseg.pad_rows(jnp.asarray(x2d), jnp.zeros((1, 1),
+                                                             jnp.int32),
+                                 interpret=True)
+    (hist, _), (want, _) = _stats_both(np.asarray(x2d), np.asarray(seg_ids),
+                                       1)
+    below = np.nextafter(exact, np.float32(0))[:, None]
+    np.testing.assert_array_equal(hist.numpy()[0], (below >= exact).sum(0))
+    np.testing.assert_array_equal(np.asarray(want)[0],
+                                  (below >= ladder).sum(0))
+    assert (np.asarray(want)[0] > hist.numpy()[0])[low].all()
+
+
+@pytest.mark.parametrize("kind", ["stats", "int8", "fp32"])
+def test_wire_wrappers_take_a_view_off_the_16_byte_boundary_on_the_cpu(kind):
+    """On the CPU the stats and encode wrappers take a buffer that starts 4
+    bytes into its storage (the card's kernels refuse one) and agree with
+    the reference."""
+    x2d, seg_ids, S = _packed(6)
+    storage = torch.zeros(x2d.size + 4)
+    view = storage[1:1 + x2d.size].view(x2d.shape)
+    view.copy_(_t(x2d))
+    assert view.data_ptr() % 16
+    jx, jids = jnp.asarray(x2d), jnp.asarray(seg_ids)
+    if kind == "stats":
+        want = jseg.segmented_stats(jx, jids, S, interpret=True)
+        got = tseg.segmented_stats(view, _t(seg_ids), S)
+    else:
+        taus, scales = _encode_inputs(x2d, seg_ids, S, kind == "int8")
+        want = jseg.segmented_encode(
+            jx, jids, jnp.asarray(taus),
+            None if scales is None else jnp.asarray(scales), interpret=True)
+        got = tseg.segmented_encode(view, _t(seg_ids), _t(taus),
+                                    None if scales is None else _t(scales))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_bits(g), _bits(np.asarray(w)))
+
+
 @pytest.mark.parametrize("candidates", [1, 8, 17, 32])
 def test_segmented_count_takes_any_candidate_count(candidates):
     x2d, seg_ids, S = _packed(5)
