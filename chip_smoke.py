@@ -17,8 +17,9 @@ with a nonzero exit:
    and spills from the ``-Xptxas -v`` log, its threads, blocks a head and
    dynamic shared memory, and its TF32 HMMA and MUFU.EX2 counts in the
    SASS (``cuobjdump``; a kernel without HMMA fails the run); and
-   ``wire_build``: the registers, stack and spills of the stats kernel and
-   of both encode kernels (int8, fp32);
+   ``wire_build``: the registers, stack and spills of the histogram and
+   stats kernels, of both encode kernels (int8, fp32) and of the per-array
+   histogram kernel;
 2. kernel parity — each of the five segmented CUDA kernels against its
    plain PyTorch version at the main path's shape (the cohort-packed
    LeNet-28 delta, 32 x 106 rows x 1024, S = 128) and on one 2^26-element
@@ -26,7 +27,8 @@ with a nonzero exit:
    exact, masked values and maxima bitwise; the count kernel also at
    C in {1, 8, 16, 17, 32, 4096} candidates, sorted, and shuffled with
    duplicates, NaN, inf, -0.0 and negative taus; then ``wire_edge_parity``:
-   stats and encode (int8 and fp32) bitwise against their plain versions
+   the histogram, stats and encode (int8 and fp32) bitwise against their
+   plain versions
    on the edge inputs of ``kernels/measure.py`` at R in {1, 3, 5,
    4095, 33797} rows (NaN, +-inf, -0.0, subnormals, magnitudes at and
    beside 2^-96; segments of 1-7 rows, ids S + 1 and -2; scales of 1e-12,
@@ -57,8 +59,9 @@ with a nonzero exit:
    leaf, and the entries where it and the round's segmented mask differ;
    then the three per-array kernels against their plain versions on those
    leaves, on the whole VGG delta as one vector, on a 2^26-element vector
-   and on edge inputs (subnormals, +-inf, NaN), ``count_ge`` also on views
-   of each that start 1-3 elements in, at odd lengths, and ``ops.topk_mask``
+   and on edge inputs (subnormals, +-inf, NaN), ``exponent_histogram`` and
+   ``count_ge`` also on views of each that start 1-3 elements in, at odd
+   lengths, and ``ops.topk_mask``
    on the kernels against the same pipeline on the plain versions
    (bitwise);
 5. timing — each kernel's median time (CUDA events) on inputs that are not
@@ -68,8 +71,10 @@ with a nonzero exit:
    its bound (bytes moved over 3.35 TB/s, or operations over 67 TFLOP/s
    fp32), the launches of its path's run, the wrapper's time per call, its
    plain version's time (the count kernel at 2^26 also with C = 32 and
-   4096); for ``ops.topk_mask`` also the library yardstick
-   ``torch.topk(|x|, k)`` plus a scatter; the steady per-round wall time
+   4096); the library yardsticks ``hardshrink(x, nextafter(tau, 0))`` for
+   ``apply_threshold`` (back to back and device time, and whether it keeps
+   the same entries bit for bit) and ``torch.topk(|x|, k)`` plus a scatter
+   for ``ops.topk_mask``; the steady per-round wall time
    and ``compile_s`` of every main path; and ``fresh_process_round_time``:
    the fig5 path in a fresh process with an empty build directory, whose
    round 1 ``compile_s`` takes the kernel library's nvcc build;
@@ -175,10 +180,12 @@ LIBRARY_NOTE = ("no single PyTorch call computes a segmented suffix "
                 "tau select with counts, a segmented histogram with a "
                 "segment max, or a select with a packed bitmap and counts")
 PER_ARRAY_LIBRARY_NOTE = (
-    "no single PyTorch call computes an exponent histogram, a count of "
-    "|x| >= tau or a select against a device tau; the whole topk_mask "
-    "pipeline's yardstick is torch.topk(|x|, k) plus a scatter "
-    "(phase topk_mask_time)")
+    "no single PyTorch call computes an exponent histogram or a count of "
+    "|x| >= tau; apply_threshold's yardstick keeps what it keeps for "
+    "tau > 0 and non-NaN x, but keeps NaN and takes its lambda on the "
+    "host; the whole topk_mask pipeline's yardstick is torch.topk(|x|, k) "
+    "plus a scatter (phase topk_mask_time)")
+LIBRARY_APPLY = "torch.nn.functional.hardshrink(x, nextafter(tau, 0))"
 
 
 def fail(msg: str) -> None:
@@ -297,9 +304,9 @@ def check_kernels(label: str, x2d, seg_ids, k) -> dict:
 
 
 def wire_edge_parity() -> dict:
-    """Stats and encode (int8, fp32) against their plain versions on the
-    edge inputs at each of ``WIRE_EDGE_ROWS`` rows, bitwise; any difference
-    fails the run."""
+    """The histogram, stats and encode (int8, fp32) against their plain
+    versions on the edge inputs at each of ``WIRE_EDGE_ROWS`` rows, bitwise;
+    any difference fails the run."""
     import torch
     from repro_torch.kernels import measure
     from repro_torch.kernels import segmented as seg
@@ -309,6 +316,8 @@ def wire_edge_parity() -> dict:
                                   measure.wire_edge_inputs(rows, seed=rows))
         S = taus.numel()
         pairs = {
+            "hist": ((seg.segmented_histogram(x2d, ids, S),),
+                     (seg.segmented_histogram_plain(x2d, ids, S),)),
             "stats": (seg.segmented_stats(x2d, ids, S),
                       seg.segmented_stats_plain(x2d, ids, S)),
             "int8": (seg.segmented_encode(x2d, ids, taus, scales),
@@ -323,17 +332,18 @@ def wire_edge_parity() -> dict:
     bad = [f"{kind} at R = {rows}" for rows, rec in exact.items()
            for kind, ok in rec.items() if not ok]
     if bad:
-        fail(f"wire kernels disagree with their plain versions: {bad}")
+        fail(f"sweep kernels disagree with their plain versions: {bad}")
     return exact
 
 
 def wire_build_record() -> dict:
-    """The stats kernel's and both encode kernels' registers, stack and
-    spills from the build's ``-Xptxas -v`` log."""
+    """The histogram, stats and both encode kernels' registers, stack and
+    spills from the build's ``-Xptxas -v`` log, and the per-array
+    histogram kernel's."""
     from repro_torch.kernels import build, measure
     found = measure.wire_resources(build.build_log().read_text())
-    if sorted(found) != ["fp32", "int8", "stats"]:
-        fail(f"wire kernels in the build log: {sorted(found)}")
+    if sorted(found) != ["exponent_hist", "fp32", "hist", "int8", "stats"]:
+        fail(f"sweep kernels in the build log: {sorted(found)}")
     return found
 
 
@@ -875,45 +885,23 @@ def per_array_path(deltas: dict) -> dict:
     return {"launches": launches, "leaves": leaves}
 
 
-def edge_vector(n: int, seed: int):
-    """n fp32 values: normals at scales 1e-6..10, zeros and -0.0, values
-    above 2^28 and below 2^-96, subnormals, +-inf and NaN."""
-    import torch
-    gen = torch.Generator().manual_seed(seed)
-    x = torch.randn(n, generator=gen) * 10.0 ** (
-        7 * torch.rand(n, generator=gen) - 6)
-    x[::31] = 0.0
-    x[1::37] = -0.0
-    x[2::41] = 3e8
-    x[3::43] = -1e-31
-    x[4::47] = 1e-40
-    x[5::53] = float("inf")
-    x[6::59] = float("-inf")
-    x[7::61] = float("nan")
-    return x
-
-
-def large_vector(seed: int):
-    """2^26 normals in 64 chunks of scales 1e-6..1e2."""
-    import torch
-    gen = torch.Generator().manual_seed(seed)
-    x = torch.randn(1 << 26, generator=gen).view(64, -1)
-    x *= torch.logspace(-6, 2, 64)[:, None]
-    return x.reshape(-1)
-
-
-def count_views_agree(x, taus) -> dict:
-    """``count_ge`` against its plain version on views of ``x`` that start
-    1, 2 or 3 elements in (off the 16-byte boundary) and on lengths 0, 1,
-    3, 5, 4095 and the rest of ``x``: "offset:length" -> exact."""
+def views_agree(x, taus) -> dict:
+    """``exponent_histogram`` and ``count_ge`` against their plain versions
+    on views of ``x`` that start 1, 2 or 3 elements in (off the 16-byte
+    boundary) and on lengths 0, 1, 3, 5, 4095 and the rest of ``x``: per
+    kernel, "offset:length" -> exact."""
     import torch
     from repro_torch.kernels import topk_mask as tk
-    out = {}
+    out = {"exponent_histogram": {}, "count_ge": {}}
     for offset in (1, 2, 3):
         rest = max(0, x.numel() - offset)
         for n in sorted({min(m, rest) for m in (0, 1, 3, 5, 4095, rest)}):
             view = x[offset:offset + n]
-            out[f"{offset}:{n}"] = all(
+            key = f"{offset}:{n}"
+            out["exponent_histogram"][key] = bool(torch.equal(
+                tk.exponent_histogram(view),
+                tk.exponent_histogram_plain(view)))
+            out["count_ge"][key] = all(
                 int(tk.count_ge(view, t)) == int(tk.count_ge_plain(view, t))
                 for t in (torch.tensor(tau, device=x.device)
                           for tau in taus))
@@ -944,15 +932,17 @@ def check_topk_kernels(label: str, x, errs: dict) -> dict:
         apply_ok &= measure.bitwise(got, want)
         apply_err = max(apply_err, float((got.double() - want.double())
                                          .abs().nan_to_num().max()))
-    views = count_views_agree(x, taus)
-    exact.update(count_ge=count_ok and all(views.values()),
+    views = views_agree(x, taus)
+    exact.update(exponent_histogram=exact["exponent_histogram"]
+                 and all(views["exponent_histogram"].values()),
+                 count_ge=count_ok and all(views["count_ge"].values()),
                  apply_threshold=apply_ok,
                  topk_mask=measure.bitwise(got_mask, want_mask))
     for name in PER_ARRAY:
         errs[name] = max(errs.get(name, 0.0),
                          0.0 if name != "apply_threshold" else apply_err)
     phase("topk_kernel_parity", input=label, n=x.numel(), taus=taus,
-          exact=exact, count_ge_views=views, kept=int((got_mask != 0).sum()))
+          exact=exact, views=views, kept=int((got_mask != 0).sum()))
     bad = [name for name, ok in exact.items() if not ok]
     if bad:
         fail(f"per-array kernels disagree with their plain versions "
@@ -960,11 +950,22 @@ def check_topk_kernels(label: str, x, errs: dict) -> dict:
     return exact
 
 
+def library_call(fn, v):
+    """A call of ``fn(v)`` that returns nothing (the timers read a returned
+    value as a launcher's error code)."""
+    def call():
+        fn(v)
+    return call
+
+
 def time_topk(label: str, x, launches: dict) -> dict:
     """Kernels 6–8 and the whole ``ops.topk_mask`` at one input: device
     time out of L2 (C launchers back to back over rotating copies) and
     warm, the wrapper's and the plain version's time per call, the bytes
-    bound and, for the pipeline, ``torch.topk(|x|, k)`` plus a scatter."""
+    bound and the library yardsticks: for ``apply_threshold``
+    ``hardshrink(x, nextafter(tau, 0))`` (back to back and the profiler's
+    time a call, and whether it equals the kernel's output bit for bit on
+    ``x``), for the pipeline ``torch.topk(|x|, k)`` plus a scatter."""
     import torch
     from repro_torch.kernels import build, measure, ops
     from repro_torch.kernels import topk_mask as tk
@@ -978,6 +979,10 @@ def time_topk(label: str, x, launches: dict) -> dict:
     hist = torch.empty(128, dtype=torch.int32, device=x.device)
     cnt = torch.empty((), dtype=torch.int32, device=x.device)
     tau = torch.tensor(float(x.abs().median()), device=x.device)
+    # hardshrink keeps |x| > lam: for fp32 x and tau > 0, |x| >= tau.
+    lam = float(torch.nextafter(tau.cpu(), torch.zeros(())))
+    libraries = {"apply_threshold": (
+        LIBRARY_APPLY, lambda v: torch.nn.functional.hardshrink(v, lam))}
 
     def launcher(name, i):
         p = xs[i].data_ptr()
@@ -1014,6 +1019,18 @@ def time_topk(label: str, x, launches: dict) -> dict:
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                "library_ms": None, "bytes": nbytes, "launches_per_call": 1,
                "path_launches": launches[name], "buffers": copies}
+        if name in libraries:
+            desc, fn = libraries[name]
+            calls = [library_call(fn, v) for v in xs]
+            dev = measure.device_ms(calls, "")
+            rec.update(library=desc, library_ms=measure.cuda_loop_ms(calls),
+                       library_device_ms=dev["device_ms"]
+                       * dev["kernel_records"] / dev["calls"],
+                       library_equal=measure.bitwise(
+                           fn(x), tk.apply_threshold(x, tau)))
+            if (float(tau) > 0 and not torch.isnan(x).any()
+                    and not rec["library_equal"]):
+                fail(f"{desc} differs from apply_threshold ({label})")
         results[name] = rec
         phase("kernel_time", shape=label, kernel=name, **rec)
     k = max(1, round(0.5 * n))
@@ -1549,7 +1566,7 @@ def at_large(rec: dict) -> dict:
     """A kernel's times and bound on the 2^26-element input."""
     return {key: rec[key] for key in ("ms", "warm_ms", "device_ms",
                                       "wrapper_ms", "plain_ms", "bound_ms",
-                                      "bound_by")}
+                                      "bound_by", "library_ms")}
 
 
 def main(argv) -> int:
@@ -1619,9 +1636,10 @@ def main(argv) -> int:
                            topk_errs)
     vgg_flat = torch.cat([v.reshape(-1) for v in deltas["vgg"].values()])
     check_topk_kernels(f"vgg_delta_{vgg_flat.numel()}", vgg_flat, topk_errs)
-    big = large_vector(seed=3).cuda()
+    big = measure.large_vector(seed=3).cuda()
     check_topk_kernels("2^26", big, topk_errs)
-    check_topk_kernels("edges_2^20", edge_vector(1 << 20, seed=4).cuda(),
+    check_topk_kernels("edges_2^20",
+                       measure.edge_vector(1 << 20, seed=4).cuda(),
                        topk_errs)
 
     # ---- 5. timing -------------------------------------------------------
@@ -1711,6 +1729,11 @@ def main(argv) -> int:
             "wrapper_ms": rec["wrapper_ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            **({"library": rec["library"],
+                "library_device_ms": rec["library_device_ms"]}
+               if "library" in rec else {}),
+            "device_records": rec["device_records"],
+            "kernel_records": rec["kernel_records"],
             "at_2^26": at_large(large_topk_times[name]),
             "library_note": PER_ARRAY_LIBRARY_NOTE})
     zoo_replaces = {"wkv6": ("src/repro/kernels/wkv6.py:72", "rwkv6-1.6b"),

@@ -1,24 +1,40 @@
-"""The fused wire path's two kernels, ``segmented_stats`` and
-``segmented_encode``, built from ``csrc/segmented.cu`` and from other
-sources, side by side on the card.
+"""The segmented sweeps ``segmented_histogram``, ``segmented_stats`` and
+``segmented_encode``, and the per-array ``exponent_histogram``, built from
+``csrc/segmented.cu`` and ``csrc/topk_mask.cu`` and from other sources,
+side by side on the card.
 
     PYTHONPATH=src python -m repro_torch.kernels.bench_segmented \\
-        [--source NAME=PATH ...] [--sass] [--json PATH]
+        [--source NAME=PATH ...] [--topk-source NAME=PATH ...] [--sass] \\
+        [--json PATH]
 
-Builds ``csrc/segmented.cu`` (as ``built-in``) and each ``--source`` (for
-instance the parent commit's ``segmented.cu``, or an edited copy; their C
-launchers must be the same), every ``nvcc`` started together.  For each
-build it prints the stats kernel's and both encode kernels' registers and
-spills (``-Xptxas -v``; with ``--sass``, each local-memory instruction in
-their SASS with its context), checks stats and encode (int8 and fp32)
+Builds ``csrc/segmented.cu`` and ``csrc/topk_mask.cu`` (each as
+``built-in``), each ``--source`` (another ``segmented.cu``: for instance
+the parent commit's, or an edited copy) and each ``--topk-source`` (another
+``topk_mask.cu``), every ``nvcc`` started together; the C launchers of a
+source must be those of the file it stands in for.
+
+For each ``segmented.cu`` build it prints the histogram, stats and both
+encode kernels' registers and spills (``-Xptxas -v``; with ``--sass``, each
+local-memory instruction in their SASS with its context), checks the four
 bitwise against their plain versions on the main path's buffer (the
 cohort-packed LeNet-28 delta of 32 clients: 3392 rows, 128 segments), on
 2^26 elements in 64 segments and on the wire edge inputs, and times them on
 the first two: back to back on rotating copies (CUDA events) and by the
 profiler's time a launch, beside the profiler's time of ``torch.amax`` over
-the same buffer (one read of it).  The builds are timed in turns, twice.
-Inputs and timers are those of ``kernels/measure.py``, which
-``chip_smoke.py`` uses too.  Exits 1 if a build failed or disagreed.
+the same buffer (one read of it).
+
+For each ``topk_mask.cu`` build it prints the histogram kernel's registers
+and spills, checks ``exponent_histogram`` bitwise against its plain version
+on edge values at the largest VGG leaf's size (147,456), on 2^20 edge
+values, on 2^26 normals, on 2^26 values in [1, 2) (every element in one
+bin) and on views of the first two that start 1-3 elements in, at lengths
+0, 1, 3, 5, 4095 and the rest, and times it at the leaf's size and on both
+2^26 inputs as above, with the trace's device records a call (one a call
+when the launcher puts nothing but the kernel on the stream).
+
+The builds are timed in turns, twice.  Inputs and timers are those of
+``kernels/measure.py``, which ``chip_smoke.py`` uses too.  Exits 1 if a
+build failed or disagreed.
 """
 
 from __future__ import annotations
@@ -35,17 +51,23 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import measure
 from repro_torch.kernels import segmented as seg
+from repro_torch.kernels import topk_mask as tk
 from repro_torch.kernels.packing import SEG_LANE
 
 EDGE_ROWS = (1, 3, 5, 4095, 33 * 1024 + 5)
-# The stats kernel and the two instances of the encode kernel.
-KINDS = ("stats", "int8", "fp32")
-SYMBOLS = {"stats": "seg_stats_kernel", "int8": "seg_encode_kernel",
-           "fp32": "seg_encode_kernel"}
+# The histogram and stats kernels and the two instances of the encode
+# kernel.
+KINDS = ("hist", "stats", "int8", "fp32")
+SYMBOLS = {"hist": "seg_hist_kernel", "stats": "seg_stats_kernel",
+           "int8": "seg_encode_kernel", "fp32": "seg_encode_kernel"}
+TOPK_SYMBOL = "exponent_hist_kernel"
+LEAF = 147_456                   # the largest VGG leaf, 3 x 3 x 128 x 128
+VIEW_LENGTHS = (0, 1, 3, 5, 4095)
+CSRC = Path(build.__file__).resolve().parent / "csrc"
 
 
 def _build(name: str, source: Path, out_dir: Path):
-    out = out_dir / f"libseg_{name}.so"
+    out = out_dir / f"lib{source.stem}_{name}.so"
     cmd = [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(out),
            str(source)]
     return out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -53,14 +75,15 @@ def _build(name: str, source: Path, out_dir: Path):
 
 
 def _print_local_memory(lib: Path, context: int = 6) -> None:
-    """Each STL/LDL (spill) of the wire kernels in the SASS, with the
+    """Each STL/LDL (spill) of the sweep kernels in the SASS, with the
     instructions around it."""
     sass = subprocess.run(
         [str(Path(build._nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
         capture_output=True, text=True, check=True, timeout=300).stdout
     for part in re.split(r"\n\s*Function : ", sass)[1:]:
         name = part.split("\n", 1)[0]
-        if "seg_stats" not in name and "seg_encode" not in name:
+        if not any(k in name for k in ("seg_hist", "seg_stats", "seg_encode",
+                                       "exponent_hist")):
             continue
         lines = [ln.strip() for ln in part.splitlines() if "/*" in ln]
         hits = [i for i, ln in enumerate(lines)
@@ -73,14 +96,16 @@ def _print_local_memory(lib: Path, context: int = 6) -> None:
 
 
 def _outputs(kind: str, x2d, num_segments: int) -> tuple:
-    """Zeroed outputs of one stats or encode launch on ``x2d``: (hist,
+    """Zeroed outputs of one launch on ``x2d``: (hist,) for "hist", (hist,
     amax) for "stats", (codes or values, bitmap, kept) for "int8" and
     "fp32"."""
     dev = x2d.device
+    hist = torch.zeros((num_segments, seg.SEG_NBINS), dtype=torch.int32,
+                       device=dev)
+    if kind == "hist":
+        return (hist,)
     if kind == "stats":
-        return (torch.zeros((num_segments, seg.SEG_NBINS), dtype=torch.int32,
-                            device=dev),
-                torch.zeros((num_segments, 1), device=dev))
+        return hist, torch.zeros((num_segments, 1), device=dev)
     dtype = torch.int8 if kind == "int8" else torch.float32
     return (torch.zeros(x2d.shape, dtype=dtype, device=dev),
             torch.zeros((x2d.shape[0], SEG_LANE // 8), dtype=torch.uint8,
@@ -89,13 +114,17 @@ def _outputs(kind: str, x2d, num_segments: int) -> tuple:
 
 
 def _launcher(lib, kind: str, x2d, seg_ids, taus, scales, outs):
-    """A call of ``lib``'s stats or encode C launcher on the current stream
-    into ``outs`` (:func:`_outputs`), every pointer taken once; the call
-    returns the launcher's error code.  It counts no launch."""
+    """A call of ``lib``'s histogram, stats or encode C launcher on the
+    current stream into ``outs`` (:func:`_outputs`), every pointer taken
+    once; the call returns the launcher's error code.  It counts no
+    launch."""
     rows, S = x2d.shape[0], taus.numel()
     stream = torch.cuda.current_stream().cuda_stream
     x, ids = x2d.data_ptr(), seg_ids.data_ptr()
     ptrs = [t.data_ptr() for t in outs]
+    if kind == "hist":
+        return lambda: lib.seg_histogram_launch(x, ids, rows, S, *ptrs,
+                                                stream)
     if kind == "stats":
         return lambda: lib.seg_stats_launch(x, ids, rows, S, *ptrs, stream)
     t = taus.data_ptr()
@@ -104,7 +133,9 @@ def _launcher(lib, kind: str, x2d, seg_ids, taus, scales, outs):
                                          stream)
 
 
-def _plain(kind, x2d, seg_ids, taus, scales):
+def _plain(kind, x2d, seg_ids, taus, scales) -> tuple:
+    if kind == "hist":
+        return (seg.segmented_histogram_plain(x2d, seg_ids, taus.numel()),)
     if kind == "stats":
         return seg.segmented_stats_plain(x2d, seg_ids, taus.numel())
     return seg.segmented_encode_plain(x2d, seg_ids, taus,
@@ -126,45 +157,46 @@ def _agrees(lib, inputs) -> dict:
     return agree
 
 
-def main(argv=None) -> int:
-    """Build, check and time; 1 if a build failed or disagreed."""
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--source", action="append", default=[],
-                        help="NAME=PATH of another segmented.cu to time")
-    parser.add_argument("--sass", action="store_true",
-                        help="print each wire kernel's local-memory "
-                             "instructions (cuobjdump) with their context")
-    parser.add_argument("--json", help="also write the result here")
-    args = parser.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("FAIL: torch.cuda.is_available() is False", file=sys.stderr)
-        return 2
-    out_dir = build.build_dir() / "bench_segmented"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    sources = {"built-in": Path(build.__file__).resolve().parent / "csrc"
-               / "segmented.cu"}
-    for item in args.source:
-        name, path = item.split("=", 1)
-        sources[name] = Path(path)
-    jobs = {name: _build(name, path, out_dir)
-            for name, path in sources.items()}
-    libs, result = {}, {"card": subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip(), "builds": {}}
-    for name, (path, proc) in jobs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            print(f"FAIL: nvcc failed on {name}:\n{log[-4000:]}", flush=True)
-            result["builds"][name] = {"nvcc": proc.returncode}
-            continue
-        libs[name] = build.load(path, ("seg_stats_launch",
-                                       "seg_encode_launch"))
-        result["builds"][name] = {"resources": measure.wire_resources(log)}
-        print(name, json.dumps(result["builds"][name]), flush=True)
-        if args.sass:
-            _print_local_memory(path)
+def _hist_launcher(lib, x, out):
+    """A call of ``lib``'s per-array histogram C launcher on ``x`` into
+    ``out`` ((128,) int32, not zeroed), returning its error code."""
+    stream = torch.cuda.current_stream().cuda_stream
+    p, n, o = x.data_ptr(), x.numel(), out.data_ptr()
+    return lambda: lib.topk_histogram_launch(p, n, o, stream)
+
+
+def _topk_agrees(lib, x, views: bool) -> dict:
+    """``exponent_histogram`` of ``lib`` bitwise against its plain version
+    on ``x`` ("all") and, with ``views``, on views of it that start 1-3
+    elements in ("offset:length")."""
+    cases = {"all": x}
+    if views:
+        for offset in (1, 2, 3):
+            rest = x.numel() - offset
+            for n in sorted({min(m, rest) for m in (*VIEW_LENGTHS, rest)}):
+                cases[f"{offset}:{n}"] = x[offset:offset + n]
+    agree = {}
+    for label, v in cases.items():
+        out = torch.full((tk.NBINS,), -1, dtype=torch.int32, device=x.device)
+        rc = _hist_launcher(lib, v, out)()
+        if rc:
+            raise RuntimeError(f"histogram launch returned cudaError {rc}")
+        agree[label] = bool(torch.equal(out, tk.exponent_histogram_plain(v)))
+    return agree
+
+
+def _rotating(x) -> list:
+    """``x`` and clones of it, over four times the L2 cache in all."""
+    l2 = torch.cuda.get_device_properties(x.device).L2_cache_size
+    copies = max(2, -(-4 * l2 // x.nbytes))
+    return [x] + [x.clone() for _ in range(copies - 1)]
+
+
+def _bench_segmented(libs: dict, result: dict) -> dict:
+    """Checks and times of the ``segmented.cu`` builds into ``result``;
+    returns ``torch.amax``'s device time a call by shape."""
     dev = torch.device("cuda")
+    amax_ms = {}
     shapes = {}
     for label, (x2d, ids, k) in (
             ("path", measure.lenet_cohort_buffer(seed=1)),
@@ -173,25 +205,23 @@ def main(argv=None) -> int:
         shapes[label] = (x2d, ids, tau, scales)
     edges = {f"edges_{r}": measure.wire_edge_inputs(r, seed=r)
              for r in EDGE_ROWS}
-    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
     for label, cpu in {**shapes, **edges}.items():
         inputs = tuple(t.to(dev) for t in cpu)
         for name, lib in libs.items():
             agree = _agrees(lib, inputs)
-            result["builds"][name].setdefault("bitwise", {})[label] = agree
+            result[name].setdefault("bitwise", {})[label] = agree
             if not all(agree.values()):
                 print(f"FAIL: {name} disagrees with the plain versions on "
                       f"{label}: {agree}", flush=True)
         if label not in shapes:
             continue
         x2d, S = inputs[0], inputs[2].numel()
-        copies = max(2, -(-4 * l2 // x2d.nbytes))
-        xs = [x2d] + [x2d.clone() for _ in range(copies - 1)]
+        xs = _rotating(x2d)
         # torch.amax's device time a call: every record of its trace (the
         # reduction may take more than one kernel).
         amax = measure.device_ms([lambda x=x: torch.amax(x) for x in xs], "")
-        result.setdefault("amax_read_ms", {})[label] = (
-            amax["device_ms"] * amax["kernel_records"] / amax["calls"])
+        amax_ms[label] = (amax["device_ms"] * amax["kernel_records"]
+                          / amax["calls"])
         for turn in range(2):
             for name, lib in libs.items():
                 for kind in KINDS:
@@ -200,16 +230,108 @@ def main(argv=None) -> int:
                         _outputs(kind, x, S)) for x in xs]
                     rec = {"ms": measure.cuda_loop_ms(fns),
                            **measure.device_ms(fns, SYMBOLS[kind])}
-                    result["builds"][name].setdefault(label, {}).setdefault(
+                    result[name].setdefault(label, {}).setdefault(
                         kind, []).append(rec)
                     print(label, turn, name, kind, json.dumps(rec),
                           flush=True)
         del inputs, xs
         torch.cuda.empty_cache()
+    return amax_ms
+
+
+def _bench_topk(libs: dict, result: dict) -> None:
+    """Checks and times of the ``topk_mask.cu`` builds into ``result``."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(6)
+    inputs = {"leaf": measure.edge_vector(LEAF, seed=5),
+              "edges_2^20": measure.edge_vector(1 << 20, seed=4),
+              "2^26": measure.large_vector(seed=3),
+              # Every element in one bin: the most equal bins a warp meets.
+              "2^26_one_octave": 1.0 + torch.rand(1 << 26, generator=gen)}
+    for label, cpu in inputs.items():
+        x = cpu.to(dev)
+        for name, lib in libs.items():
+            agree = _topk_agrees(lib, x, views=not label.startswith("2^26"))
+            result[name].setdefault("bitwise", {})[label] = agree
+            if not all(agree.values()):
+                bad = [k for k, ok in agree.items() if not ok]
+                print(f"FAIL: {name} disagrees with the plain version on "
+                      f"{label}: {bad}", flush=True)
+        if label == "edges_2^20":
+            continue
+        xs = _rotating(x)
+        outs = [torch.empty(tk.NBINS, dtype=torch.int32, device=dev)
+                for _ in xs]
+        for turn in range(2):
+            for name, lib in libs.items():
+                fns = [_hist_launcher(lib, v, o) for v, o in zip(xs, outs)]
+                rec = {"ms": measure.cuda_loop_ms(fns),
+                       **measure.device_ms(fns, TOPK_SYMBOL)}
+                result[name].setdefault(label, []).append(rec)
+                print(label, turn, name, "exponent_hist", json.dumps(rec),
+                      flush=True)
+        del x, xs
+        torch.cuda.empty_cache()
+
+
+def _named(items, default: Path) -> dict:
+    sources = {"built-in": default}
+    for item in items:
+        name, path = item.split("=", 1)
+        sources[name] = Path(path)
+    return sources
+
+
+def main(argv=None) -> int:
+    """Build, check and time; 1 if a build failed or disagreed."""
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--source", action="append", default=[],
+                        help="NAME=PATH of another segmented.cu to time")
+    parser.add_argument("--topk-source", action="append", default=[],
+                        help="NAME=PATH of another topk_mask.cu to time")
+    parser.add_argument("--sass", action="store_true",
+                        help="print each sweep kernel's local-memory "
+                             "instructions (cuobjdump) with their context")
+    parser.add_argument("--json", help="also write the result here")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    out_dir = build.build_dir() / "bench_segmented"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    groups = {"builds": (_named(args.source, CSRC / "segmented.cu"),
+                         ("seg_histogram_launch", "seg_stats_launch",
+                          "seg_encode_launch")),
+              "topk_builds": (_named(args.topk_source, CSRC / "topk_mask.cu"),
+                              ("topk_histogram_launch",))}
+    jobs = {(group, name): _build(f"{group}_{name}", path, out_dir)
+            for group, (sources, _) in groups.items()
+            for name, path in sources.items()}
+    result = {"card": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip(),
+        "builds": {}, "topk_builds": {}}
+    libs = {"builds": {}, "topk_builds": {}}
+    for (group, name), (path, proc) in jobs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            print(f"FAIL: nvcc failed on {name}:\n{log[-4000:]}", flush=True)
+            result[group][name] = {"nvcc": proc.returncode}
+            continue
+        libs[group][name] = build.load(path, groups[group][1])
+        result[group][name] = {"resources": measure.wire_resources(log)}
+        print(group, name, json.dumps(result[group][name]), flush=True)
+        if args.sass:
+            _print_local_memory(path)
+    result["amax_read_ms"] = _bench_segmented(libs["builds"],
+                                              result["builds"])
+    _bench_topk(libs["topk_builds"], result["topk_builds"])
     print(json.dumps(result))
     if args.json:
         Path(args.json).write_text(json.dumps(result, indent=1))
-    bad = [name for name, rec in result["builds"].items()
+    bad = [name for group in ("builds", "topk_builds")
+           for name, rec in result[group].items()
            if "nvcc" in rec
            or not all(all(a.values()) for a in rec["bitwise"].values())]
     return 1 if bad else 0

@@ -25,17 +25,18 @@
 // The design therefore keeps everything but the single streaming pass on
 // chip:
 //   * one block owns a contiguous run of rows (about one wave of blocks in
-//     all), reads them with coalesced loads (4 bytes a thread; 16 bytes for
-//     count, four rows in flight, and for stats and encode, one row ahead)
-//     and accumulates into shared memory;
-//   * warp-aggregated shared atomics (__match_any_sync for the histogram,
-//     __reduce_add_sync for the kept count, __reduce_max_sync for the stats
-//     max) keep shared-memory traffic to a few operations per warp; the
+//     all), reads them with coalesced loads (16 bytes a thread: four rows in
+//     flight for count, one row ahead for the histogram, stats and encode;
+//     4 bytes for apply) and accumulates into shared memory;
+//   * shared atomics: one an element for the histogram's bins, and
+//     warp-aggregated ones (__reduce_add_sync for the kept count,
+//     __reduce_max_sync for the stats max) for the counts and maxima; the
 //     count ranks each element among the sorted candidates instead (its
 //     section below);
-//   * a block flushes its shared counters to the (S, .) outputs with one
-//     global atomicAdd per counter each time its segment changes (stats and
-//     encode: once, at its end, for every segment it met).  Packed rows are
+//   * count and apply flush their shared counters to the (S, .) outputs
+//     with one global atomicAdd per counter each time the block's segment
+//     changes; the histogram, stats and encode keep counters per run of one
+//     id and flush them once, at the block's end.  Packed rows are
 //     segment-contiguous, so that is a handful of atomics per block.
 // Integer atomics are exact and a sum of suffix counts is the suffix count
 // of the sum; the stats max is an atomicMax over the bits of |x| as
@@ -57,22 +58,7 @@ constexpr int kThreads = 256;
 constexpr int kPerThread = kLane / kThreads;
 constexpr int kBins = 32;             // SEG_NBINS
 constexpr int kExpoMin = -96;         // EXPO_MIN
-constexpr int kOctavesPerBin = 4;
 constexpr unsigned kFull = 0xffffffffu;
-
-// Highest suffix bin that |v| reaches: the largest j with
-// |v| >= 2^(EXPO_MIN + 4 j), or -1 when there is none.  The compare against
-// the lowest edge sends zeros, values below 2^-96 (all subnormals among
-// them) and NaN to -1, exactly as the reference's >= compares do; above
-// that edge |v| is a normal float (or inf), so its exponent field decides
-// every edge exactly.
-__device__ __forceinline__ int top_bin(float v) {
-  const float a = fabsf(v);
-  const float lowest_edge = __int_as_float((kExpoMin + 127) << 23);
-  if (!(a >= lowest_edge)) return -1;
-  const int e = static_cast<int>((__float_as_uint(a) >> 23) & 0xff) - 127;
-  return min(kBins - 1, (e - kExpoMin) / kOctavesPerBin);
-}
 
 __device__ __forceinline__ bool in_range(int s, int num_segments) {
   return static_cast<unsigned>(s) < static_cast<unsigned>(num_segments);
@@ -84,58 +70,6 @@ __device__ __forceinline__ void block_rows(int rows, int rows_per_block,
                                            int* r0, int* r1) {
   *r0 = blockIdx.x * rows_per_block;
   *r1 = min(rows, *r0 + rows_per_block);
-}
-
-// ---------------------------------------------------------------------------
-// Histogram: out[s, j] += #{|x| >= 2^(EXPO_MIN + 4 j)} over segment s's rows.
-// ---------------------------------------------------------------------------
-__device__ void flush_hist(int* hist, int* out, int s, int num_segments) {
-  __syncthreads();
-  const int tid = threadIdx.x;
-  int suffix = 0;
-  if (tid < kBins) {
-    for (int i = tid; i < kBins; ++i) suffix += hist[i];
-  }
-  __syncthreads();
-  if (tid < kBins) {
-    hist[tid] = 0;
-    if (suffix != 0 && in_range(s, num_segments)) {
-      atomicAdd(&out[static_cast<size_t>(s) * kBins + tid], suffix);
-    }
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(kThreads)
-seg_hist_kernel(const float* __restrict__ x, const int* __restrict__ seg,
-                int rows, int rows_per_block, int num_segments,
-                int* __restrict__ out) {
-  __shared__ int hist[kBins];
-  int r0, r1;
-  block_rows(rows, rows_per_block, &r0, &r1);
-  if (r0 >= r1) return;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  if (tid < kBins) hist[tid] = 0;
-  __syncthreads();
-  int cur = seg[r0];
-  for (int r = r0; r < r1; ++r) {
-    const int s = seg[r];
-    if (s != cur) {
-      flush_hist(hist, out, cur, num_segments);
-      cur = s;
-    }
-    const float* row = x + static_cast<size_t>(r) * kLane;
-#pragma unroll
-    for (int i = 0; i < kPerThread; ++i) {
-      const int j = top_bin(row[tid + i * kThreads]);
-      const unsigned peers = __match_any_sync(kFull, j);
-      if (j >= 0 && lane == __ffs(peers) - 1) {
-        atomicAdd(&hist[j], __popc(peers));
-      }
-    }
-  }
-  flush_hist(hist, out, cur, num_segments);
 }
 
 // ---------------------------------------------------------------------------
@@ -439,12 +373,13 @@ seg_apply_kernel(const float* __restrict__ x, const int* __restrict__ seg,
 }
 
 // ---------------------------------------------------------------------------
-// The fused wire path's two sweeps, stats and encode.
+// The wire sweeps: the histogram, and the fused wire path's stats and
+// encode.
 //
-// Both read every element once and do a few operations on it, so both are
-// bound by device-memory bytes.  At the path's shape (3392 rows, about 4 us
-// of bytes) what costs beside the bytes is work that waits for them: a
-// thread that holds all its rows in flight before its first compare does
+// All three read every element once and do a few operations on it, so all
+// are bound by device-memory bytes.  At the path's shape (3392 rows, about
+// 4 us of bytes) what costs beside the bytes is work that waits for them:
+// a thread that holds all its rows in flight before its first compare does
 // all its work after the read (on the H100, four rows in flight took 1.3x
 // the time of one row ahead; PERF.md, bench_segmented.py).  So:
 //   * a block owns up to kWireRowsMax = 32 rows, about kWireBlocks = 1024
@@ -456,13 +391,14 @@ seg_apply_kernel(const float* __restrict__ x, const int* __restrict__ seg,
 //     lane loads the run's tau and scale before warp 0's own rows, one load
 //     of each per run, not queued behind the rows;
 //   * the row loop has no barrier.  Counters live in shared memory per run
-//     (stats: 32 bins of top-bin counts and the max; encode: the kept
-//     count), so a change of segment only moves the thread to the next
-//     run's counters; one barrier at the end, then one global atomic per
-//     nonzero counter and run.
-// Shared atomics are warp-aggregated: __match_any_sync over the bins,
-// __reduce_max_sync and __reduce_add_sync over the max and the counts when
-// the run changes.
+//     (histogram: 32 bins of top-bin counts; stats: those and the max;
+//     encode: the kept count), so a change of segment only moves the
+//     thread to the next run's counters; one barrier at the end, then one
+//     global atomic per nonzero counter and run.
+// The bins take one shared atomic an element: gathering a warp's equal bins
+// with __match_any_sync first took 8% longer for stats at the path's shape
+// on the H100 (PERF.md).  The max and the counts are warp-reduced
+// (__reduce_max_sync, __reduce_add_sync) when the run changes.
 // ---------------------------------------------------------------------------
 constexpr int kWireRowsMax = 32;    // rows a block owns at most
 constexpr int kWireBlocks = 1024;   // blocks aimed at
@@ -503,37 +439,43 @@ __device__ __forceinline__ void find_runs(int id,
 }
 
 // ---------------------------------------------------------------------------
-// Stats: the histogram kernel's sweep plus amax[s] = max |x| over segment s.
-// Each thread keeps the largest bits of |x| as an unsigned integer in a
-// register (NaN payloads order above inf); it goes to the run's shared max
-// once a run (__reduce_max_sync, any NaN made the canonical one, one shared
-// atomicMax a warp), and to amax[s] once a block (one global atomicMax).
-// The float output starts at 0.0, which is also the max of an empty or
-// all-zero segment.  Bins are counted at each element's top bin and summed
-// into suffix form at the flush.
+// Histogram: out[s, j] += #{|x| >= 2^(EXPO_MIN + 4 j)} over segment s's rows.
+// Stats: the same, plus amax[s] = max |x| over them.
+// One body, hist_sweep<kMax>, behind two kernels, seg_hist_kernel and
+// seg_stats_kernel, so that the profiler's records and the -Xptxas -v log
+// tell them apart.  Bins are counted at each element's top bin and summed
+// into suffix form at the flush.  With the max, each thread keeps the
+// largest bits of |x| as an unsigned integer in a register (NaN payloads
+// order above inf); it goes to the run's shared max once a run
+// (__reduce_max_sync, any NaN made the canonical one, one shared atomicMax
+// a warp), and to amax[s] once a block (one global atomicMax).  The float
+// output starts at 0.0, which is also the max of an empty or all-zero
+// segment.
 // ---------------------------------------------------------------------------
 constexpr unsigned kInfBits = 0x7f800000u;
 constexpr unsigned kLowestEdgeBits = (kExpoMin + 127) << 23;   // 2^-96
 
-// top_bin on the bits of |v|: the edges 2^(-96 + 4 j) have exponent fields
-// 31 + 4 j, so j = (e + 1) / 4 - 8 for 2^-96 <= |v| <= inf, and -1 for
-// smaller magnitudes and NaN (one unsigned range test).
+// Highest suffix bin that |v| reaches, from the bits b of |v|: the largest
+// j with |v| >= 2^(EXPO_MIN + 4 j), or -1 when there is none.  The edges
+// 2^(-96 + 4 j) have exponent fields 31 + 4 j, so j = (e + 1) / 4 - 8 for
+// 2^-96 <= |v| <= inf, and -1 for zeros, smaller magnitudes (subnormals
+// among them) and NaN (one unsigned range test), as the reference's >=
+// compares give.
 __device__ __forceinline__ int top_bin_bits(unsigned b) {
   const int j = static_cast<int>((b + (1u << 23)) >> 25) - 8;
   return b - kLowestEdgeBits <= kInfBits - kLowestEdgeBits ? min(j, kBins - 1)
                                                            : -1;
 }
 
-// One element: the running max of |v|'s bits (NaN payloads above inf, made
-// the canonical NaN at the flush) and the warp-aggregated count of its top
-// bin (the lowest lane of each bin adds; `lt`: the lanes below this one).
-__device__ __forceinline__ void stats_value(float v, int* hist, unsigned& m,
-                                            unsigned lt) {
+// One element: one to the count of its top bin and, with kMax, the running
+// max of |v|'s bits (NaN payloads above inf, made the canonical NaN at the
+// flush).
+template <bool kMax>
+__device__ __forceinline__ void hist_value(float v, int* hist, unsigned& m) {
   const unsigned b = __float_as_uint(v) & 0x7fffffffu;
-  m = max(m, b);
+  if (kMax) m = max(m, b);
   const int j = top_bin_bits(b);
-  const unsigned peers = __match_any_sync(kFull, j);
-  if (j >= 0 && (peers & lt) == 0) atomicAdd(&hist[j], __popc(peers));
+  if (j >= 0) atomicAdd(&hist[j], 1);
 }
 
 __device__ __forceinline__ void flush_max(unsigned m, unsigned* amax,
@@ -543,13 +485,16 @@ __device__ __forceinline__ void flush_max(unsigned m, unsigned* amax,
   if (lane == 0 && warp_max != 0) atomicMax(amax, warp_max);
 }
 
-__global__ void __launch_bounds__(kThreads, kWireMinBlocks)
-seg_stats_kernel(const float* __restrict__ x, const int* __restrict__ seg,
-                 int rows, int rows_per_block, int num_segments,
-                 int* __restrict__ out, unsigned* __restrict__ amax_out) {
+template <bool kMax>
+__device__ __forceinline__ void hist_sweep(const float* __restrict__ x,
+                                           const int* __restrict__ seg,
+                                           int rows, int rows_per_block,
+                                           int num_segments,
+                                           int* __restrict__ out,
+                                           unsigned* __restrict__ amax_out) {
   __shared__ WireRuns runs;
   __shared__ int hist[kWireRowsMax * kBins];
-  __shared__ unsigned amax_sh[kWireRowsMax];
+  __shared__ unsigned amax_sh[kMax ? kWireRowsMax : 1];
   int r0, r1;
   block_rows(rows, rows_per_block, &r0, &r1);
   if (r0 >= r1) return;
@@ -566,27 +511,26 @@ seg_stats_kernel(const float* __restrict__ x, const int* __restrict__ seg,
     find_runs<false, false>(id, nullptr, nullptr, n, num_segments, runs);
   }
   for (int i = tid; i < n * kBins; i += kThreads) hist[i] = 0;
-  if (tid < n) amax_sh[tid] = 0;
+  if (kMax && tid < n) amax_sh[tid] = 0;
   __syncthreads();
   unsigned m = 0;
   int cur = 0;
-  const unsigned lt = (1u << lane) - 1u;
   for (int r = 0; r < n; ++r) {
     const float4 e = next;
     if (r + 1 < n) next = xr[static_cast<size_t>(r + 1) * (kLane / 4)];
     const int run = runs.run_of[r];
-    if (run != cur) {
+    if (kMax && run != cur) {
       flush_max(m, &amax_sh[cur], lane);
       m = 0;
       cur = run;
     }
     int* h = hist + run * kBins;
-    stats_value(e.x, h, m, lt);
-    stats_value(e.y, h, m, lt);
-    stats_value(e.z, h, m, lt);
-    stats_value(e.w, h, m, lt);
+    hist_value<kMax>(e.x, h, m);
+    hist_value<kMax>(e.y, h, m);
+    hist_value<kMax>(e.z, h, m);
+    hist_value<kMax>(e.w, h, m);
   }
-  flush_max(m, &amax_sh[cur], lane);
+  if (kMax) flush_max(m, &amax_sh[cur], lane);
   __syncthreads();
   // Warp w flushes runs w, w + 8, ...: lane j's suffix count of bin j.
   for (int q = tid >> 5; q < runs.count; q += kThreads / 32) {
@@ -601,8 +545,26 @@ seg_stats_kernel(const float* __restrict__ x, const int* __restrict__ seg,
     if (suffix != 0) {
       atomicAdd(&out[static_cast<size_t>(s) * kBins + lane], suffix);
     }
-    if (lane == 0 && amax_sh[q] != 0) atomicMax(&amax_out[s], amax_sh[q]);
+    if (kMax && lane == 0 && amax_sh[q] != 0) {
+      atomicMax(&amax_out[s], amax_sh[q]);
+    }
   }
+}
+
+__global__ void __launch_bounds__(kThreads, kWireMinBlocks)
+seg_hist_kernel(const float* __restrict__ x, const int* __restrict__ seg,
+                int rows, int rows_per_block, int num_segments,
+                int* __restrict__ out) {
+  hist_sweep<false>(x, seg, rows, rows_per_block, num_segments, out,
+                    nullptr);
+}
+
+__global__ void __launch_bounds__(kThreads, kWireMinBlocks)
+seg_stats_kernel(const float* __restrict__ x, const int* __restrict__ seg,
+                 int rows, int rows_per_block, int num_segments,
+                 int* __restrict__ out, unsigned* __restrict__ amax_out) {
+  hist_sweep<true>(x, seg, rows, rows_per_block, num_segments, out,
+                   amax_out);
 }
 
 // ---------------------------------------------------------------------------
@@ -736,7 +698,7 @@ extern "C" {
 // cudaGetLastError() (0 on success).  Outputs must be zeroed by the caller.
 int seg_histogram_launch(const float* x, const int* seg, int rows,
                          int num_segments, int* out, void* stream) {
-  const int rpb = rows_per_block_for(rows);
+  const int rpb = wire_rows_per_block(rows);
   const int grid = (rows + rpb - 1) / rpb;
   seg_hist_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       x, seg, rows, rpb, num_segments, out);

@@ -18,16 +18,16 @@
 // extraction or a compare, far below the card's 67 TFLOP/s fp32 rate, so all
 // three are bound by device-memory bytes (3.35 TB/s on an H100 SXM).  The
 // design keeps everything but the streaming pass on chip:
-//   * a grid of about eight 256-thread blocks per SM strides over x with
-//     coalesced 4-byte loads (the count: 16-byte loads, its section below);
-//     a warp's trip count is warp-uniform, so the warp intrinsics always see
-//     all 32 lanes;
-//   * the histogram aggregates a warp's equal bins with __match_any_sync
-//     into a 128-bin shared histogram and flushes it with one global
-//     atomicAdd per nonzero bin per block; its launcher zeroes the output on
-//     the stream first;
-//   * the count sums each block in registers and shared memory, and the
-//     last block to finish sums the blocks (its section below).
+//   * the histogram and the count read x as float4 loads from any 4-byte
+//     offset (one ahead, or four in flight; their section below); apply
+//     strides over it with coalesced 4-byte loads; about eight 256-thread
+//     blocks per SM at the most;
+//   * the histogram counts into a 128-bin shared histogram with one shared
+//     atomic an element, the count sums in registers and shared memory;
+//   * both total their blocks on the device: each block adds to a scratch
+//     that the library owns, and the last block to finish writes `out` and
+//     leaves the scratch zeroed.  So each is one device operation a call,
+//     with no memset before it.
 // Integer sums are exact, so results are identical whatever order blocks
 // run in.
 //
@@ -36,7 +36,7 @@
 // exponent field itself, clamped: bin = clamp(e + 96, 0, 127) with
 // e = field - 127, which is the bin definition of src/repro/kernels/ref.py
 // exactly.  A zero exponent field (subnormals) lands in bin 0, inf in bin
-// 127; zeros and NaN (|x| > 0 is false) count nowhere.
+// 127; zeros and NaN count nowhere.
 //
 // Apply writes +0.0 for every dropped entry (negatives and NaN included):
 // the reference writes x * float(keep), which XLA compiles into that select.
@@ -56,61 +56,107 @@ constexpr int kExpoMin = -96;         // EXPO_MIN
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxBlocks = 132 * 8;   // about eight blocks per SM
 
-__device__ __forceinline__ int octave_bin(float v) {
-  const float a = fabsf(v);
-  if (!(a > 0.0f)) return -1;
-  const int e = static_cast<int>((__float_as_uint(a) >> 23) & 0xff) - 127;
-  return min(kBins - 1, max(0, e - kExpoMin));
-}
+constexpr unsigned kInfBits = 0x7f800000u;
 
-// First element of this warp's first step, and the grid's stride.
-__device__ __forceinline__ long long warp_base() {
-  return static_cast<long long>(blockIdx.x) * kThreads + (threadIdx.x & ~31);
+// The bin of v from the bits b of |v|: -1 for zeros and NaN (b = 0 or b
+// above inf's bits; one unsigned range test), else e - EXPO_MIN with e the
+// exponent field less 127, clamped to [0, 127], so subnormals land in bin 0
+// and inf in bin 127.
+__device__ __forceinline__ int octave_bin(float v) {
+  const unsigned b = __float_as_uint(v) & 0x7fffffffu;
+  const int e = static_cast<int>(b >> 23) - 127;
+  const int j = min(kBins - 1, max(0, e - kExpoMin));
+  return b - 1u < kInfBits ? j : -1;
 }
 
 __device__ __forceinline__ long long grid_stride() {
   return static_cast<long long>(gridDim.x) * kThreads;
 }
 
-__global__ void __launch_bounds__(kThreads)
-exponent_hist_kernel(const float* __restrict__ x, long long n,
-                     int* __restrict__ out) {
-  __shared__ int hist[kBins];
-  for (int b = threadIdx.x; b < kBins; b += kThreads) hist[b] = 0;
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  for (long long base = warp_base(); base < n; base += grid_stride()) {
-    const long long i = base + lane;
-    const int j = i < n ? octave_bin(x[i]) : -1;
-    const unsigned peers = __match_any_sync(kFull, j);
-    if (j >= 0 && lane == __ffs(peers) - 1) atomicAdd(&hist[j], __popc(peers));
-  }
-  __syncthreads();
-  for (int b = threadIdx.x; b < kBins; b += kThreads) {
-    const int v = hist[b];
-    if (v != 0) atomicAdd(&out[b], v);
-  }
-}
-
-// Count (count_ge): one device operation a call, the kernel itself.
+// The histogram and the count: one device operation a call, the kernel
+// itself.
 //   * Loads.  x may start at any 4-byte offset (a view of a larger
-//     tensor), so block 0 counts the head before the first 16-byte boundary
+//     tensor), so block 0 takes the head before the first 16-byte boundary
 //     and the tail after the last whole float4 (under 4 elements each); the
-//     body goes as float4 loads, kVecsInFlight of them a thread issued
-//     before the first compare.  The grid is one 16-element group a thread
-//     up to kMaxBlocks blocks (about one wave), then strides.
-//   * Total.  Each block writes its count to its own slot of a scratch
-//     array, then __threadfence() and an atomic ticket; the block that draws
-//     the last ticket sums the slots, writes `out` and sets the ticket back
-//     to 0.  So nothing zeroes `out` first and there is no memset node.
-//   * Scratch.  The slots and the ticket belong to the library, one set per
-//     (device, stream), made at the first call on that pair.  Calls on one
-//     stream run in order, and each leaves the ticket at 0 for the next;
-//     calls on two streams use two sets.  The port launches on PyTorch's
-//     current stream.
+//     body goes as float4 loads.  The count issues kVecsInFlight of them a
+//     thread before its first compare, on a grid of one 16-element group a
+//     thread; the histogram loads one float4 ahead of the one it bins, on a
+//     grid of one float4 a thread.  Both grids stop at kMaxBlocks blocks
+//     (about one wave) and then stride.  On the H100 the histogram's one
+//     ahead took 0.1188 ms at 2^26 elements against 0.1229 for four in
+//     flight, and its finer grid 4.1 us at a 147,456-element leaf against
+//     5.7 (PERF.md).
+//   * Bins.  Each element adds one to its bin of a 128-bin shared histogram
+//     with a shared atomic.  A warp's equal bins are not gathered first:
+//     with __match_any_sync the histogram took 0.1186 ms at 2^26 against
+//     0.0893 without, and without it a warp whose 32 lanes all hit one bin
+//     still kept pace with the bytes (0.0891; PERF.md).
+//   * Total.  The count writes each block's count to its own slot of a
+//     scratch array, the histogram adds each block's nonzero bins to a
+//     scratch histogram with global atomics; then __threadfence() and an
+//     atomic ticket.  The block that draws the last ticket reads the
+//     scratch (__ldcg: from L2, where the atomics and the other blocks'
+//     stores are), writes `out`, zeroes what it must and sets the ticket
+//     back to 0.  So nothing zeroes `out` first, and for n = 0 the one
+//     block writes the zero result.
+//   * Scratch.  The slots, the histogram and their tickets belong to the
+//     library, one set per (device, stream), made and zeroed at the first
+//     call on that pair.  Calls on one stream run in order, and each leaves
+//     its scratch zeroed for the next; calls on two streams use two sets.
+//     The port launches on PyTorch's current stream.
 // NaN never counts (|NaN| >= tau is false); with tau <= 0 every other one
 // of the n entries does, and nothing beyond them.
 constexpr int kVecsInFlight = 4;
+
+__device__ __forceinline__ void bin_add(float v, int* hist) {
+  const int j = octave_bin(v);
+  if (j >= 0) atomicAdd(&hist[j], 1);
+}
+
+__global__ void __launch_bounds__(kThreads)
+exponent_hist_kernel(const float* __restrict__ x, long long n, int head,
+                     int* __restrict__ scratch, unsigned* __restrict__ ticket,
+                     int* __restrict__ out) {
+  __shared__ int hist[kBins];
+  __shared__ bool is_last;
+  const int tid = threadIdx.x;
+  if (tid < kBins) hist[tid] = 0;
+  __syncthreads();
+  const long long vecs = (n - head) / 4;
+  if (blockIdx.x == 0) {
+    const int tail = static_cast<int>(n - head - 4 * vecs);
+    if (tid < head) bin_add(x[tid], hist);
+    if (tid >= 4 && tid < 4 + tail) {
+      bin_add(x[head + 4 * vecs + tid - 4], hist);
+    }
+  }
+  const float4* body = reinterpret_cast<const float4*>(x + head);
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);   // no bin
+  long long i = static_cast<long long>(blockIdx.x) * kThreads + tid;
+  float4 next = i < vecs ? body[i] : zero;
+  for (; i < vecs; i += grid_stride()) {
+    const float4 e = next;
+    const long long ahead = i + grid_stride();
+    next = ahead < vecs ? body[ahead] : zero;
+    bin_add(e.x, hist);
+    bin_add(e.y, hist);
+    bin_add(e.z, hist);
+    bin_add(e.w, hist);
+  }
+  __syncthreads();
+  if (tid < kBins && hist[tid] != 0) atomicAdd(&scratch[tid], hist[tid]);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  if (tid < kBins) {
+    out[tid] = __ldcg(&scratch[tid]);
+    scratch[tid] = 0;
+  }
+  if (tid == 0) *ticket = 0;
+}
 
 __global__ void __launch_bounds__(kThreads)
 count_ge_kernel(const float* __restrict__ x, long long n, int head,
@@ -189,24 +235,26 @@ apply_threshold_kernel(const float* __restrict__ x, long long n,
   }
 }
 
-int blocks_for(long long n) {
-  // Four elements per thread at the least, at most kMaxBlocks blocks.
-  const long long per_block = 4LL * kThreads;
-  const long long blocks = (n + per_block - 1) / per_block;
+// ceil(items / per_block) blocks, at least one and at most kMaxBlocks.
+int blocks_for(long long items, long long per_block) {
+  const long long blocks = (items + per_block - 1) / per_block;
   return static_cast<int>(blocks < 1 ? 1
                           : blocks > kMaxBlocks ? kMaxBlocks : blocks);
 }
 
-// The count's scratch (kMaxBlocks slots, then the ticket) for the current
-// device and `stream`, made and zeroed at the first call on that pair.
-struct CountScratch {
+// The scratch of the count (kMaxBlocks slots and a ticket) and of the
+// histogram (kBins bins and a ticket) for the current device and `stream`,
+// made and zeroed at the first call on that pair.
+struct Scratch {
   int* partials;
-  unsigned* ticket;
+  unsigned* count_ticket;
+  int* hist;
+  unsigned* hist_ticket;
 };
 
-cudaError_t count_scratch(cudaStream_t stream, CountScratch* out) {
+cudaError_t scratch_for(cudaStream_t stream, Scratch* out) {
   static std::mutex mutex;
-  static std::map<std::pair<int, cudaStream_t>, CountScratch> sets;
+  static std::map<std::pair<int, cudaStream_t>, Scratch> sets;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -217,55 +265,58 @@ cudaError_t count_scratch(cudaStream_t stream, CountScratch* out) {
     *out = found->second;
     return cudaSuccess;
   }
-  const size_t bytes = (kMaxBlocks + 1) * sizeof(int);
+  const size_t bytes = (kMaxBlocks + 1 + kBins + 1) * sizeof(int);
   void* mem = nullptr;
   err = cudaMalloc(&mem, bytes);
   if (err == cudaSuccess) err = cudaMemset(mem, 0, bytes);
   if (err == cudaSuccess) err = cudaDeviceSynchronize();
   if (err != cudaSuccess) return err;
-  CountScratch set{static_cast<int*>(mem),
-                   reinterpret_cast<unsigned*>(static_cast<int*>(mem) +
-                                               kMaxBlocks)};
+  int* words = static_cast<int*>(mem);
+  Scratch set{words, reinterpret_cast<unsigned*>(words + kMaxBlocks),
+              words + kMaxBlocks + 1,
+              reinterpret_cast<unsigned*>(words + kMaxBlocks + 1 + kBins)};
   sets.emplace(key, set);
   *out = set;
   return cudaSuccess;
+}
+
+// Elements before x's first 16-byte boundary (at most n).
+int head_of(const float* x, long long n) {
+  const long long misalign = reinterpret_cast<uintptr_t>(x) & 15;
+  const long long head = misalign == 0 ? 0 : (16 - misalign) / 4;
+  return static_cast<int>(head < n ? head : n);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Each launcher enqueues its work on `stream` and returns the first CUDA
-// error (0 on success).  The histogram launcher zeroes its output first;
-// the histogram and apply kernels run only for n > 0, the count always
-// (it writes `out`, 0 for n = 0).
+// Each launcher enqueues one kernel on `stream` and returns the first CUDA
+// error (0 on success).  The histogram and count kernels always run (they
+// write `out`: zeros for n = 0), apply only for n > 0.
 int topk_histogram_launch(const float* x, long long n, int* out,
                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(out, 0, kBins * sizeof(int), st);
+  Scratch scratch;
+  const cudaError_t err = scratch_for(st, &scratch);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n > 0) {
-    exponent_hist_kernel<<<blocks_for(n), kThreads, 0, st>>>(x, n, out);
-  }
+  const int head = head_of(x, n);
+  const int grid = blocks_for((n - head) / 4, kThreads);
+  exponent_hist_kernel<<<grid, kThreads, 0, st>>>(
+      x, n, head, scratch.hist, scratch.hist_ticket, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 int topk_count_launch(const float* x, long long n, const float* tau,
                       int* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  CountScratch scratch;
-  const cudaError_t err = count_scratch(st, &scratch);
+  Scratch scratch;
+  const cudaError_t err = scratch_for(st, &scratch);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long misalign = reinterpret_cast<uintptr_t>(x) & 15;
-  const int head = static_cast<int>(
-      misalign == 0 ? 0 : (16 - misalign) / 4 < n ? (16 - misalign) / 4 : n);
-  const long long groups = ((n - head) / 4 + kThreads * kVecsInFlight - 1) /
-                           (kThreads * kVecsInFlight);
-  const int grid = static_cast<int>(
-      groups < 1 ? 1 : groups > kMaxBlocks ? kMaxBlocks : groups);
-  count_ge_kernel<<<grid, kThreads, 0, st>>>(x, n, head, tau,
-                                             scratch.partials,
-                                             scratch.ticket, out);
+  const int head = head_of(x, n);
+  const int grid = blocks_for((n - head) / 4, kThreads * kVecsInFlight);
+  count_ge_kernel<<<grid, kThreads, 0, st>>>(
+      x, n, head, tau, scratch.partials, scratch.count_ticket, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -273,8 +324,8 @@ int topk_apply_launch(const float* x, long long n, const float* tau,
                       float* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n > 0) {
-    apply_threshold_kernel<<<blocks_for(n), kThreads, 0, st>>>(x, n, tau,
-                                                               out);
+    apply_threshold_kernel<<<blocks_for(n, 4LL * kThreads), kThreads, 0,
+                             st>>>(x, n, tau, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,14 +1,14 @@
 """Inputs, comparisons and device timers for checking and timing the
-port's segmented CUDA kernels on the card.
+port's segmented and per-array CUDA kernels on the card.
 
 ``chip_smoke.py``, ``kernels/bench_segmented.py`` and the card tests share
 them: the kernels' inputs (the main path's cohort-packed LeNet-28 delta,
-one 2^26-element buffer, and edge inputs for the fused wire path's stats
-and encode kernels), the taus and int8 scales the masking and wire paths
-make of them, a bitwise comparison, two timers (CUDA events around calls
-issued back to back; the profiler's time a launch) and the wire kernels'
-resources in an ``-Xptxas -v`` log.  Nothing here runs on the main path,
-and nothing here touches the card when it is imported.
+one 2^26-element buffer, edge inputs for the wire sweeps, and flat vectors
+for the per-array kernels), the taus and int8 scales the masking and wire
+paths make of them, a bitwise comparison, two timers (CUDA events around
+calls issued back to back; the profiler's time a launch) and the sweep
+kernels' resources in an ``-Xptxas -v`` log.  Nothing here runs on the
+main path, and nothing here touches the card when it is imported.
 """
 
 from __future__ import annotations
@@ -25,8 +25,8 @@ from repro_torch.kernels import segmented as seg
 from repro_torch.kernels.packing import SEG_LANE
 
 __all__ = ["CLIENTS", "SPECIALS", "lenet_cohort_buffer", "large_buffer",
-           "taus_for", "wire_edge_inputs", "bitwise", "cuda_loop_ms",
-           "device_ms", "wire_resources"]
+           "taus_for", "wire_edge_inputs", "edge_vector", "large_vector",
+           "bitwise", "cuda_loop_ms", "device_ms", "wire_resources"]
 
 CLIENTS = 32                     # the main path's cohort
 # Values at the wire kernels' edges: NaN, +-inf, -0.0, subnormals, the
@@ -120,6 +120,32 @@ def wire_edge_inputs(rows: int, seed: int):
     return x2d, ids, taus.float(), scales.float()
 
 
+def edge_vector(n: int, seed: int):
+    """n fp32 values on the CPU for the per-array kernels: normals at scales
+    1e-6..10, zeros and -0.0, values above 2^28 and below 2^-96,
+    subnormals, +-inf and NaN."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, generator=gen) * 10.0 ** (
+        7 * torch.rand(n, generator=gen) - 6)
+    x[::31] = 0.0
+    x[1::37] = -0.0
+    x[2::41] = 3e8
+    x[3::43] = -1e-31
+    x[4::47] = 1e-40
+    x[5::53] = float("inf")
+    x[6::59] = float("-inf")
+    x[7::61] = float("nan")
+    return x
+
+
+def large_vector(seed: int):
+    """2^26 normals on the CPU in 64 chunks of scales 1e-6..1e2."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(1 << 26, generator=gen).view(64, -1)
+    x *= torch.logspace(-6, 2, 64)[:, None]
+    return x.reshape(-1)
+
+
 def bitwise(a, b) -> bool:
     """Whether two tensors are equal bit for bit (fp32 compared as bits, so
     NaN equals NaN and -0.0 differs from +0.0)."""
@@ -157,7 +183,9 @@ def device_ms(fns, symbol: str, launches: int = 50) -> dict:
     the traced time per record of the kernel named ``symbol`` (no launch
     gaps, whatever the host's pace), the device records of the trace, the
     kernel's records and the calls made.  A call that puts more than the
-    kernel on the stream shows as more records than kernel records."""
+    kernel on the stream shows as more records than kernel records.  A
+    session whose trace lost every record of the kernel (it happens on the
+    card now and then) is run again, three sessions at the most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for fn in fns[:3]:
@@ -166,13 +194,17 @@ def device_ms(fns, symbol: str, launches: int = 50) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]):
         fns[0]()
         torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(launches):
-            fns[i % len(fns)]()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    mine = [e for e in events if symbol in e.name]
-    if not mine:
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(launches):
+                fns[i % len(fns)]()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        mine = [e for e in events if symbol in e.name]
+        if mine:
+            break
+    else:
         raise RuntimeError(f"the trace holds no record of {symbol}")
     return {"device_ms": sum(e.time_range.elapsed_us() for e in mine)
             / 1e3 / len(mine),
@@ -180,16 +212,25 @@ def device_ms(fns, symbol: str, launches: int = 50) -> dict:
             "calls": launches}
 
 
+# Each sweep kernel's key in :func:`wire_resources`, by a part of its
+# mangled name.
+_RESOURCE_KINDS = (("seg_hist_kernel", "hist"), ("seg_stats", "stats"),
+                   ("seg_encode_kernelILb1", "int8"),
+                   ("seg_encode_kernelILb0", "fp32"),
+                   ("exponent_hist_kernel", "exponent_hist"))
+
+
 def wire_resources(log: str) -> dict:
-    """Registers, stack and spills of the stats kernel and of both encode
-    kernels in an ``-Xptxas -v`` log, under "stats", "int8" and "fp32"."""
+    """Registers, stack and spills of the histogram, stats and both encode
+    kernels of ``segmented.cu`` and of the per-array histogram kernel in an
+    ``-Xptxas -v`` log, under "hist", "stats", "int8", "fp32" and
+    "exponent_hist" (those that the log holds)."""
     found = {}
     for m in re.finditer(r"Compiling entry function '(\S*)'(.*?)"
                          r"(?=Compiling entry function|== |\Z)", log, re.S):
         name = m.group(1)
-        kind = ("stats" if "seg_stats" in name else
-                "int8" if "seg_encode_kernelILb1" in name else
-                "fp32" if "seg_encode_kernelILb0" in name else None)
+        kind = next((k for part, k in _RESOURCE_KINDS if part in name),
+                    None)
         if kind is None:
             continue
         body = m.group(2)

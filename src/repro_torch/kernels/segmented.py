@@ -124,7 +124,8 @@ def _check_taus(taus: torch.Tensor, x2d: torch.Tensor, shape,
 
 
 def _check_aligned(x2d: torch.Tensor) -> None:
-    """The count, stats and encode kernels read rows as float4."""
+    """The histogram, count, stats and encode kernels read rows as
+    float4."""
     if x2d.data_ptr() % 16:
         raise ValueError("x2d must start on a 16-byte boundary for the CUDA "
                          "kernels that read rows as float4")
@@ -250,6 +251,7 @@ def segmented_histogram(x2d: torch.Tensor, seg_ids: torch.Tensor,
     seg = _check_buffer(x2d, seg_ids)
     if x2d.device.type == "cpu":
         return segmented_histogram_plain(x2d, seg, num_segments)
+    _check_aligned(x2d)
     out = torch.zeros((num_segments, SEG_NBINS), dtype=torch.int32,
                       device=x2d.device)
     if x2d.shape[0]:

@@ -98,12 +98,16 @@ def test_wire_kernels_match_plain_versions(cuda, seed):
 
 
 def _wire_calls(x2d, seg_ids, taus, scales, plain: bool) -> dict:
-    """Stats and encode (int8, fp32) through the wrappers or, with
-    ``plain``, through their plain versions."""
+    """The histogram, stats and encode (int8, fp32) through the wrappers
+    or, with ``plain``, through their plain versions; each returns a
+    tuple."""
     S = taus.numel()
+    hist = (seg.segmented_histogram_plain if plain
+            else seg.segmented_histogram)
     stats = seg.segmented_stats_plain if plain else seg.segmented_stats
     encode = seg.segmented_encode_plain if plain else seg.segmented_encode
-    return {"stats": lambda x: stats(x, seg_ids, S),
+    return {"hist": lambda x: (hist(x, seg_ids, S),),
+            "stats": lambda x: stats(x, seg_ids, S),
             "int8": lambda x: encode(x, seg_ids, taus, scales),
             "fp32": lambda x: encode(x, seg_ids, taus)}
 
@@ -114,11 +118,11 @@ def _bitwise_all(got, want) -> bool:
 
 @pytest.mark.parametrize("rows", [1, 3, 5, 4095, 33 * 1024 + 5])
 def test_wire_kernels_bitwise_on_edge_inputs(cuda, rows):
-    """Stats and encode (int8 and fp32) bitwise against their plain versions
-    on R rows holding NaN, +-inf, -0.0, subnormals and magnitudes at and
-    beside 2^-96; segments of 1-7 rows (single-row ones, and changes in the
-    middle of a block's rows; 32-row blocks at the largest R); ids S + 1
-    and -2; scales of 1e-12, inf and NaN."""
+    """The histogram, stats and encode (int8 and fp32) bitwise against their
+    plain versions on R rows holding NaN, +-inf, -0.0, subnormals and
+    magnitudes at and beside 2^-96; segments of 1-7 rows (single-row ones,
+    and changes in the middle of a block's rows; 32-row blocks at the
+    largest R); ids S + 1 and -2; scales of 1e-12, inf and NaN."""
     inputs = [t.to(cuda) for t in measure.wire_edge_inputs(rows, seed=rows)]
     got = _wire_calls(*inputs, plain=False)
     want = _wire_calls(*inputs, plain=True)
@@ -126,16 +130,18 @@ def test_wire_kernels_bitwise_on_edge_inputs(cuda, rows):
         assert _bitwise_all(got[kind](inputs[0]), want[kind](inputs[0])), kind
 
 
-@pytest.mark.parametrize("kind", ["stats", "int8", "fp32"])
+@pytest.mark.parametrize("kind", ["hist", "stats", "int8", "fp32"])
 def test_wire_kernels_refuse_a_buffer_off_the_16_byte_boundary(cuda, kind):
-    """Stats and encode read rows as float4: a view 4 bytes into its
-    storage is refused before any launch, and the next call is right."""
+    """The histogram, stats and encode read rows as float4: a view 4 bytes
+    into its storage is refused before any launch, and the next call is
+    right."""
     inputs = [t.to(cuda) for t in measure.wire_edge_inputs(1030, seed=3)]
     x2d = inputs[0]
     storage = torch.empty(x2d.numel() + 4, device=cuda)
     view = storage[1:1 + x2d.numel()].view(x2d.shape)
     view.copy_(x2d)
-    name = "segmented_stats" if kind == "stats" else "segmented_encode"
+    name = {"hist": "segmented_histogram",
+            "stats": "segmented_stats"}.get(kind, "segmented_encode")
     seg.reset_launch_counts()
     with pytest.raises(ValueError, match="16-byte"):
         _wire_calls(*inputs, plain=False)[kind](view)
@@ -295,27 +301,10 @@ def test_fig5_round_on_card_matches_cpu(cuda, preset, error_feedback):
         torch.testing.assert_close(v.cpu(), res[k], rtol=1e-4, atol=1e-4)
 
 
-def _flat_edges(n: int, seed: int) -> torch.Tensor:
-    """n fp32 values: normals at scales 1e-6..10, zeros and -0.0, values
-    above 2^28 and below 2^-96, subnormals, +-inf and NaN."""
-    gen = torch.Generator().manual_seed(seed)
-    x = torch.randn(n, generator=gen) * 10.0 ** (
-        7 * torch.rand(n, generator=gen) - 6)
-    x[::31] = 0.0
-    x[1::37] = -0.0
-    x[2::41] = 3e8
-    x[3::43] = -1e-31
-    x[4::47] = 1e-40
-    x[5::53] = float("inf")
-    x[6::59] = float("-inf")
-    x[7::61] = float("nan")
-    return x
-
-
 @pytest.mark.parametrize("n", [1, 3001, 147_456, 1 << 20])
 def test_topk_kernels_match_plain_versions(cuda, n):
     """Histograms and counts exact, apply bitwise, tails included."""
-    x = _flat_edges(n, seed=n).to(cuda)
+    x = measure.edge_vector(n, seed=n).to(cuda)
     assert torch.equal(tk.exponent_histogram(x),
                        tk.exponent_histogram_plain(x))
     for tau in (-1.0, 0.0, 1e-40, 2.0 ** -100, 1e-4, 0.3, 3e8,
@@ -344,7 +333,7 @@ def test_topk_mask_on_card_matches_cpu(cuda, shape, dtype):
 def test_count_ge_on_views_at_any_offset(cuda, offset, n):
     """Views such as ``x[1:]`` and ``x[3:]`` start off the 16-byte
     boundary: the kernel's head and tail."""
-    x = _flat_edges(n + 8, seed=n).to(cuda)
+    x = measure.edge_vector(n + 8, seed=n).to(cuda)
     view = x[offset:offset + n]
     for tau in (-1.0, 0.0, 1e-40, 1e-4, 0.3, float("inf"), float("nan")):
         t = torch.tensor(tau, device=cuda)
@@ -354,7 +343,7 @@ def test_count_ge_on_views_at_any_offset(cuda, offset, n):
 def test_count_ge_ticket_resets_between_calls(cuda):
     """The last block sets the ticket back to 0: calls back to back, a call
     after an n = 0 call, and calls on a second stream agree."""
-    x = _flat_edges(1 << 20, seed=3).to(cuda)
+    x = measure.edge_vector(1 << 20, seed=3).to(cuda)
     t = torch.tensor(1e-3, device=cuda)
     want = int(tk.count_ge_plain(x, t))
     outs = [tk.count_ge(x, t), tk.count_ge(x[1:], t), tk.count_ge(x, t)]
@@ -389,6 +378,57 @@ def test_count_ge_call_is_one_device_operation(cuda):
              if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(names) == 10, names
     assert all("count_ge_kernel" in name for name in names), names
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 7, 4095, 147_457])
+def test_exponent_histogram_on_views_at_any_offset(cuda, offset, n):
+    """Views that start 1-3 elements in (off the 16-byte boundary) at odd
+    lengths: the kernel's head and tail; n = 0 writes 128 zeros."""
+    x = measure.edge_vector(n + 8, seed=n).to(cuda)
+    view = x[offset:offset + n]
+    got = tk.exponent_histogram(view)
+    assert torch.equal(got, tk.exponent_histogram_plain(view))
+    assert int(got.sum()) == int(((view != 0) & ~view.isnan()).sum())
+
+
+def test_exponent_histogram_scratch_resets_between_calls(cuda):
+    """The last block zeroes the scratch histogram and sets the ticket back
+    to 0: calls back to back, a call after an n = 0 call, and calls on a
+    second stream agree."""
+    x = measure.edge_vector(1 << 20, seed=5).to(cuda)
+    want = tk.exponent_histogram_plain(x)
+    outs = [tk.exponent_histogram(x), tk.exponent_histogram(x[1:]),
+            tk.exponent_histogram(x)]
+    assert torch.equal(outs[0], want) and torch.equal(outs[2], want)
+    assert torch.equal(outs[1], tk.exponent_histogram_plain(x[1:]))
+    assert not tk.exponent_histogram(x[:0]).any()
+    assert torch.equal(tk.exponent_histogram(x), want)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        got = [tk.exponent_histogram(x) for _ in range(3)]
+    side.synchronize()
+    assert all(torch.equal(g, want) for g in got)
+
+
+def test_exponent_histogram_call_is_one_device_operation(cuda):
+    """No memset before the kernel: ten calls put ten operations on the
+    stream, every one the histogram kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.randn(147_456, device=cuda)
+    tk.exponent_histogram(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        tk.exponent_histogram(x)
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            tk.exponent_histogram(x)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 10, names
+    assert all("exponent_hist_kernel" in name for name in names), names
 
 
 def test_topk_wrappers_count_their_launches(cuda):

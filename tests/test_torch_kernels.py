@@ -20,6 +20,7 @@ from repro.kernels import packing as jpk
 from repro.kernels import ref as jref
 from repro.kernels import segmented as jseg
 from repro_torch.bridge import flatten_tree
+from repro_torch.kernels import measure
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import packing as tpk
 from repro_torch.kernels import ref as tref
@@ -143,6 +144,50 @@ def test_out_of_range_segment_rows_count_nowhere():
     out, kept = tseg.segmented_apply(_t(x), _t(seg_ids), _t(tau))
     np.testing.assert_array_equal(_bits(out.numpy()), _bits(want_out))
     np.testing.assert_array_equal(kept.numpy(), np.asarray(want_kept))
+
+
+# The wire edge inputs' row counts (kernels/measure.py): single rows,
+# segments changing inside a block's rows, 32-row blocks at the largest.
+EDGE_ROWS = [1, 3, 5, 4095, 33 * 1024 + 5]
+
+
+def _edge_inputs(rows: int):
+    """The wire edge inputs as numpy: (x2d, seg_ids (R, 1), S)."""
+    x2d, ids, taus, _ = measure.wire_edge_inputs(rows, seed=rows)
+    return x2d.numpy(), ids.numpy().reshape(-1, 1), taus.numel()
+
+
+@pytest.mark.parametrize("rows", EDGE_ROWS)
+def test_segmented_histogram_matches_pallas_on_edge_inputs(rows):
+    """The plain version against the Pallas kernel in interpret mode on the
+    wire edge inputs (NaN, +-inf, -0.0, subnormals, magnitudes at and
+    beside 2^-96; segments of 1-7 rows; ids S + 1 and -2), padded by the
+    reference's pad_rows.  No magnitude lies between one of the reference's
+    inexact bin edges and the exact power of two (ROADMAP Queue 3), so the
+    two agree exactly."""
+    x2d, seg_ids, S = _edge_inputs(rows)
+    ladder = np.asarray(jseg._bin_ladder()).reshape(-1)
+    exact = tseg.bin_edges().numpy()
+    mag = np.abs(x2d)
+    between = [((mag >= min(lo, hi)) & (mag < max(lo, hi))).any()
+               for lo, hi in zip(ladder, exact) if lo != hi]
+    assert len(between) > 0 and not any(between)
+    jx, jids = jseg.pad_rows(jnp.asarray(x2d), jnp.asarray(seg_ids),
+                             interpret=True)
+    want = jseg.segmented_histogram(jx, jids, S, interpret=True)
+    got = tseg.segmented_histogram(_t(x2d), _t(seg_ids), S)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (S, 32)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("rows", EDGE_ROWS)
+def test_segmented_histogram_is_the_histogram_of_segmented_stats(rows):
+    """The histogram and stats kernels share one sweep on the card; their
+    histograms are the same function."""
+    x2d, seg_ids, S = _edge_inputs(rows)
+    hist = tseg.segmented_histogram(_t(x2d), _t(seg_ids), S)
+    stats_hist, _ = tseg.segmented_stats(_t(x2d), _t(seg_ids), S)
+    np.testing.assert_array_equal(hist.numpy(), stats_hist.numpy())
 
 
 # ------------------------------------- segmented_count: any order of taus

@@ -92,6 +92,20 @@ def test_apply_threshold_matches_pallas_bitwise(kind, tau):
     np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
 
 
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("n", [1, 3, 5, 1023, 2997])
+def test_exponent_histogram_on_offset_views_matches_pallas(kind, offset, n):
+    """Views that start 1-3 elements into a larger tensor (off the 16-byte
+    boundary) at odd lengths: the CUDA kernel's head and tail."""
+    base = _inputs(kind, seed=offset)
+    view = _t(base)[offset:offset + n]
+    assert view.is_contiguous() and view.storage_offset() == offset
+    want = np.asarray(jtk.exponent_histogram(
+        _padded(base[offset:offset + n]), interpret=True))
+    np.testing.assert_array_equal(tk.exponent_histogram(view).numpy(), want)
+
+
 @pytest.mark.parametrize("offset", [1, 2, 3, 5])
 @pytest.mark.parametrize("n", [1, 3, 5, 1023, 2997])
 def test_count_ge_on_offset_views_matches_pallas(offset, n):
