@@ -59,21 +59,25 @@ with a nonzero exit:
    leaf, and the entries where it and the round's segmented mask differ;
    then the three per-array kernels against their plain versions on those
    leaves, on the whole VGG delta as one vector, on a 2^26-element vector
-   and on edge inputs (subnormals, +-inf, NaN), ``exponent_histogram`` and
-   ``count_ge`` also on views of each that start 1-3 elements in, at odd
-   lengths, and ``ops.topk_mask``
+   and on edge inputs (subnormals, +-inf, NaN), all three also on views of
+   each that start 1-3 elements in, at odd lengths (0 and 1 included),
+   and ``ops.topk_mask``
    on the kernels against the same pipeline on the plain versions
    (bitwise);
 5. timing — each kernel's median time (CUDA events) on inputs that are not
    in the L2 cache, and on one buffer that stays there (``warm_ms``), its
    traced time per launch (``device_ms``: no launch gaps) with the trace's
-   device records, the kernel's own records and the calls made, beside
+   device records, the kernel's own records and the calls made (a
+   per-array kernel that puts more than one record a call on the stream
+   fails the run), beside
    its bound (bytes moved over 3.35 TB/s, or operations over 67 TFLOP/s
    fp32), the launches of its path's run, the wrapper's time per call, its
    plain version's time (the count kernel at 2^26 also with C = 32 and
    4096); the library yardsticks ``hardshrink(x, nextafter(tau, 0))`` for
-   ``apply_threshold`` (back to back and device time, and whether it keeps
-   the same entries bit for bit) and ``torch.topk(|x|, k)`` plus a scatter
+   ``apply_threshold`` (back to back and device time, also into the
+   kernel's rotating outputs beside the kernel's device time into one
+   output, and whether it keeps the same entries bit for bit) and
+   ``torch.topk(|x|, k)`` plus a scatter
    for ``ops.topk_mask``; the steady per-round wall time
    and ``compile_s`` of every main path; and ``fresh_process_round_time``:
    the fig5 path in a fresh process with an empty build directory, whose
@@ -339,10 +343,11 @@ def wire_edge_parity() -> dict:
 def wire_build_record() -> dict:
     """The histogram, stats and both encode kernels' registers, stack and
     spills from the build's ``-Xptxas -v`` log, and the per-array
-    histogram kernel's."""
+    histogram and apply kernels'."""
     from repro_torch.kernels import build, measure
     found = measure.wire_resources(build.build_log().read_text())
-    if sorted(found) != ["exponent_hist", "fp32", "hist", "int8", "stats"]:
+    if sorted(found) != ["apply", "exponent_hist", "fp32", "hist", "int8",
+                         "stats"]:
         fail(f"sweep kernels in the build log: {sorted(found)}")
     return found
 
@@ -886,13 +891,14 @@ def per_array_path(deltas: dict) -> dict:
 
 
 def views_agree(x, taus) -> dict:
-    """``exponent_histogram`` and ``count_ge`` against their plain versions
-    on views of ``x`` that start 1, 2 or 3 elements in (off the 16-byte
-    boundary) and on lengths 0, 1, 3, 5, 4095 and the rest of ``x``: per
-    kernel, "offset:length" -> exact."""
+    """The three per-array kernels against their plain versions on views of
+    ``x`` that start 1, 2 or 3 elements in (off the 16-byte boundary) and
+    on lengths 0, 1, 3, 5, 4095 and the rest of ``x`` (histogram and
+    counts exact, apply bitwise): per kernel, "offset:length" -> exact."""
     import torch
+    from repro_torch.kernels import measure
     from repro_torch.kernels import topk_mask as tk
-    out = {"exponent_histogram": {}, "count_ge": {}}
+    out = {name: {} for name in PER_ARRAY}
     for offset in (1, 2, 3):
         rest = max(0, x.numel() - offset)
         for n in sorted({min(m, rest) for m in (0, 1, 3, 5, 4095, rest)}):
@@ -901,10 +907,14 @@ def views_agree(x, taus) -> dict:
             out["exponent_histogram"][key] = bool(torch.equal(
                 tk.exponent_histogram(view),
                 tk.exponent_histogram_plain(view)))
+            ts = [torch.tensor(tau, device=x.device) for tau in taus]
             out["count_ge"][key] = all(
                 int(tk.count_ge(view, t)) == int(tk.count_ge_plain(view, t))
-                for t in (torch.tensor(tau, device=x.device)
-                          for tau in taus))
+                for t in ts)
+            out["apply_threshold"][key] = all(
+                measure.bitwise(tk.apply_threshold(view, t),
+                                tk.apply_threshold_plain(view, t))
+                for t in ts)
     return out
 
 
@@ -936,7 +946,8 @@ def check_topk_kernels(label: str, x, errs: dict) -> dict:
     exact.update(exponent_histogram=exact["exponent_histogram"]
                  and all(views["exponent_histogram"].values()),
                  count_ge=count_ok and all(views["count_ge"].values()),
-                 apply_threshold=apply_ok,
+                 apply_threshold=apply_ok
+                 and all(views["apply_threshold"].values()),
                  topk_mask=measure.bitwise(got_mask, want_mask))
     for name in PER_ARRAY:
         errs[name] = max(errs.get(name, 0.0),
@@ -1019,9 +1030,28 @@ def time_topk(label: str, x, launches: dict) -> dict:
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                "library_ms": None, "bytes": nbytes, "launches_per_call": 1,
                "path_launches": launches[name], "buffers": copies}
+        # Device records a kernel record: 1 when a call puts nothing but
+        # the kernel on the stream (a record the tracer lost drops from
+        # both counts).
+        rec["records_per_call"] = (rec["device_records"]
+                                   / rec["kernel_records"])
         if name in libraries:
             desc, fn = libraries[name]
             calls = [library_call(fn, v) for v in xs]
+            # Like for like: hardshrink into the kernel's rotating outputs
+            # (as ``device_ms``), and the kernel into one output (as the
+            # caching allocator hands the wrapper, and hardshrink, one
+            # block), each beside the other's regime.
+            into = [library_call(lambda v, o=o: torch.ops.aten.hardshrink.out(
+                v, lam, out=o), v) for v, o in zip(xs, outs)]
+            one = [lambda p=v.data_ptr(): lib.topk_apply_launch(
+                p, n, tau.data_ptr(), outs[0].data_ptr(), stream)
+                for v in xs]
+            dev = measure.device_ms(into, "")
+            rec["library_device_ms_same_outputs"] = (
+                dev["device_ms"] * dev["kernel_records"] / dev["calls"])
+            rec["one_output_device_ms"] = measure.device_ms(
+                one, kernel_symbol(name))["device_ms"]
             dev = measure.device_ms(calls, "")
             rec.update(library=desc, library_ms=measure.cuda_loop_ms(calls),
                        library_device_ms=dev["device_ms"]
@@ -1033,6 +1063,12 @@ def time_topk(label: str, x, launches: dict) -> dict:
                 fail(f"{desc} differs from apply_threshold ({label})")
         results[name] = rec
         phase("kernel_time", shape=label, kernel=name, **rec)
+        if (rec["records_per_call"] != 1
+                or rec["kernel_records"] > rec["calls"]):
+            fail(f"{name} put more than its kernel on the stream a call "
+                 f"({label}): {rec['device_records']} records, "
+                 f"{rec['kernel_records']} of the kernel, {rec['calls']} "
+                 f"calls")
     k = max(1, round(0.5 * n))
 
     def library(v):
@@ -1729,11 +1765,13 @@ def main(argv) -> int:
             "wrapper_ms": rec["wrapper_ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-            **({"library": rec["library"],
-                "library_device_ms": rec["library_device_ms"]}
+            **({key: rec[key] for key in (
+                "library", "library_device_ms",
+                "library_device_ms_same_outputs", "one_output_device_ms")}
                if "library" in rec else {}),
             "device_records": rec["device_records"],
             "kernel_records": rec["kernel_records"],
+            "records_per_call": rec["records_per_call"],
             "at_2^26": at_large(large_topk_times[name]),
             "library_note": PER_ARRAY_LIBRARY_NOTE})
     zoo_replaces = {"wkv6": ("src/repro/kernels/wkv6.py:72", "rwkv6-1.6b"),

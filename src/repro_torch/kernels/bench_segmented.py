@@ -1,7 +1,7 @@
 """The segmented sweeps ``segmented_histogram``, ``segmented_stats`` and
-``segmented_encode``, and the per-array ``exponent_histogram``, built from
-``csrc/segmented.cu`` and ``csrc/topk_mask.cu`` and from other sources,
-side by side on the card.
+``segmented_encode``, and the per-array ``exponent_histogram`` and
+``apply_threshold``, built from ``csrc/segmented.cu`` and
+``csrc/topk_mask.cu`` and from other sources, side by side on the card.
 
     PYTHONPATH=src python -m repro_torch.kernels.bench_segmented \\
         [--source NAME=PATH ...] [--topk-source NAME=PATH ...] [--sass] \\
@@ -23,14 +23,21 @@ the first two: back to back on rotating copies (CUDA events) and by the
 profiler's time a launch, beside the profiler's time of ``torch.amax`` over
 the same buffer (one read of it).
 
-For each ``topk_mask.cu`` build it prints the histogram kernel's registers
-and spills, checks ``exponent_histogram`` bitwise against its plain version
-on edge values at the largest VGG leaf's size (147,456), on 2^20 edge
-values, on 2^26 normals, on 2^26 values in [1, 2) (every element in one
-bin) and on views of the first two that start 1-3 elements in, at lengths
-0, 1, 3, 5, 4095 and the rest, and times it at the leaf's size and on both
-2^26 inputs as above, with the trace's device records a call (one a call
-when the launcher puts nothing but the kernel on the stream).
+For each ``topk_mask.cu`` build it prints the histogram and apply kernels'
+registers and spills and the apply kernels' global loads and stores by
+width in the SASS (``cuobjdump``), and checks ``exponent_histogram`` and
+``apply_threshold`` bitwise against their plain versions on edge values at
+the largest VGG leaf's size (147,456), on 2^20 edge values, on 2^26
+normals, on 2^26 values in [1, 2) (every element in one bin) and on views
+of the first two that start 1-3 elements in, at lengths 0, 1, 3, 5, 4095
+and the rest; apply at tau in {0, 2^-100, median, max} of the finite |x|,
+into an output at x's offset from a 16-byte boundary (as the wrapper
+allocates it).  It times the histogram at the leaf's size and on both 2^26
+inputs as above, and apply at the leaf's size (also on copies that start
+one element in, and into one output for every call) and on the 2^26
+normals, in turns with ``hardshrink(x, nextafter(tau, 0))`` on the same
+buffers and outputs; each with the trace's device records a call (one a
+call when the launcher puts nothing but the kernel on the stream).
 
 The builds are timed in turns, twice.  Inputs and timers are those of
 ``kernels/measure.py``, which ``chip_smoke.py`` uses too.  Exits 1 if a
@@ -61,6 +68,7 @@ KINDS = ("hist", "stats", "int8", "fp32")
 SYMBOLS = {"hist": "seg_hist_kernel", "stats": "seg_stats_kernel",
            "int8": "seg_encode_kernel", "fp32": "seg_encode_kernel"}
 TOPK_SYMBOL = "exponent_hist_kernel"
+APPLY_SYMBOL = "apply_threshold_kernel"
 LEAF = 147_456                   # the largest VGG leaf, 3 x 3 x 128 x 128
 VIEW_LENGTHS = (0, 1, 3, 5, 4095)
 CSRC = Path(build.__file__).resolve().parent / "csrc"
@@ -83,7 +91,7 @@ def _print_local_memory(lib: Path, context: int = 6) -> None:
     for part in re.split(r"\n\s*Function : ", sass)[1:]:
         name = part.split("\n", 1)[0]
         if not any(k in name for k in ("seg_hist", "seg_stats", "seg_encode",
-                                       "exponent_hist")):
+                                       "exponent_hist", "apply_threshold")):
             continue
         lines = [ln.strip() for ln in part.splitlines() if "/*" in ln]
         hits = [i for i, ln in enumerate(lines)
@@ -165,16 +173,37 @@ def _hist_launcher(lib, x, out):
     return lambda: lib.topk_histogram_launch(p, n, o, stream)
 
 
+def _apply_launcher(lib, x, tau, out):
+    """A call of ``lib``'s apply C launcher on ``x`` at ``tau`` into
+    ``out``, returning its error code."""
+    stream = torch.cuda.current_stream().cuda_stream
+    p, n, t, o = x.data_ptr(), x.numel(), tau.data_ptr(), out.data_ptr()
+    return lambda: lib.topk_apply_launch(p, n, t, o, stream)
+
+
+def _apply_taus(x) -> list:
+    """0, 2^-100, the median and the largest finite |x|, as 0-d tensors on
+    x's device."""
+    finite = x[torch.isfinite(x)].abs()
+    values = [0.0, 2.0 ** -100]
+    if finite.numel():
+        values += [float(finite.median()), float(finite.max())]
+    return [torch.tensor(v, device=x.device) for v in values]
+
+
 def _topk_agrees(lib, x, views: bool) -> dict:
-    """``exponent_histogram`` of ``lib`` bitwise against its plain version
-    on ``x`` ("all") and, with ``views``, on views of it that start 1-3
-    elements in ("offset:length")."""
+    """``exponent_histogram`` and ``apply_threshold`` of ``lib`` bitwise
+    against their plain versions on ``x`` ("all") and, with ``views``, on
+    views of it that start 1-3 elements in ("offset:length"); apply at
+    each of :func:`_apply_taus`, into an output at x's offset from a
+    16-byte boundary (as the wrapper allocates it)."""
     cases = {"all": x}
     if views:
         for offset in (1, 2, 3):
             rest = x.numel() - offset
             for n in sorted({min(m, rest) for m in (*VIEW_LENGTHS, rest)}):
                 cases[f"{offset}:{n}"] = x[offset:offset + n]
+    taus = _apply_taus(x)
     agree = {}
     for label, v in cases.items():
         out = torch.full((tk.NBINS,), -1, dtype=torch.int32, device=x.device)
@@ -182,6 +211,14 @@ def _topk_agrees(lib, x, views: bool) -> dict:
         if rc:
             raise RuntimeError(f"histogram launch returned cudaError {rc}")
         agree[label] = bool(torch.equal(out, tk.exponent_histogram_plain(v)))
+        out, ok = tk._empty_congruent(v), True
+        for tau in taus:
+            out.fill_(float("nan"))
+            rc = _apply_launcher(lib, v, tau, out)()
+            if rc:
+                raise RuntimeError(f"apply launch returned cudaError {rc}")
+            ok &= measure.bitwise(out, tk.apply_threshold_plain(v, tau))
+        agree[f"apply {label}"] = ok
     return agree
 
 
@@ -239,9 +276,36 @@ def _bench_segmented(libs: dict, result: dict) -> dict:
     return amax_ms
 
 
-def _bench_topk(libs: dict, result: dict) -> None:
-    """Checks and times of the ``topk_mask.cu`` builds into ``result``."""
+def _shifted_copies(x, offset: int) -> list:
+    """Copies of ``x`` (over four times the L2 cache in all), each a view
+    that starts ``offset`` elements into a fresh buffer."""
+    out = []
+    for c in _rotating(x):
+        buf = torch.empty(c.numel() + 4, device=c.device)
+        view = buf[offset:offset + c.numel()]
+        view.copy_(c)
+        out.append(view)
+    return out
+
+
+def _discard(fn, *args):
+    """A call of ``fn(*args)`` that returns None (the timers read a
+    returned value as a launcher's error code)."""
+    def call():
+        fn(*args)
+    return call
+
+
+def _time(fns, symbol: str) -> dict:
+    """Back to back (CUDA events) and the profiler's time a record."""
+    return {"ms": measure.cuda_loop_ms(fns), **measure.device_ms(fns, symbol)}
+
+
+def _bench_topk(libs: dict, result: dict) -> dict:
+    """Checks and times of the ``topk_mask.cu`` builds into ``result``;
+    returns ``hardshrink``'s times by case."""
     dev = torch.device("cuda")
+    yardstick = {}
     gen = torch.Generator().manual_seed(6)
     inputs = {"leaf": measure.edge_vector(LEAF, seed=5),
               "edges_2^20": measure.edge_vector(1 << 20, seed=4),
@@ -264,14 +328,82 @@ def _bench_topk(libs: dict, result: dict) -> None:
                 for _ in xs]
         for turn in range(2):
             for name, lib in libs.items():
-                fns = [_hist_launcher(lib, v, o) for v, o in zip(xs, outs)]
-                rec = {"ms": measure.cuda_loop_ms(fns),
-                       **measure.device_ms(fns, TOPK_SYMBOL)}
+                rec = _time([_hist_launcher(lib, v, o)
+                             for v, o in zip(xs, outs)], TOPK_SYMBOL)
                 result[name].setdefault(label, []).append(rec)
                 print(label, turn, name, "exponent_hist", json.dumps(rec),
                       flush=True)
+        if label in ("leaf", "2^26"):
+            _bench_apply(libs, result, yardstick, label, x)
         del x, xs
         torch.cuda.empty_cache()
+    return yardstick
+
+
+def _hardshrink_into(x, lam, out):
+    torch.ops.aten.hardshrink.out(x, lam, out=out)
+
+
+def _bench_apply(libs: dict, result: dict, yardstick: dict, label: str,
+                 x) -> None:
+    """``apply_threshold`` of each build at tau = median |x|, in turns with
+    ``hardshrink(x, nextafter(tau, 0))`` on the same buffers (its device
+    time a call: every record of its trace): on ``x`` and, at the leaf, on
+    copies that start one element in, into outputs at the same offset (as
+    the wrapper allocates them; hardshrink into the same outputs), and on
+    the leaf's copies into one output that every call rewrites (hardshrink
+    into the block the caching allocator hands it, which is one block
+    too).  Which lines of the output the L2 holds moves
+    a leaf's time by a quarter, so each comparison keeps one regime."""
+    tau = torch.tensor(float(x.abs().nan_to_num().median()), device=x.device)
+    lam = float(torch.nextafter(tau.cpu(), torch.zeros(())))
+    cases = {label: (_rotating(x), tk._empty_congruent)}
+    if label == "leaf":
+        cases["leaf_one_output"] = (cases["leaf"][0], None)
+        cases["leaf_offset1"] = (_shifted_copies(x, 1), tk._empty_congruent)
+    for case, (xs, make_out) in cases.items():
+        # One output for every call, as the caching allocator hands the
+        # wrapper (and hardshrink) the block the last call freed.
+        outs = ([make_out(v) for v in xs] if make_out else
+                [torch.empty_like(x)] * len(xs))
+        for turn in range(2):
+            for name, lib in libs.items():
+                rec = _time([_apply_launcher(lib, v, tau, o)
+                             for v, o in zip(xs, outs)], APPLY_SYMBOL)
+                rec["records_per_call"] = (rec["device_records"]
+                                           / rec["kernel_records"])
+                result[name].setdefault(f"apply {case}", []).append(rec)
+                print(case, turn, name, "apply", json.dumps(rec), flush=True)
+            if make_out is None:
+                calls = [_discard(torch.nn.functional.hardshrink, v, lam)
+                         for v in xs]
+            else:
+                calls = [_discard(_hardshrink_into, v, lam, o)
+                         for v, o in zip(xs, outs)]
+            dev = measure.device_ms(calls, "")
+            rec = {"ms": measure.cuda_loop_ms(calls),
+                   "device_ms": dev["device_ms"] * dev["kernel_records"]
+                   / dev["calls"], "records_per_call":
+                   dev["device_records"] / dev["calls"]}
+            yardstick.setdefault(case, []).append(rec)
+            print(case, turn, "hardshrink", json.dumps(rec), flush=True)
+        del xs, outs
+
+
+def _apply_sass(lib: Path) -> dict:
+    """Per apply kernel of ``lib``, its global loads and stores in the SASS
+    by width (``LDG.E.128``, ``STG.E``, ...)."""
+    sass = subprocess.run(
+        [str(Path(build._nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    found = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if "apply_threshold" not in name:
+            continue
+        ops = re.findall(r"\b((?:LDG|STG)\.E[.\w]*)", part)
+        found[name] = {op: ops.count(op) for op in sorted(set(ops))}
+    return found
 
 
 def _named(items, default: Path) -> dict:
@@ -303,7 +435,8 @@ def main(argv=None) -> int:
                          ("seg_histogram_launch", "seg_stats_launch",
                           "seg_encode_launch")),
               "topk_builds": (_named(args.topk_source, CSRC / "topk_mask.cu"),
-                              ("topk_histogram_launch",))}
+                              ("topk_histogram_launch",
+                               "topk_apply_launch"))}
     jobs = {(group, name): _build(f"{group}_{name}", path, out_dir)
             for group, (sources, _) in groups.items()
             for name, path in sources.items()}
@@ -321,12 +454,15 @@ def main(argv=None) -> int:
             continue
         libs[group][name] = build.load(path, groups[group][1])
         result[group][name] = {"resources": measure.wire_resources(log)}
+        if group == "topk_builds":
+            result[group][name]["apply_sass"] = _apply_sass(path)
         print(group, name, json.dumps(result[group][name]), flush=True)
         if args.sass:
             _print_local_memory(path)
     result["amax_read_ms"] = _bench_segmented(libs["builds"],
                                               result["builds"])
-    _bench_topk(libs["topk_builds"], result["topk_builds"])
+    result["hardshrink"] = _bench_topk(libs["topk_builds"],
+                                       result["topk_builds"])
     print(json.dumps(result))
     if args.json:
         Path(args.json).write_text(json.dumps(result, indent=1))

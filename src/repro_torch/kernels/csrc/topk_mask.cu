@@ -18,10 +18,11 @@
 // extraction or a compare, far below the card's 67 TFLOP/s fp32 rate, so all
 // three are bound by device-memory bytes (3.35 TB/s on an H100 SXM).  The
 // design keeps everything but the streaming pass on chip:
-//   * the histogram and the count read x as float4 loads from any 4-byte
-//     offset (one ahead, or four in flight; their section below); apply
-//     strides over it with coalesced 4-byte loads; about eight 256-thread
-//     blocks per SM at the most;
+//   * all three read x as float4 loads from any 4-byte offset (one ahead,
+//     four in flight, or one a thread; their sections below); the
+//     histogram and the count on about eight 256-thread blocks per SM at
+//     the most, apply (which writes float4s too) on a grid of one float4 a
+//     thread;
 //   * the histogram counts into a 128-bin shared histogram with one shared
 //     atomic an element, the count sums in registers and shared memory;
 //   * both total their blocks on the device: each block adds to a scratch
@@ -222,17 +223,56 @@ count_ge_kernel(const float* __restrict__ x, long long n, int head,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-apply_threshold_kernel(const float* __restrict__ x, long long n,
+// Apply: out[i] = |x[i]| >= tau ? x[i] : +0.0f, one device operation a
+// call (no scratch; nothing launched for n = 0).
+//   * Loads and stores.  One float4 a thread, as PyTorch's own elementwise
+//     loop, on a grid that covers x's body (after block 0's head and tail,
+//     as in the count) in one pass; each thread issues its head or tail
+//     load beside its float4 load, before any compare or store.  On the
+//     H100 at 2^26 elements this took 0.1777 ms against 0.188-0.189 for a
+//     grid capped at kMaxBlocks with 2 or 4 float4s in flight a thread,
+//     and a 4-byte grid-stride loop 0.197-0.200; at the 147,456-element
+//     leaf 1 element in, 1.86 us against 1.99 with block 0's head and tail
+//     done first.  Blocks of 512 were 0.3% faster than 256 at 2^26 and
+//     equal at the leaf; evict-first stores (__stcs) no faster.  The loop
+//     stays rolled: unrolled by nvcc it took 1.97 us at the leaf against
+//     1.87 (PERF.md).
+//   * Output alignment.  The float4 stores need `out` congruent to x mod
+//     16 bytes: the port's wrapper allocates n + 3 elements for a view of
+//     x that starts off the 16-byte boundary and returns the view at x's
+//     offset, and the launcher refuses any other pair.  One element in at
+//     the leaf this took 1.86 us against 1.90 for 4-byte stores into an
+//     output on the boundary (PERF.md).
+constexpr int kApplyThreads = 512;
+
+__global__ void __launch_bounds__(kApplyThreads)
+apply_threshold_kernel(const float* __restrict__ x, long long n, int head,
                        const float* __restrict__ tau,
                        float* __restrict__ out) {
   const float t = *tau;
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
-                     threadIdx.x;
-       i < n; i += grid_stride()) {
-    const float v = x[i];
-    out[i] = fabsf(v) >= t ? v : 0.0f;
+  const int tid = threadIdx.x;
+  const long long vecs = (n - head) / 4;
+  // Block 0's threads 0..head-1 take the head, 4..4+tail-1 the tail.
+  long long edge = -1;
+  if (blockIdx.x == 0) {
+    const int tail = static_cast<int>(n - head - 4 * vecs);
+    if (tid < head) edge = tid;
+    if (tid >= 4 && tid < 4 + tail) edge = head + 4 * vecs + tid - 4;
   }
+  const float edge_v = edge >= 0 ? x[edge] : 0.0f;
+  const float4* body = reinterpret_cast<const float4*>(x + head);
+  float* out_body = out + head;
+#pragma unroll 1
+  for (long long i = static_cast<long long>(blockIdx.x) * kApplyThreads + tid;
+       i < vecs; i += static_cast<long long>(gridDim.x) * kApplyThreads) {
+    const float4 e = body[i];
+    const float4 r = make_float4(fabsf(e.x) >= t ? e.x : 0.0f,
+                                 fabsf(e.y) >= t ? e.y : 0.0f,
+                                 fabsf(e.z) >= t ? e.z : 0.0f,
+                                 fabsf(e.w) >= t ? e.w : 0.0f);
+    reinterpret_cast<float4*>(out_body)[i] = r;
+  }
+  if (edge >= 0) out[edge] = fabsf(edge_v) >= t ? edge_v : 0.0f;
 }
 
 // ceil(items / per_block) blocks, at least one and at most kMaxBlocks.
@@ -293,7 +333,9 @@ extern "C" {
 
 // Each launcher enqueues one kernel on `stream` and returns the first CUDA
 // error (0 on success).  The histogram and count kernels always run (they
-// write `out`: zeros for n = 0), apply only for n > 0.
+// write `out`: zeros for n = 0), apply only for n > 0, and only into an
+// `out` that lies as far past a 16-byte boundary as x (else
+// cudaErrorInvalidValue, and nothing runs).
 int topk_histogram_launch(const float* x, long long n, int* out,
                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -323,10 +365,19 @@ int topk_count_launch(const float* x, long long n, const float* tau,
 int topk_apply_launch(const float* x, long long n, const float* tau,
                       float* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n > 0) {
-    apply_threshold_kernel<<<blocks_for(n, 4LL * kThreads), kThreads, 0,
-                             st>>>(x, n, tau, out);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  if (((reinterpret_cast<uintptr_t>(x) ^ reinterpret_cast<uintptr_t>(out)) &
+       15) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int head = head_of(x, n);
+  const long long vecs = (n - head) / 4;
+  const long long blocks = (vecs + kApplyThreads - 1) / kApplyThreads;
+  const int grid = static_cast<int>(blocks < 1            ? 1
+                                    : blocks > 0x7fffffff ? 0x7fffffff
+                                                          : blocks);
+  apply_threshold_kernel<<<grid, kApplyThreads, 0, st>>>(x, n, head, tau,
+                                                         out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -179,7 +179,9 @@ def cuda_loop_ms(fns, launches: int = 50, reps: int = 5) -> float:
 
 def device_ms(fns, symbol: str, launches: int = 50) -> dict:
     """``launches`` calls back to back, as in :func:`cuda_loop_ms`, under
-    ``torch.profiler`` (after one short session that starts the tracer):
+    ``torch.profiler`` (after one call of each of ``fns``, so that the L2
+    holds what these calls leave there and not what ran before them, and
+    one short session that starts the tracer):
     the traced time per record of the kernel named ``symbol`` (no launch
     gaps, whatever the host's pace), the device records of the trace, the
     kernel's records and the calls made.  A call that puts more than the
@@ -188,7 +190,7 @@ def device_ms(fns, symbol: str, launches: int = 50) -> dict:
     card now and then) is run again, three sessions at the most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for fn in fns[:3]:
+    for fn in fns:
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]):
@@ -217,14 +219,15 @@ def device_ms(fns, symbol: str, launches: int = 50) -> dict:
 _RESOURCE_KINDS = (("seg_hist_kernel", "hist"), ("seg_stats", "stats"),
                    ("seg_encode_kernelILb1", "int8"),
                    ("seg_encode_kernelILb0", "fp32"),
-                   ("exponent_hist_kernel", "exponent_hist"))
+                   ("exponent_hist_kernel", "exponent_hist"),
+                   ("apply_threshold_kernel", "apply"))
 
 
 def wire_resources(log: str) -> dict:
     """Registers, stack and spills of the histogram, stats and both encode
-    kernels of ``segmented.cu`` and of the per-array histogram kernel in an
-    ``-Xptxas -v`` log, under "hist", "stats", "int8", "fp32" and
-    "exponent_hist" (those that the log holds)."""
+    kernels of ``segmented.cu`` and of the per-array histogram and apply
+    kernels in an ``-Xptxas -v`` log, under "hist", "stats", "int8",
+    "fp32", "exponent_hist" and "apply" (those that the log holds)."""
     found = {}
     for m in re.finditer(r"Compiling entry function '(\S*)'(.*?)"
                          r"(?=Compiling entry function|== |\Z)", log, re.S):

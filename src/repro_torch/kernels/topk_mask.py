@@ -127,15 +127,31 @@ def count_ge(x: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
 def apply_threshold(x: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
     """``x`` ((n,) fp32) where ``|x| >= tau``, +0.0 elsewhere (NaN and
     negatives included): the select the reference's ``x * keep`` compiles
-    to."""
+    to.  On the card, for an ``x`` that starts off a 16-byte boundary (a
+    view), the result is a view at the same offset into n + 3 elements;
+    for n = 0 nothing is launched."""
     _check_flat(x)
     _check_tau(tau, x)
     if x.device.type == "cpu":
         return apply_threshold_plain(x, tau)
-    out = torch.empty_like(x)
+    out = _empty_congruent(x)
+    if x.numel() == 0:
+        return out
     _launch("apply_threshold", _library().topk_apply_launch, x.data_ptr(),
             x.numel(), tau.data_ptr(), out.data_ptr(), counts=_LAUNCHES)
     return out
+
+
+def _empty_congruent(x: torch.Tensor) -> torch.Tensor:
+    """An uninitialised tensor like ``x`` (flat) whose data lies as far past
+    a 16-byte boundary as x's, so that the apply kernel's 16-byte stores
+    line up with its 16-byte loads: for a view of x that starts off the
+    boundary, the view at that offset into n + 3 fresh elements."""
+    if x.data_ptr() % 16 == 0:
+        return torch.empty_like(x)
+    buf = torch.empty(x.numel() + 3, dtype=x.dtype, device=x.device)
+    shift = (x.data_ptr() - buf.data_ptr()) % 16 // 4
+    return buf[shift:shift + x.numel()]
 
 
 # --------------------------------------------------------------------------

@@ -431,6 +431,84 @@ def test_exponent_histogram_call_is_one_device_operation(cuda):
     assert all("exponent_hist_kernel" in name for name in names), names
 
 
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 7, 4095, 147_457])
+def test_apply_threshold_on_views_at_any_offset(cuda, offset, n):
+    """Views that start 1-3 elements in (off the 16-byte boundary) at odd
+    lengths: the kernel's head and tail, and an output at the view's
+    offset from the boundary; bitwise.  n = 0 launches nothing."""
+    x = measure.edge_vector(n + 8, seed=n).to(cuda)
+    view = x[offset:offset + n]
+    taus = (-1.0, 0.0, 1e-40, 2.0 ** -100, 1e-4, 0.3, float("inf"),
+            float("nan"))
+    tk.reset_launch_counts()
+    for tau in taus:
+        t = torch.tensor(tau, device=cuda)
+        got = tk.apply_threshold(view, t)
+        assert got.shape == view.shape
+        assert (got.data_ptr() - view.data_ptr()) % 16 == 0
+        assert measure.bitwise(got, tk.apply_threshold_plain(view, t)), tau
+    assert tk.launch_counts()["apply_threshold"] == (len(taus) if n else 0)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_apply_launcher_refuses_an_output_off_the_inputs_alignment(
+        cuda, offset):
+    """The float4 stores need the output as far past a 16-byte boundary as
+    x: for an x off the boundary and an output on it the C launcher
+    returns an error and writes nothing."""
+    from repro_torch.kernels import build
+    x = measure.edge_vector(4096, seed=offset).to(cuda)
+    view = x[offset:offset + 4000]
+    out = torch.full((4000,), 7.0, device=cuda)
+    assert out.data_ptr() % 16 == 0
+    t = torch.tensor(1e-4, device=cuda)
+    rc = build.library().topk_apply_launch(
+        view.data_ptr(), 4000, t.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all())
+
+
+def test_apply_threshold_call_is_one_device_operation(cuda):
+    """No scratch and no memset: ten calls put ten operations on the
+    stream, every one the apply kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.randn(147_456, device=cuda)
+    t = torch.tensor(0.5, device=cuda)
+    tk.apply_threshold(x, t)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        tk.apply_threshold(x, t)
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            tk.apply_threshold(x, t)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 10, names
+    assert all("apply_threshold_kernel" in name for name in names), names
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_apply_threshold_equals_hardshrink_for_positive_tau(cuda, offset):
+    """For tau > 0 and NaN-free x, ``hardshrink(x, nextafter(tau, 0))``
+    (keeps |x| > lambda, writes +0.0) is the same function, bit for bit."""
+    x = measure.edge_vector(147_456 + 8, seed=9)
+    x[x.isnan()] = 1.0
+    view = x.to(cuda)[offset:offset + 147_456]
+    finite = view[view.isfinite()].abs()
+    for tau in (2.0 ** -100, 1e-4, float(finite.median()),
+                float(finite.max()), 3e8):
+        lam = float(torch.nextafter(torch.tensor(tau),
+                                    torch.tensor(0.0)))
+        got = tk.apply_threshold(view, torch.tensor(tau, device=cuda))
+        want = torch.nn.functional.hardshrink(view, lam)
+        assert measure.bitwise(got, want), tau
+
+
 def test_topk_wrappers_count_their_launches(cuda):
     x = torch.randn(5000, device=cuda)
     tk.reset_launch_counts()

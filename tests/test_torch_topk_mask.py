@@ -106,6 +106,74 @@ def test_exponent_histogram_on_offset_views_matches_pallas(kind, offset, n):
     np.testing.assert_array_equal(tk.exponent_histogram(view).numpy(), want)
 
 
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("n", [1, 3, 5, 1023, 2997])
+def test_apply_threshold_on_offset_views_matches_pallas(kind, offset, n):
+    """Views that start 1-3 elements into a larger tensor (off the 16-byte
+    boundary) at odd lengths: the CUDA kernel's head, tail and output
+    offset; bitwise, the sign of zero included."""
+    base = _inputs(kind, seed=10 + offset)
+    view = _t(base)[offset:offset + n]
+    assert view.is_contiguous() and view.storage_offset() == offset
+    for tau in (2.0 ** -100, 0.3):
+        want = np.asarray(jtk.apply_threshold(
+            _padded(base[offset:offset + n]), jnp.float32(tau),
+            interpret=True)).reshape(-1)[:n]
+        got = tk.apply_threshold(view, torch.tensor(tau, dtype=torch.float32))
+        assert tuple(got.shape) == (n,)
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
+_SUBNORMAL_TAUS = [1e-45, 2.0 ** -127]
+
+
+@pytest.mark.parametrize("tau", [0.0, *_SUBNORMAL_TAUS, 2.0 ** -126,
+                                 2.0 ** -100, 0.3, 1.0, 3e38,
+                                 float("inf")])
+def test_apply_threshold_at_tau_and_one_ulp_either_side(tau):
+    """Magnitudes at tau and one ulp below and above it, of both signs,
+    beside +-0, subnormals, +-inf and NaN: the port keeps exactly |x| >=
+    tau (IEEE compares, no flush) and writes +0.0 for the rest.  The
+    reference agrees bit for bit except under a subnormal tau, which
+    XLA:CPU flushes to 0 with every subnormal |x|: there it keeps each
+    zero or subnormal x below tau (0 >= 0), where the port writes +0.0."""
+    t = np.float32(tau)
+    near = [np.nextafter(t, np.float32(0)), t,
+            np.nextafter(t, np.float32(np.inf))]
+    x = np.array(near + [-v for v in near]
+                 + [0.0, -0.0, 1e-45, -1e-45, 2.0 ** -127, -(2.0 ** -127),
+                    2.0 ** -126, np.inf, -np.inf, np.nan, -np.nan],
+                 np.float32)
+    got = tk.apply_threshold(_t(x), torch.tensor(t))
+    want = np.where(np.abs(x) >= t, x, np.float32(0.0))
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+    ref = np.asarray(jtk.apply_threshold(_padded(x), jnp.float32(t),
+                                         interpret=True)).reshape(-1)[:x.size]
+    differ = _bits(ref) != _bits(want)
+    if tau in _SUBNORMAL_TAUS:
+        flushed = ((np.abs(x) < t) & (np.abs(x) < np.float32(2.0 ** -126))
+                   & (_bits(x) != 0))
+        assert flushed.any()
+        np.testing.assert_array_equal(differ, flushed)
+        np.testing.assert_array_equal(_bits(ref[flushed]), _bits(x[flushed]))
+    else:
+        assert not differ.any()
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", [0, 1, 5, 1023])
+def test_apply_output_lies_at_its_inputs_offset_from_16_bytes(offset, n):
+    """The CUDA wrapper's output buffer: as far past a 16-byte boundary as
+    x, so the kernel's float4 stores line up with its float4 loads."""
+    x = torch.zeros(n + 8)[offset:offset + n]
+    out = tk._empty_congruent(x)
+    assert tuple(out.shape) == (n,) and out.is_contiguous()
+    assert out.dtype == x.dtype and out.device == x.device
+    assert (out.data_ptr() - x.data_ptr()) % 16 == 0
+    assert out.untyped_storage().nbytes() <= 4 * (n + 3)
+
+
 @pytest.mark.parametrize("offset", [1, 2, 3, 5])
 @pytest.mark.parametrize("n", [1, 3, 5, 1023, 2997])
 def test_count_ge_on_offset_views_matches_pallas(offset, n):
