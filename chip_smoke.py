@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py           # every phase, one card
     python3 chip_smoke.py --profile # also trace two more rounds of the
-                                    # fused LeNet path and of vgg-fig5,
-                                    # and one prefill and 11 decode
-                                    # steps of each served arch
+                                    # fused LeNet path, vgg-fig5 and
+                                    # noniid-dyn, and one prefill and 11
+                                    # decode steps of each served arch
 
 Phases, each printing its result on its own line; any failure ends the run
 with a nonzero exit:
@@ -52,7 +52,19 @@ with a nonzero exit:
    pairings (bitwise, equal wire bytes); and small runs on the card
    against the same runs on the CPU (LeNet fig5; fig5-fused-int8 with
    error feedback; VGG-16 px and GRU-small on fig5; GRU-small on random
-   with the same injected mask scores);
+   with the same injected mask scores); then ``adaptive_path``, the
+   generalized round bodies on LeNet-28 (M = 32, 8 rounds, counts set to 0
+   just before each and read just after): ``fig3-importance`` (importance
+   sampler, dense, oracle and cohort bodies), ``hetero-dropout`` (the
+   flaky-mobile fleet's upload dropout, full participation, oracle body),
+   ``noniid-dyn`` (FedDyn drift, importance sampler, kernel masking on a
+   Dirichlet(0.5) partition: 8/16/8 launches) and ``fig5-fused-int8``
+   under the threshold sampler on the flaky-mobile fleet (8/16/8/8/8):
+   bytes equal to the participants' uploads, buckets as the sampler plans
+   them, finite parameters, norms and drift, and a falling loss for
+   fig3-importance and noniid-dyn; and each of the four at the small size
+   on the card against the CPU (participants, arrived masks, bytes,
+   ``sim_round_s`` and ``dropped`` exact);
 4. the per-array path — ``ops.topk_mask(leaf, 0.5)`` on every maskable leaf
    of one client's VGG and GRU delta from the main paths, launch counts set
    to 0 just before and read just after (1/8/1 per leaf): kept <= k per
@@ -79,7 +91,7 @@ with a nonzero exit:
    output, and whether it keeps the same entries bit for bit) and
    ``torch.topk(|x|, k)`` plus a scatter
    for ``ops.topk_mask``; the steady per-round wall time
-   and ``compile_s`` of every main path; and ``fresh_process_round_time``:
+   and ``compile_s`` of every main path and adaptive path; and ``fresh_process_round_time``:
    the fig5 path in a fresh process with an empty build directory, whose
    round 1 ``compile_s`` takes the kernel library's nvcc build;
 6. the model zoo's serving slice, rwkv6-1.6b and hymba-1.5b:
@@ -101,7 +113,8 @@ with a nonzero exit:
      rtol 1e-3 (the reference's own check);
    - ``kernel_time`` of both kernels at the serving shapes, as in phase 5;
 7. (``--profile`` only) ``torch.profiler`` over two more rounds of the
-   fused LeNet path and of ``vgg-fig5``, and over one prefill and 11
+   fused LeNet path, of ``vgg-fig5`` and of ``noniid-dyn``, and over one
+   prefill and 11
    decode steps of each served arch: device busy time by kernel and the
    device's idle share of the wall time.
 
@@ -145,6 +158,22 @@ LM_PATHS = {
     "gru-random": ("gru", "random", 722_472, {}),
 }
 LM_PARAMS = {"vgg": 617_770, "gru": 180_608}
+# The generalized round bodies on LeNet-28 (M = 32, 8 rounds): path ->
+# (partition, segmented launches a round, whether the loss must fall).
+# Kernel masking launches 1 histogram, 2 counts and 1 apply a round; the
+# fused int8 wire 1 stats and 1 encode more.
+THRESHOLD_PATH = "fig5-fused-int8+threshold+flaky-mobile"
+MASK_PER_ROUND = {"segmented_histogram": 1, "segmented_count": 2,
+                  "segmented_apply": 1}
+ADAPTIVE_PATHS = {
+    "fig3-importance": ("iid", {}, True),
+    "hetero-dropout": ("iid", {}, False),
+    "noniid-dyn": ("dirichlet", MASK_PER_ROUND, True),
+    THRESHOLD_PATH: ("iid", {**MASK_PER_ROUND, "segmented_stats": 1,
+                             "segmented_encode": 1}, False),
+}
+SEGMENTED = ("segmented_histogram", "segmented_count", "segmented_apply",
+             "segmented_stats", "segmented_encode")
 PER_ARRAY = ("exponent_histogram", "count_ge", "apply_threshold")
 # Each timed kernel's name in a trace (``segmented_count_c32`` and
 # ``segmented_encode_fp32`` time the same kernels at other arguments).
@@ -488,18 +517,50 @@ def fig5_server(M: int, image_size: int, num_train: int, batch: int,
     over M clients' synthetic shards, with its batches, sizes and test
     set."""
     from repro_torch.core import strategy
+    st = strategy.get(preset, error_feedback=error_feedback,
+                      masking=strategy.MaskPolicy.selective(
+                          0.5, backend="kernel"))
+    return lenet_server(st, M, image_size, num_train, batch, device)
+
+
+def adaptive_strategy(name: str):
+    """An ``ADAPTIVE_PATHS`` strategy: the preset, or fig5-fused-int8 under
+    the threshold sampler on the flaky-mobile fleet (composed with
+    ``FedStrategy.replace``), selective masking on the kernel backend."""
+    import dataclasses
+    from repro_torch.core import strategy
+    from repro_torch.core.hetero import HeteroModel
+    from repro_torch.core.sampling import ThresholdSampler
+    if name == THRESHOLD_PATH:
+        st = strategy.get("fig5-fused-int8").replace(
+            sampler=ThresholdSampler(), hetero=HeteroModel("flaky-mobile"))
+    else:
+        st = strategy.get(name)
+    if st.masking.mode == "selective":
+        st = st.with_masking(dataclasses.replace(st.masking,
+                                                 backend="kernel"))
+    return st
+
+
+def lenet_server(st, M: int, image_size: int, num_train: int, batch: int,
+                 device: str, partition: str = "iid"):
+    """A server for strategy ``st`` (LeNet at ``image_size``) over M
+    clients' synthetic shards (IID, or Dirichlet(0.5) label skew), with its
+    batches, sizes and test set."""
     from repro_torch.core.server import FederatedServer
-    from repro_torch.data.partition import iid_partition_images
+    from repro_torch.data.partition import (dirichlet_partition_images,
+                                            iid_partition_images)
     from repro_torch.data.synthetic import class_gaussian_images
     from repro_torch.models import paper_models as pm
     import torch
     ds = class_gaussian_images(num_train=num_train, image_size=image_size,
                                seed=0)
-    xs, ys, ns = iid_partition_images(ds.train_x, ds.train_y, M, batch,
-                                      seed=0)
-    st = strategy.get(preset, error_feedback=error_feedback,
-                      masking=strategy.MaskPolicy.selective(
-                          0.5, backend="kernel"))
+    if partition == "dirichlet":
+        xs, ys, ns = dirichlet_partition_images(ds.train_x, ds.train_y, M,
+                                                batch, alpha=0.5, seed=0)
+    else:
+        xs, ys, ns = iid_partition_images(ds.train_x, ds.train_y, M, batch,
+                                          seed=0)
     params = pm.init_lenet(torch.Generator().manual_seed(0),
                            image_size=image_size, device=device)
     eval_data = (torch.as_tensor(ds.test_x).to(device),
@@ -571,7 +632,7 @@ def wire_identity(main: dict) -> None:
     server = main["server"]
     batches = [torch.as_tensor(x).to(server.device)
                for x in main["batches"]]
-    uploads, _, _ = stacked_client_update(
+    uploads, _, _, _ = stacked_client_update(
         server._loss_fn, server.params, batches, server.cfg.client, None,
         False)
     results = {}
@@ -675,6 +736,162 @@ def small_agreement(preset: str = "fig5", error_feedback: bool = False,
         fail("error feedback left every residual zero")
     if not all(bool(torch.isfinite(v).all()) for v in gpu.params.values()):
         fail("non-finite parameters on the card")
+
+
+# ---------------------------------------------------------------------------
+# The generalized round: adaptive samplers, the hetero fleet, FedDyn
+# ---------------------------------------------------------------------------
+def run_adaptive_path(name: str, device: str = "cuda") -> dict:
+    """One generalized-body path at full width with every assertion on its
+    result; the launch counts are set to 0 just before the run and read
+    just after."""
+    import torch
+    from repro_torch.kernels import segmented as seg
+    partition, per_round, must_learn = ADAPTIVE_PATHS[name]
+    st = adaptive_strategy(name)
+    server, batches, ns, eval_data = lenet_server(
+        st, MAIN_M, 28, MAIN_M * 8 * MAIN_BATCH, MAIN_BATCH, device,
+        partition)
+    reset_all_counts()
+    t0 = time.perf_counter()
+    server.run(batches, ns, MAIN_ROUNDS, eval_every=MAIN_ROUNDS,
+               eval_data=eval_data)
+    wall = time.perf_counter() - t0
+    launches = seg.launch_counts()
+    summ = server.summary()
+    hist = server.history
+    sampled = [r.num_sampled for r in hist]
+    buckets = [r.cohort_size for r in hist]
+    losses = [r.mean_loss for r in hist]
+    plan = [st.sampler.cohort_bucket(st.sampling,
+                                     st.sampling.num_clients_host(t, MAIN_M),
+                                     MAIN_M) for t in range(1, len(hist) + 1)]
+    phase("adaptive_path", preset=name, sampler=summ["sampler"],
+          hetero=summ.get("hetero"), objective=st.objective.kind,
+          partition=partition, codec=summ["codec"], num_sampled=sampled,
+          num_arrived=[r.num_sampled - r.dropped for r in hist],
+          buckets=buckets, transport_bytes=summ["transport_bytes"],
+          client_upload_bytes=summ["client_upload_bytes"],
+          sim_total_s=summ.get("sim_total_s"),
+          dropped_uploads=summ.get("dropped_uploads"),
+          sim_round_s=[r.sim_round_s for r in hist], losses=losses,
+          final_eval=summ["final_eval"], launches=launches,
+          quarantined=summ["quarantined"],
+          round_wall_s=[r.wall_s for r in hist], run_wall_s=wall)
+    want = {k: MAIN_ROUNDS * per_round.get(k, 0) for k in SEGMENTED}
+    if launches != want:
+        fail(f"{name}: launches {launches}, expected {want}")
+    if summ["transport_bytes"] != sum(sampled) * summ["client_upload_bytes"]:
+        fail(f"{name}: transport_bytes {summ['transport_bytes']}")
+    if buckets != plan:
+        fail(f"{name}: buckets {buckets} != the sampler's {plan}")
+    if any(n > b for n, b in zip(sampled, buckets)):
+        fail(f"{name}: more participants than the bucket: {sampled}")
+    if must_learn and not losses[-1] < losses[0]:
+        fail(f"{name}: loss did not fall: {losses}")
+    if st.hetero is not None and not summ["sim_total_s"] > 0:
+        fail(f"{name}: no simulated round time")
+    state = dict(server.params)
+    if st.sampler.adaptive:
+        state["norms"] = server.store.norms
+    if st.objective.uses_drift:
+        state.update({f"drift/{k}": v for k, v in
+                      server.store.dense_view("drift").items()})
+    for key, leaf in state.items():
+        if not bool(torch.isfinite(leaf).all()):
+            fail(f"{name}: non-finite {key}")
+    return {"launches": launches, "history": hist, "server": server,
+            "batches": batches, "n_samples": ns}
+
+
+class recorded_selection:
+    """Within the block, every generalized round's CPU selection (the
+    participant and arrived masks) is appended to ``log``."""
+
+    def __init__(self, log: list):
+        self.log = log
+
+    def __enter__(self):
+        from repro_torch.core import federated
+        self.real = real = federated._select
+
+        def record(*args):
+            part, weights, arrived = real(*args)
+            self.log.append((part.tolist(), arrived.tolist()))
+            return part, weights, arrived
+
+        federated._select = record
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import federated
+        federated._select = self.real
+
+
+def small_adaptive_agreement(name: str, devices=("cuda", "cpu")) -> None:
+    """A generalized-body path on the card against the same run on the CPU
+    at the small size (LeNet-12, M = 8, 4 rounds): participants, arrived
+    masks, bytes, ``sim_round_s`` and ``dropped`` exact; losses,
+    parameters, residuals, norms and drift within SMALL_RTOL."""
+    import math
+    import torch
+    partition = ADAPTIVE_PATHS[name][0]
+    runs, masks = [], []
+    for device in devices:
+        server, batches, ns, _ = lenet_server(adaptive_strategy(name), 8, 12,
+                                              512, 16, device, partition)
+        masks.append([])
+        with recorded_selection(masks[-1]):
+            server.run(batches, ns, 4)
+        runs.append(server)
+    gpu, cpu = runs
+
+    def same(field):
+        return [getattr(r, field) for r in gpu.history] == \
+            [getattr(r, field) for r in cpu.history]
+
+    loss = [[r.mean_loss for r in s.history] for s in (gpu, cpu)]
+    rel = max((0.0 if math.isnan(a) and math.isnan(b)
+               else abs(a - b) / abs(b)) for a, b in zip(*loss))
+
+    def err(a: dict, b: dict) -> float:
+        return max((float((a[k].cpu() - v).abs().max()) for k, v in b.items()),
+                   default=0.0)
+
+    errs = {"max_param_abs_err": err(gpu.params, cpu.params)}
+    for tree in cpu.store.trees:
+        errs[f"max_{tree}_abs_err"] = err(gpu.store.dense_view(tree),
+                                          cpu.store.dense_view(tree))
+    if cpu.store.norms is not None:
+        errs["max_norm_abs_err"] = float(
+            (gpu.store.norms.cpu() - cpu.store.norms).abs().max())
+    exact = {"participants": [p for p, _ in masks[0]]
+             == [p for p, _ in masks[1]],
+             "arrived": [a for _, a in masks[0]] == [a for _, a in masks[1]],
+             "num_sampled": same("num_sampled"), "dropped": same("dropped"),
+             "sim_round_s": same("sim_round_s"),
+             "transport_bytes": same("transport_bytes")}
+    phase("small_agreement", preset=name,
+          num_sampled=[r.num_sampled for r in gpu.history],
+          dropped=[r.dropped for r in gpu.history], loss_rel_err=rel,
+          exact=exact, **errs)
+    if len(masks[0]) != 4 or not all(exact.values()):
+        fail(f"{name}: card and CPU differ in {exact}")
+    if rel > SMALL_RTOL or max(errs.values()) > SMALL_RTOL:
+        fail(f"{name}: card and CPU runs disagree: loss rel {rel}, {errs}")
+    if not all(bool(torch.isfinite(v).all()) for v in gpu.params.values()):
+        fail(f"{name}: non-finite parameters on the card")
+
+
+def round_time_line(preset: str, hist) -> None:
+    """A path's steady round time: the median of rounds 2-8's ``wall_s``,
+    beside round 1 and every round's ``compile_s``."""
+    walls = [r.wall_s for r in hist]
+    phase("round_time", preset=preset,
+          steady_round_s_median=statistics.median(walls[1:]),
+          rounds_s=walls[1:], first_round_s=walls[0],
+          buckets=[r.cohort_size for r in hist],
+          compile_s=[r.compile_s for r in hist])
 
 
 # ---------------------------------------------------------------------------
@@ -831,7 +1048,7 @@ def client_delta(main: dict, client: int = 0) -> dict:
     cfg = dataclasses.replace(server.cfg.client, masking=MaskingConfig())
     batches = [torch.as_tensor(x[client:client + 1]).to(server.device)
                for x in main["batches"]]
-    uploads, _, _ = stacked_client_update(server._loss_fn, server.params,
+    uploads, _, _, _ = stacked_client_update(server._loss_fn, server.params,
                                           batches, cfg, None, False)
     return {k: v[0] for k, v in uploads.items()}
 
@@ -1661,6 +1878,9 @@ def main(argv) -> int:
     small_lm_agreement("vgg", "selective")
     small_lm_agreement("gru", "selective")
     small_lm_agreement("gru", "random")
+    adaptive = {name: run_adaptive_path(name) for name in ADAPTIVE_PATHS}
+    for name in ADAPTIVE_PATHS:
+        small_adaptive_agreement(name)
 
     # ---- 4. the per-array path and kernels 6–8 ---------------------------
     deltas = {"vgg": client_delta(lms["vgg-fig5"]),
@@ -1696,6 +1916,8 @@ def main(argv) -> int:
               full_rounds_s=walls[1:6], cohort16_rounds_s=walls[6:],
               first_round_s=walls[0],
               compile_s=[r.compile_s for r in main_run["history"]])
+    for name, run in adaptive.items():
+        round_time_line(name, run["history"])
     fresh_process_compile_s()
 
     # ---- 6. the model zoo's serving slice ---------------------------------
@@ -1709,6 +1931,7 @@ def main(argv) -> int:
     if trace:
         profile_rounds(fused, "fig5-fused-int8")
         profile_rounds(lms["vgg-fig5"], "vgg-fig5")
+        profile_rounds(adaptive["noniid-dyn"], "noniid-dyn")
 
     replaces = {"segmented_histogram": "src/repro/kernels/segmented.py:145",
                 "segmented_count": "src/repro/kernels/segmented.py:202",

@@ -11,6 +11,10 @@ backend is one launch of each segmented kernel per round).
 
 Upload semantics: ``"delta"`` (default) uploads ``mask(W_{t+1} - W_t)``;
 ``"zero"`` is the literal Alg. 4 line 14, masked *weights*.
+
+The local loss is the objective's (``objectives.LocalObjective.localize``):
+FedProx and FedDyn add their terms around the round's global parameters,
+and FedDyn's per-client drift rows enter the vmap beside the parameters.
 """
 
 from __future__ import annotations
@@ -46,23 +50,27 @@ class ClientConfig:
 
 
 def local_sgd_stacked(loss_fn: LossFn, params: Tree,
-                      batches: Sequence[torch.Tensor], cfg: ClientConfig
+                      batches: Sequence[torch.Tensor], cfg: ClientConfig,
+                      drift: Optional[Tree] = None
                       ) -> Tuple[Tree, torch.Tensor]:
     """E epochs of SGD for C clients at once.
 
     ``params``: client-stacked tree (leading C axis); ``batches``: tensors
-    with leading (C, num_batches, ...) axes.  Returns ``(params,
-    mean_loss (C,))``, the loss averaged over each epoch's batches and then
-    over epochs, as the reference does.
+    with leading (C, num_batches, ...) axes; ``drift``: client-stacked rows
+    passed to ``loss_fn(params, batch, drift)`` when given.  Returns
+    ``(params, mean_loss (C,))``, the loss averaged over each epoch's
+    batches and then over epochs, as the reference does.
     """
     step_fn = vmap(grad_and_value(loss_fn))
+    extra = () if drift is None else (drift,)
     vel = {k: torch.zeros_like(v) for k, v in params.items()}
     num_batches = batches[0].shape[1]
     epoch_losses = []
     for _ in range(cfg.local_epochs):
         losses = []
         for b in range(num_batches):
-            grads, loss = step_fn(params, tuple(x[:, b] for x in batches))
+            grads, loss = step_fn(params, tuple(x[:, b] for x in batches),
+                                  *extra)
             if cfg.momentum > 0.0:
                 vel = {k: cfg.momentum * vel[k] + grads[k] for k in grads}
                 step = vel
@@ -90,20 +98,35 @@ def stacked_client_update(loss_fn: LossFn, global_params: Tree,
                           cfg: ClientConfig, stacked_residuals: Optional[Tree],
                           error_feedback: bool,
                           mask_scores: Optional[Tree] = None,
-                          ) -> Tuple[Tree, Tree, torch.Tensor]:
+                          stacked_drift: Optional[Tree] = None,
+                          ) -> Tuple[Tree, Tree, Optional[Tree],
+                                     torch.Tensor]:
     """One round of local work for a cohort of C clients: local SGD ->
     delta -> (error feedback) -> mask.
 
-    Returns stacked ``(uploads, new_residuals, losses)``.  ``new_residuals``
-    is the masked-out remainder when ``error_feedback``, else zeros.
-    ``mask_scores`` feeds random masking its per-entry uniform draws.
+    Returns stacked ``(uploads, new_residuals, new_drift, losses)``.
+    ``new_residuals`` is the masked-out remainder when ``error_feedback``,
+    else zeros.  ``mask_scores`` feeds random masking its per-entry uniform
+    draws.  ``stacked_drift`` holds the FedDyn drift rows (required iff
+    ``cfg.objective.uses_drift``); ``new_drift`` is their post-round update
+    on the honest pre-mask delta, or None without drift.
     """
     num_clients = stacked_batches[0].shape[0]
-    local_loss = cfg.objective.localize(loss_fn)
+    obj = cfg.objective
+    if obj.uses_drift:
+        if stacked_drift is None:
+            raise ValueError("the dyn objective needs stacked_drift")
+
+        def local_loss(params, batch, drift):
+            return obj.localize(loss_fn, global_params, drift)(params, batch)
+    else:
+        local_loss, stacked_drift = obj.localize(loss_fn, global_params), None
     start = {k: v.expand((num_clients,) + v.shape).clone()
              for k, v in global_params.items()}
-    local, losses = local_sgd_stacked(local_loss, start, stacked_batches, cfg)
+    local, losses = local_sgd_stacked(local_loss, start, stacked_batches, cfg,
+                                      stacked_drift)
     delta = {k: local[k] - global_params[k] for k in local}
+    new_drift = obj.update_drift(stacked_drift, delta)
     if error_feedback:
         delta = {k: delta[k] + stacked_residuals[k] for k in delta}
 
@@ -127,24 +150,28 @@ def stacked_client_update(loss_fn: LossFn, global_params: Tree,
                        if w.dim() > 1 else w for k, w in local_w.items()}
     else:
         raise ValueError(f"unknown upload semantics {cfg.upload!r}")
-    return uploads, new_residuals, losses
+    return uploads, new_residuals, new_drift, losses
 
 
 def client_update(loss_fn: LossFn, global_params: Tree,
                   batches: Sequence[torch.Tensor], cfg: ClientConfig,
                   residual: Optional[Tree] = None,
                   mask_scores: Optional[Tree] = None,
-                  ) -> Tuple[Tree, Tree, torch.Tensor]:
-    """One client's round: ``(upload, new_residual, mean_loss)``; pass a
-    ``residual`` tree to turn on error feedback."""
-    uploads, res, losses = stacked_client_update(
+                  drift: Optional[Tree] = None,
+                  ) -> Tuple[Tree, Tree, Optional[Tree], torch.Tensor]:
+    """One client's round: ``(upload, new_residual, new_drift,
+    mean_loss)``; pass a ``residual`` tree to turn on error feedback and
+    the client's ``drift`` tree under FedDyn."""
+    def one(tree):
+        return None if tree is None else {k: v[None] for k, v in tree.items()}
+
+    def first(tree):
+        return None if tree is None else {k: v[0] for k, v in tree.items()}
+
+    uploads, res, new_drift, losses = stacked_client_update(
         loss_fn, global_params, [x[None] for x in batches], cfg,
-        None if residual is None else {k: v[None] for k, v in residual.items()},
-        residual is not None,
-        None if mask_scores is None
-        else {k: v[None] for k, v in mask_scores.items()})
-    return ({k: v[0] for k, v in uploads.items()},
-            {k: v[0] for k, v in res.items()}, losses[0])
+        one(residual), residual is not None, one(mask_scores), one(drift))
+    return first(uploads), first(res), first(new_drift), losses[0]
 
 
 def local_update_flops(stacked_batches: Sequence[torch.Tensor],

@@ -38,6 +38,7 @@ __all__ = ["payload_bytes", "pytree_num_params", "pytree_payload_bytes",
            "decode_bitmap", "encode_bitmap_rows", "decode_bitmap_rows",
            "pack_bits_rows", "unpack_bits_rows", "quantize_int8",
            "dequantize_int8", "quantize_int8_rows", "dequantize_int8_rows",
+           "quantize_pytree", "dequantize_pytree",
            "int8_scales", "int8_codes", "INT8_RECIPROCAL"]
 
 # The int8 scale is ``amax * float32(1 / 127)``, a multiply and not a
@@ -385,3 +386,15 @@ def dequantize_int8(payload: Dict[str, Any]) -> torch.Tensor:
     if not bool(torch.isfinite(scale)):
         raise ValueError(f"int8 payload scale is non-finite: {float(scale)}")
     return dequantize_int8_rows(q[None], scale[None].to(q.device))[0]
+
+
+def quantize_pytree(tree: Mapping[str, torch.Tensor]
+                    ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """:func:`quantize_int8` on every leaf: ``{name: {"q", "scale"}}``."""
+    return {k: quantize_int8(v) for k, v in tree.items()}
+
+
+def dequantize_pytree(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """:func:`dequantize_int8` on every leaf payload (inverse of
+    :func:`quantize_pytree` up to the int8 rounding)."""
+    return {k: dequantize_int8(v) for k, v in tree.items()}

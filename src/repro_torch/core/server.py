@@ -15,10 +15,21 @@ kernels, the kernel library's ``nvcc`` build or load) is timed apart as
 ``RoundRecord.compile_s`` on the round that first needs it, outside
 ``wall_s``.
 
+Per-client server state lives in a :class:`DenseStore`: the error-feedback
+residuals, FedDyn's drift tree when the objective uses drift, and the
+adaptive samplers' norm EMA (ones at start).  A strategy with a
+:class:`~repro_torch.core.hetero.HeteroModel` fleet adds in-round upload
+dropout and the host-side round clock: ``RoundRecord.sim_round_s``
+(straggler wall-clock on the simulated fleet), ``straggler_s`` and
+``dropped``.
+
 Randomness: each round's (M,) uniform participant scores come from the
 server's own CPU ``torch.Generator`` seeded with ``seed`` — the same draws
 on every device — or from a caller's ``scores(t, M)`` callable, which is how
-the parity tests hand in the reference's ``jax.random`` draws.  Under
+the parity tests hand in the reference's ``jax.random`` draws.  With a
+hetero fleet each round also draws (M,) uniform dropout scores from a
+second CPU generator seeded with ``seed + 2``, or takes them from a
+caller's ``drop_scores(t, M)``; the participant stream does not move.  Under
 random masking each round also needs per-entry mask scores for every
 client, one (M, *shape) tensor per maskable leaf: drawn on the server's
 device from a device ``torch.Generator`` seeded with ``seed + 1`` (drawing
@@ -41,6 +52,7 @@ import torch
 from repro_torch.core.client import local_update_flops
 from repro_torch.core.client_store import DenseStore
 from repro_torch.core.compression import pytree_num_params
+from repro_torch.core.hetero import simulate_round
 from repro_torch.device import resolve_device
 
 Tree = Dict[str, torch.Tensor]
@@ -50,7 +62,8 @@ __all__ = ["RoundRecord", "FederatedServer"]
 
 @dataclasses.dataclass
 class RoundRecord:
-    """Per-round ledger entry: who participated and what it cost."""
+    """Per-round ledger entry: who participated, what it cost and, with a
+    hetero fleet, what the round would have cost on the simulated fleet."""
 
     round: int
     num_sampled: int
@@ -63,6 +76,9 @@ class RoundRecord:
     cohort_size: int = 0        # padded cohort buffer actually executed
     flop_proxy: float = 0.0     # 6·params·examples·epochs·cohort_size
     quarantined: int = 0        # uploads rejected at the decode gate
+    sim_round_s: float = 0.0    # simulated fleet wall-clock (hetero only)
+    straggler_s: float = 0.0    # sim straggler tail: max - median arrival
+    dropped: int = 0            # uploads lost on the simulated fleet
 
 
 class FederatedServer:
@@ -72,7 +88,8 @@ class FederatedServer:
                  num_clients: int, *, eval_fn: Optional[Callable] = None,
                  seed: int = 0, engine: str = "cohort", device=None,
                  scores: Optional[Callable[[int, int], Any]] = None,
-                 mask_scores: Optional[Callable[[int, int], Any]] = None):
+                 mask_scores: Optional[Callable[[int, int], Any]] = None,
+                 drop_scores: Optional[Callable[[int, int], Any]] = None):
         """See :meth:`from_strategy`."""
         if engine not in ("cohort", "full"):
             raise ValueError(f"unknown engine {engine!r} (the port runs "
@@ -84,11 +101,19 @@ class FederatedServer:
         self.engine = engine
         self.eval_fn = eval_fn
         self.params = {k: v.to(self.device) for k, v in init_params.items()}
-        self.store = DenseStore(num_clients, self.params)
+        self._adaptive = strategy.sampler.adaptive
+        self._uses_drift = self.cfg.client.objective.uses_drift
+        self.store = DenseStore(
+            num_clients, self.params, track_norms=self._adaptive,
+            extra_trees={"drift": self.params} if self._uses_drift else None)
+        self._traits = (strategy.hetero.client_traits(num_clients)
+                        if strategy.hetero is not None else None)
         self._loss_fn = loss_fn
         self._scores = scores
         self._mask_scores = mask_scores
+        self._drop_scores = drop_scores
         self._generator = torch.Generator().manual_seed(seed)
+        self._drop_generator = torch.Generator().manual_seed(seed + 2)
         masking = self.cfg.client.masking
         self._mask_leaves = (
             {k: tuple(v.shape) for k, v in self.params.items()
@@ -108,17 +133,21 @@ class FederatedServer:
                       num_clients: int, eval_fn: Optional[Callable] = None,
                       seed: int = 0, engine: str = "cohort", *, device=None,
                       scores: Optional[Callable[[int, int], Any]] = None,
-                      mask_scores: Optional[Callable[[int, int], Any]] = None
+                      mask_scores: Optional[Callable[[int, int], Any]] = None,
+                      drop_scores: Optional[Callable[[int, int], Any]] = None
                       ) -> "FederatedServer":
         """Build a server from one strategy record.  ``device``: ``cuda``
         unless named (raises without a card).  ``scores(t, M)``, when given,
         supplies round t's (M,) uniform participant scores instead of the
         server's generator; ``mask_scores(t, M)`` supplies round t's random
         mask scores, ``{leaf: (M, *shape)}`` for every maskable leaf, instead
-        of the server's device generator (random masking only)."""
+        of the server's device generator (random masking only);
+        ``drop_scores(t, M)`` supplies round t's (M,) uniform upload-loss
+        draws (hetero fleets only)."""
         return cls(strategy, loss_fn, init_params, num_clients,
                    eval_fn=eval_fn, seed=seed, engine=engine, device=device,
-                   scores=scores, mask_scores=mask_scores)
+                   scores=scores, mask_scores=mask_scores,
+                   drop_scores=drop_scores)
 
     def _round_fn(self, bucket: int) -> tuple:
         """The (cached) round for one cohort bucket and the seconds spent
@@ -144,17 +173,34 @@ class FederatedServer:
         self._rounds[bucket] = fn
         return fn, time.perf_counter() - t0
 
-    def _round_scores(self, t: int) -> torch.Tensor:
+    def _uniforms(self, t: int, given, generator, what: str
+                  ) -> torch.Tensor:
+        """Round t's (M,) CPU uniforms: ``given(t, M)`` or the next draw of
+        ``generator``."""
         M = self.cfg.num_clients
-        if self._scores is not None:
-            scores = torch.from_numpy(
-                np.array(self._scores(t, M), dtype=np.float32))
+        if given is not None:
+            scores = torch.from_numpy(np.array(given(t, M), dtype=np.float32))
         else:
-            scores = torch.rand((M,), generator=self._generator)
+            scores = torch.rand((M,), generator=generator)
         if tuple(scores.shape) != (M,):
-            raise ValueError(f"round {t} scores must have shape ({M},), got "
+            raise ValueError(f"round {t} {what} must have shape ({M},), got "
                              f"{tuple(scores.shape)}")
         return scores
+
+    def _state(self) -> Dict[str, Any]:
+        """The per-client state a round reads: every stacked tree of the
+        store, and the norm EMA for an adaptive sampler."""
+        state: Dict[str, Any] = {name: self.store.dense_view(name)
+                                 for name in self.store.trees}
+        if self._adaptive:
+            state["norms"] = self.store.norms
+        return state
+
+    def _commit_state(self, state: Dict[str, Any]) -> None:
+        for name in self.store.trees:
+            self.store.set_dense(state[name], tree=name)
+        if self._adaptive:
+            self.store.set_norms(state["norms"])
 
     def round_mask_scores(self, t: int) -> Optional[Tree]:
         """Round t's random-mask scores, ``{leaf: (M, *shape)}`` fp32 on the
@@ -207,7 +253,11 @@ class FederatedServer:
         start = self._round
         last = start + rounds
         for t in range(start + 1, last + 1):
-            scores = self._round_scores(t)
+            scores = self._uniforms(t, self._scores, self._generator,
+                                    "scores")
+            drop_scores = (self._uniforms(t, self._drop_scores,
+                                          self._drop_generator, "drop scores")
+                           if self._traits is not None else None)
             m = self.schedule.num_clients_host(t, M)
             bucket = self.strategy.sampler.cohort_bucket(self.schedule, m, M)
             bucket = bucket if self.engine == "cohort" else M
@@ -215,10 +265,10 @@ class FederatedServer:
             self._sync()
             t0 = time.perf_counter()
             mask_scores = self.round_mask_scores(t)
-            self.params, residuals, metrics = round_fn(
-                self.params, self.store.residuals_dense(), batches,
-                n_samples, t, scores, mask_scores)
-            self.store.set_dense(residuals)
+            self.params, state, metrics = round_fn(
+                self.params, self._state(), batches, n_samples, t, scores,
+                mask_scores, drop_scores)
+            self._commit_state(state)
             self._sync()
             wall = time.perf_counter() - t0
             num_sampled = int(metrics["num_sampled"])
@@ -230,6 +280,14 @@ class FederatedServer:
                 wall_s=wall, compile_s=compile_s, cohort_size=bucket,
                 flop_proxy=float(flops_per_client) * bucket,
                 quarantined=int(metrics["quarantined"]))
+            if self._traits is not None:
+                sim = simulate_round(
+                    self._traits, metrics["part_mask"].cpu().numpy(),
+                    metrics["arrived_mask"].cpu().numpy(),
+                    float(flops_per_client), self.client_upload_bytes)
+                rec.sim_round_s = sim["sim_round_s"]
+                rec.straggler_s = sim["straggler_s"]
+                rec.dropped = sim["dropped"]
             if self.eval_fn is not None and eval_every and (
                     t % eval_every == 0 or t == last):
                 rec.eval_metric = float(self.eval_fn(self.params, eval_data))
@@ -246,10 +304,11 @@ class FederatedServer:
         return int(sum(r.transport_bytes for r in self.history))
 
     def summary(self) -> Dict[str, Any]:
-        """Run-level roll-up of the history."""
+        """Run-level roll-up of the history (with a hetero fleet also the
+        simulated clock and the lost uploads)."""
         evals = [r.eval_metric for r in self.history
                  if r.eval_metric is not None]
-        return {
+        out = {
             "rounds": len(self.history),
             "final_loss": (self.history[-1].mean_loss if self.history
                            else float("nan")),
@@ -268,3 +327,9 @@ class FederatedServer:
             "quarantined": int(sum(r.quarantined for r in self.history)),
             "device": str(self.device),
         }
+        if self._traits is not None:
+            out["hetero"] = self.strategy.hetero.profile
+            out["sim_total_s"] = float(
+                sum(r.sim_round_s for r in self.history))
+            out["dropped_uploads"] = int(sum(r.dropped for r in self.history))
+        return out

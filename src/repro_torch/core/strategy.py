@@ -2,16 +2,20 @@
 aggregation (counterpart of ``repro/core/strategy.py``).
 
 A :class:`FedStrategy` is one frozen record composing the sampling
-schedule, the :class:`MaskPolicy`, the wire codec and the
-:class:`Aggregator`, plus the client hyperparameters.  ``build_round``
-turns it into the oracle (``form="full"``) or cohort (``form="cohort"``)
-round; ``FederatedServer.from_strategy`` runs it end to end.  The registry
-holds the paper presets ``dense-baseline``, ``fig3``, ``fig4`` and ``fig5``
-and the wire presets ``fig5-int8``, ``fig5-fused``, ``fig5-fused-int8`` and
-``fig5-bitmap``.  The codec has three axes (``default_codec``): int8 or
-not, the ``jnp`` codecs or the ``fused`` kernel path, the ``coo`` or the
-``bitmap`` wire; replacing the mask policy re-derives the codec on the same
-axes.
+schedule, the :class:`MaskPolicy`, the wire codec, the :class:`Aggregator`,
+the client sampler (uniform / importance / threshold), an optional
+:class:`~repro_torch.core.hetero.HeteroModel` fleet and the local
+objective, plus the client hyperparameters.  ``build_round`` turns it into
+the oracle (``form="full"``) or cohort (``form="cohort"``) round;
+``FederatedServer.from_strategy`` runs it end to end.  The registry holds
+the paper presets ``dense-baseline``, ``fig3``, ``fig4`` and ``fig5``, the
+wire presets ``fig5-int8``, ``fig5-fused``, ``fig5-fused-int8`` and
+``fig5-bitmap``, the adaptive-sampler and fleet presets
+``fig3-importance`` and ``hetero-dropout``, and the objective presets
+``fig5-prox``, ``fig5-dyn`` and ``noniid-dyn``.  The codec has three axes
+(``default_codec``): int8 or not, the ``jnp`` codecs or the ``fused``
+kernel path, the ``coo`` or the ``bitmap`` wire; replacing the mask policy
+re-derives the codec on the same axes.
 """
 
 from __future__ import annotations
@@ -26,11 +30,12 @@ from repro_torch.core.codecs import (BitmapCodec, ChainCodec,
 from repro_torch.core.federated import (FederatedConfig, fedavg_aggregate,
                                         make_cohort_round,
                                         make_federated_round)
+from repro_torch.core.hetero import HeteroModel
 from repro_torch.core.masking import MaskingConfig
 from repro_torch.core.objectives import LocalObjective
 from repro_torch.core.sampling import (ClientSampler, DynamicSampling,
-                                       SamplingSchedule, StaticSampling,
-                                       UniformSampler)
+                                       ImportanceSampler, SamplingSchedule,
+                                       StaticSampling, UniformSampler)
 
 __all__ = ["MaskPolicy", "Aggregator", "FEDAVG", "FedStrategy",
            "default_codec", "build_round", "launches_kernels", "register",
@@ -161,6 +166,7 @@ class FedStrategy:
     codec: UploadCodec = IdentityCodec()
     aggregator: Aggregator = FEDAVG
     sampler: ClientSampler = UniformSampler()
+    hetero: HeteroModel | None = None
     local_epochs: int = 1
     learning_rate: float = 0.05
     momentum: float = 0.0
@@ -219,7 +225,7 @@ def build_round(strategy: FedStrategy, loss_fn: Callable, num_clients: int,
                          "'full' and 'cohort')")
     cfg = strategy.federated_config(num_clients)
     kw = dict(codec=strategy.codec, aggregator=strategy.aggregator,
-              sampler=strategy.sampler)
+              sampler=strategy.sampler, hetero=strategy.hetero)
     if form == "full":
         return make_federated_round(loss_fn, strategy.sampling, cfg, **kw)
     if cohort_size is None:
@@ -316,3 +322,35 @@ register(get("fig5").replace(
 register(get("fig5").replace(
     name="fig5-bitmap",
     codec=default_codec(MaskPolicy.selective(0.5), wire="bitmap")))
+
+# "fig3-importance": fig3's dynamic c(t), but the m_t clients are chosen by
+# tracked update-norm importance with Horvitz-Thompson weights.
+register(FedStrategy(
+    name="fig3-importance",
+    sampling=DynamicSampling(initial_rate=1.0, beta=0.1, min_clients=2),
+    sampler=ImportanceSampler()))
+
+# "hetero-dropout": full-participation dense rounds on the flaky-mobile
+# fleet (lognormal compute/latency/uplink spread, 20% of uploads lost),
+# metered as sim_round_s / dropped in the server's records.
+register(FedStrategy(
+    name="hetero-dropout",
+    sampling=StaticSampling(initial_rate=1.0, min_clients=2),
+    hetero=HeteroModel(profile="flaky-mobile")))
+
+# "fig5-prox": fig5 with the FedProx proximal term (mu = 0.1).
+register(get("fig5").replace(
+    name="fig5-prox",
+    objective=LocalObjective.prox(0.1)))
+
+# "fig5-dyn": fig5 under FedDyn (alpha = 0.1), the per-client drift in the
+# client-state store, updated on the honest pre-mask delta.
+register(get("fig5").replace(
+    name="fig5-dyn",
+    objective=LocalObjective.dyn(0.1)))
+
+# "noniid-dyn": the non-IID flagship, fig5-dyn with importance-sampled
+# client selection.
+register(get("fig5-dyn").replace(
+    name="noniid-dyn",
+    sampler=ImportanceSampler()))

@@ -1,9 +1,12 @@
-"""Round times of the fig5 path in a fresh process: LeNet-28, M = 32
-clients, kernel top-k masking (gamma 0.5), 8 rounds, each round's
+"""Round times of one preset in a fresh process (``fig5`` unless
+``--preset`` names another): LeNet-28, M = 32 clients, 8 rounds, selective
+masking on the kernel backend where the preset masks; each round's
 ``wall_s`` and ``compile_s``, and round 1's ``wall_s`` against the median of
-the later rounds'.
+the later rounds'.  A preset with a hetero fleet also reports the simulated
+clock (``sim_total_s``) and the lost uploads.
 
     PYTHONPATH=src python -m repro_torch.launch.round_time --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.round_time --preset noniid-dyn
 
 Prints one JSON line.  On a card the kernel library's ``nvcc`` build (or
 the load of a library already built) lands in round 1's ``compile_s``;
@@ -15,6 +18,7 @@ eager PyTorch's first-call setup (cuDNN and cuBLAS handles, the first
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 
@@ -30,15 +34,18 @@ __all__ = ["round_times", "main"]
 
 
 def round_times(device=None, clients: int = 32, rounds: int = 8,
-                batch: int = 32, image_size: int = 28) -> dict:
-    """Run the fig5 path once; per-round ``wall_s``, ``compile_s`` and
+                batch: int = 32, image_size: int = 28,
+                preset: str = "fig5") -> dict:
+    """Run one preset's path once; per-round ``wall_s``, ``compile_s`` and
     cohort buckets, and round 1 against the median of the others."""
     ds = class_gaussian_images(num_train=clients * 8 * batch,
                                image_size=image_size, seed=0)
     xs, ys, ns = iid_partition_images(ds.train_x, ds.train_y, clients, batch,
                                       seed=0)
-    st = strategy.get("fig5", masking=strategy.MaskPolicy.selective(
-        0.5, backend="kernel"))
+    st = strategy.get(preset)
+    if st.masking.mode == "selective":
+        st = st.with_masking(dataclasses.replace(st.masking,
+                                                 backend="kernel"))
     server = FederatedServer.from_strategy(
         st, pm.classifier_loss(pm.lenet_forward),
         pm.init_lenet(torch.Generator().manual_seed(0),
@@ -48,6 +55,9 @@ def round_times(device=None, clients: int = 32, rounds: int = 8,
     walls = [r.wall_s for r in server.history]
     later = statistics.median(walls[1:]) if len(walls) > 1 else float("nan")
     summ = server.summary()
+    fleet = ({"sim_total_s": summ["sim_total_s"],
+              "dropped_uploads": summ["dropped_uploads"]}
+             if "hetero" in summ else {})
     return {"device": summ["device"],
             "device_name": (torch.cuda.get_device_name(server.device)
                             if server.device.type == "cuda" else "cpu"),
@@ -57,7 +67,7 @@ def round_times(device=None, clients: int = 32, rounds: int = 8,
             "first_round_s": walls[0], "later_median_s": later,
             "first_over_later": walls[0] / later,
             "summary_compile_s": summ["compile_s"],
-            "steady_wall_s": summ["steady_wall_s"]}
+            "steady_wall_s": summ["steady_wall_s"], **fleet}
 
 
 def main(argv=None) -> None:
@@ -65,8 +75,10 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--preset", default="fig5", choices=strategy.names(),
+                    help="the strategy preset to time (default fig5)")
     args = ap.parse_args(argv)
-    print(json.dumps(round_times(args.device)))
+    print(json.dumps(round_times(args.device, preset=args.preset)))
 
 
 if __name__ == "__main__":

@@ -147,3 +147,39 @@ def test_round_time_entry_point_reports_compile_s_apart():
     assert rec["summary_compile_s"] == sum(rec["compile_s"])
     assert rec["steady_wall_s"] == sum(rec["wall_s"])
     assert rec["first_round_s"] == rec["wall_s"][0]
+
+
+ROUND_TIME_KEYS = {"device", "device_name", "buckets", "wall_s", "compile_s",
+                   "first_round_s", "later_median_s", "first_over_later",
+                   "summary_compile_s", "steady_wall_s"}
+
+
+def test_round_time_defaults_to_fig5_with_unchanged_output(monkeypatch,
+                                                           capsys):
+    """``--preset`` defaults to fig5: the same call and the same keys as
+    before the option; another preset is timed through the same call."""
+    from repro_torch.launch import round_time
+    calls = []
+    monkeypatch.setattr(round_time, "round_times",
+                        lambda device, **kw: calls.append((device, kw)) or {})
+    round_time.main(["--device", "cpu"])
+    round_time.main(["--device", "cpu", "--preset", "noniid-dyn"])
+    assert calls == [("cpu", {"preset": "fig5"}),
+                     ("cpu", {"preset": "noniid-dyn"})]
+    assert capsys.readouterr().out.splitlines() == ["{}", "{}"]
+    with pytest.raises(SystemExit):
+        round_time.main(["--preset", "bogus"])
+
+
+@pytest.mark.parametrize("preset, fleet", [("fig5", False),
+                                           ("hetero-dropout", True),
+                                           ("noniid-dyn", False)])
+def test_round_time_presets(preset, fleet):
+    from repro_torch.launch import round_time
+    rec = round_time.round_times("cpu", clients=8, rounds=4, batch=16,
+                                 image_size=12, preset=preset)
+    extra = {"sim_total_s", "dropped_uploads"} if fleet else set()
+    assert set(rec) == ROUND_TIME_KEYS | extra
+    assert len(rec["wall_s"]) == 4 and rec["compile_s"][0] > 0
+    if fleet:
+        assert rec["sim_total_s"] > 0 and rec["buckets"] == [8] * 4

@@ -375,11 +375,109 @@ def test_data_byte_identical(kw):
         assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
 
 
+@pytest.mark.parametrize("kind,kw", [
+    ("noniid", dict(shards_per_client=2, seed=0)),
+    ("noniid", dict(shards_per_client=3, seed=5)),
+    ("dirichlet", dict(alpha=0.5, seed=0)),
+    ("dirichlet", dict(alpha=0.1, seed=7)),
+    ("dirichlet", dict(alpha=100.0, seed=1)),
+])
+def test_noniid_partitions_byte_identical(kind, kw):
+    """The label-shard and Dirichlet partitioners draw what the reference
+    draws, in the same order: every array byte for byte."""
+    ds = tsyn.class_gaussian_images(num_train=600, image_size=12, seed=2)
+    name = f"{kind}_partition_images"
+    want = getattr(jpart, name)(ds.train_x, ds.train_y, 6, 16, **kw)
+    got = getattr(tpart, name)(ds.train_x, ds.train_y, 6, 16, **kw)
+    for a, b in zip(want, got):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.tobytes() == b.tobytes()
+
+
+def test_dirichlet_partition_rejects_bad_alpha_and_sizes():
+    ds = tsyn.class_gaussian_images(num_train=64, image_size=12, seed=0)
+    with pytest.raises(ValueError, match="alpha"):
+        tpart.dirichlet_partition_images(ds.train_x, ds.train_y, 4, 8,
+                                         alpha=0.0)
+    with pytest.raises(ValueError, match="one batch"):
+        tpart.dirichlet_partition_images(ds.train_x, ds.train_y, 16, 8)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_quantize_pytree_round_trip_matches(seed):
+    """Codes and scales exact against the reference; the round trip within
+    scale / 2 of the input (rounding half to even)."""
+    rng = np.random.default_rng(seed)
+    tree = {"a.w": rng.standard_normal((7, 5)).astype(np.float32),
+            "b.b": (rng.standard_normal(13) * 1e-3).astype(np.float32),
+            "c.z": np.zeros(4, np.float32)}
+    want = jcomp.quantize_pytree({k: jnp.asarray(v) for k, v in tree.items()})
+    got = tcomp.quantize_pytree({k: _t(v) for k, v in tree.items()})
+    back = tcomp.dequantize_pytree(got)
+    want_back = jcomp.dequantize_pytree(want)
+    for k, v in tree.items():
+        np.testing.assert_array_equal(got[k]["q"].numpy(),
+                                      np.asarray(want[k]["q"]))
+        assert _bits(got[k]["scale"]).tolist() == \
+            _bits(want[k]["scale"]).tolist()
+        np.testing.assert_array_equal(back[k].numpy(),
+                                      np.asarray(want_back[k]))
+        assert float(np.abs(back[k].numpy() - v).max()) <= \
+            float(got[k]["scale"]) / 2 + 1e-12
+    with pytest.raises(ValueError, match="missing"):
+        tcomp.dequantize_pytree({"a": {"q": got["a.w"]["q"]}})
+
+
+def test_dense_store_trees_and_norms_match_the_reference():
+    """Gather, commit-masked scatter and dense views by tree name, and the
+    norm EMA vector, against the reference's ``DenseStore``: exact."""
+    from repro.core.client_store import DenseStore as JStore
+    from repro_torch.core.client_store import DenseStore as TStore
+    rng = np.random.default_rng(0)
+    tmpl = {"a.w": np.zeros((3, 2), np.float32), "b": np.zeros(4, np.float32)}
+    want = JStore(6, {k: jnp.asarray(v) for k, v in tmpl.items()},
+                  track_norms=True, extra_trees={"drift": tmpl})
+    got = TStore(6, {k: _t(v) for k, v in tmpl.items()}, track_norms=True,
+                 extra_trees={"drift": {k: _t(v) for k, v in tmpl.items()}})
+    assert got.trees == want.trees == ("residuals", "drift")
+    np.testing.assert_array_equal(got.norms.numpy(), np.asarray(want.norms))
+    ids = np.asarray([4, 1, 3])
+    commit = np.asarray([1.0, 0.0, 1.0], np.float32)
+    for tree in ("residuals", "drift"):
+        rows = {k: rng.standard_normal((3,) + v.shape).astype(np.float32)
+                for k, v in tmpl.items()}
+        want.scatter(ids, {k: jnp.asarray(v) for k, v in rows.items()},
+                     commit, 1, tree=tree)
+        got.scatter(ids, {k: _t(v) for k, v in rows.items()}, commit,
+                    tree=tree)
+        for k in tmpl:
+            np.testing.assert_array_equal(got.dense_view(tree)[k].numpy(),
+                                          np.asarray(want.dense_view(tree)[k]))
+            np.testing.assert_array_equal(
+                got.gather([3, 0], tree)[k].numpy(),
+                np.asarray(want.gather(np.asarray([3, 0]), tree)[k]))
+    got.update_norms([2, 5], [0.5, 3.0])
+    want.update_norms(np.asarray([2, 5]), np.asarray([0.5, 3.0]))
+    np.testing.assert_array_equal(got.norms.numpy(), np.asarray(want.norms))
+    got.set_norms(np.arange(6, dtype=np.float32))
+    assert got.norms.tolist() == list(range(6))
+    assert got.residuals_dense() is got.dense_view("residuals")
+    with pytest.raises(KeyError, match="bogus"):
+        got.gather([0], "bogus")
+    with pytest.raises(ValueError, match="norm tracking"):
+        TStore(2, {"b": torch.zeros(1)}).set_norms([1.0, 1.0])
+    with pytest.raises(ValueError, match="shadow"):
+        TStore(2, {"b": torch.zeros(1)},
+               extra_trees={"residuals": {"b": torch.zeros(1)}})
+
+
 # -------------------------------------------------------------- strategies
 def test_registry_and_codec_derivation():
     assert set(tst.names()) == {"dense-baseline", "fig3", "fig4", "fig5",
                                 "fig5-int8", "fig5-fused", "fig5-fused-int8",
-                                "fig5-bitmap"}
+                                "fig5-bitmap", "fig3-importance",
+                                "hetero-dropout", "fig5-prox", "fig5-dyn",
+                                "noniid-dyn"}
     st = tst.get("fig5", masking=tst.MaskPolicy.selective(0.5,
                                                           backend="kernel"))
     assert isinstance(st.codec, tcodecs.SparseCodec) and st.codec.gamma == 0.5
@@ -397,13 +495,18 @@ def test_registry_and_codec_derivation():
 
 
 def test_objectives_wait_for_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LocalObjective.prox(0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LocalObjective.dyn(0.1)
+    """Active FedProx/FedDyn are ported; only attacks still wait for their
+    ROADMAP item (13), and zero strengths stay the plain loss itself."""
+    assert LocalObjective.prox(0.1).active
+    assert LocalObjective.dyn(0.1).uses_drift
     fn = object()
     assert LocalObjective.prox(0.0).localize(fn) is fn
+    assert LocalObjective.dyn(0.0).localize(fn) is fn
     assert not LocalObjective.none().uses_drift
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tfed.make_federated_round(None, tst.get("fig5").sampling,
+                                  tst.get("fig5").federated_config(4),
+                                  attack=object())
 
 
 # ------------------------------------------------------------------ device
@@ -479,8 +582,8 @@ def test_client_update_error_feedback_and_uploads(upload):
                                    gamma=0.3, mode="selective",
                                    use_kernel=True))
     loss = tpm.classifier_loss(tpm.lenet_forward)
-    up, new_res, _ = tclient.client_update(loss, params, (x, y), cfg,
-                                           residual=residual)
+    up, new_res, _, _ = tclient.client_update(loss, params, (x, y), cfg,
+                                              residual=residual)
     local, _ = tclient.local_sgd(loss, params, (x, y), cfg)
     for k, p in params.items():
         delta = (local[k] - p) + residual[k]

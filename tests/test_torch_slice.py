@@ -8,6 +8,7 @@ own ``jax.random`` draws, recomputed from its per-round key chain
 """
 
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -33,14 +34,50 @@ ROOT = Path(__file__).resolve().parents[1]
 M, ROUNDS, BATCH = 8, 6, 16
 
 
-def reference_scores(t: int, num_clients: int, seed: int = 0) -> np.ndarray:
-    """Round t's uniform participant scores as the reference server draws
-    them from ``PRNGKey(seed)``."""
+def reference_draws(t: int, num_clients: int, seed: int = 0,
+                    hetero: bool = False):
+    """Round t's uniform draws as the reference server makes them from
+    ``PRNGKey(seed)``: ``(scores, drop_scores)``.  Its round key splits two
+    ways (sample, mask) without a hetero fleet and three ways (sample,
+    mask, drop) with one; every sampler draws its (M,) uniforms from the
+    sample key, the dropout from the drop key (None without a fleet)."""
     key = jax.random.PRNGKey(seed)
     for _ in range(t):
         key, sub = jax.random.split(key)
-    sample_key, _ = jax.random.split(sub)
-    return np.asarray(jax.random.uniform(sample_key, (num_clients,)))
+    if not hetero:
+        sample_key, _ = jax.random.split(sub)
+        return np.asarray(jax.random.uniform(sample_key, (num_clients,))), None
+    sample_key, _, drop_key = jax.random.split(sub, 3)
+    return (np.asarray(jax.random.uniform(sample_key, (num_clients,))),
+            np.asarray(jax.random.uniform(drop_key, (num_clients,))))
+
+
+def recording_sampler(sampler, log: list, traced: bool):
+    """``sampler`` (either package's) that appends each round's
+    participation mask to ``log`` as a numpy array; ``traced`` for the
+    reference, whose ``select`` runs inside its compiled round (an ordered
+    ``jax.debug.callback``)."""
+    base = type(sampler)
+
+    @dataclasses.dataclass(frozen=True)
+    class Recording(base):
+        def select(self, *args, **kwargs):
+            part, weights = base.select(self, *args, **kwargs)
+            if traced:
+                jax.debug.callback(
+                    lambda p: log.append(np.asarray(p).copy()), part,
+                    ordered=True)
+            else:
+                log.append(part.numpy().copy())
+            return part, weights
+
+    return Recording(**dataclasses.asdict(sampler))
+
+
+def reference_scores(t: int, num_clients: int, seed: int = 0) -> np.ndarray:
+    """Round t's uniform participant scores as the reference server draws
+    them from ``PRNGKey(seed)``, without a hetero fleet."""
+    return reference_draws(t, num_clients, seed)[0]
 
 
 @pytest.fixture(scope="module")
@@ -141,6 +178,75 @@ def test_full_engine_matches_cohort_engine():
     for name, leaf in cohort.params.items():
         np.testing.assert_allclose(leaf.numpy(), full.params[name].numpy(),
                                    rtol=1e-5, atol=1e-6)
+
+
+def _reference_and_port(preset: str, rounds: int, eval_every: int = 0,
+                        kernel: bool = False):
+    """The reference's server and the port's on one preset (LeNet-12, M =
+    8; ``kernel``: selective masking at gamma 0.5 on the kernel backend),
+    the port fed the reference's participant scores."""
+    ds = class_gaussian_images(num_train=512, image_size=12, seed=0)
+    xs, ys, ns = iid_partition_images(ds.train_x, ds.train_y, M, BATCH,
+                                      seed=0)
+    p0 = jpm.init_lenet(jax.random.PRNGKey(0), image_size=12)
+    ref = JaxServer.from_strategy(
+        jst.get(preset, masking=jst.MaskPolicy.selective(
+            0.5, backend="kernel")) if kernel else jst.get(preset),
+        jpm.classifier_loss(jpm.lenet_forward), p0, M, seed=0,
+        eval_fn=jpm.classifier_accuracy(jpm.lenet_forward))
+    ref.run((jnp.asarray(xs), jnp.asarray(ys)), ns, rounds,
+            eval_every=eval_every,
+            eval_data=(jnp.asarray(ds.test_x), jnp.asarray(ds.test_y)))
+    port = FederatedServer.from_strategy(
+        tst.get(preset, masking=tst.MaskPolicy.selective(
+            0.5, backend="kernel")) if kernel else tst.get(preset),
+        tpm.classifier_loss(tpm.lenet_forward),
+        bridge.params_from_numpy(jax.device_get(p0), device="cpu"), M,
+        device="cpu", scores=reference_scores,
+        eval_fn=tpm.classifier_accuracy(tpm.lenet_forward))
+    port.run((xs, ys), ns, rounds, eval_every=eval_every,
+             eval_data=(torch.as_tensor(ds.test_x),
+                        torch.as_tensor(ds.test_y)))
+    return ref, port
+
+
+@pytest.mark.parametrize("preset", ["dense-baseline", "fig3", "fig4"])
+def test_paper_presets_match_the_reference_server(preset):
+    """The paper's round with one lever off, 4 rounds: m_t, buckets and
+    bytes exact every round; losses rtol 1e-5 and parameters atol 1e-5
+    (measured: 1e-7 and 5e-8)."""
+    ref, port = _reference_and_port(preset, 4)
+    for field in ("num_sampled", "cohort_size", "transport_bytes"):
+        assert [getattr(r, field) for r in port.history] == \
+            [getattr(r, field) for r in ref.history], field
+    assert port.summary()["codec"] == ref.summary()["codec"]
+    np.testing.assert_allclose([r.mean_loss for r in port.history],
+                               [r.mean_loss for r in ref.history], rtol=1e-5)
+    want = bridge.flatten_tree(jax.device_get(ref.params))
+    for name, leaf in port.params.items():
+        np.testing.assert_allclose(leaf.numpy(), want[name], rtol=0,
+                                   atol=1e-5, err_msg=name)
+
+
+def test_fig5_twenty_round_acceptance():
+    """20 rounds of the fig5 preset as it stands, evaluated every 10: m_t
+    and bytes exact every round; per-round loss within rtol 1e-3 and test
+    accuracy within 0.01 of the reference's (measured 3.6e-6 and 0), and
+    the port learns."""
+    ref, port = _reference_and_port("fig5", 20, 10)
+    sampled = [r.num_sampled for r in port.history]
+    assert sampled == [r.num_sampled for r in ref.history]
+    assert sampled == [7, 7, 6, 5, 5, 4, 4, 4, 3, 3, 3] + [2] * 9
+    assert [r.transport_bytes for r in port.history] == \
+        [r.transport_bytes for r in ref.history]
+    assert port.summary()["transport_bytes"] == sum(sampled) * 123_984
+    np.testing.assert_allclose([r.mean_loss for r in port.history],
+                               [r.mean_loss for r in ref.history], rtol=1e-3)
+    acc = [r.eval_metric for r in port.history if r.eval_metric is not None]
+    want = [r.eval_metric for r in ref.history if r.eval_metric is not None]
+    assert len(acc) == len(want) == 2
+    np.testing.assert_allclose(acc, want, rtol=0, atol=0.01)
+    assert acc[-1] > acc[0] + 0.1
 
 
 # ---------------------------------------------------------- import hygiene
