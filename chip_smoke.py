@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py           # every phase, one card
     python3 chip_smoke.py --profile # also trace two more rounds of the
-                                    # fused LeNet path, vgg-fig5 and
-                                    # noniid-dyn, and one prefill and 11
+                                    # fused LeNet path, vgg-fig5,
+                                    # noniid-dyn and the store path, and
+                                    # one prefill and 11
                                     # decode steps of each served arch
 
 Phases, each printing its result on its own line; any failure ends the run
@@ -19,7 +20,10 @@ with a nonzero exit:
    SASS (``cuobjdump``; a kernel without HMMA fails the run); and
    ``wire_build``: the registers, stack and spills of the histogram and
    stats kernels, of both encode kernels (int8, fp32) and of the per-array
-   histogram kernel;
+   histogram kernel; then ``seed_hashes``: sha256 of the LeNet main
+   path's seed-0 data (images, IID and Dirichlet partitions), which must
+   equal the values pinned on the CPU against the reference's arrays, and
+   of the seed-0 ``init_lenet()`` leaves, reported beside the CPU's;
 2. kernel parity — each of the five segmented CUDA kernels against its
    plain PyTorch version at the main path's shape (the cohort-packed
    LeNet-28 delta, 32 x 106 rows x 1024, S = 128) and on one 2^26-element
@@ -65,6 +69,30 @@ with a nonzero exit:
    fig3-importance and noniid-dyn; and each of the four at the small size
    on the card against the CPU (participants, arrived masks, bytes,
    ``sim_round_s`` and ``dropped`` exact);
+3b. the client-state store: kernels 1-5 against their plain versions on
+   the store path's own full-width VGG cohort buffer (its bucket of 256
+   clients from the strategy's plan: 158,334,976 elements, 2,816
+   segments) and on a 512-client one (316,669,952 elements, 5,632
+   segments); ``store_path``: the store form of the round at fleet scale,
+   full-width VGG on the reference's store operating point (M = 100,000
+   on ``ShardedStore(retention=1024)``, importance sampler, error
+   feedback, kernel masking, COO wire, a batch provider over 512 shards
+   on the card), 8 rounds under deterministic cuDNN with the counts set
+   to 0 just before and read just after (8/16/8), each round's m_t,
+   bucket, participants, bytes, evictions, ``wall_s``, ``compile_s`` and
+   smallest importance-draw margin in ulps, then ``memory_bytes()``
+   against the residual bound ``(retention + 1) / M`` of the dense
+   footprint, ``max_memory_allocated`` and the dense bytes avoided;
+   ``store_resume``: a fresh server restores the round-4 checkpoint (save
+   and restore seconds) and runs rounds 5-8 bit-identically to the
+   uninterrupted run (parameters, pools, slot directory, evictions,
+   versions, norms, m_t and bytes), then three more rounds on each server
+   with and without deterministic cuDNN (its cost), and the same resume
+   on the LeNet ``fig5`` main path's dense store;
+   ``small_store_agreement``: the store path at the small VGG (M = 64,
+   window 16, 6 rounds) on the card against the CPU (participants, slot
+   directory, evictions, versions and bytes exact), and the store path's
+   ``round_time``;
 4. the per-array path — ``ops.topk_mask(leaf, 0.5)`` on every maskable leaf
    of one client's VGG and GRU delta from the main paths, launch counts set
    to 0 just before and read just after (1/8/1 per leaf): kept <= k per
@@ -113,8 +141,8 @@ with a nonzero exit:
      rtol 1e-3 (the reference's own check);
    - ``kernel_time`` of both kernels at the serving shapes, as in phase 5;
 7. (``--profile`` only) ``torch.profiler`` over two more rounds of the
-   fused LeNet path, of ``vgg-fig5`` and of ``noniid-dyn``, and over one
-   prefill and 11
+   fused LeNet path, of ``vgg-fig5``, of ``noniid-dyn`` and of the store
+   path, and over one prefill and 11
    decode steps of each served arch: device busy time by kernel and the
    device's idle share of the wall time.
 
@@ -130,6 +158,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -171,6 +200,40 @@ ADAPTIVE_PATHS = {
     "noniid-dyn": ("dirichlet", MASK_PER_ROUND, True),
     THRESHOLD_PATH: ("iid", {**MASK_PER_ROUND, "segmented_stats": 1,
                              "segmented_encode": 1}, False),
+}
+# The client-state store at fleet scale: benchmarks/client_store.py's
+# operating point on full-width VGG, (M, retention, shard pool, round-1
+# cohort, min_clients), and the small size held card against CPU.
+STORE_FULL = (100_000, 1024, 512, 256, 32)
+STORE_SMALL = (64, 16, 16, 8, 4)
+STORE_BATCHES = 2                 # local batches a client
+STORE_ROUNDS, STORE_SAVE_AFTER, STORE_SMALL_ROUNDS = 8, 4, 6
+STORE_COST_ROUNDS = 3             # timed with and without deterministic cuDNN
+STORE_STRESS_CLIENTS = 512        # kernels 1-5 on a 512-client VGG cohort
+# The LeNet main path's seed-0 data, pinned on the CPU against the
+# reference's arrays (tests/test_torch_checkpoint.py), and the seed-0
+# init_lenet() leaves as torch's CPU generator gives them there.
+SEED_DATA_HASHES = {
+    "images.train_x":
+        "345379db7168c3c3a2212781693c8358930472c213c3573e68529b7ab6b00cfd",
+    "images.train_y":
+        "ccb571117f4528570ef565bb4e1fda6aebc6d5b8d7252da50889d3a7c6bc47cd",
+    "images.test_x":
+        "cdd7cbdce1fdb9d0baadcb8284df3e73e80d0693016c293f85a3f1ea4e66d09b",
+    "images.test_y":
+        "afc09549ae151a59c190649eb59b953ab1521b8c7fbde959d2e7a7baa253f68c",
+    "iid.xs":
+        "1cfae966923ce240833f3e3d92aa030086caec5a90b531bc1444e2977230957c",
+    "iid.ys":
+        "c22777cbc533e718e3a4be70439195254b99605fcec8417837f8e91cf3415c24",
+    "iid.n":
+        "ddbb87b200e172978838e8c9c60ffe206f7c03e50abbbbe81d5e504aff3e6e5a",
+    "dirichlet.xs":
+        "e548dc3e0480a61a6d5cc0405ffdb42b497aa1a60b46ffd77fc1204f79bd9490",
+    "dirichlet.ys":
+        "1abeee7a3f539dbe894d0dcd275ecb308d2056f6a00c2e722ddd6c6b5e198b44",
+    "dirichlet.n":
+        "ddbb87b200e172978838e8c9c60ffe206f7c03e50abbbbe81d5e504aff3e6e5a",
 }
 SEGMENTED = ("segmented_histogram", "segmented_count", "segmented_apply",
              "segmented_stats", "segmented_encode")
@@ -278,10 +341,12 @@ def unsorted_taus(taus, seed: int):
     return out.to(taus.device)
 
 
-def check_kernels(label: str, x2d, seg_ids, k) -> dict:
+def check_kernels(label: str, x2d, seg_ids, k,
+                  candidates=COUNT_CANDIDATES) -> dict:
     """Each kernel against its plain version on the card; returns the
     largest absolute differences (int8 encode under ``segmented_encode``,
-    fp32 encode under ``segmented_encode_fp32``)."""
+    fp32 encode under ``segmented_encode_fp32``).  The count kernel is also
+    held at each number of ``candidates``, sorted and shuffled."""
     import torch
     from repro_torch.kernels import measure
     from repro_torch.kernels import segmented as seg
@@ -317,7 +382,7 @@ def check_kernels(label: str, x2d, seg_ids, k) -> dict:
     lo, hi, _, _ = seg.select_thresholds(
         got["segmented_histogram"][0], k)
     counts = {}
-    for c in COUNT_CANDIDATES:
+    for c in candidates:
         sorted_taus = seg.candidate_taus(lo, hi, c, geometric=True)
         for order, taus in (("sorted", sorted_taus),
                             ("unsorted", unsorted_taus(sorted_taus, c))):
@@ -806,26 +871,27 @@ def run_adaptive_path(name: str, device: str = "cuda") -> dict:
 
 class recorded_selection:
     """Within the block, every generalized round's CPU selection (the
-    participant and arrived masks) is appended to ``log``."""
+    participant and arrived masks, as the round folds its upload losses
+    in) is appended to ``log``."""
 
     def __init__(self, log: list):
         self.log = log
 
     def __enter__(self):
         from repro_torch.core import federated
-        self.real = real = federated._select
+        self.real = real = federated._apply_dropout
 
-        def record(*args):
-            part, weights, arrived = real(*args)
+        def record(part, *args):
+            arrived, weights = real(part, *args)
             self.log.append((part.tolist(), arrived.tolist()))
-            return part, weights, arrived
+            return arrived, weights
 
-        federated._select = record
+        federated._apply_dropout = record
         return self
 
     def __exit__(self, *exc):
         from repro_torch.core import federated
-        federated._select = self.real
+        federated._apply_dropout = self.real
 
 
 def small_adaptive_agreement(name: str, devices=("cuda", "cpu")) -> None:
@@ -1370,6 +1436,498 @@ def small_lm_agreement(model: str, policy: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The client-state store: the store form at fleet scale, resume, seeds
+# ---------------------------------------------------------------------------
+def seed_hashes() -> dict:
+    """sha256 of the LeNet main path's seed-0 data (the synthetic images,
+    their IID and Dirichlet(0.5) partitions), which must equal the values
+    pinned on the CPU against the reference's arrays, and of the seed-0
+    ``init_lenet()`` leaves, reported with the torch version whose CPU
+    generator made them."""
+    import hashlib
+    import numpy as np
+    import torch
+    from repro_torch.data.partition import (dirichlet_partition_images,
+                                            iid_partition_images)
+    from repro_torch.data.synthetic import class_gaussian_images
+    from repro_torch.models import paper_models as pm
+
+    def sha(a) -> str:
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    ds = class_gaussian_images(num_train=MAIN_M * 8 * MAIN_BATCH,
+                               image_size=28, seed=0)
+    data = {f"images.{k}": sha(getattr(ds, k))
+            for k in ("train_x", "train_y", "test_x", "test_y")}
+    for name, split in (("iid", iid_partition_images),
+                        ("dirichlet", dirichlet_partition_images)):
+        kw = {"alpha": 0.5} if name == "dirichlet" else {}
+        xs, ys, n = split(ds.train_x, ds.train_y, MAIN_M, MAIN_BATCH, seed=0,
+                          **kw)
+        data.update({f"{name}.xs": sha(xs), f"{name}.ys": sha(ys),
+                     f"{name}.n": sha(n)})
+    params = pm.init_lenet(torch.Generator().manual_seed(0), image_size=28,
+                           device="cpu")
+    h = hashlib.sha256()
+    for k in sorted(params):
+        h.update(params[k].numpy().tobytes())
+    init = h.hexdigest()
+    moved = sorted(k for k, v in data.items() if v != SEED_DATA_HASHES[k])
+    phase("seed_hashes", data=data, data_match=not moved,
+          init_lenet=init, torch=torch.__version__, numpy=np.__version__)
+    if moved:
+        fail(f"seeded data differs from the pinned reference arrays: {moved}")
+    return {"data": data, "init": init}
+
+
+class deterministic_cudnn:
+    """Within the block cuDNN picks deterministic algorithms and does not
+    benchmark: the rounds whose bit-identity is checked run here."""
+
+    def __init__(self, on: bool = True):
+        self.on = on
+
+    def __enter__(self):
+        import torch
+        self.saved = (torch.backends.cudnn.deterministic,
+                      torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic = self.on
+        torch.backends.cudnn.benchmark = False
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = self.saved
+
+
+class recorded_importance_draws:
+    """Within the block every importance-sampler selection keeps its
+    inputs and participants; on leaving it, each appends ``(participant
+    ids, margin)`` to ``log``.  The margin is the smallest distance between
+    one of the round's m_t scaled draws and the CDF entry on either side of
+    it, in ulps of that entry (a draw within a few ulps could pick another
+    client on another device).  It is computed on leaving, so a round's
+    ``wall_s`` holds only the copies of the scores and norms."""
+
+    def __init__(self, log: list):
+        self.log = log
+
+    def __enter__(self):
+        from repro_torch.core import sampling
+        cls = sampling.ImportanceSampler
+        self.real = real = cls.select
+        self.kept = kept = []
+
+        def select(smp, scores, schedule, t, num_registered, n_samples,
+                   norms=None):
+            part, weights = real(smp, scores, schedule, t, num_registered,
+                                 n_samples, norms)
+            kept.append((part.clone(), smp, scores.clone(), schedule, t,
+                         num_registered, norms.clone()))
+            return part, weights
+
+        cls.select = select
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import sampling
+        sampling.ImportanceSampler.select = self.real
+        for part, *args in self.kept:
+            self.log.append((part.nonzero().reshape(-1).tolist(),
+                             draw_margin_ulps(*args)))
+
+
+def draw_margin_ulps(smp, scores, schedule, t, num_registered, norms):
+    """See :class:`recorded_importance_draws`."""
+    import numpy as np
+    import torch
+    from repro_torch.core.sampling import _cumsum
+    m = schedule.num_clients(t, num_registered)
+    cdf = _cumsum(smp.probabilities(norms.cpu())).numpy()
+    v = (scores[:m].cpu() * float(cdf[-1])).numpy().astype(np.float32)
+    d = np.clip(np.searchsorted(cdf, v, side="right"), 0,
+                num_registered - 1)
+    hi = cdf[d].astype(np.float64)
+    lo = np.where(d > 0, cdf[np.maximum(d - 1, 0)], 0.0).astype(np.float64)
+    vd = v.astype(np.float64)
+    below = np.where(d > 0, (vd - lo) / np.spacing(np.float32(lo)), np.inf)
+    above = (hi - vd) / np.spacing(cdf[d])
+    return float(np.min(np.minimum(np.abs(below), np.abs(above))))
+
+
+def store_strategy(M: int, cohort: int, min_clients: int):
+    """The reference's store-scaling operating point
+    (``benchmarks/client_store.py``): fig5 with error feedback and the
+    importance sampler, c(t) rescaled so round 1 holds about ``cohort``
+    clients (beta 0.05), selective masking (gamma 0.5) on the kernels, the
+    COO wire."""
+    from repro_torch.core import strategy
+    from repro_torch.core.sampling import DynamicSampling, ImportanceSampler
+    return strategy.get(
+        "fig5", sampling=DynamicSampling(initial_rate=cohort / M, beta=0.05,
+                                         min_clients=min_clients),
+        sampler=ImportanceSampler(), error_feedback=True,
+        masking=strategy.MaskPolicy.selective(0.5, backend="kernel"))
+
+
+def store_setup(device: str, full: bool = True):
+    """A VGG server on a ``ShardedStore`` with a batch provider over a pool
+    of synthetic shards on ``device`` (client i serves shard i mod pool):
+    full width at M = 100,000 with a window of 1024, or the small VGG at
+    M = 64 with a window of 16.  Returns ``(server, provider, n_samples,
+    eval_data)``."""
+    import numpy as np
+    import torch
+    from repro_torch.core.client_store import ShardedStore
+    from repro_torch.core.server import FederatedServer
+    from repro_torch.data.partition import iid_partition_images
+    from repro_torch.data.synthetic import class_gaussian_images
+    from repro_torch.models import paper_models as pm
+    M, retention, pool, cohort, min_clients = (STORE_FULL if full
+                                               else STORE_SMALL)
+    size, widths, batch = ((32, (32, 64, 128, 128), MAIN_BATCH) if full
+                           else (16, (16, 32, 64), 16))
+    ds = class_gaussian_images(num_train=pool * STORE_BATCHES * batch,
+                               image_size=size, channels=3, noise=0.6,
+                               seed=0)
+    xs, ys, ns = iid_partition_images(ds.train_x, ds.train_y, pool, batch,
+                                      seed=0)
+    xs_d, ys_d = (torch.as_tensor(a).to(device) for a in (xs, ys))
+
+    def provider(ids):
+        idx = torch.from_numpy(np.asarray(ids) % pool).to(device)
+        return xs_d.index_select(0, idx), ys_d.index_select(0, idx)
+
+    params = pm.init_vgg(torch.Generator().manual_seed(0), size, 3,
+                         widths=widths, device=device)
+    server = FederatedServer.from_strategy(
+        store_strategy(M, cohort, min_clients),
+        pm.classifier_loss(pm.vgg_forward),
+        params, M, eval_fn=pm.classifier_accuracy(pm.vgg_forward), seed=0,
+        device=device,
+        store=ShardedStore(M, params, retention, track_norms=True))
+    eval_data = (torch.as_tensor(ds.test_x).to(device),
+                 torch.as_tensor(ds.test_y).to(device))
+    return server, provider, np.full((M,), int(ns[0])), eval_data
+
+
+def store_rounds(server, provider, ns, eval_data, rounds: int, log: list,
+                 after=None) -> list:
+    """``rounds`` rounds one at a time (eval on the last), each round's
+    record with the store's eviction count after it; ``after(t)`` runs
+    after round t."""
+    out = []
+    start = server._round
+    for t in range(start + 1, start + rounds + 1):
+        with recorded_importance_draws(log):
+            server.run(provider, ns, 1, eval_every=int(t == start + rounds),
+                       eval_data=eval_data)
+        out.append((server.history[-1], server.store.evictions))
+        if after is not None:
+            after(t)
+    return out
+
+
+def store_buckets() -> list:
+    """The store path's cohort bucket each round, from its strategy's
+    plan: the cohort buffers kernels 1-5 are launched on there."""
+    M, _, _, cohort, min_clients = STORE_FULL
+    st = store_strategy(M, cohort, min_clients)
+    return [st.sampler.cohort_bucket(st.sampling,
+                                     st.sampling.num_clients_host(t, M), M)
+            for t in range(1, STORE_ROUNDS + 1)]
+
+
+def store_kernel_parity(clients: int) -> dict:
+    """Kernels 1-5 against their plain versions on a ``clients``-client
+    full-width VGG cohort buffer (every maskable leaf, packed as the round
+    packs it, one segment a leaf a client): the store path's buckets, and
+    ``STORE_STRESS_CLIENTS`` past 2^28 elements and 1 GB."""
+    import torch
+    from repro_torch.kernels import packing as pk
+    from repro_torch.models import paper_models as pm
+    params = pm.init_vgg(torch.Generator().manual_seed(0), 32, 3,
+                         widths=(32, 64, 128, 128), device="cpu")
+    spec = pk.build_pack_spec([v for v in params.values()
+                               if v.numel() >= 256])
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x2d = 1e-3 * torch.randn((clients * spec.rows, SEG_LANE), generator=gen,
+                             device="cuda")
+    seg_ids = spec.seg_ids(clients, device="cuda")
+    k = torch.tensor([max(1, round(0.5 * ls.size)) for ls in spec.leaves],
+                     dtype=torch.int32).repeat(clients).cuda()
+    errs = check_kernels(f"vgg_cohort{clients}", x2d, seg_ids, k,
+                         candidates=())
+    del x2d
+    torch.cuda.empty_cache()
+    return errs
+
+
+def run_store_path(ckpt_dir: str) -> dict:
+    """The store form at fleet scale: full-width VGG, M = 100,000 on a
+    ``ShardedStore(retention=1024)`` with a batch provider, 8 rounds under
+    deterministic cuDNN, ``save_state`` after round 4.  The launch counts
+    are set to 0 just before the rounds and read just after."""
+    import torch
+    from repro_torch.kernels import segmented as seg
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    server, provider, ns, eval_data = store_setup("cuda")
+    M, retention = STORE_FULL[:2]
+    if server._num_params != LM_PARAMS["vgg"]:
+        fail(f"store path VGG has {server._num_params} parameters")
+    timing = {}
+
+    def save(t):
+        if t == STORE_SAVE_AFTER:
+            t0 = time.perf_counter()
+            server.save_state(ckpt_dir)
+            timing["save_s"] = time.perf_counter() - t0
+
+    draws = []
+    reset_all_counts()
+    t0 = time.perf_counter()
+    with deterministic_cudnn():
+        rounds = store_rounds(server, provider, ns, eval_data, STORE_ROUNDS,
+                              draws, after=save)
+    wall = time.perf_counter() - t0
+    launches = seg.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    prev = 0
+    for (rec, evictions), (_, margin) in zip(rounds, draws):
+        phase("store_round", round=rec.round, m_t=ns_round(server, rec.round),
+              bucket=rec.cohort_size, participants=rec.num_sampled,
+              transport_bytes=rec.transport_bytes, evictions=evictions,
+              evictions_this_round=evictions - prev, wall_s=rec.wall_s,
+              compile_s=rec.compile_s, mean_loss=rec.mean_loss,
+              min_draw_margin_ulps=margin)
+        prev = evictions
+    mem = server.store.memory_bytes()
+    summ = server.summary()
+    hist = [rec for rec, _ in rounds]
+    walls = [r.wall_s for r in hist]
+    plan = store_buckets()
+    want = {k: STORE_ROUNDS * MASK_PER_ROUND.get(k, 0) for k in SEGMENTED}
+    bound_ok = mem["residual_bytes"] * M <= \
+        (retention + 1) * mem["dense_equiv_bytes"]
+    phase("store_path", model="vgg", params=server._num_params,
+          num_clients=M, retention=retention, pool=STORE_FULL[2],
+          rounds=len(hist), codec=summ["codec"], sampler=summ["sampler"],
+          buckets=[r.cohort_size for r in hist],
+          participants=[r.num_sampled for r in hist],
+          transport_bytes=summ["transport_bytes"],
+          client_upload_bytes=summ["client_upload_bytes"],
+          evictions=server.store.evictions, launches=launches,
+          memory_bytes=mem,
+          store_bytes=mem["residual_bytes"] + mem["vector_bytes"],
+          residual_bound_ok=bound_ok,
+          dense_store_bytes_avoided=mem["dense_equiv_bytes"],
+          max_memory_allocated=peak, final_eval=summ["final_eval"],
+          steady_round_s_median=statistics.median(walls[1:]),
+          first_round_s=walls[0], compile_s=[r.compile_s for r in hist],
+          checkpoint_save_s=timing.get("save_s"), run_wall_s=wall,
+          min_draw_margin_ulps=min(m for _, m in draws),
+          cudnn_deterministic=True)
+    if launches != want:
+        fail(f"store path: launches {launches}, expected {want}")
+    if [r.cohort_size for r in hist] != plan:
+        fail(f"store path: buckets {[r.cohort_size for r in hist]} != {plan}")
+    if any(r.num_sampled > r.cohort_size for r in hist):
+        fail("store path: more participants than the bucket")
+    if summ["client_upload_bytes"] != LM_PATHS["vgg-fig5"][2] or \
+            summ["transport_bytes"] != sum(r.num_sampled for r in hist) \
+            * summ["client_upload_bytes"]:
+        fail(f"store path: bytes {summ['transport_bytes']}")
+    if not server.store.evictions > 0:
+        fail("store path: no client was evicted")
+    if not bound_ok:
+        fail(f"store path: residual backing {mem['residual_bytes']} over "
+             f"(retention + 1) / M of {mem['dense_equiv_bytes']}")
+    if "save_s" not in timing:
+        fail("store path: no checkpoint after round 4")
+    check_finite("store path", server)
+    return {"server": server, "rounds": rounds, "provider": provider,
+            "n_samples": ns, "eval_data": eval_data, "launches": launches,
+            "peak": peak, "history": hist}
+
+
+def ns_round(server, t: int) -> int:
+    """The schedule's nominal m_t for round t."""
+    return server.schedule.num_clients(t, server.cfg.num_clients)
+
+
+def check_finite(label: str, server) -> None:
+    """Parameters and every store tree and vector finite."""
+    import torch
+    state = dict(server.params)
+    state.update({f"slots/{k}": v for k, v in server.store.slots.items()}
+                 if server.store.kind == "sharded" else
+                 server.store.residuals_dense())
+    if server.store.norms is not None:
+        state["norms"] = server.store.norms
+    for key, leaf in state.items():
+        if not bool(torch.isfinite(leaf).all()):
+            fail(f"{label}: non-finite {key}")
+
+
+def same_run(a, b, rounds_a, rounds_b) -> dict:
+    """Which parts of two servers' results are bit-identical: parameters,
+    every store tree, the slot directory, versions, norms and the given
+    rounds' records."""
+    import numpy as np
+    import torch
+
+    def trees(s):
+        if s.store.kind == "sharded":
+            return {f"{n}/{k}": v for n, pool in s.store._pools.items()
+                    for k, v in pool.items()}
+        return {f"{n}/{k}": v for n in s.store.trees
+                for k, v in s.store.dense_view(n).items()}
+
+    tb = trees(b)
+    out = {"params": all(torch.equal(v, b.params[k])
+                         for k, v in a.params.items()),
+           "store_trees": all(torch.equal(v, tb[k])
+                              for k, v in trees(a).items()),
+           "versions": bool(np.array_equal(a.store.versions,
+                                           b.store.versions)),
+           "norms": (a.store.norms is None) or bool(
+               torch.equal(a.store.norms, b.store.norms))}
+    if a.store.kind == "sharded":
+        out["slot_directory"] = bool(
+            np.array_equal(a.store._slot_ids, b.store._slot_ids)
+            and np.array_equal(a.store._slot_round, b.store._slot_round))
+    for field in ("num_sampled", "transport_bytes", "cohort_size",
+                  "mean_loss"):
+        out[field] = [getattr(r, field) for r in rounds_a] == \
+            [getattr(r, field) for r in rounds_b]
+    return out
+
+
+def store_resume(path: dict, ckpt_dir: str) -> dict:
+    """A fresh store-path server restores the round-4 checkpoint and runs
+    rounds 5-8 under deterministic cuDNN: bit-identical to the
+    uninterrupted run (evictions compared round by round).  Then rounds
+    9-11 on both servers, the uninterrupted one deterministic and the
+    resumed one not: the cost of deterministic cuDNN on the same work."""
+    import torch
+    full = path["server"]
+    server, provider, ns, eval_data = store_setup("cuda")
+    t0 = time.perf_counter()
+    step = server.restore_state(ckpt_dir)
+    restore_s = time.perf_counter() - t0
+    with deterministic_cudnn():
+        rounds = store_rounds(server, provider, ns, eval_data,
+                              STORE_ROUNDS - STORE_SAVE_AFTER, [])
+    base = path["rounds"][STORE_SAVE_AFTER - 1][1]
+    want_ev = [ev - base for _, ev in path["rounds"][STORE_SAVE_AFTER:]]
+    exact = same_run(full, server, path["history"][STORE_SAVE_AFTER:],
+                     [rec for rec, _ in rounds])
+    exact["evictions"] = [ev for _, ev in rounds] == want_ev
+    ckpt_bytes = sum(f.stat().st_size for f in Path(ckpt_dir).rglob("*")
+                     if f.is_file())
+    extra = {}
+    for label, srv, det in (("deterministic", full, True),
+                            ("default", server, False)):
+        with deterministic_cudnn(det):
+            recs = store_rounds(srv, path["provider"], ns, path["eval_data"],
+                                STORE_COST_ROUNDS, [])
+        extra[f"{label}_round_s"] = [r.wall_s for r, _ in recs]
+    det_s = statistics.median(extra["deterministic_round_s"])
+    default_s = statistics.median(extra["default_round_s"])
+    phase("store_resume", path="vgg-store", step=step,
+          checkpoint_bytes=ckpt_bytes, checkpoint_restore_s=restore_s,
+          exact=exact,
+          evictions_rounds_5_8=[ev for _, ev in rounds],
+          deterministic_round_s_median=det_s,
+          default_round_s_median=default_s,
+          deterministic_cost=det_s / default_s - 1.0, **extra)
+    if step != STORE_SAVE_AFTER or not all(exact.values()):
+        fail(f"store resume is not bit-identical: {exact}")
+    del server
+    torch.cuda.empty_cache()
+    return {"restore_s": restore_s, "exact": exact,
+            "deterministic_cost": det_s / default_s - 1.0}
+
+
+def dense_resume_lenet(ckpt_dir: str) -> dict:
+    """The LeNet ``fig5`` main path on the dense store, 4 rounds,
+    ``save_state``, 4 more, against a fresh server that restores and runs
+    the last 4, under deterministic cuDNN: bit-identical."""
+    with deterministic_cudnn():
+        full, batches, ns, _ = fig5_server(MAIN_M, 28, MAIN_M * 8 * MAIN_BATCH,
+                                           MAIN_BATCH, "cuda")
+        full.run(batches, ns, 4)
+        full.save_state(ckpt_dir)
+        full.run(batches, ns, 4)
+        resumed, _, _, _ = fig5_server(MAIN_M, 28, MAIN_M * 8 * MAIN_BATCH,
+                                       MAIN_BATCH, "cuda")
+        step = resumed.restore_state(ckpt_dir)
+        resumed.run(batches, ns, 4)
+    exact = same_run(full, resumed, full.history[4:], resumed.history)
+    phase("store_resume", path="lenet-fig5-dense", step=step, exact=exact,
+          num_sampled=[r.num_sampled for r in full.history])
+    if step != 4 or not all(exact.values()):
+        fail(f"dense resume is not bit-identical: {exact}")
+    if [r.num_sampled for r in full.history] != MAIN_SAMPLED:
+        fail(f"dense resume: num_sampled {full.history}")
+    return exact
+
+
+def small_store_agreement() -> dict:
+    """The store path at the small VGG size (M = 64, window 16, 6 rounds)
+    on the card against the CPU: participants, the slot directory,
+    evictions, versions and bytes exact; losses, parameters, the residual
+    pool and norms within SMALL_RTOL."""
+    import numpy as np
+    runs, draws = [], []
+    for device in ("cuda", "cpu"):
+        server, provider, ns, _ = store_setup(device, full=False)
+        draws.append([])
+        with recorded_importance_draws(draws[-1]):
+            server.run(provider, ns, STORE_SMALL_ROUNDS)
+        runs.append(server)
+    gpu, cpu = runs
+
+    def err(a: dict, b: dict) -> float:
+        return max(float((a[k].cpu() - v).abs().max()) for k, v in b.items())
+
+    exact = {
+        "participants": [p for p, _ in draws[0]] == [p for p, _ in draws[1]],
+        "slot_ids": bool(np.array_equal(gpu.store._slot_ids,
+                                        cpu.store._slot_ids)),
+        "slot_round": bool(np.array_equal(gpu.store._slot_round,
+                                          cpu.store._slot_round)),
+        "evictions": gpu.store.evictions == cpu.store.evictions,
+        "versions": bool(np.array_equal(gpu.store.versions,
+                                        cpu.store.versions))}
+    for field in ("num_sampled", "cohort_size", "transport_bytes"):
+        exact[field] = [getattr(r, field) for r in gpu.history] == \
+            [getattr(r, field) for r in cpu.history]
+    loss = [[r.mean_loss for r in s.history] for s in runs]
+    errs = {"loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(*loss)),
+            "max_param_abs_err": err(gpu.params, cpu.params),
+            "max_slots_abs_err": err(gpu.store.slots, cpu.store.slots),
+            "max_norm_abs_err": float((gpu.store.norms.cpu()
+                                       - cpu.store.norms).abs().max())}
+    phase("small_store_agreement", num_clients=gpu.cfg.num_clients,
+          retention=gpu.store.retention, rounds=len(gpu.history),
+          participants=[r.num_sampled for r in gpu.history],
+          evictions=gpu.store.evictions,
+          min_draw_margin_ulps=min(m for _, m in draws[0]), exact=exact,
+          **errs)
+    if not all(exact.values()):
+        fail(f"small store run: card and CPU differ in {exact}")
+    if not gpu.store.evictions > 0:
+        fail("small store run: no client was evicted")
+    if max(errs.values()) > SMALL_RTOL:
+        fail(f"small store run: card and CPU disagree: {errs}")
+    check_finite("small store run", gpu)
+    return errs
+
+
+# ---------------------------------------------------------------------------
 # The model zoo's serving slice: rwkv6-1.6b and hymba-1.5b
 # ---------------------------------------------------------------------------
 def zoo_counts() -> dict:
@@ -1859,6 +2417,7 @@ def main(argv) -> int:
           kernel_build_s=build_s, ptxas=ptxas)
     phase("wkv6_build", **wkv6_build_record(build.library()))
     phase("wire_build", kernels=wire_build_record())
+    seed_hashes()
 
     # ---- 2. kernel parity ----------------------------------------------
     main_in = [t.cuda() for t in measure.lenet_cohort_buffer(seed=1)]
@@ -1881,6 +2440,23 @@ def main(argv) -> int:
     adaptive = {name: run_adaptive_path(name) for name in ADAPTIVE_PATHS}
     for name in ADAPTIVE_PATHS:
         small_adaptive_agreement(name)
+    # ---- 3b. the client-state store --------------------------------------
+    for clients in sorted(set(store_buckets()) | {STORE_STRESS_CLIENTS}):
+        store_kernel_parity(clients)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt:
+        store = run_store_path(ckpt)
+        store_resume(store, ckpt)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt:
+        dense_resume_lenet(ckpt)
+    small_store_agreement()
+    round_time_line("vgg-store", store["history"])
+    if trace:
+        profile_device("vgg-store", lambda: store_rounds(
+            store["server"], store["provider"], store["n_samples"],
+            store["eval_data"], 2, []), 2, "round")
+    del store["server"]
+    torch.cuda.empty_cache()
 
     # ---- 4. the per-array path and kernels 6–8 ---------------------------
     deltas = {"vgg": client_delta(lms["vgg-fig5"]),
@@ -1948,6 +2524,7 @@ def main(argv) -> int:
             "replaces": path,
             "launches": fused["launches"][name],
             "launches_per_round": fused["launches"][name] / rounds,
+            "store_path_launches": store["launches"][name],
             "max_abs_err": errs[name], "ms": rec["ms"],
             "warm_ms": rec["warm_ms"], "device_ms": rec["device_ms"],
             "wrapper_ms": rec["wrapper_ms"],

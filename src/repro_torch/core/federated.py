@@ -9,27 +9,37 @@ client bodies:
   3. every upload crosses the wire codec, and
   4. weighted FedAvg (Eq. 2): Θ_{t+1} = Θ_t + Σ_i w_i · upload_i.
 
-Two execution forms of the same round:
+Three execution forms of the same round:
 
 * **oracle** (``make_federated_round``): ALL registered clients run,
   non-participants are zero-weighted;
 * **cohort** (``make_cohort_round``): only a bucketed cohort of
   ``cohort_size`` clients runs, ids ascending, zero-weighted where it is
   padding, so the weighted reduction visits participants in the oracle's
-  client-id order.
+  client-id order;
+* **store** (``make_store_round``): the cohort round split at the
+  client-state boundary, its state rows gathered and scattered by a
+  :class:`~repro_torch.core.client_store.ClientStateStore` outside it (the
+  layout is in the comment above :func:`make_store_selection`).
 
-Each form has two bodies, as in the reference.  The *plain* body serves the
-paper's round (uniform sampler, no hetero fleet): its cohort holds the m_t
-participants padded with the next-ranked non-participants.  The
-*generalized* body serves a non-uniform :class:`ClientSampler` (its
-Horvitz-Thompson weights, the server's per-client update-norm EMA) and a
+Every form aggregates over the participants' rows only, so the same
+participants give the same parameters bit for bit whichever clients pad
+the buffer.
+
+The oracle and cohort forms have two bodies each, as in the reference.
+The *plain* body serves the paper's round (uniform sampler, no hetero
+fleet): its cohort holds the m_t participants padded with the next-ranked
+non-participants.  The *generalized* body serves a non-uniform
+:class:`ClientSampler` (its Horvitz-Thompson weights, the server's
+per-client update-norm EMA) and a
 :class:`~repro_torch.core.hetero.HeteroModel` fleet (in-round upload
 dropout: a lost upload is zero-weighted and commits no state; the
 ``part_mask``/``arrived_mask`` metrics feed the host-side round clock).
 Its cohort gathers the sampler's ``part > 0`` ids padded with the
-lowest-id non-participants.  Selection and the dropout draw run on the
-CPU from the (M,) draws, so a run on the card picks the clients a run on
-the CPU picks.
+lowest-id non-participants; the generalized cohort body is the store form
+with its rows gathered from and scattered into the dense state.
+Selection and the dropout draw run on the CPU from the (M,) draws, so a
+run on the card picks the clients a run on the CPU picks.
 
 A round is ``round_fn(params, state, client_batches, n_samples, t, scores,
 mask_scores=None, drop_scores=None) -> (params, state, metrics)``.
@@ -67,8 +77,9 @@ from repro_torch.core.sampling import (SamplingSchedule, UniformSampler,
 Tree = Dict[str, torch.Tensor]
 
 __all__ = ["FederatedConfig", "fedavg_aggregate", "cohort_select",
-           "make_cohort_compute", "make_federated_round",
-           "make_cohort_round"]
+           "make_federated_round", "make_cohort_round",
+           "make_store_selection", "make_store_compute", "StoreRound",
+           "make_store_round"]
 
 _ATTACKS = ("Byzantine attacks (an active AttackModel) are not ported yet: "
             "ROADMAP Queue 1 item 13")
@@ -224,12 +235,39 @@ def _norm_ema(smp, old: torch.Tensor, obs: torch.Tensor,
                        old)
 
 
-def _general_metrics(losses, valid, part, arrived, quarantined,
+def _participant_rows(valid: torch.Tensor, device) -> torch.Tensor:
+    """Positions of a buffer's true participants (``valid > 0``, a CPU
+    mask), ascending, on ``device``."""
+    return torch.nonzero(valid > 0).reshape(-1).to(device)
+
+
+def _aggregate(agg_fn, params: Tree, wired: Tree, finite: torch.Tensor,
+               weights: torch.Tensor, rows: torch.Tensor,
+               upload: str) -> Tree:
+    """The aggregation over the participants' rows only, in client-id
+    order.  Every buffer that holds a round's participants (the oracle's
+    M rows, either cohort buffer) gives the aggregator the same matrix, so
+    the sum comes out the same bits whichever clients pad the buffer: a
+    BLAS product's rounding depends on where zero-weight rows sit."""
+    def take(x):
+        return x.index_select(0, rows)
+
+    return agg_fn(params, _zero_rows({k: take(u) for k, u in wired.items()},
+                                     take(finite)),
+                  take(weights), upload)
+
+
+def _mean_loss(losses: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Mean loss over the participants' rows (0.0 without any)."""
+    return losses.index_select(0, rows).sum() / max(rows.numel(), 1)
+
+
+def _general_metrics(losses, rows, part, arrived, quarantined,
                      dropout: bool) -> Dict[str, torch.Tensor]:
     """An empty round (the threshold sampler's count can be 0) reports a
     NaN loss, not 0.0."""
     n_part = part.sum()
-    mean = (losses * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+    mean = _mean_loss(losses, rows)
     metrics = {"mean_loss": mean if float(n_part) > 0
                else torch.full_like(mean, float("nan")),
                "num_sampled": n_part,
@@ -253,9 +291,8 @@ def cohort_select(scores: torch.Tensor, schedule: SamplingSchedule, t,
     return cohort_ids, (ranks[cohort_ids] < m).to(torch.float32)
 
 
-def _metrics(losses, valid, finite) -> Dict[str, torch.Tensor]:
-    return {"mean_loss": (losses * valid).sum()
-            / torch.clamp(valid.sum(), min=1.0),
+def _metrics(losses, rows, valid, finite) -> Dict[str, torch.Tensor]:
+    return {"mean_loss": _mean_loss(losses, rows),
             "num_sampled": valid.sum(),
             "quarantined": (valid * (1.0 - finite)).sum()}
 
@@ -283,21 +320,24 @@ def make_federated_round(loss_fn: Callable, schedule: SamplingSchedule,
                      n_samples: torch.Tensor, t, scores: torch.Tensor,
                      mask_scores: Optional[Tree] = None, drop_scores=None):
             residuals, drift = state["residuals"], state.get("drift")
-            part = participation_mask(scores, schedule, t, cfg.num_clients)
-            part = part.to(n_samples.device)
+            part_cpu = participation_mask(scores.cpu(), schedule, t,
+                                          cfg.num_clients)
+            device = n_samples.device
+            part = part_cpu.to(device)
+            rows = _participant_rows(part_cpu, device)
             uploads, new_res, new_drift, losses = stacked_client_update(
                 loss_fn, params, client_batches, cfg.client, residuals,
                 cfg.error_feedback, mask_scores, drift)
             wired = roundtrip_stacked(codec, uploads)
             finite = _finite_rows(wired)
-            weights = part * n_samples * finite
-            new_params = agg_fn(params, _zero_rows(wired, finite), weights,
-                                cfg.client.upload)
+            new_params = _aggregate(agg_fn, params, wired, finite,
+                                    part * n_samples * finite, rows,
+                                    cfg.client.upload)
             out = {"residuals": _residual_update(
                 cfg, residuals, new_res, uploads, wired, part * finite)}
             if uses_drift:
                 out["drift"] = _commit_rows(drift, new_drift, part * finite)
-            return new_params, out, _metrics(losses, part, finite)
+            return new_params, out, _metrics(losses, rows, part, finite)
 
         return plain_fn
 
@@ -314,15 +354,16 @@ def make_federated_round(loss_fn: Callable, schedule: SamplingSchedule,
         device = n_samples.device
         part, weights, arrived = _select(smp, schedule, t, cfg, scores,
                                          n_samples, norms, drop, drop_scores)
-        part_d, arrived_d = part.to(device), arrived.to(device)
+        arrived_d = arrived.to(device)
+        weights = weights.to(device)
+        rows = _participant_rows(part, device)
         uploads, new_res, new_drift, losses = stacked_client_update(
             loss_fn, params, client_batches, cfg.client, residuals,
             cfg.error_feedback, mask_scores, drift)
         wired = roundtrip_stacked(codec, uploads)
         finite = _finite_rows(wired)
-        weights = weights.to(device) * finite
-        new_params = agg_fn(params, _zero_rows(wired, finite), weights,
-                            cfg.client.upload)
+        new_params = _aggregate(agg_fn, params, wired, finite,
+                                weights * finite, rows, cfg.client.upload)
         commit = arrived_d * finite
         out = {"residuals": _residual_update(cfg, residuals, new_res,
                                              uploads, wired, commit)}
@@ -331,67 +372,153 @@ def make_federated_round(loss_fn: Callable, schedule: SamplingSchedule,
         if smp.adaptive:
             out["norms"] = _norm_ema(smp, norms, _row_l2(wired), commit)
         return new_params, out, _general_metrics(
-            losses, part_d, part, arrived, (arrived_d * (1.0 - finite)).sum(),
+            losses, rows, part, arrived, (arrived_d * (1.0 - finite)).sum(),
             drop is not None)
 
     return round_fn
 
 
-def make_cohort_compute(loss_fn: Callable, schedule: SamplingSchedule,
-                        cfg: FederatedConfig, cohort_size: int, *,
-                        codec=None, sampler=None, hetero=None, attack=None):
-    """The generalized cohort round's client-side sweep: selection and the
-    dropout draw → cohort gather → local updates → wire round-trip, and
-    nothing after it.
+# The store form splits the round at the client-state boundary, so a
+# ``ClientStateStore`` (dense or sharded) owns the per-client rows and the
+# round only ever sees cohort-shaped ones:
+#
+#     select(norms, n_samples, t, scores)            [CPU, (M,) tensors]
+#         -> part, weights, cohort_ids
+#     store.gather(cohort_ids)                        [residual, drift rows]
+#     body(params, cohort_res, cohort_drift, cohort_batches, cohort_ids,
+#          part, weights, norms, mask_scores, drop_scores)
+#         -> new_params, new_rows, drift_rows, commit, norm_upd, metrics
+#     store.scatter(cohort_ids, new_rows, commit, t)
+#     store.update_norms(cohort_ids, norm_upd)
+#
+# The cohort buffer holds the ``part > 0`` ids padded with the lowest-id
+# non-participants, ascending.  Padding rows never commit and are left out
+# of every cross-row sum, so a sharded gather that reads zeros for a client
+# the window forgot changes only rows nothing reads.  The generalized
+# cohort round below is this form with the gather and scatter done on the
+# dense state.
 
-    Returns ``compute(params, state, client_batches, n_samples, t, scores,
-    mask_scores=None, drop_scores=None) -> dict`` with ``part``,
-    ``weights`` and ``arrived`` (full (M,) selection, post-dropout weights
-    and arrivals, on the CPU), ``cohort_ids`` (the ``part > 0`` ids
-    ascending, padded with the lowest-id non-participants, on the
-    device), ``cohort_res`` / ``cohort_drift`` (the round-entry residual
-    rows under error feedback and drift rows under FedDyn, else None),
-    ``uploads`` / ``wired`` (pre-/post-wire stacked uploads), ``new_res``
-    / ``new_drift`` (post-round state candidates) and ``losses``.
+
+def make_store_selection(schedule: SamplingSchedule, cfg: FederatedConfig,
+                         cohort_size: int, *, sampler=None):
+    """The round's selection head: ``select(norms, n_samples, t, scores) ->
+    (part, weights, cohort_ids)``, all on the CPU — the sampler's draw on
+    the full (M,) vectors, before any upload loss, and the sorted cohort
+    buffer ``sort(argsort(where(part > 0, ids, ids + M))[:cohort_size])``.
+    Pass ``norms=None`` for a non-adaptive sampler."""
+    if not 0 < cohort_size <= cfg.num_clients:
+        raise ValueError(
+            f"cohort_size {cohort_size} not in (0, {cfg.num_clients}]")
+    smp = sampler if sampler is not None else UniformSampler()
+    M = cfg.num_clients
+
+    def select(norms, n_samples, t, scores):
+        part, weights = smp.select(
+            scores.cpu(), schedule, t, M, n_samples.cpu(),
+            None if norms is None else norms.cpu())
+        ids = torch.arange(M)
+        order = torch.argsort(torch.where(part > 0, ids, ids + M),
+                              stable=True)
+        return part, weights, torch.sort(order[:cohort_size]).values
+
+    return select
+
+
+def make_store_compute(loss_fn: Callable, cfg: FederatedConfig, *,
+                       codec=None, attack=None):
+    """The cohort's client sweep over pre-gathered state rows: local updates
+    → wire round trip.  Returns ``compute(params, cohort_res,
+    cohort_batches, mask_scores=None, cohort_drift=None) -> dict`` with
+    ``uploads`` / ``wired`` (pre- and post-wire stacked uploads),
+    ``new_res`` / ``new_drift`` (post-round state candidates) and
+    ``losses``.  ``mask_scores`` are the cohort's rows of the round's
+    random-mask scores, so client i masks with the draw any other form
+    gives it."""
+    _check_attack(attack)
+
+    def compute(params, cohort_res, cohort_batches, mask_scores=None,
+                cohort_drift=None):
+        uploads, new_res, new_drift, losses = stacked_client_update(
+            loss_fn, params, cohort_batches, cfg.client, cohort_res,
+            cfg.error_feedback, mask_scores, cohort_drift)
+        return {"uploads": uploads, "wired": roundtrip_stacked(codec, uploads),
+                "new_res": new_res, "new_drift": new_drift, "losses": losses}
+
+    return compute
+
+
+@dataclasses.dataclass(frozen=True)
+class StoreRound:
+    """The store-form round, split at the store boundary; the flags tell
+    the server loop which optional state the pieces read and write."""
+
+    select: Callable      # (norms, n_samples, t, scores) -> (part, w, ids)
+    body: Callable        # see make_store_round
+    adaptive: bool        # body reads the norm EMA and returns its rows
+    error_feedback: bool  # residual rows need scattering back
+    uses_drift: bool = False  # body reads and returns FedDyn drift rows
+
+
+def make_store_round(loss_fn: Callable, schedule: SamplingSchedule,
+                     cfg: FederatedConfig, cohort_size: int, *,
+                     codec=None, aggregator=None, sampler=None, hetero=None,
+                     attack=None) -> StoreRound:
+    """The store form of the generalized cohort round.
+
+    ``body(params, cohort_res, cohort_drift, cohort_batches, cohort_ids,
+    part, weights, norms, mask_scores=None, drop_scores=None) ->
+    (new_params, new_rows, drift_rows, commit, norm_upd, metrics)``:
+    ``part`` / ``weights`` are the selection's (M,) CPU vectors (the body
+    folds the round's upload losses in), ``norms`` the full (M,) EMA or
+    None; ``new_rows`` are the post-round residual candidates with the
+    wire feedback of a lossy codec folded in, ``drift_rows`` the FedDyn
+    drift candidates (None without drift), ``commit`` (on the device) the
+    per-row "this upload applied" mask, ``arrived × finite``, and
+    ``norm_upd`` the cohort's norm-EMA rows (None for a non-adaptive
+    sampler).  The server scatters the rows gated on ``commit``.  A plain
+    strategy runs this body too: the uniform sampler's selection is
+    :func:`participation_mask`'s.
     """
     if not 0 < cohort_size <= cfg.num_clients:
         raise ValueError(
             f"cohort_size {cohort_size} not in (0, {cfg.num_clients}]")
-    _check_attack(attack)
     smp, drop = _round_extras(sampler, hetero, cfg)
-    M = cfg.num_clients
+    agg_fn = _aggregator(aggregator, smp.normalize)
+    compute = make_store_compute(loss_fn, cfg, codec=codec, attack=attack)
+    select = make_store_selection(schedule, cfg, cohort_size, sampler=smp)
 
-    def compute(params, state, client_batches, n_samples, t, scores,
-                mask_scores=None, drop_scores=None):
-        part, weights, arrived = _select(smp, schedule, t, cfg, scores,
-                                         n_samples, state.get("norms"), drop,
-                                         drop_scores)
-        ids = torch.arange(M)
-        order = torch.argsort(torch.where(part > 0, ids, ids + M),
-                              stable=True)
-        cohort_ids = torch.sort(order[:cohort_size]).values.to(
-            n_samples.device)
+    def body(params, cohort_res, cohort_drift, cohort_batches, cohort_ids,
+             part, weights, norms, mask_scores=None, drop_scores=None):
+        # Everything the host sends the device goes before the sweep is
+        # queued, so no copy waits for it.
+        device = next(iter(params.values())).device
+        arrived, weights = _apply_dropout(part, weights, drop, drop_scores,
+                                          smp.normalize)
+        rows = _participant_rows(part.index_select(0, cohort_ids), device)
+        arr_c = arrived.index_select(0, cohort_ids).to(device)
+        w_c = weights.index_select(0, cohort_ids).to(device)
+        ids = cohort_ids.to(device)
+        c = compute(params, cohort_res, cohort_batches, mask_scores,
+                    cohort_drift)
+        uploads, wired = c["uploads"], c["wired"]
+        finite = _finite_rows(wired)
+        new_params = _aggregate(agg_fn, params, wired, finite, w_c * finite,
+                                rows, cfg.client.upload)
+        commit = arr_c * finite
+        new_rows = c["new_res"]
+        if cfg.error_feedback and wired is not uploads:
+            new_rows = _wire_feedback(new_rows, uploads, wired)
+        norm_upd = None
+        if smp.adaptive:
+            norm_upd = _norm_ema(smp, norms.index_select(0, ids),
+                                 _row_l2(wired), commit)
+        return new_params, new_rows, c["new_drift"], commit, norm_upd, \
+            _general_metrics(c["losses"], rows, part, arrived,
+                             (arr_c * (1.0 - finite)).sum(), drop is not None)
 
-        def gather(tree):
-            return None if tree is None else {
-                k: v.index_select(0, cohort_ids) for k, v in tree.items()}
-
-        cohort_res = (gather(state["residuals"]) if cfg.error_feedback
-                      else None)
-        cohort_drift = gather(state.get("drift"))
-        uploads, new_res, new_drift, losses = stacked_client_update(
-            loss_fn, params, [x.index_select(0, cohort_ids)
-                              for x in client_batches],
-            cfg.client, cohort_res, cfg.error_feedback, gather(mask_scores),
-            cohort_drift)
-        return {"part": part, "weights": weights, "arrived": arrived,
-                "cohort_ids": cohort_ids, "cohort_res": cohort_res,
-                "cohort_drift": cohort_drift,
-                "uploads": uploads, "wired": roundtrip_stacked(codec, uploads),
-                "new_res": new_res, "new_drift": new_drift,
-                "losses": losses}
-
-    return compute
+    return StoreRound(select=select, body=body, adaptive=smp.adaptive,
+                      error_feedback=cfg.error_feedback,
+                      uses_drift=cfg.client.objective.uses_drift)
 
 
 def make_cohort_round(loss_fn: Callable, schedule: SamplingSchedule,
@@ -402,7 +529,9 @@ def make_cohort_round(loss_fn: Callable, schedule: SamplingSchedule,
     but only ``cohort_size`` clients (an upper bound on the participant
     count, ``ClientSampler.cohort_bucket``) run.  Cohort ids are
     ascending, so the weighted reduction visits participants in the
-    oracle's client-id order."""
+    oracle's client-id order.  The generalized body is the store form
+    (:func:`make_store_round`) with its gather and scatter done on the
+    dense state."""
     if not 0 < cohort_size <= cfg.num_clients:
         raise ValueError(
             f"cohort_size {cohort_size} not in (0, {cfg.num_clients}]")
@@ -413,6 +542,10 @@ def make_cohort_round(loss_fn: Callable, schedule: SamplingSchedule,
         return {k: v.index_copy(0, cohort_ids, rows[k])
                 for k, v in full.items()}
 
+    def gather(tree: Optional[Tree], ids) -> Optional[Tree]:
+        return None if tree is None else {
+            k: v.index_select(0, ids) for k, v in tree.items()}
+
     if _is_plain(sampler, hetero):
         agg_fn = _aggregator(aggregator, True)
 
@@ -421,79 +554,67 @@ def make_cohort_round(loss_fn: Callable, schedule: SamplingSchedule,
                      n_samples: torch.Tensor, t, scores: torch.Tensor,
                      mask_scores: Optional[Tree] = None, drop_scores=None):
             residuals, drift = state["residuals"], state.get("drift")
-            cohort_ids, valid = cohort_select(scores, schedule, t,
-                                              cfg.num_clients, cohort_size)
+            cohort_ids, valid_cpu = cohort_select(
+                scores.cpu(), schedule, t, cfg.num_clients, cohort_size)
             device = n_samples.device
-            cohort_ids, valid = cohort_ids.to(device), valid.to(device)
-            cohort_batches = [x.index_select(0, cohort_ids)
-                              for x in client_batches]
-            cohort_res = ({k: r.index_select(0, cohort_ids)
-                           for k, r in residuals.items()}
+            cohort_ids, valid = cohort_ids.to(device), valid_cpu.to(device)
+            rows = _participant_rows(valid_cpu, device)
+            cohort_res = (gather(residuals, cohort_ids)
                           if cfg.error_feedback else None)
-            cohort_drift = ({k: d.index_select(0, cohort_ids)
-                             for k, d in drift.items()}
-                            if uses_drift else None)
-            cohort_scores = (None if mask_scores is None else
-                             {k: s.index_select(0, cohort_ids)
-                              for k, s in mask_scores.items()})
+            cohort_drift = gather(drift, cohort_ids) if uses_drift else None
             uploads, new_res, new_drift, losses = stacked_client_update(
-                loss_fn, params, cohort_batches, cfg.client, cohort_res,
-                cfg.error_feedback, cohort_scores, cohort_drift)
+                loss_fn, params, [x.index_select(0, cohort_ids)
+                                  for x in client_batches],
+                cfg.client, cohort_res, cfg.error_feedback,
+                gather(mask_scores, cohort_ids), cohort_drift)
             wired = roundtrip_stacked(codec, uploads)
             finite = _finite_rows(wired)
             weights = valid * n_samples.index_select(0, cohort_ids) * finite
-            new_params = agg_fn(params, _zero_rows(wired, finite), weights,
-                                cfg.client.upload)
+            new_params = _aggregate(agg_fn, params, wired, finite, weights,
+                                    rows, cfg.client.upload)
             out = {"residuals": residuals}
             if cfg.error_feedback:
-                rows = _residual_update(cfg, cohort_res, new_res, uploads,
-                                        wired, valid * finite)
-                out["residuals"] = scatter(residuals, cohort_ids, rows)
+                out["residuals"] = scatter(residuals, cohort_ids,
+                                           _residual_update(
+                                               cfg, cohort_res, new_res,
+                                               uploads, wired,
+                                               valid * finite))
             if uses_drift:
                 out["drift"] = scatter(drift, cohort_ids, _commit_rows(
                     cohort_drift, new_drift, valid * finite))
-            return new_params, out, _metrics(losses, valid, finite)
+            return new_params, out, _metrics(losses, rows, valid, finite)
 
         return plain_fn
 
-    smp, _ = _round_extras(sampler, hetero, cfg)
-    agg_fn = _aggregator(aggregator, smp.normalize)
-    compute = make_cohort_compute(loss_fn, schedule, cfg, cohort_size,
-                                  codec=codec, sampler=sampler, hetero=hetero)
+    prog = make_store_round(loss_fn, schedule, cfg, cohort_size, codec=codec,
+                            aggregator=aggregator, sampler=sampler,
+                            hetero=hetero)
 
     def round_fn(params: Tree, state: Dict[str, Any],
                  client_batches: Sequence[torch.Tensor],
                  n_samples: torch.Tensor, t, scores: torch.Tensor,
                  mask_scores: Optional[Tree] = None,
                  drop_scores: Optional[torch.Tensor] = None):
-        c = compute(params, state, client_batches, n_samples, t, scores,
-                    mask_scores, drop_scores)
-        cohort_ids, uploads, wired = c["cohort_ids"], c["uploads"], c["wired"]
-        device = n_samples.device
-        finite = _finite_rows(wired)
-        valid = c["part"].to(device).index_select(0, cohort_ids)
-        arr_c = c["arrived"].to(device).index_select(0, cohort_ids)
-        w_c = c["weights"].to(device).index_select(0, cohort_ids) * finite
-        new_params = agg_fn(params, _zero_rows(wired, finite), w_c,
-                            cfg.client.upload)
-        commit = arr_c * finite
+        norms = state.get("norms")
+        part, weights, cohort_ids = prog.select(norms, n_samples, t, scores)
+        ids = cohort_ids.to(n_samples.device)
+        cohort_res = (gather(state["residuals"], ids) if cfg.error_feedback
+                      else None)
+        cohort_drift = gather(state.get("drift"), ids)
+        new_params, new_rows, drift_rows, commit, norm_upd, metrics = \
+            prog.body(params, cohort_res, cohort_drift,
+                      [x.index_select(0, ids) for x in client_batches],
+                      cohort_ids, part, weights, norms,
+                      gather(mask_scores, ids), drop_scores)
         out = {"residuals": state["residuals"]}
         if cfg.error_feedback:
-            out["residuals"] = scatter(state["residuals"], cohort_ids,
-                                       _residual_update(
-                                           cfg, c["cohort_res"],
-                                           c["new_res"], uploads, wired,
-                                           commit))
+            out["residuals"] = scatter(state["residuals"], ids, _commit_rows(
+                cohort_res, new_rows, commit))
         if uses_drift:
-            out["drift"] = scatter(state["drift"], cohort_ids, _commit_rows(
-                c["cohort_drift"], c["new_drift"], commit))
-        if smp.adaptive:
-            norms = state["norms"]
-            out["norms"] = norms.index_copy(0, cohort_ids, _norm_ema(
-                smp, norms.index_select(0, cohort_ids), _row_l2(wired),
-                commit))
-        return new_params, out, _general_metrics(
-            c["losses"], valid, c["part"], c["arrived"],
-            (arr_c * (1.0 - finite)).sum(), hetero is not None)
+            out["drift"] = scatter(state["drift"], ids, _commit_rows(
+                cohort_drift, drift_rows, commit))
+        if prog.adaptive:
+            out["norms"] = norms.index_copy(0, ids, norm_upd)
+        return new_params, out, metrics
 
     return round_fn

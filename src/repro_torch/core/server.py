@@ -15,9 +15,19 @@ kernels, the kernel library's ``nvcc`` build or load) is timed apart as
 ``RoundRecord.compile_s`` on the round that first needs it, outside
 ``wall_s``.
 
-Per-client server state lives in a :class:`DenseStore`: the error-feedback
-residuals, FedDyn's drift tree when the objective uses drift, and the
-adaptive samplers' norm EMA (ones at start).  A strategy with a
+Per-client server state lives in a
+:class:`~repro_torch.core.client_store.ClientStateStore`: the error-feedback
+residuals, FedDyn's drift tree when the objective uses drift, the adaptive
+samplers' norm EMA (ones at start) and the model versions.  The default
+:class:`DenseStore` holds all M rows and the rounds read and write it
+whole; a :class:`ShardedStore` (``store=``) holds rows only inside its
+retention window, and the server then runs the store form of the round
+(``FederatedServer._store_round``): selection on the CPU, a gather of
+the cohort's rows, the cohort-shaped body, ``mark_dispatched`` for the
+participants, the commit-gated scatter and the norm update, so no ``(M,
+…)`` stack is ever built.  On a sharded store ``run`` also takes a batch
+provider, ``client_batches(ids) -> (xs, ys)``, in place of the stacked
+batches.  A strategy with a
 :class:`~repro_torch.core.hetero.HeteroModel` fleet adds in-round upload
 dropout and the host-side round clock: ``RoundRecord.sim_round_s``
 (straggler wall-clock on the simulated fleet), ``straggler_s`` and
@@ -38,6 +48,12 @@ from a caller's ``mask_scores(t, M)`` callable.
 
 Transport is metered by the strategy's codec: ``RoundRecord.transport_bytes``
 counts the EXACT wire bytes of every upload.
+
+``save_state`` / ``restore_state`` round-trip the whole training state
+(parameters, the store's state, the three generators' states) through
+``repro_torch.checkpoint`` with the round counter in the manifest, and a
+restored server's ``run`` resumes bit-identically to the run that wrote
+it.
 """
 
 from __future__ import annotations
@@ -50,7 +66,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.client import local_update_flops
-from repro_torch.core.client_store import DenseStore
+from repro_torch.core.client_store import ClientStateStore, DenseStore
 from repro_torch.core.compression import pytree_num_params
 from repro_torch.core.hetero import simulate_round
 from repro_torch.device import resolve_device
@@ -89,7 +105,8 @@ class FederatedServer:
                  seed: int = 0, engine: str = "cohort", device=None,
                  scores: Optional[Callable[[int, int], Any]] = None,
                  mask_scores: Optional[Callable[[int, int], Any]] = None,
-                 drop_scores: Optional[Callable[[int, int], Any]] = None):
+                 drop_scores: Optional[Callable[[int, int], Any]] = None,
+                 store: Optional[ClientStateStore] = None):
         """See :meth:`from_strategy`."""
         if engine not in ("cohort", "full"):
             raise ValueError(f"unknown engine {engine!r} (the port runs "
@@ -103,9 +120,13 @@ class FederatedServer:
         self.params = {k: v.to(self.device) for k, v in init_params.items()}
         self._adaptive = strategy.sampler.adaptive
         self._uses_drift = self.cfg.client.objective.uses_drift
-        self.store = DenseStore(
-            num_clients, self.params, track_norms=self._adaptive,
-            extra_trees={"drift": self.params} if self._uses_drift else None)
+        if store is None:
+            store = DenseStore(
+                num_clients, self.params, track_norms=self._adaptive,
+                extra_trees=({"drift": self.params} if self._uses_drift
+                             else None))
+        self._check_store(store, num_clients)
+        self.store = store
         self._traits = (strategy.hetero.client_traits(num_clients)
                         if strategy.hetero is not None else None)
         self._loss_fn = loss_fn
@@ -122,11 +143,38 @@ class FederatedServer:
         self._mask_generator = (
             torch.Generator(device=self.device).manual_seed(seed + 1)
             if self._mask_leaves else None)
-        self._rounds: Dict[int, Callable] = {}
+        self._rounds: Dict[tuple, Any] = {}
         self._round = 0
         self.history: List[RoundRecord] = []
         self._num_params = pytree_num_params(self.params)
         self.client_upload_bytes = strategy.codec.wire_bytes(self.params)
+
+    def _check_store(self, store: ClientStateStore, num_clients: int) -> None:
+        """A caller's store must fit the population, the strategy's state
+        and the engine, and live on the server's device."""
+        name = self.strategy.name
+        if store.num_clients != num_clients:
+            raise ValueError(
+                f"store was built for {store.num_clients} clients but the "
+                f"server registers {num_clients}")
+        if self._adaptive and store.norms is None:
+            raise ValueError(
+                f"strategy {name!r} uses an adaptive sampler; build the "
+                "store with track_norms=True")
+        if self._uses_drift and "drift" not in store.trees:
+            raise ValueError(
+                f"strategy {name!r} carries FedDyn drift state; build the "
+                "store with extra_trees={'drift': init_params}")
+        if self.engine == "full" and store.kind != "dense":
+            raise ValueError(
+                "engine='full' materializes every client's state per round "
+                f"— incompatible with a {store.kind!r} store; use "
+                "engine='cohort'")
+        here, there = self.device, store.device
+        if here.type != there.type or None not in (here.index, there.index) \
+                and here.index != there.index:
+            raise ValueError(f"the store lives on {there}, the server on "
+                             f"{here}")
 
     @classmethod
     def from_strategy(cls, strategy, loss_fn: Callable, init_params: Tree,
@@ -134,7 +182,8 @@ class FederatedServer:
                       seed: int = 0, engine: str = "cohort", *, device=None,
                       scores: Optional[Callable[[int, int], Any]] = None,
                       mask_scores: Optional[Callable[[int, int], Any]] = None,
-                      drop_scores: Optional[Callable[[int, int], Any]] = None
+                      drop_scores: Optional[Callable[[int, int], Any]] = None,
+                      store: Optional[ClientStateStore] = None
                       ) -> "FederatedServer":
         """Build a server from one strategy record.  ``device``: ``cuda``
         unless named (raises without a card).  ``scores(t, M)``, when given,
@@ -143,26 +192,33 @@ class FederatedServer:
         mask scores, ``{leaf: (M, *shape)}`` for every maskable leaf, instead
         of the server's device generator (random masking only);
         ``drop_scores(t, M)`` supplies round t's (M,) uniform upload-loss
-        draws (hetero fleets only)."""
+        draws (hetero fleets only).  ``store`` is the client-state backend
+        (``repro_torch.core.client_store``), on the server's device; None
+        builds a :class:`DenseStore`."""
         return cls(strategy, loss_fn, init_params, num_clients,
                    eval_fn=eval_fn, seed=seed, engine=engine, device=device,
                    scores=scores, mask_scores=mask_scores,
-                   drop_scores=drop_scores)
+                   drop_scores=drop_scores, store=store)
 
-    def _round_fn(self, bucket: int) -> tuple:
-        """The (cached) round for one cohort bucket and the seconds spent
-        building it: on the bucket's first use, the round's construction
-        and, on a CUDA device when the round launches kernels, the kernel
-        library's ``nvcc`` build or load (cached for the process after its
-        first use); 0.0 for a bucket already built.  The counterpart of the reference's
-        ``_get_compiled``.  A build failure raises."""
-        fn = self._rounds.get(bucket)
+    def _round_fn(self, bucket: int, form: str = "dense") -> tuple:
+        """The (cached) round of one form for one cohort bucket and the
+        seconds spent building it: on the first use, the round's
+        construction and, on a CUDA device when the round launches kernels,
+        the kernel library's ``nvcc`` build or load (cached for the process
+        after its first use); 0.0 for a round already built.  ``form`` is
+        ``"dense"`` (the oracle when the bucket is the whole population,
+        else the cohort round) or ``"store"``.  The counterpart of the
+        reference's ``_get_compiled``.  A build failure raises."""
+        fn = self._rounds.get((form, bucket))
         if fn is not None:
             return fn, 0.0
         from repro_torch.core.strategy import build_round, launches_kernels
         t0 = time.perf_counter()
         M = self.cfg.num_clients
-        if bucket >= M:
+        if form == "store":
+            fn = build_round(self.strategy, self._loss_fn, M, form="store",
+                             cohort_size=bucket)
+        elif bucket >= M:
             fn = build_round(self.strategy, self._loss_fn, M, form="full")
         else:
             fn = build_round(self.strategy, self._loss_fn, M,
@@ -170,7 +226,7 @@ class FederatedServer:
         if self.device.type == "cuda" and launches_kernels(self.strategy):
             from repro_torch.kernels.build import library
             library()
-        self._rounds[bucket] = fn
+        self._rounds[(form, bucket)] = fn
         return fn, time.perf_counter() - t0
 
     def _uniforms(self, t: int, given, generator, what: str
@@ -188,8 +244,8 @@ class FederatedServer:
         return scores
 
     def _state(self) -> Dict[str, Any]:
-        """The per-client state a round reads: every stacked tree of the
-        store, and the norm EMA for an adaptive sampler."""
+        """The per-client state a dense round reads: every stacked tree of
+        the store, and the norm EMA for an adaptive sampler."""
         state: Dict[str, Any] = {name: self.store.dense_view(name)
                                  for name in self.store.trees}
         if self._adaptive:
@@ -228,28 +284,75 @@ class FederatedServer:
             out[k] = out[k].reshape((M,) + shape)
         return out
 
+    def _cohort_mask_scores(self, t: int, ids: torch.Tensor
+                            ) -> Optional[Tree]:
+        """The cohort's rows of round t's random-mask scores.  The draw is
+        the whole ``(M, *shape)`` tensor of every maskable leaf, as the
+        dense rounds draw it, so each client masks with the entries it
+        would get there; a draw the allocator refuses raises, naming its
+        size."""
+        if not self._mask_leaves:
+            return None
+        try:
+            return {k: v.index_select(0, ids)
+                    for k, v in self.round_mask_scores(t).items()}
+        except (torch.OutOfMemoryError, MemoryError, RuntimeError) as e:
+            if type(e) is RuntimeError and "allocate memory" not in str(e):
+                raise
+            M = self.cfg.num_clients
+            entries = sum(int(np.prod(s))
+                          for s in self._mask_leaves.values())
+            raise ValueError(
+                f"random masking draws round {t}'s mask scores as one (M, "
+                f"*shape) fp32 tensor a maskable leaf: {M} clients x "
+                f"{entries} entries = {4 * M * entries} bytes, which "
+                f"{self.device} could not allocate; the store form takes "
+                "the cohort's rows of that draw so each client masks as in "
+                "the dense rounds") from e
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def run(self, client_batches: Sequence[Any], n_samples, rounds: int,
+    def _to_device(self, batches: Sequence[Any]) -> List[torch.Tensor]:
+        return [torch.as_tensor(np.asarray(x) if not isinstance(
+            x, torch.Tensor) else x).to(self.device) for x in batches]
+
+    def run(self, client_batches, n_samples, rounds: int,
             eval_every: int = 0, eval_data: Any = None) -> List[RoundRecord]:
         """Run ``rounds`` communication rounds, appending to ``history``.
 
         ``client_batches``: arrays with leading (num_clients, num_batches,
-        B, ...) axes (e.g. ``(xs, ys)``); ``n_samples``: (num_clients,)
-        dataset sizes; ``eval_every``: evaluate ``eval_fn(params,
-        eval_data)`` every that many rounds and on the last.
+        B, ...) axes (e.g. ``(xs, ys)``), or, on a sharded store only, a
+        provider ``client_batches(ids) -> (xs, ys)`` with leading
+        ``(len(ids), num_batches, B, ...)`` axes, so the (M, …) batch stack
+        never has to exist either; ``n_samples``: (num_clients,) dataset
+        sizes; ``eval_every``: evaluate ``eval_fn(params, eval_data)``
+        every that many rounds and on the last.  Rounds are numbered from
+        the server's round counter, so a restored server continues where
+        its checkpoint left off.
         """
         masking = self.cfg.client.masking
         gamma = masking.gamma if masking.mode != "none" else 1.0
-        batches = [torch.as_tensor(np.asarray(x)).to(self.device)
-                   for x in client_batches]
+        provider = client_batches if callable(client_batches) else None
+        if provider is not None:
+            if self.store.kind == "dense":
+                raise ValueError(
+                    "a client_batches provider callable requires a sharded "
+                    "store (the dense rounds take the full batch stack)")
+            batches = None
+            probe = self._to_device(provider(np.zeros((1,), np.int64)))
+        else:
+            batches = probe = self._to_device(client_batches)
+        flops = float(local_update_flops(probe, self._num_params,
+                                         self.cfg.client))
         n_samples = torch.as_tensor(np.asarray(n_samples),
-                                    dtype=torch.float32).to(self.device)
-        flops_per_client = local_update_flops(batches, self._num_params,
-                                              self.cfg.client)
+                                    dtype=torch.float32)
         M = self.cfg.num_clients
+        if self.store.kind == "dense":
+            step, n_samples = self._dense_round, n_samples.to(self.device)
+        else:
+            step = self._store_round
         start = self._round
         last = start + rounds
         for t in range(start + 1, last + 1):
@@ -261,16 +364,8 @@ class FederatedServer:
             m = self.schedule.num_clients_host(t, M)
             bucket = self.strategy.sampler.cohort_bucket(self.schedule, m, M)
             bucket = bucket if self.engine == "cohort" else M
-            round_fn, compile_s = self._round_fn(bucket)
-            self._sync()
-            t0 = time.perf_counter()
-            mask_scores = self.round_mask_scores(t)
-            self.params, state, metrics = round_fn(
-                self.params, self._state(), batches, n_samples, t, scores,
-                mask_scores, drop_scores)
-            self._commit_state(state)
-            self._sync()
-            wall = time.perf_counter() - t0
+            metrics, wall, compile_s = step(
+                t, bucket, batches, provider, n_samples, scores, drop_scores)
             num_sampled = int(metrics["num_sampled"])
             rec = RoundRecord(
                 round=t, num_sampled=num_sampled,
@@ -278,13 +373,13 @@ class FederatedServer:
                 transport_units=num_sampled * gamma,
                 transport_bytes=num_sampled * self.client_upload_bytes,
                 wall_s=wall, compile_s=compile_s, cohort_size=bucket,
-                flop_proxy=float(flops_per_client) * bucket,
+                flop_proxy=flops * bucket,
                 quarantined=int(metrics["quarantined"]))
             if self._traits is not None:
                 sim = simulate_round(
                     self._traits, metrics["part_mask"].cpu().numpy(),
-                    metrics["arrived_mask"].cpu().numpy(),
-                    float(flops_per_client), self.client_upload_bytes)
+                    metrics["arrived_mask"].cpu().numpy(), flops,
+                    self.client_upload_bytes)
                 rec.sim_round_s = sim["sim_round_s"]
                 rec.straggler_s = sim["straggler_s"]
                 rec.dropped = sim["dropped"]
@@ -294,6 +389,109 @@ class FederatedServer:
             self.history.append(rec)
             self._round = t
         return self.history
+
+    def _dense_round(self, t, bucket, batches, provider, n_samples, scores,
+                     drop_scores):
+        """One round on the dense store: ``(metrics, wall_s, compile_s)``."""
+        round_fn, compile_s = self._round_fn(bucket)
+        self._sync()
+        t0 = time.perf_counter()
+        self.params, state, metrics = round_fn(
+            self.params, self._state(), batches, n_samples, t, scores,
+            self.round_mask_scores(t), drop_scores)
+        self._commit_state(state)
+        self._sync()
+        return metrics, time.perf_counter() - t0, compile_s
+
+    def _store_round(self, t, bucket, batches, provider, n_samples, scores,
+                     drop_scores):
+        """One round of the store form (a sharded store): selection on the
+        CPU, the cohort's state rows from the store, the body, the versions
+        of the participants, the commit-gated scatter and the norm update.
+        ``(metrics, wall_s, compile_s)``."""
+        prog, compile_s = self._round_fn(bucket, "store")
+        store = self.store
+        self._sync()
+        t0 = time.perf_counter()
+        norms = store.norms if prog.adaptive else None
+        part, weights, cohort_ids = prog.select(norms, n_samples, t, scores)
+        ids_np = cohort_ids.numpy()
+        ids = cohort_ids.to(self.device)
+        cohort_res = store.gather(ids_np) if prog.error_feedback else None
+        cohort_drift = (store.gather(ids_np, tree="drift")
+                        if prog.uses_drift else None)
+        cohort_batches = (self._to_device(provider(ids_np))
+                          if provider is not None
+                          else [x.index_select(0, ids) for x in batches])
+        self.params, new_rows, drift_rows, commit, norm_upd, metrics = \
+            prog.body(self.params, cohort_res, cohort_drift, cohort_batches,
+                      cohort_ids, part, weights, norms,
+                      self._cohort_mask_scores(t, ids), drop_scores)
+        # Θ_t went out to the participants: the versions staleness reads.
+        store.mark_dispatched(ids_np[part.numpy()[ids_np] > 0], t)
+        commit_np = commit.cpu().numpy()
+        if prog.error_feedback:
+            store.scatter(ids_np, new_rows, commit_np, t)
+        if prog.uses_drift:
+            store.scatter(ids_np, drift_rows, commit_np, t, tree="drift")
+        if prog.adaptive:
+            store.update_norms(ids_np, norm_upd)
+        self._sync()
+        return metrics, time.perf_counter() - t0, compile_s
+
+    # ---- checkpoint / resume ------------------------------------------------
+    def state(self) -> Dict[str, Any]:
+        """The whole resumable training state as one tree: the states of
+        the server's generators under ``rng`` (``participants``, seed;
+        ``drop``, seed + 2; ``mask``, seed + 1, under random masking), the
+        global ``params``, and the store's state under the reference's
+        keys.  The round counter goes in the checkpoint's manifest."""
+        rng = {"participants": self._generator.get_state(),
+               "drop": self._drop_generator.get_state()}
+        if self._mask_generator is not None:
+            rng["mask"] = self._mask_generator.get_state()
+        return {"rng": rng, "params": self.params, **self.store.state()}
+
+    def save_state(self, ckpt_dir: str) -> str:
+        """Checkpoint :meth:`state` at the current round (atomically); the
+        manifest's ``extra`` holds ``round``, ``num_clients`` and ``store``
+        (the backend's kind).  Returns the step's directory."""
+        from repro_torch.checkpoint import save_checkpoint
+        return save_checkpoint(ckpt_dir, self._round, self.state(),
+                               extra={"round": self._round,
+                                      "num_clients": self.cfg.num_clients,
+                                      "store": self.store.kind})
+
+    def restore_state(self, ckpt_dir: str, step: Optional[int] = None) -> int:
+        """Restore :meth:`state` from ``ckpt_dir`` (the latest step unless
+        given) and continue the round numbering from it; the next ``run``
+        resumes bit-identically to the run that wrote it.  A checkpoint of
+        another population size or store kind, or of another structure or
+        shape, raises before anything is assigned.  Returns the step."""
+        from repro_torch.checkpoint import read_manifest, restore_checkpoint
+        extra = read_manifest(ckpt_dir, step).get("extra", {})
+        ckpt_m = extra.get("num_clients")
+        if ckpt_m is not None and int(ckpt_m) != self.cfg.num_clients:
+            raise ValueError(
+                f"checkpoint was written for num_clients={int(ckpt_m)} but "
+                f"this server registers num_clients={self.cfg.num_clients}")
+        ckpt_store = extra.get("store")
+        if ckpt_store is not None and ckpt_store != self.store.kind:
+            raise ValueError(
+                f"checkpoint holds a {ckpt_store!r} store but this server "
+                f"owns a {self.store.kind!r} store")
+        restored, step, extra = restore_checkpoint(ckpt_dir, self.state(),
+                                                   step)
+        rng = restored.pop("rng")
+        params = restored.pop("params")
+        self.store.load_state(restored)
+        self._generator.set_state(rng["participants"])
+        self._drop_generator.set_state(rng["drop"])
+        if self._mask_generator is not None:
+            self._mask_generator.set_state(rng["mask"])
+        self.params = params
+        self._round = int(extra.get("round", step))
+        return step
 
     def total_transport_units(self) -> float:
         """Cumulative client uploads in full-model units (Eq. 6 basis)."""

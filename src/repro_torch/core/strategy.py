@@ -6,7 +6,8 @@ schedule, the :class:`MaskPolicy`, the wire codec, the :class:`Aggregator`,
 the client sampler (uniform / importance / threshold), an optional
 :class:`~repro_torch.core.hetero.HeteroModel` fleet and the local
 objective, plus the client hyperparameters.  ``build_round`` turns it into
-the oracle (``form="full"``) or cohort (``form="cohort"``) round;
+the oracle (``form="full"``), cohort (``form="cohort"``) or store
+(``form="store"``) round;
 ``FederatedServer.from_strategy`` runs it end to end.  The registry holds
 the paper presets ``dense-baseline``, ``fig3``, ``fig4`` and ``fig5``, the
 wire presets ``fig5-int8``, ``fig5-fused``, ``fig5-fused-int8`` and
@@ -29,7 +30,8 @@ from repro_torch.core.codecs import (BitmapCodec, ChainCodec,
                                      Int8Codec, SparseCodec, UploadCodec)
 from repro_torch.core.federated import (FederatedConfig, fedavg_aggregate,
                                         make_cohort_round,
-                                        make_federated_round)
+                                        make_federated_round,
+                                        make_store_round)
 from repro_torch.core.hetero import HeteroModel
 from repro_torch.core.masking import MaskingConfig
 from repro_torch.core.objectives import LocalObjective
@@ -79,6 +81,14 @@ class MaskPolicy:
                   **kw) -> "MaskPolicy":
         """Keep the top-``gamma`` fraction by magnitude (paper Alg. 4)."""
         return cls(mode="selective", gamma=gamma, backend=backend, **kw)
+
+    @classmethod
+    def from_masking_config(cls, cfg: MaskingConfig) -> "MaskPolicy":
+        """Lift a client-side :class:`MaskingConfig` into a policy."""
+        return cls(mode=cfg.mode, gamma=cfg.gamma,
+                   backend="kernel" if cfg.use_kernel else "jnp",
+                   min_leaf_size=cfg.min_leaf_size,
+                   bisect_iters=cfg.bisect_iters)
 
     def masking_config(self) -> MaskingConfig:
         """Lower the policy to the client-side :class:`MaskingConfig`."""
@@ -205,11 +215,14 @@ class FedStrategy:
 
     @classmethod
     def from_components(cls, name: str, sampling: SamplingSchedule,
-                        masking: MaskPolicy | None = None,
+                        masking: MaskingConfig | MaskPolicy | None = None,
                         **overrides) -> "FedStrategy":
-        """Build a strategy from (schedule, mask policy), deriving the
-        matching codec."""
-        masking = masking if masking is not None else MaskPolicy.none()
+        """Build a strategy from (schedule, mask policy or client-side
+        :class:`MaskingConfig`), deriving the matching codec."""
+        if masking is None:
+            masking = MaskPolicy.none()
+        elif isinstance(masking, MaskingConfig):
+            masking = MaskPolicy.from_masking_config(masking)
         overrides.setdefault("codec", default_codec(masking))
         return cls(name=name, sampling=sampling, masking=masking, **overrides)
 
@@ -217,21 +230,26 @@ class FedStrategy:
 def build_round(strategy: FedStrategy, loss_fn: Callable, num_clients: int,
                 form: str = "full", cohort_size: int | None = None):
     """Build the round a strategy describes: ``form="full"`` (every client
-    runs) or ``form="cohort"`` (a bucketed cohort of ``cohort_size``).  The
-    reference's ``scan`` and ``store`` forms are XLA dispatch and
-    store-boundary machinery the eager port does not need yet."""
-    if form not in ("full", "cohort"):
+    runs), ``form="cohort"`` (a bucketed cohort of ``cohort_size``) or
+    ``form="store"`` (the cohort round split at the client-state store
+    boundary: a :class:`~repro_torch.core.federated.StoreRound`)."""
+    if form == "scan":
+        raise ValueError(
+            "form='scan' (the reference's rounds folded into one lax.scan "
+            "program) has no port yet: its counterpart, a CUDA graph of a "
+            "bucket's round replayed, is queued in ROADMAP Queue 1 step D")
+    if form not in ("full", "cohort", "store"):
         raise ValueError(f"unknown round form {form!r} (the port builds "
-                         "'full' and 'cohort')")
+                         "'full', 'cohort' and 'store')")
     cfg = strategy.federated_config(num_clients)
     kw = dict(codec=strategy.codec, aggregator=strategy.aggregator,
               sampler=strategy.sampler, hetero=strategy.hetero)
     if form == "full":
         return make_federated_round(loss_fn, strategy.sampling, cfg, **kw)
     if cohort_size is None:
-        raise ValueError("form='cohort' requires cohort_size")
-    return make_cohort_round(loss_fn, strategy.sampling, cfg, cohort_size,
-                             **kw)
+        raise ValueError(f"form={form!r} requires cohort_size")
+    make = make_cohort_round if form == "cohort" else make_store_round
+    return make(loss_fn, strategy.sampling, cfg, cohort_size, **kw)
 
 
 def launches_kernels(strategy: FedStrategy) -> bool:

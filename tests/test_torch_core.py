@@ -448,7 +448,7 @@ def test_dense_store_trees_and_norms_match_the_reference():
                 for k, v in tmpl.items()}
         want.scatter(ids, {k: jnp.asarray(v) for k, v in rows.items()},
                      commit, 1, tree=tree)
-        got.scatter(ids, {k: _t(v) for k, v in rows.items()}, commit,
+        got.scatter(ids, {k: _t(v) for k, v in rows.items()}, commit, 1,
                     tree=tree)
         for k in tmpl:
             np.testing.assert_array_equal(got.dense_view(tree)[k].numpy(),

@@ -2,8 +2,10 @@
 plain PyTorch version, ``ops.topk_mask`` on the card against the same
 pipeline on the CPU, the fig5 and fig5-fused-int8 rounds (LeNet) and
 the random-mask round (GRU-LM) on the card against the same rounds on the
-CPU, and the reduced rwkv6 and hymba serving paths on the card (wkv6 and
-ssm_scan kernels) against the same paths on the CPU (plain versions).  They skip without a card.  This file
+CPU, the reduced rwkv6 and hymba serving paths on the card (wkv6 and
+ssm_scan kernels) against the same paths on the CPU (plain versions), and
+the sharded client-state store's gather and scatter on the card against
+the CPU's.  They skip without a card.  This file
 imports no JAX, so on a machine without it run it alone:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -661,3 +663,43 @@ def test_reduced_serving_on_card_matches_cpu(cuda, arch):
     assert sum(counts.launch_counts().values()) == 0
     gen_cpu = serve.generate(cfg, params, toks[:, :40], 8, 49)
     assert torch.equal(gen_card.cpu(), gen_cpu)
+
+
+def _store_script(store, device):
+    """One sequence of commit-masked scatters over two trees that fills a
+    4-slot window and evicts, then every client's rows gathered."""
+    gen = torch.Generator().manual_seed(7)
+    script = [(1, [1, 4, 6], [1.0, 0.0, 1.0]), (2, [2, 3, 6], [1.0] * 3),
+              (3, [5, 7], [1.0, 1.0]), (4, [0, 1, 8, 9], [1.0, 1.0, 1.0, 0.0])]
+    for rnd, ids, commit in script:
+        for tree in ("residuals", "drift"):
+            rows = {"w": torch.randn((len(ids), 300), generator=gen),
+                    "b": torch.randn((len(ids),), generator=gen)}
+            store.scatter(ids, {k: v.to(device) for k, v in rows.items()},
+                          torch.tensor(commit, device=device), rnd, tree=tree)
+    return {tree: store.gather(list(range(10)), tree)
+            for tree in ("residuals", "drift")}
+
+
+def test_sharded_store_on_card_matches_cpu(cuda):
+    """Gather, commit-masked scatter, eviction and the fresh slots' zeroing
+    on the card against the same sequence on the CPU: pools, gathered rows
+    and the slot directory exact."""
+    from repro_torch.core.client_store import ShardedStore
+    stores, rows = {}, {}
+    for device in ("cuda", "cpu"):
+        template = {"w": torch.zeros(300, device=device),
+                    "b": torch.zeros((), device=device)}
+        stores[device] = ShardedStore(10, template, 4,
+                                      extra_trees={"drift": template})
+        rows[device] = _store_script(stores[device], device)
+    gpu, cpu = stores["cuda"], stores["cpu"]
+    assert gpu.slots["w"].device.type == "cuda"
+    assert gpu.evictions == cpu.evictions > 0
+    assert (gpu._slot_ids == cpu._slot_ids).all()
+    assert (gpu._slot_round == cpu._slot_round).all()
+    for tree in ("residuals", "drift"):
+        for k, v in rows["cpu"][tree].items():
+            assert torch.equal(rows["cuda"][tree][k].cpu(), v), (tree, k)
+        for k, v in cpu._pools[tree].items():
+            assert torch.equal(gpu._pools[tree][k].cpu(), v), (tree, k)
