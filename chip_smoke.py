@@ -210,6 +210,13 @@ STORE_BATCHES = 2                 # local batches a client
 STORE_ROUNDS, STORE_SAVE_AFTER, STORE_SMALL_ROUNDS = 8, 4, 6
 STORE_COST_ROUNDS = 3             # timed with and without deterministic cuDNN
 STORE_STRESS_CLIENTS = 512        # kernels 1-5 on a 512-client VGG cohort
+# The async engine: full-width VGG at M = 32 for 8 rounds, LeNet-28 for
+# the keystone, resume (4 + 4 rounds) and card-vs-CPU runs, and the
+# cross-round store at M = 1,024 (6 rounds; the evicting window holds
+# more than a round's commits, which the store requires).
+ASYNC_ROUNDS, ASYNC_KEYSTONE_ROUNDS, ASYNC_SMALL_ROUNDS = 8, 4, 6
+ASYNC_STORE_M, ASYNC_STORE_ROUNDS, ASYNC_EVICT_RETENTION = 1024, 6, 768
+RANDOM_STORE_ROUNDS = 3           # random masking on the store path
 # The LeNet main path's seed-0 data, pinned on the CPU against the
 # reference's arrays (tests/test_torch_checkpoint.py), and the seed-0
 # init_lenet() leaves as torch's CPU generator gives them there.
@@ -608,10 +615,12 @@ def adaptive_strategy(name: str):
 
 
 def lenet_server(st, M: int, image_size: int, num_train: int, batch: int,
-                 device: str, partition: str = "iid"):
+                 device: str, partition: str = "iid", make_store=None,
+                 **server_kw):
     """A server for strategy ``st`` (LeNet at ``image_size``) over M
     clients' synthetic shards (IID, or Dirichlet(0.5) label skew), with its
-    batches, sizes and test set."""
+    batches, sizes and test set; ``make_store(params)`` builds its store,
+    and ``server_kw`` (engine, seed, draws) go to ``from_strategy``."""
     from repro_torch.core.server import FederatedServer
     from repro_torch.data.partition import (dirichlet_partition_images,
                                             iid_partition_images)
@@ -630,10 +639,12 @@ def lenet_server(st, M: int, image_size: int, num_train: int, batch: int,
                            image_size=image_size, device=device)
     eval_data = (torch.as_tensor(ds.test_x).to(device),
                  torch.as_tensor(ds.test_y).to(device))
+    server_kw.setdefault("seed", 0)
     server = FederatedServer.from_strategy(
         st, pm.classifier_loss(pm.lenet_forward), params, M,
-        eval_fn=pm.classifier_accuracy(pm.lenet_forward), seed=0,
-        device=device)
+        eval_fn=pm.classifier_accuracy(pm.lenet_forward), device=device,
+        store=make_store(params) if make_store is not None else None,
+        **server_kw)
     return server, (xs, ys), ns, eval_data
 
 
@@ -1571,12 +1582,15 @@ def store_strategy(M: int, cohort: int, min_clients: int):
         masking=strategy.MaskPolicy.selective(0.5, backend="kernel"))
 
 
-def store_setup(device: str, full: bool = True):
+def store_setup(device: str, full: bool = True, masking=None,
+                kind: str = "sharded"):
     """A VGG server on a ``ShardedStore`` with a batch provider over a pool
     of synthetic shards on ``device`` (client i serves shard i mod pool):
     full width at M = 100,000 with a window of 1024, or the small VGG at
-    M = 64 with a window of 16.  Returns ``(server, provider, n_samples,
-    eval_data)``."""
+    M = 64 with a window of 16 (or, with ``kind="dense"``, on the dense
+    store with the stacked batches).  ``masking`` replaces the store
+    path's kernel top-k.  Returns ``(server, provider or batches,
+    n_samples, eval_data)``."""
     import numpy as np
     import torch
     from repro_torch.core.client_store import ShardedStore
@@ -1601,14 +1615,19 @@ def store_setup(device: str, full: bool = True):
 
     params = pm.init_vgg(torch.Generator().manual_seed(0), size, 3,
                          widths=widths, device=device)
+    st = store_strategy(M, cohort, min_clients)
+    if masking is not None:
+        st = st.with_masking(masking)
+    store = (ShardedStore(M, params, retention, track_norms=True)
+             if kind == "sharded" else None)
     server = FederatedServer.from_strategy(
-        store_strategy(M, cohort, min_clients),
-        pm.classifier_loss(pm.vgg_forward),
+        st, pm.classifier_loss(pm.vgg_forward),
         params, M, eval_fn=pm.classifier_accuracy(pm.vgg_forward), seed=0,
-        device=device,
-        store=ShardedStore(M, params, retention, track_norms=True))
+        device=device, store=store)
     eval_data = (torch.as_tensor(ds.test_x).to(device),
                  torch.as_tensor(ds.test_y).to(device))
+    if kind == "dense":
+        provider = provider(np.arange(M))
     return server, provider, np.full((M,), int(ns[0])), eval_data
 
 
@@ -1925,6 +1944,473 @@ def small_store_agreement() -> dict:
         fail(f"small store run: card and CPU disagree: {errs}")
     check_finite("small store run", gpu)
     return errs
+
+
+# ---------------------------------------------------------------------------
+# The async engine and random masking on the store
+# ---------------------------------------------------------------------------
+def kernel_masking(st):
+    """``st`` with fig5's masking: selective top-k (gamma 0.5) on the
+    kernels, the COO wire."""
+    from repro_torch.core import strategy
+    return st.with_masking(strategy.MaskPolicy.selective(0.5,
+                                                         backend="kernel"))
+
+
+def record_async_stats(server) -> list:
+    """Every async round's host stats (``AsyncRoundRunner.run_round``'s
+    ``stats``: K, sends, deadline, expiries), appended to the list
+    returned."""
+    log = []
+    runner = server._async
+    inner = runner.run_round
+
+    def run_round(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        log.append(out[-1])
+        return out
+
+    runner.run_round = run_round
+    return log
+
+
+def async_params_finite(server) -> bool:
+    import torch
+    return all(bool(torch.isfinite(v).all()) for v in server.params.values())
+
+
+def run_async_path() -> dict:
+    """``async_path``: full-width VGG, M = 32, 8 rounds on
+    ``async-mobile``'s schedule, fleet and ``AsyncConfig`` with fig5's
+    kernel masking, one round at a time; the launch counts are set to 0
+    just before the rounds and read after each."""
+    import torch
+    from repro_torch.core import strategy
+    from repro_torch.core.server import FederatedServer
+    from repro_torch.kernels import segmented as seg
+    batches, ns, evald, init, loss_fn, eval_fn, M = model_setup("vgg")
+    batches = [torch.as_tensor(a).cuda() for a in batches]
+    eval_data = tuple(torch.as_tensor(a).cuda() for a in evald)
+    st = kernel_masking(strategy.get("async-mobile"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    server = FederatedServer.from_strategy(
+        st, loss_fn, init("cuda"), M, eval_fn=eval_fn, seed=0,
+        engine="async")
+    if server._num_params != LM_PARAMS["vgg"]:
+        fail(f"async path VGG has {server._num_params} parameters")
+    stats = record_async_stats(server)
+    per_round = []
+    reset_all_counts()
+    t0 = time.perf_counter()
+    for t in range(1, ASYNC_ROUNDS + 1):
+        before = dict(seg.launch_counts())
+        server.run(batches, ns, 1, eval_every=int(t == ASYNC_ROUNDS),
+                   eval_data=eval_data)
+        after = seg.launch_counts()
+        per_round.append({k: after[k] - before.get(k, 0)
+                          for k in SEGMENTED[:3]})
+    wall = time.perf_counter() - t0
+    launches = seg.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = server.history
+    upload = server.client_upload_bytes
+    for rec, st_r, n in zip(hist, stats, per_round):
+        phase("async_round", round=rec.round,
+              m_t=ns_round(server, rec.round), bucket=rec.cohort_size,
+              K=st_r["buffer_size"], participants=rec.num_sampled,
+              sends=st_r["sends"], arrivals=rec.arrivals,
+              timeouts=rec.timeouts, retries=rec.retries,
+              dropped=rec.dropped, quarantined=rec.quarantined,
+              flushes=rec.flushes, mean_staleness=rec.mean_staleness,
+              transport_bytes=rec.transport_bytes,
+              sim_round_s=rec.sim_round_s, deadline_s=st_r["deadline_s"],
+              wall_s=rec.wall_s, compile_s=rec.compile_s,
+              mean_loss=rec.mean_loss, launches=n)
+    summ = server.summary()
+    walls = [r.wall_s for r in hist]
+    phase("async_path", model="vgg", params=server._num_params,
+          num_clients=M, rounds=len(hist), preset="async-mobile",
+          codec=summ["codec"], client_upload_bytes=upload,
+          transport_bytes=summ["transport_bytes"],
+          sends=sum(x["sends"] for x in stats),
+          arrivals=summ["arrivals"], timeouts=summ["timeouts"],
+          retries=summ["retries"], flushes=summ["flushes"],
+          mean_staleness=summ["mean_staleness"],
+          sim_total_s=summ["sim_total_s"], final_eval=summ["final_eval"],
+          launches=launches, steady_round_s_median=statistics.median(
+              walls[1:]), first_round_s=walls[0],
+          compile_s=[r.compile_s for r in hist],
+          max_memory_allocated=peak, run_wall_s=wall)
+    if upload != LM_PATHS["vgg-fig5"][2]:
+        fail(f"async path: {upload} bytes an upload")
+    for rec, st_r, n in zip(hist, stats, per_round):
+        if rec.transport_bytes != st_r["sends"] * upload:
+            fail(f"async path round {rec.round}: bytes {rec.transport_bytes}"
+                 f" != {st_r['sends']} sends x {upload}")
+        if n != MASK_PER_ROUND:
+            fail(f"async path round {rec.round}: launches {n}")
+    if not async_params_finite(server):
+        fail("async path: non-finite parameters")
+    return {"server": server, "batches": batches, "n_samples": ns,
+            "history": hist, "launches": launches, "peak": peak}
+
+
+def async_keystone() -> dict:
+    """``async_keystone``: the ideal fleet with ``AsyncConfig()`` on
+    LeNet-28, M = 32, 4 rounds, ``fig5`` with kernel masking and
+    ``fig3-importance``, both with error feedback: the async engine equals
+    the cohort engine bit for bit on the card."""
+    import torch
+    from repro_torch.core import strategy
+    from repro_torch.core.async_engine import AsyncConfig
+    from repro_torch.core.hetero import HeteroModel
+    ideal = HeteroModel(profile="ideal")
+    out = {}
+    for name in ("fig5", "fig3-importance"):
+        st = strategy.get(name, hetero=ideal, error_feedback=True,
+                          async_cfg=AsyncConfig())
+        if name == "fig5":
+            st = kernel_masking(st)
+        runs = []
+        with deterministic_cudnn():
+            for engine in ("cohort", "async"):
+                server, batches, ns, _ = lenet_server(
+                    st, MAIN_M, 28, MAIN_M * 8 * MAIN_BATCH, MAIN_BATCH,
+                    "cuda", engine=engine)
+                server.run(batches, ns, ASYNC_KEYSTONE_ROUNDS)
+                runs.append(server)
+        sync, buf = runs
+        rs, ra = sync.store.residuals_dense(), buf.store.residuals_dense()
+        exact = {
+            "params": all(torch.equal(v, buf.params[k])
+                          for k, v in sync.params.items()),
+            "residuals": all(torch.equal(v, ra[k]) for k, v in rs.items()),
+            "norms": sync.store.norms is None or torch.equal(
+                sync.store.norms, buf.store.norms),
+            "transport_bytes": sync.summary()["transport_bytes"]
+            == buf.summary()["transport_bytes"],
+            "num_sampled": [r.num_sampled for r in sync.history]
+            == [r.arrivals for r in buf.history]}
+        phase("async_keystone", preset=name, rounds=len(buf.history),
+              num_sampled=[r.num_sampled for r in buf.history],
+              flushes=[r.flushes for r in buf.history],
+              transport_bytes=buf.summary()["transport_bytes"], exact=exact)
+        if not all(exact.values()):
+            fail(f"async keystone {name}: async and cohort differ in {exact}")
+        out[name] = exact
+    return out
+
+
+def param_errs(a: dict, b: dict) -> tuple:
+    """``(largest entrywise difference, largest over leaves of that leaf's
+    largest difference relative to its largest magnitude)``, ``b`` the
+    reference."""
+    diffs = [(float((v.cpu() - b[k].cpu()).abs().max()),
+              float(b[k].cpu().abs().max())) for k, v in a.items()]
+    return (max(d for d, _ in diffs),
+            max(d / m if m > 0 else d for d, m in diffs))
+
+
+def host_copy(out: dict) -> dict:
+    """A copy on the host of a cohort sweep's output (``uploads``,
+    ``wired``, ``new_res``, ``new_drift``, ``losses``)."""
+    return {k: None if v is None else
+            {n: x.detach().cpu().clone() for n, x in v.items()}
+            if isinstance(v, dict) else v.detach().cpu().clone()
+            for k, v in out.items()}
+
+
+def tap_sweep(server, wrap) -> None:
+    """Run ``server``'s store-form rounds with their cohort sweep (the
+    store round's ``compute``) replaced by ``wrap(compute)``."""
+    import dataclasses
+    inner = server._round_fn
+
+    def round_fn(bucket, form="dense"):
+        prog, seconds = inner(bucket, form)
+        return dataclasses.replace(prog, compute=wrap(prog.compute)), seconds
+
+    server._round_fn = round_fn
+
+
+def small_async_agreement() -> dict:
+    """``small_async_agreement``: ``async-flaky`` with corrupt_rate 0.1,
+    LeNet-28, M = 32, 6 rounds, on the card (deterministic cuDNN) against
+    the CPU, both fed the same participant scores and event seeds, under
+    fig5's kernel masking and under random masking (gamma 0.5).
+
+    Each round is held alone.  Before it the CPU server takes the card's
+    parameters and store state, and in it the card's cohort sweep output
+    (local updates, masks, wire round trip, losses): the gate, the event
+    loop, the flushes, the aggregation and the commits then run on both
+    devices from the same inputs.  Every round's ledger must be exact, its
+    parameters within SMALL_RTOL (the largest difference, and each leaf's
+    largest difference relative to its largest magnitude), and no
+    quarantined row may reach Θ.  The CPU's own sweep of the round runs
+    too: its cohort's mean loss must be within SMALL_RTOL of the card's.
+    Its parameters are not compared: from one state, LeNet's local SGD
+    grows the devices' rounding differences to up to a third of a
+    client's largest update entry in one round, which moves kernel
+    masking's top-k and Θ by up to 1.1e-3 on an H100
+    (``tests/async_sweep_diag.py`` measures it)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import strategy
+    base = strategy.get("async-flaky")
+    chaos = base.replace(async_cfg=dataclasses.replace(base.async_cfg,
+                                                       corrupt_rate=0.1))
+    rng = np.random.default_rng(11)
+    draws = {t: rng.random(MAIN_M).astype(np.float32)
+             for t in range(1, ASYNC_SMALL_ROUNDS + 1)}
+    ledger = ("num_sampled", "arrivals", "timeouts", "retries", "dropped",
+              "quarantined", "flushes", "transport_bytes", "sim_round_s")
+    out = {}
+    for label, st in (("kernel", kernel_masking(chaos)),
+                      ("random", chaos.with_masking(
+                          strategy.MaskPolicy.random(0.5)))):
+        runs = []
+        for device in ("cuda", "cpu"):
+            server, batches, ns, _ = lenet_server(
+                st, MAIN_M, 28, MAIN_M * 8 * MAIN_BATCH, MAIN_BATCH, device,
+                engine="async", scores=lambda t, m: draws[t],
+                event_seed=lambda t: [t, 2026])
+            runs.append((server, batches, ns, record_async_stats(server)))
+        (gpu, _, _, gs), (cpu, _, _, cs) = runs
+        sweeps = {}
+
+        def on_card(compute):
+            def run(*args):
+                res = compute(*args)
+                sweeps["card"] = host_copy(res)
+                return res
+            return run
+
+        def on_cpu(compute):
+            def run(*args):
+                sweeps["cpu"] = compute(*args)
+                return host_copy(sweeps["card"])
+            return run
+
+        tap_sweep(gpu, on_card)
+        tap_sweep(cpu, on_cpu)
+        errs = {"param_abs": [], "param_rel": [], "sweep_loss_rel": []}
+        exact = {field: [] for field in ledger + ("sends", "versions")}
+        for _ in range(ASYNC_SMALL_ROUNDS):
+            cpu.params = {k: v.detach().cpu().clone()
+                          for k, v in gpu.params.items()}
+            cpu.store.load_state(gpu.store.state())
+            for server, batches, ns, _ in runs:
+                with deterministic_cudnn():
+                    server.run(batches, ns, 1)
+            a, r = param_errs(gpu.params, cpu.params)
+            errs["param_abs"].append(a)
+            errs["param_rel"].append(r)
+            lg = float(sweeps["card"]["losses"].mean())
+            lc = float(sweeps["cpu"]["losses"].mean())
+            errs["sweep_loss_rel"].append(abs(lg - lc) / abs(lc))
+            for field in ledger:
+                exact[field].append(getattr(gpu.history[-1], field)
+                                    == getattr(cpu.history[-1], field))
+            exact["sends"].append(gs[-1]["sends"] == cs[-1]["sends"])
+            exact["versions"].append(bool(np.array_equal(
+                gpu.store.versions, cpu.store.versions)))
+        quarantined = [r.quarantined for r in gpu.history]
+        phase("small_async_agreement", preset="async-flaky", masking=label,
+              corrupt_rate=0.1, num_clients=MAIN_M, rounds=len(gpu.history),
+              participants=[r.num_sampled for r in gpu.history],
+              sends=[x["sends"] for x in gs],
+              arrivals=[r.arrivals for r in gpu.history],
+              retries=[r.retries for r in gpu.history],
+              timeouts=[r.timeouts for r in gpu.history],
+              quarantined=quarantined,
+              exact={k: all(v) for k, v in exact.items()},
+              param_abs_err_by_round=errs["param_abs"],
+              param_rel_err_by_round=errs["param_rel"],
+              sweep_loss_rel_err_by_round=errs["sweep_loss_rel"],
+              rtol=SMALL_RTOL)
+        wrong = {k: [t + 1 for t, ok in enumerate(v) if not ok]
+                 for k, v in exact.items() if not all(v)}
+        if wrong:
+            fail(f"small async run ({label}): card and CPU differ in "
+                 f"{wrong} (field: rounds)")
+        if not sum(quarantined) > 0:
+            fail(f"small async run ({label}): nothing was quarantined")
+        if not (async_params_finite(gpu) and async_params_finite(cpu)):
+            fail(f"small async run ({label}): a quarantined row reached Θ")
+        if max(max(v) for v in errs.values()) > SMALL_RTOL:
+            fail(f"small async run ({label}): a round's card and CPU results "
+                 f"differ past {SMALL_RTOL}: {errs}")
+        out[label] = errs
+    return out
+
+
+def async_store() -> dict:
+    """``async_store``: ``async-crossround`` with fig5's kernel masking and
+    error feedback on LeNet-28, M = 1,024, 6 rounds: the dense store and a
+    sharded store that holds every client bit-identical, uploads carried;
+    then a sharded window of ASYNC_EVICT_RETENTION, which evicts."""
+    import numpy as np
+    import torch
+    from repro_torch.core import strategy
+    from repro_torch.core.client_store import ShardedStore
+    M = ASYNC_STORE_M
+    st = kernel_masking(strategy.get("async-crossround",
+                                     error_feedback=True))
+    runs = {}
+    for label, retention in (("dense", None), ("sharded", M),
+                             ("evicting", ASYNC_EVICT_RETENTION)):
+        make = (None if retention is None else
+                (lambda p, r=retention: ShardedStore(M, p, r)))
+        with deterministic_cudnn():
+            server, batches, ns, _ = lenet_server(
+                st, M, 28, M * 2 * MAIN_BATCH, MAIN_BATCH, "cuda",
+                make_store=make, engine="async")
+            stats = record_async_stats(server)
+            server.run(batches, ns, ASYNC_STORE_ROUNDS)
+        runs[label] = (server, stats)
+        torch.cuda.empty_cache()
+    dense, sharded = runs["dense"][0], runs["sharded"][0]
+    rd, rs = dense.store.residuals_dense(), sharded.store.residuals_dense()
+    exact = {"params": all(torch.equal(v, sharded.params[k])
+                           for k, v in dense.params.items()),
+             "residuals": all(torch.equal(v, rs[k]) for k, v in rd.items()),
+             "versions": bool(np.array_equal(dense.store.versions,
+                                             sharded.store.versions))}
+    for field in ("num_sampled", "arrivals", "timeouts", "carried",
+                  "pending", "transport_bytes"):
+        exact[field] = [getattr(r, field) for r in dense.history] == \
+            [getattr(r, field) for r in sharded.history]
+    out = {}
+    for label, (server, stats) in runs.items():
+        hist = server.history
+        out[label] = dict(
+            store=server.store.kind,
+            retention=getattr(server.store, "retention", None),
+            participants=[r.num_sampled for r in hist],
+            arrivals=[r.arrivals for r in hist],
+            carried=[r.carried for r in hist],
+            pending=[r.pending for r in hist],
+            timeouts=[r.timeouts for r in hist],
+            superseded=[x["superseded"] for x in stats],
+            expired=[x["expired"] for x in stats],
+            evictions=getattr(server.store, "evictions", 0),
+            wall_s=[r.wall_s for r in hist],
+            finite=async_params_finite(server))
+    phase("async_store", preset="async-crossround", num_clients=M,
+          rounds=ASYNC_STORE_ROUNDS, exact=exact, **out)
+    if not all(exact.values()):
+        fail(f"async store: dense and sharded differ in {exact}")
+    if not sum(out["dense"]["carried"]) > 0:
+        fail("async store: no upload was carried across rounds")
+    if not all(o["finite"] for o in out.values()):
+        fail("async store: non-finite parameters")
+    if not out["evicting"]["evictions"] > 0:
+        fail("async store: the small window evicted nothing")
+    return out
+
+
+def async_resume(ckpt_dir: str) -> dict:
+    """``async_resume``: ``async-mobile`` on LeNet-28 (M = 32), 4 rounds,
+    ``save_state``, a server built with another seed restores and runs 4
+    more: bit-identical to 8 straight rounds."""
+    import torch
+    from repro_torch.core import strategy
+    st = strategy.get("async-mobile")
+    args = (st, MAIN_M, 28, MAIN_M * 8 * MAIN_BATCH, MAIN_BATCH, "cuda")
+    with deterministic_cudnn():
+        full, batches, ns, _ = lenet_server(*args, engine="async")
+        full.run(batches, ns, 2 * ASYNC_KEYSTONE_ROUNDS)
+        first = lenet_server(*args, engine="async")[0]
+        first.run(batches, ns, ASYNC_KEYSTONE_ROUNDS)
+        first.save_state(ckpt_dir)
+        resumed = lenet_server(*args, engine="async", seed=999)[0]
+        step = resumed.restore_state(ckpt_dir)
+        resumed.run(batches, ns, ASYNC_KEYSTONE_ROUNDS)
+    exact = {"params": all(torch.equal(v, resumed.params[k])
+                           for k, v in full.params.items())}
+    for field in ("num_sampled", "arrivals", "timeouts", "retries",
+                  "flushes", "transport_bytes", "sim_round_s"):
+        exact[field] = [getattr(r, field) for r in
+                        full.history[ASYNC_KEYSTONE_ROUNDS:]] == \
+            [getattr(r, field) for r in resumed.history]
+    phase("async_resume", preset="async-mobile", step=step, exact=exact,
+          retries=[r.retries for r in full.history],
+          timeouts=[r.timeouts for r in full.history])
+    if step != ASYNC_KEYSTONE_ROUNDS or not all(exact.values()):
+        fail(f"async resume is not bit-identical: {exact}")
+    return exact
+
+
+def random_mask_store() -> dict:
+    """``random_mask_store``: the store path (full-width VGG, M = 100,000,
+    ``ShardedStore(retention=1024)``) under random masking, gamma 0.5, 3
+    rounds, drawing the cohort's scores only; then the masks of the dense
+    and the store form bitwise at M = 64, and one cohort's default draw on
+    the card against the CPU's, bitwise."""
+    import numpy as np
+    import torch
+    from repro_torch.core import strategy
+    from repro_torch.core.masking import client_mask_scores, random_keep
+    policy = strategy.MaskPolicy.random(0.5)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    server, provider, ns, eval_data = store_setup("cuda", masking=policy)
+    reset_all_counts()
+    t0 = time.perf_counter()
+    rounds = store_rounds(server, provider, ns, eval_data,
+                          RANDOM_STORE_ROUNDS, [])
+    wall = time.perf_counter() - t0
+    launches = {k: v for m in kernel_modules()
+                for k, v in m.launch_counts().items()}
+    peak = torch.cuda.max_memory_allocated()
+    hist = [rec for rec, _ in rounds]
+    upload = server.client_upload_bytes
+    leaves = server._mask_leaves
+    M = server.cfg.num_clients
+    dense_bytes = 4 * M * sum(int(np.prod(s)) for s in leaves.values())
+    ids = np.sort(np.random.default_rng(0).choice(M, 32, replace=False))
+    on_card = client_mask_scores(1, 1, ids, leaves, "cuda")
+    on_cpu = client_mask_scores(1, 1, ids, leaves, "cpu")
+    card_cpu = all(torch.equal(v.cpu(), on_cpu[k])
+                   for k, v in on_card.items())
+    keep_card_cpu = all(torch.equal(
+        random_keep(v.reshape(len(ids), -1), 0.5).cpu(),
+        random_keep(on_cpu[k].reshape(len(ids), -1), 0.5))
+        for k, v in on_card.items())
+    del on_card, on_cpu, server
+    torch.cuda.empty_cache()
+    small = {kind: store_setup("cuda", full=False, masking=policy,
+                               kind=kind)[0]
+             for kind in ("dense", "sharded")}
+    cohort = torch.arange(0, 64, 4, device="cuda")
+    full = small["dense"].round_mask_scores(2)
+    rows = small["sharded"]._cohort_mask_scores(2, cohort)
+    dense_store = all(
+        torch.equal(full[k].index_select(0, cohort), v) and torch.equal(
+            random_keep(full[k].index_select(0, cohort).reshape(
+                len(cohort), -1), 0.5),
+            random_keep(v.reshape(len(cohort), -1), 0.5))
+        for k, v in rows.items())
+    phase("random_mask_store", model="vgg", num_clients=M,
+          rounds=len(hist), gamma=0.5,
+          participants=[r.num_sampled for r in hist],
+          buckets=[r.cohort_size for r in hist],
+          transport_bytes=[r.transport_bytes for r in hist],
+          wall_s=[r.wall_s for r in hist],
+          compile_s=[r.compile_s for r in hist], launches=launches,
+          max_memory_allocated=peak, dense_draw_bytes_avoided=dense_bytes,
+          dense_vs_store_masks_m64=dense_store,
+          card_vs_cpu_draw_32_clients=card_cpu,
+          card_vs_cpu_keep_32_clients=keep_card_cpu, run_wall_s=wall)
+    if any(r.transport_bytes != r.num_sampled * upload for r in hist):
+        fail("random mask store: bytes are not participants x upload")
+    if any(launches.values()):
+        fail(f"random mask store: kernels launched: {launches}")
+    if not (dense_store and card_cpu and keep_card_cpu):
+        fail("random mask store: masks differ between forms or devices")
+    return {"peak": peak, "history": hist}
 
 
 # ---------------------------------------------------------------------------
@@ -2457,6 +2943,21 @@ def main(argv) -> int:
             store["eval_data"], 2, []), 2, "round")
     del store["server"]
     torch.cuda.empty_cache()
+    random_store = random_mask_store()
+    round_time_line("vgg-store-random", random_store["history"])
+    # ---- 3c. the async engine --------------------------------------------
+    async_run = run_async_path()
+    round_time_line("vgg-async", async_run["history"])
+    if trace:
+        profile_device("vgg-async", lambda: async_run["server"].run(
+            async_run["batches"], async_run["n_samples"], 2), 2, "round")
+    del async_run["server"]
+    torch.cuda.empty_cache()
+    async_keystone()
+    small_async_agreement()
+    async_store()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt:
+        async_resume(ckpt)
 
     # ---- 4. the per-array path and kernels 6–8 ---------------------------
     deltas = {"vgg": client_delta(lms["vgg-fig5"]),
@@ -2525,6 +3026,7 @@ def main(argv) -> int:
             "launches": fused["launches"][name],
             "launches_per_round": fused["launches"][name] / rounds,
             "store_path_launches": store["launches"][name],
+            "async_path_launches": async_run["launches"][name],
             "max_abs_err": errs[name], "ms": rec["ms"],
             "warm_ms": rec["warm_ms"], "device_ms": rec["device_ms"],
             "wrapper_ms": rec["wrapper_ms"],

@@ -79,7 +79,7 @@ Tree = Dict[str, torch.Tensor]
 __all__ = ["FederatedConfig", "fedavg_aggregate", "cohort_select",
            "make_federated_round", "make_cohort_round",
            "make_store_selection", "make_store_compute", "StoreRound",
-           "make_store_round"]
+           "Dispatch", "store_dispatch", "make_store_round"]
 
 _ATTACKS = ("Byzantine attacks (an active AttackModel) are not ported yet: "
             "ROADMAP Queue 1 item 13")
@@ -454,6 +454,7 @@ class StoreRound:
 
     select: Callable      # (norms, n_samples, t, scores) -> (part, w, ids)
     body: Callable        # see make_store_round
+    compute: Callable     # the cohort sweep body runs (make_store_compute)
     adaptive: bool        # body reads the norm EMA and returns its rows
     error_feedback: bool  # residual rows need scattering back
     uses_drift: bool = False  # body reads and returns FedDyn drift rows
@@ -516,9 +517,45 @@ def make_store_round(loss_fn: Callable, schedule: SamplingSchedule,
             _general_metrics(c["losses"], rows, part, arrived,
                              (arr_c * (1.0 - finite)).sum(), drop is not None)
 
-    return StoreRound(select=select, body=body, adaptive=smp.adaptive,
+    return StoreRound(select=select, body=body, compute=compute,
+                      adaptive=smp.adaptive,
                       error_feedback=cfg.error_feedback,
                       uses_drift=cfg.client.objective.uses_drift)
+
+
+@dataclasses.dataclass(frozen=True)
+class Dispatch:
+    """One round's dispatch on the store form (:func:`store_dispatch`)."""
+
+    part: torch.Tensor     # (M,) CPU participation of the selection
+    weights: torch.Tensor  # (M,) CPU aggregation weights
+    ids: torch.Tensor      # (B,) CPU cohort buffer, ascending
+    norms: Optional[torch.Tensor]   # the store's norm EMA (adaptive only)
+    res: Optional[Tree]    # the cohort's residual rows (error feedback)
+    drift: Optional[Tree]  # the cohort's FedDyn drift rows
+    batches: list          # the cohort's batches on the device
+
+
+def store_dispatch(prog: StoreRound, store, n_samples: torch.Tensor, t,
+                   scores: torch.Tensor, client_batches, device) -> Dispatch:
+    """The store form's dispatch, which the sync store loop and the async
+    engine share: ``prog.select`` on the CPU, the cohort's residual (and
+    drift) rows from ``store``, and the cohort's batches on ``device``.
+    ``client_batches`` is the stacked (M, ...) tensors or, on a sharded
+    store, a provider ``client_batches(ids) -> (xs, ys)``."""
+    norms = store.norms if prog.adaptive else None
+    part, weights, cohort_ids = prog.select(norms, n_samples, t, scores)
+    ids_np = cohort_ids.numpy()
+    res = store.gather(ids_np) if prog.error_feedback else None
+    drift = store.gather(ids_np, tree="drift") if prog.uses_drift else None
+    if callable(client_batches):
+        batches = [torch.as_tensor(x).to(device)
+                   for x in client_batches(ids_np)]
+    else:
+        ids = cohort_ids.to(device)
+        batches = [x.index_select(0, ids) for x in client_batches]
+    return Dispatch(part=part, weights=weights, ids=cohort_ids, norms=norms,
+                    res=res, drift=drift, batches=batches)
 
 
 def make_cohort_round(loss_fn: Callable, schedule: SamplingSchedule,

@@ -9,6 +9,10 @@ The *masking rate* ``gamma`` is the fraction of parameters KEPT.
   halvings), or the segmented kernels with ``use_kernel``.
 * ``mask_pytree`` / ``mask_stacked`` — the configured masking over a delta
   tree, one client or a client-stacked cohort.
+* ``client_mask_scores`` — random masking's per-entry uniforms for a set
+  of clients, from a counter-based stream keyed by (seed, round, client,
+  leaf): a client's draw does not depend on M or on who else is drawn,
+  and integer ops give the same bits on the CPU and on the card.
 
 A masked-out entry is +0.0 whatever its sign, as the reference's compiled
 ``x * float(keep)`` gives (see ``repro_torch.kernels.ref``).
@@ -17,9 +21,12 @@ A masked-out entry is +0.0 whatever its sign, as the reference's compiled
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
+
+from repro_torch.device import resolve_device
 
 Tree = Dict[str, torch.Tensor]
 
@@ -32,6 +39,7 @@ __all__ = [
     "selective_mask_threshold",
     "mask_pytree",
     "mask_stacked",
+    "client_mask_scores",
 ]
 
 
@@ -64,11 +72,15 @@ def _keep(x: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
 def random_keep(scores: torch.Tensor, gamma: float) -> torch.Tensor:
     """Paper Alg. 2's kept set with an exact count, for each row of the
     (C, n) uniform ``scores``: True at the k = max(1, round(gamma * n))
-    lowest scores of the row (one ``torch.topk`` for all rows)."""
+    lowest scores of the row, equal scores taken lowest index first, as
+    ``lax.top_k`` takes them (``torch.topk`` leaves the order of ties
+    open, and it differs between devices)."""
     k = _kept_count(scores.shape[1], gamma)
-    _, idx = torch.topk(-scores, k, dim=1)
-    keep = torch.zeros(scores.shape, dtype=torch.bool, device=scores.device)
-    return keep.scatter_(1, idx, True)
+    kth = torch.topk(scores, k, dim=1, largest=False).values[:, -1:]
+    below = scores < kth
+    tie = scores == kth
+    need = k - below.sum(1, keepdim=True)
+    return below | (tie & (torch.cumsum(tie, 1) <= need))
 
 
 def random_mask(delta: torch.Tensor, gamma: float,
@@ -171,3 +183,74 @@ def mask_pytree(delta: Tree, cfg: MaskingConfig,
         {n: leaf[None] for n, leaf in delta.items()}, cfg,
         None if scores is None else {n: s[None] for n, s in scores.items()})
     return {n: leaf[0] for n, leaf in stacked.items()}
+
+
+# Random-mask scores: splitmix64 (Steele, Lea and Flood 2014) on int64
+# tensors.  Sums and products wrap modulo 2^64 on both devices; a logical
+# right shift is an arithmetic one with the sign bits masked off.
+_MASK64 = (1 << 64) - 1
+_GOLDEN = 0x9E3779B97F4A7C15
+_MIX = (0xBF58476D1CE4E5B9, 0x94D049BB133111EB)
+
+
+def _signed(c: int) -> int:
+    """A 64-bit word as the int64 with the same bits."""
+    c &= _MASK64
+    return c - (1 << 64) if c >> 63 else c
+
+
+def _mix_host(z: int) -> int:
+    """splitmix64's finaliser on a Python int (mod 2^64)."""
+    z &= _MASK64
+    z = ((z ^ (z >> 30)) * _MIX[0]) & _MASK64
+    z = ((z ^ (z >> 27)) * _MIX[1]) & _MASK64
+    return z ^ (z >> 31)
+
+
+def _srl(z: torch.Tensor, s: int) -> torch.Tensor:
+    return (z >> s) & ((1 << (64 - s)) - 1)
+
+
+def _mix(z: torch.Tensor) -> torch.Tensor:
+    """splitmix64's finaliser on an int64 tensor."""
+    z = (z ^ _srl(z, 30)) * _signed(_MIX[0])
+    z = (z ^ _srl(z, 27)) * _signed(_MIX[1])
+    return z ^ _srl(z, 31)
+
+
+def _stream_key(seed: int, t: int, leaf: int) -> int:
+    """The 64-bit key of one (seed, round, leaf) stream."""
+    h = 0
+    for word in (seed, t, leaf):
+        h = _mix_host((h ^ (word & _MASK64)) + _GOLDEN)
+    return h
+
+
+def client_mask_scores(seed: int, t: int, ids,
+                       leaves: Dict[str, Sequence[int]],
+                       device=None) -> Dict[str, torch.Tensor]:
+    """Round ``t``'s random-mask scores for the clients ``ids``: ``{leaf:
+    (len(ids), *shape)}`` fp32 uniforms in [0, 1) on ``device`` (``cuda``
+    unless named, as every entry point of the port).
+
+    Leaf ``l`` (its position among ``leaves``' names, sorted) and client
+    ``i`` key one splitmix64 stream, ``mix(mix(key(seed, t, l) ^
+    mix(i + G)) + (j + 1) G)`` for entry j (G the golden-ratio increment);
+    a score is the top 24 bits of its word times 2^-24.  So client i's
+    scores are the same whichever clients are drawn with it and however
+    many are registered, and the same bits on every device."""
+    idx = torch.as_tensor(np.asarray(ids, dtype=np.int64)).to(
+        resolve_device(device))
+    out = {}
+    for ell, name in enumerate(sorted(leaves)):
+        shape = tuple(int(d) for d in leaves[name])
+        n = int(np.prod(shape))
+        rows = _mix(idx + _signed(_GOLDEN)) ^ _signed(_stream_key(seed, t,
+                                                                  ell))
+        rows = _mix(rows)
+        steps = (np.arange(1, n + 1, dtype=np.uint64)
+                 * np.uint64(_GOLDEN)).view(np.int64)
+        z = _mix(rows[:, None] + torch.from_numpy(steps).to(idx.device))
+        out[name] = (_srl(z, 40).to(torch.float32) * 2.0 ** -24).reshape(
+            (len(idx),) + shape)
+    return out

@@ -8,8 +8,12 @@ meters transport bytes and evaluates on held-out data.  Its scenario is one
 The loop is eager: every round picks its cohort bucket on the host and calls
 the matching round (``engine="cohort"``: the bucketed cohort body, or the
 oracle body when the bucket is the whole population; ``engine="full"``:
-always the oracle).  The reference's AOT compilation and ``lax.scan``
-segments are XLA dispatch machinery and have no counterpart here.  What is
+always the oracle; ``engine="async"``: one buffered round of
+:class:`~repro_torch.core.async_engine.AsyncRoundRunner` on the store,
+configured by ``strategy.async_cfg``, whose fault ledger fills the async
+fields of :class:`RoundRecord`).  The reference's AOT compilation and
+``lax.scan`` segments are XLA dispatch machinery and have no counterpart
+here.  What is
 a build here (a bucket's round construction and, for a round that launches
 kernels, the kernel library's ``nvcc`` build or load) is timed apart as
 ``RoundRecord.compile_s`` on the round that first needs it, outside
@@ -37,20 +41,24 @@ Randomness: each round's (M,) uniform participant scores come from the
 server's own CPU ``torch.Generator`` seeded with ``seed`` — the same draws
 on every device — or from a caller's ``scores(t, M)`` callable, which is how
 the parity tests hand in the reference's ``jax.random`` draws.  With a
-hetero fleet each round also draws (M,) uniform dropout scores from a
+hetero fleet each sync round also draws (M,) uniform dropout scores from a
 second CPU generator seeded with ``seed + 2``, or takes them from a
 caller's ``drop_scores(t, M)``; the participant stream does not move.  Under
-random masking each round also needs per-entry mask scores for every
-client, one (M, *shape) tensor per maskable leaf: drawn on the server's
-device from a device ``torch.Generator`` seeded with ``seed + 1`` (drawing
-them on the host would copy M x params floats to the card every round), or
-from a caller's ``mask_scores(t, M)`` callable.
+random masking a client's per-entry mask scores come from
+:func:`~repro_torch.core.masking.client_mask_scores` keyed by the mask
+seed ``seed + 1``, the round, the client and the leaf, drawn on the
+server's device for just the clients a round runs (the same bits on every
+device, whatever M), or from a caller's ``mask_scores(t, M)`` callable.
+An async round seeds its host event stream with two uint32 words from a
+CPU generator seeded with ``seed + 3``, or with a caller's
+``event_seed(t)``.
 
 Transport is metered by the strategy's codec: ``RoundRecord.transport_bytes``
 counts the EXACT wire bytes of every upload.
 
 ``save_state`` / ``restore_state`` round-trip the whole training state
-(parameters, the store's state, the three generators' states) through
+(parameters, the store's state, the generators' states and the mask
+seed) through
 ``repro_torch.checkpoint`` with the round counter in the manifest, and a
 restored server's ``run`` resumes bit-identically to the run that wrote
 it.
@@ -68,7 +76,9 @@ import torch
 from repro_torch.core.client import local_update_flops
 from repro_torch.core.client_store import ClientStateStore, DenseStore
 from repro_torch.core.compression import pytree_num_params
+from repro_torch.core.federated import store_dispatch
 from repro_torch.core.hetero import simulate_round
+from repro_torch.core.masking import client_mask_scores
 from repro_torch.device import resolve_device
 
 Tree = Dict[str, torch.Tensor]
@@ -92,9 +102,17 @@ class RoundRecord:
     cohort_size: int = 0        # padded cohort buffer actually executed
     flop_proxy: float = 0.0     # 6·params·examples·epochs·cohort_size
     quarantined: int = 0        # uploads rejected at the decode gate
-    sim_round_s: float = 0.0    # simulated fleet wall-clock (hetero only)
+    sim_round_s: float = 0.0    # simulated fleet wall-clock (hetero, async)
     straggler_s: float = 0.0    # sim straggler tail: max - median arrival
     dropped: int = 0            # uploads lost on the simulated fleet
+    # --- the async engine's ledger (engine="async" only) ---
+    arrivals: int = 0           # uploads accepted into a buffer flush
+    timeouts: int = 0           # uploads cut by the deadline
+    retries: int = 0            # retransmissions scheduled after drops
+    flushes: int = 0            # buffer flushes applied this round
+    mean_staleness: float = 0.0  # mean staleness of the applied uploads
+    carried: int = 0            # earlier rounds' uploads applied (cross-round)
+    pending: int = 0            # uploads still in flight for a later round
 
 
 class FederatedServer:
@@ -106,11 +124,11 @@ class FederatedServer:
                  scores: Optional[Callable[[int, int], Any]] = None,
                  mask_scores: Optional[Callable[[int, int], Any]] = None,
                  drop_scores: Optional[Callable[[int, int], Any]] = None,
-                 store: Optional[ClientStateStore] = None):
+                 store: Optional[ClientStateStore] = None,
+                 event_seed: Optional[Callable[[int], Any]] = None):
         """See :meth:`from_strategy`."""
-        if engine not in ("cohort", "full"):
-            raise ValueError(f"unknown engine {engine!r} (the port runs "
-                             "'cohort' and 'full')")
+        if engine not in ("cohort", "full", "async"):
+            raise ValueError(f"unknown engine {engine!r}")
         self.device = resolve_device(device)
         self.strategy = strategy
         self.cfg = strategy.federated_config(num_clients)
@@ -133,6 +151,7 @@ class FederatedServer:
         self._scores = scores
         self._mask_scores = mask_scores
         self._drop_scores = drop_scores
+        self._event_seed = event_seed
         self._generator = torch.Generator().manual_seed(seed)
         self._drop_generator = torch.Generator().manual_seed(seed + 2)
         masking = self.cfg.client.masking
@@ -140,9 +159,13 @@ class FederatedServer:
             {k: tuple(v.shape) for k, v in self.params.items()
              if v.numel() >= masking.min_leaf_size}
             if masking.mode == "random" and masking.gamma < 1.0 else {})
-        self._mask_generator = (
-            torch.Generator(device=self.device).manual_seed(seed + 1)
-            if self._mask_leaves else None)
+        self._mask_seed = seed + 1
+        self._async = None
+        if engine == "async":
+            from repro_torch.core.async_engine import AsyncRoundRunner
+            self._async = AsyncRoundRunner(strategy, num_clients,
+                                           store=self.store)
+            self._event_generator = torch.Generator().manual_seed(seed + 3)
         self._rounds: Dict[tuple, Any] = {}
         self._round = 0
         self.history: List[RoundRecord] = []
@@ -183,22 +206,26 @@ class FederatedServer:
                       scores: Optional[Callable[[int, int], Any]] = None,
                       mask_scores: Optional[Callable[[int, int], Any]] = None,
                       drop_scores: Optional[Callable[[int, int], Any]] = None,
-                      store: Optional[ClientStateStore] = None
+                      store: Optional[ClientStateStore] = None,
+                      event_seed: Optional[Callable[[int], Any]] = None
                       ) -> "FederatedServer":
         """Build a server from one strategy record.  ``device``: ``cuda``
         unless named (raises without a card).  ``scores(t, M)``, when given,
         supplies round t's (M,) uniform participant scores instead of the
         server's generator; ``mask_scores(t, M)`` supplies round t's random
         mask scores, ``{leaf: (M, *shape)}`` for every maskable leaf, instead
-        of the server's device generator (random masking only);
-        ``drop_scores(t, M)`` supplies round t's (M,) uniform upload-loss
-        draws (hetero fleets only).  ``store`` is the client-state backend
+        of the server's own draw (random masking only); ``drop_scores(t,
+        M)`` supplies round t's (M,) uniform upload-loss draws (hetero
+        fleets, sync engines); ``event_seed(t)`` supplies the uint32 words
+        that seed round t's host event stream (``engine="async"``).
+        ``store`` is the client-state backend
         (``repro_torch.core.client_store``), on the server's device; None
         builds a :class:`DenseStore`."""
         return cls(strategy, loss_fn, init_params, num_clients,
                    eval_fn=eval_fn, seed=seed, engine=engine, device=device,
                    scores=scores, mask_scores=mask_scores,
-                   drop_scores=drop_scores, store=store)
+                   drop_scores=drop_scores, store=store,
+                   event_seed=event_seed)
 
     def _round_fn(self, bucket: int, form: str = "dense") -> tuple:
         """The (cached) round of one form for one cohort bucket and the
@@ -260,16 +287,15 @@ class FederatedServer:
 
     def round_mask_scores(self, t: int) -> Optional[Tree]:
         """Round t's random-mask scores, ``{leaf: (M, *shape)}`` fp32 on the
-        server's device, or None unless the policy masks at random.  Without
-        a ``mask_scores`` callable each call draws anew from the server's
-        device generator."""
+        server's device, or None unless the policy masks at random: every
+        client's rows of :func:`client_mask_scores` (the dense rounds), or
+        the ``mask_scores`` callable's."""
         if not self._mask_leaves:
             return None
         M = self.cfg.num_clients
         if self._mask_scores is None:
-            return {k: torch.rand((M,) + shape, generator=self._mask_generator,
-                                  device=self.device)
-                    for k, shape in self._mask_leaves.items()}
+            return client_mask_scores(self._mask_seed, t, np.arange(M),
+                                      self._mask_leaves, self.device)
         given = self._mask_scores(t, M)
         out = {}
         for k, shape in self._mask_leaves.items():
@@ -286,29 +312,16 @@ class FederatedServer:
 
     def _cohort_mask_scores(self, t: int, ids: torch.Tensor
                             ) -> Optional[Tree]:
-        """The cohort's rows of round t's random-mask scores.  The draw is
-        the whole ``(M, *shape)`` tensor of every maskable leaf, as the
-        dense rounds draw it, so each client masks with the entries it
-        would get there; a draw the allocator refuses raises, naming its
-        size."""
+        """The cohort's rows of round t's random-mask scores: the draw of
+        just those clients, which equals their rows of
+        :meth:`round_mask_scores`, or the rows of the callable's tensors."""
         if not self._mask_leaves:
             return None
-        try:
-            return {k: v.index_select(0, ids)
-                    for k, v in self.round_mask_scores(t).items()}
-        except (torch.OutOfMemoryError, MemoryError, RuntimeError) as e:
-            if type(e) is RuntimeError and "allocate memory" not in str(e):
-                raise
-            M = self.cfg.num_clients
-            entries = sum(int(np.prod(s))
-                          for s in self._mask_leaves.values())
-            raise ValueError(
-                f"random masking draws round {t}'s mask scores as one (M, "
-                f"*shape) fp32 tensor a maskable leaf: {M} clients x "
-                f"{entries} entries = {4 * M * entries} bytes, which "
-                f"{self.device} could not allocate; the store form takes "
-                "the cohort's rows of that draw so each client masks as in "
-                "the dense rounds") from e
+        if self._mask_scores is None:
+            return client_mask_scores(self._mask_seed, t, ids.cpu().numpy(),
+                                      self._mask_leaves, self.device)
+        return {k: v.index_select(0, ids)
+                for k, v in self.round_mask_scores(t).items()}
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -349,7 +362,9 @@ class FederatedServer:
         n_samples = torch.as_tensor(np.asarray(n_samples),
                                     dtype=torch.float32)
         M = self.cfg.num_clients
-        if self.store.kind == "dense":
+        if self._async is not None:
+            step = self._async_round
+        elif self.store.kind == "dense":
             step, n_samples = self._dense_round, n_samples.to(self.device)
         else:
             step = self._store_round
@@ -358,31 +373,11 @@ class FederatedServer:
         for t in range(start + 1, last + 1):
             scores = self._uniforms(t, self._scores, self._generator,
                                     "scores")
-            drop_scores = (self._uniforms(t, self._drop_scores,
-                                          self._drop_generator, "drop scores")
-                           if self._traits is not None else None)
             m = self.schedule.num_clients_host(t, M)
             bucket = self.strategy.sampler.cohort_bucket(self.schedule, m, M)
-            bucket = bucket if self.engine == "cohort" else M
-            metrics, wall, compile_s = step(
-                t, bucket, batches, provider, n_samples, scores, drop_scores)
-            num_sampled = int(metrics["num_sampled"])
-            rec = RoundRecord(
-                round=t, num_sampled=num_sampled,
-                mean_loss=float(metrics["mean_loss"]),
-                transport_units=num_sampled * gamma,
-                transport_bytes=num_sampled * self.client_upload_bytes,
-                wall_s=wall, compile_s=compile_s, cohort_size=bucket,
-                flop_proxy=flops * bucket,
-                quarantined=int(metrics["quarantined"]))
-            if self._traits is not None:
-                sim = simulate_round(
-                    self._traits, metrics["part_mask"].cpu().numpy(),
-                    metrics["arrived_mask"].cpu().numpy(), flops,
-                    self.client_upload_bytes)
-                rec.sim_round_s = sim["sim_round_s"]
-                rec.straggler_s = sim["straggler_s"]
-                rec.dropped = sim["dropped"]
+            bucket = bucket if self.engine != "full" else M
+            rec = step(t, bucket, batches, provider, n_samples, scores, gamma,
+                       flops)
             if self.eval_fn is not None and eval_every and (
                     t % eval_every == 0 or t == last):
                 rec.eval_metric = float(self.eval_fn(self.params, eval_data))
@@ -390,9 +385,82 @@ class FederatedServer:
             self._round = t
         return self.history
 
+    def _sync_record(self, t, bucket, metrics, wall, compile_s, gamma,
+                     flops) -> RoundRecord:
+        """A sync round's ledger entry, with the fleet clock on a hetero
+        fleet."""
+        num_sampled = int(metrics["num_sampled"])
+        rec = RoundRecord(
+            round=t, num_sampled=num_sampled,
+            mean_loss=float(metrics["mean_loss"]),
+            transport_units=num_sampled * gamma,
+            transport_bytes=num_sampled * self.client_upload_bytes,
+            wall_s=wall, compile_s=compile_s, cohort_size=bucket,
+            flop_proxy=flops * bucket,
+            quarantined=int(metrics["quarantined"]))
+        if self._traits is not None:
+            sim = simulate_round(
+                self._traits, metrics["part_mask"].cpu().numpy(),
+                metrics["arrived_mask"].cpu().numpy(), flops,
+                self.client_upload_bytes)
+            rec.sim_round_s = sim["sim_round_s"]
+            rec.straggler_s = sim["straggler_s"]
+            rec.dropped = sim["dropped"]
+        return rec
+
+    def _drop_uniforms(self, t: int) -> Optional[torch.Tensor]:
+        """Round t's dropout draws on a hetero fleet (sync engines)."""
+        if self._traits is None:
+            return None
+        return self._uniforms(t, self._drop_scores, self._drop_generator,
+                              "drop scores")
+
+    def _event_words(self, t: int) -> List[int]:
+        """The uint32 words that seed round t's host event stream: the
+        ``event_seed(t)`` callable's, or two from the event generator."""
+        if self._event_seed is not None:
+            return [int(w) for w in
+                    np.asarray(self._event_seed(t), np.uint32).ravel()]
+        return torch.randint(0, 1 << 32, (2,), dtype=torch.int64,
+                             generator=self._event_generator).tolist()
+
+    def _async_round(self, t, bucket, batches, provider, n_samples, scores,
+                     gamma, flops) -> RoundRecord:
+        """One buffered round of the async engine.  Transport counts every
+        transmission the fleet attempted, retries and deadline-cut sends
+        included: those bytes crossed the uplink either way."""
+        mask_scores = None
+        if self._mask_leaves:
+            def mask_scores(ids):
+                return self._cohort_mask_scores(t, ids)
+        words = self._event_words(t)
+        prog, compile_s = self._round_fn(bucket, "store")
+        self._sync()
+        t0 = time.perf_counter()
+        self.params, stats = self._async.run_round(
+            self.params, prog, provider if provider is not None else batches,
+            n_samples, t, scores, words, flops=flops,
+            wire_bytes=self.client_upload_bytes, mask_scores=mask_scores)
+        self._sync()
+        return RoundRecord(
+            round=t, num_sampled=stats["num_sampled"],
+            mean_loss=stats["mean_loss"],
+            transport_units=stats["sends"] * gamma,
+            transport_bytes=stats["sends"] * self.client_upload_bytes,
+            wall_s=time.perf_counter() - t0, compile_s=compile_s,
+            cohort_size=bucket,
+            flop_proxy=flops * bucket, quarantined=stats["quarantined"],
+            sim_round_s=stats["sim_round_s"],
+            straggler_s=stats["straggler_s"], dropped=stats["dropped"],
+            arrivals=stats["arrivals"], timeouts=stats["timeouts"],
+            retries=stats["retries"], flushes=stats["flushes"],
+            mean_staleness=stats["mean_staleness"],
+            carried=stats["carried"], pending=stats["pending"])
+
     def _dense_round(self, t, bucket, batches, provider, n_samples, scores,
-                     drop_scores):
-        """One round on the dense store: ``(metrics, wall_s, compile_s)``."""
+                     gamma, flops) -> RoundRecord:
+        """One round on the dense store."""
+        drop_scores = self._drop_uniforms(t)
         round_fn, compile_s = self._round_fn(bucket)
         self._sync()
         t0 = time.perf_counter()
@@ -401,34 +469,32 @@ class FederatedServer:
             self.round_mask_scores(t), drop_scores)
         self._commit_state(state)
         self._sync()
-        return metrics, time.perf_counter() - t0, compile_s
+        return self._sync_record(t, bucket, metrics,
+                                 time.perf_counter() - t0, compile_s, gamma,
+                                 flops)
 
     def _store_round(self, t, bucket, batches, provider, n_samples, scores,
-                     drop_scores):
+                     gamma, flops) -> RoundRecord:
         """One round of the store form (a sharded store): selection on the
         CPU, the cohort's state rows from the store, the body, the versions
-        of the participants, the commit-gated scatter and the norm update.
-        ``(metrics, wall_s, compile_s)``."""
+        of the participants, the commit-gated scatter and the norm
+        update."""
+        drop_scores = self._drop_uniforms(t)
         prog, compile_s = self._round_fn(bucket, "store")
         store = self.store
         self._sync()
         t0 = time.perf_counter()
-        norms = store.norms if prog.adaptive else None
-        part, weights, cohort_ids = prog.select(norms, n_samples, t, scores)
-        ids_np = cohort_ids.numpy()
-        ids = cohort_ids.to(self.device)
-        cohort_res = store.gather(ids_np) if prog.error_feedback else None
-        cohort_drift = (store.gather(ids_np, tree="drift")
-                        if prog.uses_drift else None)
-        cohort_batches = (self._to_device(provider(ids_np))
-                          if provider is not None
-                          else [x.index_select(0, ids) for x in batches])
+        d = store_dispatch(prog, store, n_samples, t, scores,
+                           provider if provider is not None else batches,
+                           self.device)
         self.params, new_rows, drift_rows, commit, norm_upd, metrics = \
-            prog.body(self.params, cohort_res, cohort_drift, cohort_batches,
-                      cohort_ids, part, weights, norms,
-                      self._cohort_mask_scores(t, ids), drop_scores)
+            prog.body(self.params, d.res, d.drift, d.batches, d.ids, d.part,
+                      d.weights, d.norms,
+                      self._cohort_mask_scores(t, d.ids.to(self.device)),
+                      drop_scores)
+        ids_np = d.ids.numpy()
         # Θ_t went out to the participants: the versions staleness reads.
-        store.mark_dispatched(ids_np[part.numpy()[ids_np] > 0], t)
+        store.mark_dispatched(ids_np[d.part.numpy()[ids_np] > 0], t)
         commit_np = commit.cpu().numpy()
         if prog.error_feedback:
             store.scatter(ids_np, new_rows, commit_np, t)
@@ -437,19 +503,26 @@ class FederatedServer:
         if prog.adaptive:
             store.update_norms(ids_np, norm_upd)
         self._sync()
-        return metrics, time.perf_counter() - t0, compile_s
+        return self._sync_record(t, bucket, metrics,
+                                 time.perf_counter() - t0, compile_s, gamma,
+                                 flops)
 
     # ---- checkpoint / resume ------------------------------------------------
     def state(self) -> Dict[str, Any]:
-        """The whole resumable training state as one tree: the states of
-        the server's generators under ``rng`` (``participants``, seed;
-        ``drop``, seed + 2; ``mask``, seed + 1, under random masking), the
-        global ``params``, and the store's state under the reference's
-        keys.  The round counter goes in the checkpoint's manifest."""
+        """The whole resumable training state as one tree: under ``rng``
+        the states of the server's generators (``participants``, seed;
+        ``drop``, seed + 2; ``events``, seed + 3, on the async engine) and,
+        under random masking, the ``mask`` seed (seed + 1); the global
+        ``params``; and the store's state under the reference's keys.  The
+        round counter goes in the checkpoint's manifest.  Like the
+        reference's, it holds no upload still in flight across rounds
+        (cross-round mode)."""
         rng = {"participants": self._generator.get_state(),
                "drop": self._drop_generator.get_state()}
-        if self._mask_generator is not None:
-            rng["mask"] = self._mask_generator.get_state()
+        if self._mask_leaves:
+            rng["mask"] = torch.tensor(self._mask_seed, dtype=torch.int64)
+        if self._async is not None:
+            rng["events"] = self._event_generator.get_state()
         return {"rng": rng, "params": self.params, **self.store.state()}
 
     def save_state(self, ckpt_dir: str) -> str:
@@ -487,8 +560,10 @@ class FederatedServer:
         self.store.load_state(restored)
         self._generator.set_state(rng["participants"])
         self._drop_generator.set_state(rng["drop"])
-        if self._mask_generator is not None:
-            self._mask_generator.set_state(rng["mask"])
+        if self._mask_leaves:
+            self._mask_seed = int(rng["mask"])
+        if self._async is not None:
+            self._event_generator.set_state(rng["events"])
         self.params = params
         self._round = int(extra.get("round", step))
         return step
@@ -503,7 +578,8 @@ class FederatedServer:
 
     def summary(self) -> Dict[str, Any]:
         """Run-level roll-up of the history (with a hetero fleet also the
-        simulated clock and the lost uploads)."""
+        simulated clock and the lost uploads; on the async engine also its
+        fault ledger, staleness averaged over the applied uploads)."""
         evals = [r.eval_metric for r in self.history
                  if r.eval_metric is not None]
         out = {
@@ -527,7 +603,18 @@ class FederatedServer:
         }
         if self._traits is not None:
             out["hetero"] = self.strategy.hetero.profile
+        if self._traits is not None or self.engine == "async":
             out["sim_total_s"] = float(
                 sum(r.sim_round_s for r in self.history))
             out["dropped_uploads"] = int(sum(r.dropped for r in self.history))
+        if self.engine == "async":
+            arrivals = int(sum(r.arrivals for r in self.history))
+            out["arrivals"] = arrivals
+            out["timeouts"] = int(sum(r.timeouts for r in self.history))
+            out["retries"] = int(sum(r.retries for r in self.history))
+            out["flushes"] = int(sum(r.flushes for r in self.history))
+            out["mean_staleness"] = float(
+                sum(r.mean_staleness * r.arrivals for r in self.history)
+                / arrivals) if arrivals else 0.0
+            out["carried"] = int(sum(r.carried for r in self.history))
         return out

@@ -4,19 +4,21 @@ aggregation (counterpart of ``repro/core/strategy.py``).
 A :class:`FedStrategy` is one frozen record composing the sampling
 schedule, the :class:`MaskPolicy`, the wire codec, the :class:`Aggregator`,
 the client sampler (uniform / importance / threshold), an optional
-:class:`~repro_torch.core.hetero.HeteroModel` fleet and the local
-objective, plus the client hyperparameters.  ``build_round`` turns it into
-the oracle (``form="full"``), cohort (``form="cohort"``) or store
-(``form="store"``) round;
-``FederatedServer.from_strategy`` runs it end to end.  The registry holds
+:class:`~repro_torch.core.hetero.HeteroModel` fleet, the local objective
+and the async engine's :class:`~repro_torch.core.async_engine.AsyncConfig`
+(``engine="async"``), plus the client hyperparameters.  ``build_round``
+turns it into the oracle (``form="full"``), cohort (``form="cohort"``) or
+store (``form="store"``) round; ``FederatedServer.from_strategy`` runs it
+end to end.  The registry holds
 the paper presets ``dense-baseline``, ``fig3``, ``fig4`` and ``fig5``, the
 wire presets ``fig5-int8``, ``fig5-fused``, ``fig5-fused-int8`` and
 ``fig5-bitmap``, the adaptive-sampler and fleet presets
-``fig3-importance`` and ``hetero-dropout``, and the objective presets
-``fig5-prox``, ``fig5-dyn`` and ``noniid-dyn``.  The codec has three axes
-(``default_codec``): int8 or not, the ``jnp`` codecs or the ``fused``
-kernel path, the ``coo`` or the ``bitmap`` wire; replacing the mask policy
-re-derives the codec on the same axes.
+``fig3-importance`` and ``hetero-dropout``, the async presets
+``async-mobile``, ``async-crossround`` and ``async-flaky``, and the
+objective presets ``fig5-prox``, ``fig5-dyn`` and ``noniid-dyn``.  The
+codec has three axes (``default_codec``): int8 or not, the ``jnp`` codecs
+or the ``fused`` kernel path, the ``coo`` or the ``bitmap`` wire;
+replacing the mask policy re-derives the codec on the same axes.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Tuple
 
+from repro_torch.core.async_engine import AsyncConfig
 from repro_torch.core.client import ClientConfig
 from repro_torch.core.codecs import (BitmapCodec, ChainCodec,
                                      FusedSparseCodec, IdentityCodec,
@@ -183,6 +186,7 @@ class FedStrategy:
     upload: str = "delta"       # delta | zero (Alg. 4 literal)
     error_feedback: bool = False
     objective: LocalObjective = LocalObjective()
+    async_cfg: AsyncConfig | None = None
 
     def client_config(self) -> ClientConfig:
         """The per-client hyperparameter record this strategy implies."""
@@ -355,6 +359,41 @@ register(FedStrategy(
     name="hetero-dropout",
     sampling=StaticSampling(initial_rate=1.0, min_clients=2),
     hetero=HeteroModel(profile="flaky-mobile")))
+
+# "async-mobile": fig3's dynamic c(t) on the mobile fleet, aggregated
+# asynchronously: flush every K = m_t / 2 arrivals with the staleness
+# discount, cut the round at the 90th arrival percentile, retry lost uploads
+# twice with backoff.
+register(FedStrategy(
+    name="async-mobile",
+    sampling=DynamicSampling(initial_rate=1.0, beta=0.1, min_clients=2),
+    hetero=HeteroModel(profile="mobile"),
+    async_cfg=AsyncConfig(buffer_frac=0.5, staleness_beta=0.5,
+                          deadline_quantile=0.9, max_retries=2,
+                          backoff_s=0.5, jitter_sigma=0.25)))
+
+# "async-crossround": async-mobile with the median arrival as deadline and
+# cross-round staleness: uploads cut at the deadline land in a later round,
+# discounted by the rounds since their client pulled Θ, and expire past 3.
+# It needs the store's version vector (any backend).
+register(FedStrategy(
+    name="async-crossround",
+    sampling=DynamicSampling(initial_rate=1.0, beta=0.1, min_clients=2),
+    hetero=HeteroModel(profile="mobile"),
+    async_cfg=AsyncConfig(buffer_frac=0.5, staleness_beta=0.5,
+                          deadline_quantile=0.5, max_retries=2,
+                          backoff_s=0.5, jitter_sigma=0.25,
+                          max_round_stale=3)))
+
+# "async-flaky": the async engine on the flaky-mobile fleet, deadline at the
+# 75th percentile, three retries: the chaos scenario.
+register(FedStrategy(
+    name="async-flaky",
+    sampling=DynamicSampling(initial_rate=1.0, beta=0.1, min_clients=2),
+    hetero=HeteroModel(profile="flaky-mobile"),
+    async_cfg=AsyncConfig(buffer_frac=0.5, staleness_beta=0.5,
+                          deadline_quantile=0.75, max_retries=3,
+                          backoff_s=0.5, jitter_sigma=0.25)))
 
 # "fig5-prox": fig5 with the FedProx proximal term (mu = 0.1).
 register(get("fig5").replace(

@@ -477,7 +477,8 @@ def test_registry_and_codec_derivation():
                                 "fig5-int8", "fig5-fused", "fig5-fused-int8",
                                 "fig5-bitmap", "fig3-importance",
                                 "hetero-dropout", "fig5-prox", "fig5-dyn",
-                                "noniid-dyn"}
+                                "noniid-dyn", "async-mobile",
+                                "async-crossround", "async-flaky"}
     st = tst.get("fig5", masking=tst.MaskPolicy.selective(0.5,
                                                           backend="kernel"))
     assert isinstance(st.codec, tcodecs.SparseCodec) and st.codec.gamma == 0.5

@@ -360,26 +360,63 @@ def test_count_ge_ticket_resets_between_calls(cuda):
     assert [int(g) for g in got] == [want] * 3
 
 
-def test_count_ge_call_is_one_device_operation(cuda):
-    """No memset before the kernel: ten count_ge calls put ten operations on
-    the stream, every one the count kernel.  A first short session starts
-    the tracer, so the counted session holds every record."""
+MARKER = "FillFunctor"     # the marker fills' kernel
+
+
+def _device_records(prof) -> list:
+    """Every device record of a trace as (name, start µs, duration µs),
+    in start order."""
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sorted((e.name, e.time_range.start, e.time_range.elapsed_us())
+                  for e in events)
+
+
+def _profiled_calls(call, cuda, calls: int = 10):
+    """Trace ``calls`` calls of ``call`` between two marker fills.  A first
+    short session starts the tracer; the markers come first and last in
+    the counted one, so a record the tracer drops as it starts or stops is
+    a marker's, not the kernel's."""
     from torch.profiler import ProfilerActivity, profile
-    x = torch.randn(147_456, device=cuda)
-    t = torch.tensor(0.5, device=cuda)
-    tk.count_ge(x, t)
+    marker = torch.empty(1, device=cuda)
+    call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]):
-        tk.count_ge(x, t)
+        call()
         torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            tk.count_ge(x, t)
+        marker.fill_(0.0)
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert len(names) == 10, names
-    assert all("count_ge_kernel" in name for name in names), names
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+        marker.fill_(1.0)
+        torch.cuda.synchronize()
+    return prof
+
+
+def _assert_one_kernel_record_a_call(prof, kernel: str, calls: int):
+    """``calls`` records of ``kernel`` and no record but the markers'
+    beside them; a failure lists every record counted, by name with
+    counts, and each record's start and duration."""
+    import collections
+    records = _device_records(prof)
+    counts = collections.Counter(name for name, _, _ in records)
+    ours = sum(n for name, n in counts.items() if kernel in name)
+    others = [name for name in counts
+              if kernel not in name and MARKER not in name]
+    assert ours == calls and not others, (
+        f"{ours} records of {kernel} for {calls} calls, others {others}: "
+        f"counts {dict(counts)}; records {records}")
+
+
+def test_count_ge_call_is_one_device_operation(cuda):
+    """No memset before the kernel: ten count_ge calls put ten operations on
+    the stream, every one the count kernel."""
+    x = torch.randn(147_456, device=cuda)
+    t = torch.tensor(0.5, device=cuda)
+    prof = _profiled_calls(lambda: tk.count_ge(x, t), cuda)
+    _assert_one_kernel_record_a_call(prof, "count_ge_kernel", 10)
 
 
 @pytest.mark.parametrize("offset", [1, 2, 3])
@@ -416,21 +453,9 @@ def test_exponent_histogram_scratch_resets_between_calls(cuda):
 def test_exponent_histogram_call_is_one_device_operation(cuda):
     """No memset before the kernel: ten calls put ten operations on the
     stream, every one the histogram kernel."""
-    from torch.profiler import ProfilerActivity, profile
     x = torch.randn(147_456, device=cuda)
-    tk.exponent_histogram(x)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]):
-        tk.exponent_histogram(x)
-        torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            tk.exponent_histogram(x)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert len(names) == 10, names
-    assert all("exponent_hist_kernel" in name for name in names), names
+    prof = _profiled_calls(lambda: tk.exponent_histogram(x), cuda)
+    _assert_one_kernel_record_a_call(prof, "exponent_hist_kernel", 10)
 
 
 @pytest.mark.parametrize("offset", [1, 2, 3])
@@ -476,22 +501,10 @@ def test_apply_launcher_refuses_an_output_off_the_inputs_alignment(
 def test_apply_threshold_call_is_one_device_operation(cuda):
     """No scratch and no memset: ten calls put ten operations on the
     stream, every one the apply kernel."""
-    from torch.profiler import ProfilerActivity, profile
     x = torch.randn(147_456, device=cuda)
     t = torch.tensor(0.5, device=cuda)
-    tk.apply_threshold(x, t)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]):
-        tk.apply_threshold(x, t)
-        torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            tk.apply_threshold(x, t)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert len(names) == 10, names
-    assert all("apply_threshold_kernel" in name for name in names), names
+    prof = _profiled_calls(lambda: tk.apply_threshold(x, t), cuda)
+    _assert_one_kernel_record_a_call(prof, "apply_threshold_kernel", 10)
 
 
 @pytest.mark.parametrize("offset", [0, 1])

@@ -238,8 +238,8 @@ def test_oracle_body_equals_cohort_body_under_random_masking():
 
 def test_server_draws_its_own_mask_scores_per_round():
     """Without ``mask_scores`` the server draws fresh (M, *shape) uniforms
-    from its device generator for every maskable leaf, and none at all
-    when the policy does not mask at random."""
+    for every maskable leaf each round (``masking.client_mask_scores``),
+    and none at all when the policy does not mask at random."""
     params = tpm.init_gru_lm(torch.Generator().manual_seed(0), 64, 16, 16,
                              device="cpu")
     server = FederatedServer.from_strategy(

@@ -379,40 +379,205 @@ def test_batch_provider_needs_a_sharded_store_and_changes_nothing():
     _same_runs(*runs)
 
 
-def test_random_mask_draw_that_does_not_fit_raises():
-    """The store form takes the cohort's rows of the whole (M, *shape)
-    draw; where the allocator refuses that draw it raises with its size
-    rather than draw otherwise.  A leaf of 2^56 entries makes a draw of
-    2^62 bytes, past any address space."""
-    strat = tst.get("fig5", masking=tst.MaskPolicy.random(0.5), **SMALL)
-    server = _server(strat, "sharded")
-    server._mask_leaves = {"big": (1 << 56,)}
-    with pytest.raises(ValueError,
-                       match=f"{MS} clients x {1 << 56} entries = "
-                             f"{4 * MS << 56} bytes"):
-        server.run(*_problem(), 1)
+# ------------------------------------------------- random-mask draws
+def _mask_model(model):
+    """(loss, params, batches, n) of a small LeNet or GRU-LM over MS
+    clients."""
+    rng = np.random.default_rng(1)
+    gen = torch.Generator().manual_seed(0)
+    if model == "lenet":
+        xs = rng.standard_normal((MS, 1, 4, 12, 12, 1)).astype(np.float32)
+        ys = rng.integers(0, 10, (MS, 1, 4)).astype(np.int64)
+        return (tpm.classifier_loss(tpm.lenet_forward),
+                tpm.init_lenet(gen, image_size=12, device="cpu"), (xs, ys))
+    toks = rng.integers(0, 64, (MS, 1, 4, 9)).astype(np.int64)
+    return (tpm.gru_lm_loss, tpm.init_gru_lm(gen, 64, 16, 16, device="cpu"),
+            (toks[..., :-1], toks[..., 1:]))
 
 
-@pytest.mark.parametrize("error, reported", [
-    (torch.OutOfMemoryError("CUDA out of memory"), ValueError),
-    (MemoryError(), ValueError),
-    (RuntimeError("DefaultCPUAllocator: can't allocate memory"), ValueError),
-    (RuntimeError("an unrelated fault"), RuntimeError)])
-def test_random_mask_draw_failure_is_reported_by_kind(monkeypatch, error,
-                                                      reported):
-    """An allocation failure of the draw becomes the ValueError naming its
-    size; any other fault passes through unchanged."""
-    strat = tst.get("fig5", masking=tst.MaskPolicy.random(0.5), **SMALL)
-    server = _server(strat, "sharded")
+def _random_strategy():
+    return tst.get("fig5", masking=tst.MaskPolicy.random(0.5),
+                   error_feedback=True, **SMALL)
+
+
+@pytest.mark.parametrize("model", ["lenet", "gru"])
+def test_dense_and_store_forms_mask_each_client_alike(model):
+    """Under ``MaskPolicy.random``: the cohort's draw equals the cohort's
+    rows of the dense rounds' (M, *shape) draw, and a dense run equals a
+    sharded one bit for bit (parameters and residuals)."""
+    loss, params, batches = _mask_model(model)
+    n = np.full((MS,), 4.0)
+    runs = []
+    for kind in ("dense", "sharded"):
+        store = ShardedStore(MS, params, MS) if kind == "sharded" else None
+        server = FederatedServer.from_strategy(
+            _random_strategy(), loss, params, MS, device="cpu", seed=5,
+            store=store)
+        server.run(batches, n, 2)
+        runs.append(server)
+    dense, sharded = runs
+    ids = torch.tensor([1, 6, 7, 15])
+    rows = sharded._cohort_mask_scores(3, ids)
+    full = dense.round_mask_scores(3)
+    assert rows and rows.keys() == full.keys()
+    for k, v in rows.items():
+        assert torch.equal(v, full[k].index_select(0, ids)), k
+    _bit_equal(dense.params, sharded.params)
+    _bit_equal(dense.store.residuals_dense(), sharded.store.residuals_dense())
+
+
+def test_store_round_masks_at_random_among_a_million_clients():
+    """A store-form round at M = 10^6 with a maskable leaf of 2^20 entries,
+    where an (M, *shape) fp32 draw would be 4.2 TB: the server draws the
+    cohort's rows only."""
+    big, width = 1_000_000, 1024
+    assert 4 * big * width * width > 4e12
+    strat = tst.get("fig5", masking=tst.MaskPolicy.random(0.5),
+                    error_feedback=True,
+                    sampling=tsamp.StaticSampling(initial_rate=2 / big,
+                                                  min_clients=2))
+    params = {"w": torch.zeros((width, width))}
+    rng = np.random.default_rng(0)
+    xs = rng.standard_normal((2, 1, 2, width)).astype(np.float32)
+
+    def provider(ids):
+        return (torch.from_numpy(xs[np.asarray(ids) % 2]),
+                torch.from_numpy(xs[np.asarray(ids) % 2]))
+
+    def loss(p, batch):
+        x, y = batch
+        return torch.mean((x @ p["w"] - y) ** 2)
+
+    server = FederatedServer.from_strategy(
+        strat, loss, params, big, device="cpu", seed=0,
+        store=ShardedStore(big, params, 4))
 
     def refuse(t):
-        raise error
+        raise AssertionError("the store form drew the (M, *shape) scores")
 
-    monkeypatch.setattr(server, "round_mask_scores", refuse)
-    with pytest.raises(reported) as info:
-        server.run(*_problem(), 1)
-    assert (f"{MS} clients x {D} entries" in str(info.value)) == \
-        (reported is ValueError)
+    server.round_mask_scores = refuse
+    server.run(provider, np.full((big,), 2.0), 2)
+    assert [r.num_sampled for r in server.history] == [2, 2]
+    kept = server.params["w"] != 0
+    assert 0 < int(kept.sum()) <= 2 * max(1, round(0.5 * width * width))
+
+
+def test_client_draw_is_independent_of_population_and_cohort():
+    """Client i's scores are one splitmix64 stream keyed by (seed, round,
+    client, leaf): the same bits alone, beside other clients and on servers
+    of 10 or 1,000 clients; other rounds, clients, leaves and seeds draw
+    otherwise.  The int64 tensor ops equal numpy's uint64 splitmix64."""
+    from repro_torch.core import masking as tmask
+    leaves = {"w": (5, 7), "v": (300,)}
+    alone = tmask.client_mask_scores(3, 2, [5], leaves, "cpu")
+    among = tmask.client_mask_scores(3, 2, [0, 5, 999_999], leaves, "cpu")
+    for k in leaves:
+        assert torch.equal(alone[k][0], among[k][1]), k
+        assert 0.0 <= float(among[k].min()) and float(among[k].max()) < 1.0
+    assert not torch.equal(among["w"][0], among["w"][1])
+    for seed, t in ((3, 3), (4, 2)):
+        other = tmask.client_mask_scores(seed, t, [5], leaves, "cpu")
+        assert not torch.equal(alone["w"], other["w"]), (seed, t)
+    assert not torch.equal(alone["w"].reshape(-1)[:35],
+                           alone["v"].reshape(-1)[:35])
+    strat = tst.get("fig5", masking=tst.MaskPolicy.random(0.5))
+    for num in (10, 1000):
+        server = FederatedServer.from_strategy(
+            strat, _loss, _params(), num, device="cpu", seed=2)
+        got = server._cohort_mask_scores(2, torch.tensor([5]))
+        want = tmask.client_mask_scores(3, 2, [5], {"w": (D,)}, "cpu")
+        assert torch.equal(got["w"], want["w"])
+
+    def mix(z):
+        z = (z ^ (z >> np.uint64(30))) * np.uint64(tmask._MIX[0])
+        z = (z ^ (z >> np.uint64(27))) * np.uint64(tmask._MIX[1])
+        return z ^ (z >> np.uint64(31))
+
+    ids = np.array([0, 5, 999_999], np.uint64)
+    golden = np.uint64(tmask._GOLDEN)
+    with np.errstate(over="ignore"):
+        for ell, name in enumerate(sorted(leaves)):
+            n = int(np.prod(leaves[name]))
+            key = np.uint64(tmask._stream_key(3, 2, ell))
+            rows = mix(mix(ids + golden) ^ key)
+            z = mix(rows[:, None]
+                    + np.arange(1, n + 1, dtype=np.uint64) * golden)
+            want = (z >> np.uint64(40)).astype(np.float32) * \
+                np.float32(2.0 ** -24)
+            np.testing.assert_array_equal(
+                among[name].reshape(3, n).numpy(), want)
+
+
+def test_client_draw_runs_on_the_card_unless_told():
+    """Like every entry point of the port, the draw lands on ``cuda`` unless
+    the caller names a device, and raises where there is no card."""
+    from repro_torch.core import masking as tmask
+    if torch.cuda.is_available():
+        out = tmask.client_mask_scores(3, 2, [5], {"w": (4,)})
+        assert out["w"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tmask.client_mask_scores(3, 2, [5], {"w": (4,)})
+    assert tmask.client_mask_scores(3, 2, [5], {"w": (4,)},
+                                    "cpu")["w"].device.type == "cpu"
+
+
+def test_default_draw_is_deterministic_and_resumes_bit_identically(tmp_path):
+    """Two servers of one seed draw the same scores; the mask seed rides in
+    ``state()``, so a server restored with another constructor seed runs
+    on as the straight run does."""
+    strat = _random_strategy()
+    batches, n = _problem()
+    a = _server(strat, "sharded", retention=6)
+    b = _server(strat, "sharded", retention=6)
+    for k, v in a.round_mask_scores(4).items():
+        assert torch.equal(v, b.round_mask_scores(4)[k])
+    a.run(batches, n, 6)
+    b.run(batches, n, 3)
+    b.save_state(str(tmp_path))
+    assert int(b.state()["rng"]["mask"]) == 1
+    other = FederatedServer.from_strategy(
+        strat, _loss, _params(), MS, device="cpu", seed=77,
+        store=ShardedStore(MS, _params(), 6))
+    other.restore_state(str(tmp_path))
+    other.run(batches, n, 3)
+    _bit_equal(a.params, other.params)
+    _bit_equal(a.store.residuals_dense(), other.store.residuals_dense())
+
+
+def test_injected_mask_scores_still_win():
+    """A caller's ``mask_scores(t, M)`` is what every form masks with: its
+    rows in the store form, and a run fed the default draw through it is
+    the default run."""
+    strat = _random_strategy()
+    batches, n = _problem()
+    plain = _server(strat, "sharded")
+    given = {"w": torch.rand((MS, D), generator=torch.Generator()
+                             .manual_seed(9))}
+    injected = _server(strat, "sharded", mask_scores=lambda t, m: given)
+    rows = injected._cohort_mask_scores(1, torch.tensor([2, 3]))
+    assert torch.equal(rows["w"], given["w"][2:4])
+    echo = _server(strat, "sharded",
+                   mask_scores=lambda t, m: plain.round_mask_scores(t))
+    for server in (plain, injected, echo):
+        server.run(batches, n, 3)
+    _bit_equal(plain.params, echo.params)
+    assert not torch.equal(plain.params["w"], injected.params["w"])
+
+
+def test_random_keep_takes_ties_lowest_index_first_as_top_k_does():
+    """Equal scores at the k-th place keep the lowest indices, as the
+    reference's ``lax.top_k`` of the negated scores does."""
+    from repro_torch.core.masking import random_keep
+    rng = np.random.default_rng(3)
+    scores = (rng.integers(0, 6, (4, 50)) / 8.0).astype(np.float32)
+    k = max(1, round(0.3 * 50))
+    _, idx = jax.lax.top_k(-jnp.asarray(scores), k)
+    want = np.zeros(scores.shape, bool)
+    np.put_along_axis(want, np.asarray(idx), True, 1)
+    got = random_keep(torch.from_numpy(scores), 0.3).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got.sum(1) == k).all()
 
 
 def test_build_round_forms_and_legacy_shims():
