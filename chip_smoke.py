@@ -92,7 +92,31 @@ with a nonzero exit:
    ``small_store_agreement``: the store path at the small VGG (M = 64,
    window 16, 6 rounds) on the card against the CPU (participants, slot
    directory, evictions, versions and bytes exact), and the store path's
-   ``round_time``;
+   ``round_time``.  In ``store_path`` each round's payload norms
+   (``federated._row_l2``) are also computed on the CPU from the card's
+   payload: the bits, the norm vectors they give and the participants the
+   CPU selection draws from each for the next round must be equal in
+   every round (``norm_bits_equal_rounds``), and the norm's cost at the
+   round-1 bucket is timed beside the ``torch.sum`` form it replaced;
+3c. the async engine: ``async_path``, ``async_keystone``,
+   ``small_async_agreement``, ``async_store``, ``async_resume`` and
+   ``random_mask_store``;
+3d. Byzantine attacks and robust aggregation: ``robust_path``, full-width
+   VGG, M = 32, 8 rounds on the cohort engine for ``byzantine-signflip``,
+   ``robust-median`` and ``robust-krum`` with fig5's masking on the
+   kernels (counts set to 0 just before each run and read just after:
+   8/16/8), one ``robust_round`` line a round (m_t, participants,
+   adversarial, quarantined, bytes, ``wall_s``, the aggregation call's
+   device time by CUDA events), the run's median, peak memory and final
+   loss beside the honest ``vgg-fig5`` run's (no bar on it);
+   ``attack_agreement``: every attack kind at LeNet-28, M = 12, 5 rounds
+   on the full, cohort and store forms, card against CPU, the CPU
+   replaying the card's client sweeps (participants, adversarial,
+   quarantined and bytes exact, parameters within ATTACK_TOL) and on the
+   card cohort == full == store bit for bit; ``attack_noise``: the gauss
+   draws of 32 clients over full-width VGG, card against CPU, within one
+   fp32 ulp; ``async_attack``: the async keystone on the three presets
+   and a nan attack on ``async-flaky`` quarantined event by event;
 4. the per-array path — ``ops.topk_mask(leaf, 0.5)`` on every maskable leaf
    of one client's VGG and GRU delta from the main paths, launch counts set
    to 0 just before and read just after (1/8/1 per leaf): kept <= k per
@@ -217,6 +241,16 @@ STORE_STRESS_CLIENTS = 512        # kernels 1-5 on a 512-client VGG cohort
 ASYNC_ROUNDS, ASYNC_KEYSTONE_ROUNDS, ASYNC_SMALL_ROUNDS = 8, 4, 6
 ASYNC_STORE_M, ASYNC_STORE_ROUNDS, ASYNC_EVICT_RETENTION = 1024, 6, 768
 RANDOM_STORE_ROUNDS = 3           # random masking on the store path
+# Byzantine attacks: the three presets on full-width VGG (M = 32, 8
+# rounds), every kind at LeNet-28 (M = 12, 5 rounds) on every form.
+ROBUST_PRESETS = ("byzantine-signflip", "robust-median", "robust-krum")
+ATTACK_KINDS = ("sign_flip", "scale", "gauss", "zero", "nan")
+ATTACK_M, ATTACK_ROUNDS = 12, 5
+ATTACK_KNOBS = {"fraction": 0.25, "strength": 2.0, "sigma": 0.05}
+# Card against CPU under attack: the largest parameter difference over the
+# leaf's largest magnitude (at least 1), as SMALL_RTOL elsewhere; the gauss
+# noise itself may differ by one fp32 ulp (attacks.client_attack_noise).
+ATTACK_TOL = 1e-3
 # The LeNet main path's seed-0 data, pinned on the CPU against the
 # reference's arrays (tests/test_torch_checkpoint.py), and the seed-0
 # init_lenet() leaves as torch's CPU generator gives them there.
@@ -1698,7 +1732,10 @@ def run_store_path(ckpt_dir: str) -> dict:
         fail(f"store path VGG has {server._num_params} parameters")
     timing = {}
 
-    def save(t):
+    norms = recorded_norms(server)
+
+    def after(t):
+        norms.check(t, ns)
         if t == STORE_SAVE_AFTER:
             t0 = time.perf_counter()
             server.save_state(ckpt_dir)
@@ -1707,21 +1744,27 @@ def run_store_path(ckpt_dir: str) -> dict:
     draws = []
     reset_all_counts()
     t0 = time.perf_counter()
-    with deterministic_cudnn():
+    with deterministic_cudnn(), norms:
         rounds = store_rounds(server, provider, ns, eval_data, STORE_ROUNDS,
-                              draws, after=save)
+                              draws, after=after)
     wall = time.perf_counter() - t0
     launches = seg.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     prev = 0
-    for (rec, evictions), (_, margin) in zip(rounds, draws):
+    for (rec, evictions), (_, margin), nb in zip(rounds, draws,
+                                                 norms.results):
         phase("store_round", round=rec.round, m_t=ns_round(server, rec.round),
               bucket=rec.cohort_size, participants=rec.num_sampled,
               transport_bytes=rec.transport_bytes, evictions=evictions,
               evictions_this_round=evictions - prev, wall_s=rec.wall_s,
               compile_s=rec.compile_s, mean_loss=rec.mean_loss,
-              min_draw_margin_ulps=margin)
+              min_draw_margin_ulps=margin,
+              norm_bits_card_eq_cpu=nb["norm_bits_equal"],
+              next_participants_card_eq_cpu=nb["next_participants_equal"])
         prev = evictions
+    equal_rounds = sum(nb["norm_bits_equal"] and nb["norm_vectors_equal"]
+                       and nb["next_participants_equal"]
+                       for nb in norms.results)
     mem = server.store.memory_bytes()
     summ = server.summary()
     hist = [rec for rec, _ in rounds]
@@ -1747,7 +1790,12 @@ def run_store_path(ckpt_dir: str) -> dict:
           first_round_s=walls[0], compile_s=[r.compile_s for r in hist],
           checkpoint_save_s=timing.get("save_s"), run_wall_s=wall,
           min_draw_margin_ulps=min(m for _, m in draws),
-          cudnn_deterministic=True)
+          norm_bits_equal_rounds=f"{equal_rounds}/{len(norms.results)}",
+          norm_max_abs_diff=max(nb["max_abs_diff"] for nb in norms.results),
+          row_l2_cost=norms.cost, cudnn_deterministic=True)
+    if equal_rounds != STORE_ROUNDS or len(norms.results) != STORE_ROUNDS:
+        fail(f"store path: card and CPU norms or participants differ: "
+             f"{norms.results}")
     if launches != want:
         fail(f"store path: launches {launches}, expected {want}")
     if [r.cohort_size for r in hist] != plan:
@@ -2414,6 +2462,466 @@ def random_mask_store() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Byzantine attacks and robust aggregation
+# ---------------------------------------------------------------------------
+class timed_aggregator:
+    """Within the block the strategy's aggregation call is bracketed by
+    CUDA events: ``ms()`` gives each call's device time after the run."""
+
+    def __init__(self, st):
+        self.st = st
+        self.events = []
+
+    def strategy(self):
+        import dataclasses
+        import torch
+        agg = self.st.aggregator
+        events = self.events
+
+        def fn(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = agg.fn(*args, **kwargs)
+            end.record()
+            events.append((start, end))
+            return out
+
+        return self.st.replace(aggregator=dataclasses.replace(agg, fn=fn))
+
+    def ms(self) -> list:
+        import torch
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def run_robust_path(honest_loss: float) -> dict:
+    """``robust_path``: full-width VGG, M = 32, 8 rounds on the cohort
+    engine for each of the three Byzantine presets with fig5's masking on
+    the kernels; the launch counts set to 0 just before each run and read
+    just after (8/16/8), each aggregation call timed on the card."""
+    import torch
+    from repro_torch.core import strategy
+    from repro_torch.core.server import FederatedServer
+    from repro_torch.kernels import segmented as seg
+    batches, ns, evald, init, loss_fn, eval_fn, M = model_setup("vgg")
+    batches = [torch.as_tensor(a).cuda() for a in batches]
+    eval_data = tuple(torch.as_tensor(a).cuda() for a in evald)
+    out = {}
+    for name in ROBUST_PRESETS:
+        timer = timed_aggregator(kernel_masking(strategy.get(name)))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        server = FederatedServer.from_strategy(
+            timer.strategy(), loss_fn, init("cuda"), M, eval_fn=eval_fn,
+            seed=0)
+        if server._num_params != LM_PARAMS["vgg"]:
+            fail(f"{name}: VGG has {server._num_params} parameters")
+        reset_all_counts()
+        t0 = time.perf_counter()
+        server.run(batches, ns, MAIN_ROUNDS, eval_every=MAIN_ROUNDS,
+                   eval_data=eval_data)
+        wall = time.perf_counter() - t0
+        launches = seg.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        agg_ms = timer.ms()
+        hist = server.history
+        summ = server.summary()
+        for rec, ms in zip(hist, agg_ms):
+            phase("robust_round", preset=name, round=rec.round,
+                  m_t=ns_round(server, rec.round), bucket=rec.cohort_size,
+                  participants=rec.num_sampled, adversarial=rec.adversarial,
+                  quarantined=rec.quarantined,
+                  transport_bytes=rec.transport_bytes, wall_s=rec.wall_s,
+                  compile_s=rec.compile_s, aggregation_ms=ms,
+                  mean_loss=rec.mean_loss)
+        walls = [r.wall_s for r in hist]
+        want = {k: MAIN_ROUNDS * MASK_PER_ROUND.get(k, 0) for k in SEGMENTED}
+        phase("robust_path", preset=name, model="vgg",
+              params=server._num_params, num_clients=M, rounds=len(hist),
+              aggregator=server.strategy.aggregator.name,
+              attack=summ.get("attack"),
+              codec=summ["codec"], launches=launches,
+              adversarial_uploads=summ.get("adversarial_uploads"),
+              quarantined=summ["quarantined"],
+              transport_bytes=summ["transport_bytes"],
+              steady_round_s_median=statistics.median(walls[1:]),
+              first_round_s=walls[0],
+              aggregation_ms_median=statistics.median(agg_ms),
+              aggregation_ms=agg_ms, max_memory_allocated=peak,
+              allocated_before_run=held,
+              final_loss=summ["final_loss"],
+              honest_fig5_final_loss=honest_loss,
+              final_eval=summ["final_eval"], run_wall_s=wall)
+        if launches != want:
+            fail(f"{name}: launches {launches}, expected {want}")
+        if [r.num_sampled for r in hist] != MAIN_SAMPLED:
+            fail(f"{name}: participants {[r.num_sampled for r in hist]}")
+        if summ["transport_bytes"] != sum(MAIN_SAMPLED) * \
+                LM_PATHS["vgg-fig5"][2]:
+            fail(f"{name}: transport_bytes {summ['transport_bytes']}")
+        if not sum(r.adversarial for r in hist) > 0:
+            fail(f"{name}: no adversary took part")
+        if len(agg_ms) != MAIN_ROUNDS:
+            fail(f"{name}: {len(agg_ms)} aggregation calls")
+        if not async_params_finite(server):
+            fail(f"{name}: non-finite parameters")
+        out[name] = {"history": hist, "peak": peak, "aggregation_ms": agg_ms,
+                     "launches": launches}
+        del server
+    return out
+
+
+class fed_sweeps:
+    """Within the block ``federated.stacked_client_update`` (a round's
+    local SGD and masking) either appends host copies of what it returns
+    to ``log`` or, with ``replay``, returns the logged copies in order on
+    the caller's device.  The card's run logs and the CPU's replays, so
+    the CPU holds everything after the sweep (wire, attack, gate,
+    aggregation, commits) on the card's inputs: from one state LeNet-28's
+    local SGD alone already differs between the devices by more than
+    1e-3 in a round (``tests/async_sweep_diag.py``)."""
+
+    def __init__(self, log: list, replay: bool):
+        self.log, self.replay, self.used = log, replay, 0
+
+    def __enter__(self):
+        from repro_torch.core import federated
+        self.real = real = federated.stacked_client_update
+
+        def move(x, device):
+            if x is None:
+                return None
+            if isinstance(x, dict):
+                return {k: v.detach().to(device).clone()
+                        for k, v in x.items()}
+            return x.detach().to(device).clone()
+
+        def sweep(loss_fn, params, *args, **kwargs):
+            if not self.replay:
+                out = real(loss_fn, params, *args, **kwargs)
+                self.log.append(tuple(move(x, "cpu") for x in out))
+                return out
+            device = next(iter(params.values())).device
+            self.used += 1
+            return tuple(move(x, device) for x in self.log[self.used - 1])
+
+        federated.stacked_client_update = sweep
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import federated
+        federated.stacked_client_update = self.real
+
+
+def attack_runs(kind: str, device: str, logs: dict,
+                replay: bool = False) -> dict:
+    """One attack kind on LeNet-28 (M = 12, 5 rounds, fig5 with error
+    feedback) on the full, cohort and store forms on ``device``; each
+    form's sweeps logged in, or replayed from, ``logs[form]``."""
+    import torch
+    from repro_torch.core import strategy
+    from repro_torch.core.attacks import AttackModel
+    from repro_torch.core.client_store import ShardedStore
+    st = strategy.get("fig5", error_feedback=True).replace(
+        attack=AttackModel(kind=kind, **ATTACK_KNOBS))
+    runs = {}
+    with deterministic_cudnn():
+        for form in ("full", "cohort", "store"):
+            make = ((lambda p: ShardedStore(ATTACK_M, p, ATTACK_M))
+                    if form == "store" else None)
+            server, batches, ns, _ = lenet_server(
+                st, ATTACK_M, 28, ATTACK_M * 8 * MAIN_BATCH, MAIN_BATCH,
+                device, make_store=make,
+                engine="full" if form == "full" else "cohort")
+            if form == "store":
+                xs, ys = (torch.as_tensor(a).to(device) for a in batches)
+
+                def provider(ids, xs=xs, ys=ys):
+                    idx = torch.as_tensor(ids).to(xs.device)
+                    return xs.index_select(0, idx), ys.index_select(0, idx)
+                batches = provider
+            with fed_sweeps(logs.setdefault(form, []), replay) as fed:
+                server.run(batches, ns, ATTACK_ROUNDS)
+            if replay and fed.used != len(fed.log):
+                fail(f"attack {kind} {form}: {fed.used} sweeps replayed "
+                     f"of {len(fed.log)}")
+            runs[form] = server
+    return runs
+
+
+def ledger(server) -> list:
+    return [(r.num_sampled, r.cohort_size, r.adversarial, r.quarantined,
+             r.transport_bytes) for r in server.history]
+
+
+def bit_equal(a, b) -> bool:
+    import torch
+    pa, pb = a.params, b.params
+    ra, rb = a.store.residuals_dense(), b.store.residuals_dense()
+    return (all(torch.equal(v, pb[k]) for k, v in pa.items())
+            and all(torch.equal(v, rb[k]) for k, v in ra.items()))
+
+
+def attack_agreement(devices=("cuda", "cpu")) -> dict:
+    """``attack_agreement``: every attack kind on the full, cohort and
+    store forms at LeNet-28, M = 12, 5 rounds, on the card against the
+    CPU, which replays the card's client sweeps (``fed_sweeps``):
+    participants, adversarial, quarantined and bytes exact, parameters
+    within ATTACK_TOL of the leaf's scale; and on the card cohort == full
+    == store bit for bit."""
+    out = {}
+    for kind in ATTACK_KINDS:
+        logs = {}
+        gpu = attack_runs(kind, devices[0], logs)
+        cpu = attack_runs(kind, devices[1], logs, replay=True)
+        errs, exact = {}, {}
+        for form in gpu:
+            a, b = gpu[form], cpu[form]
+            exact[form] = ledger(a) == ledger(b)
+            errs[form] = max(
+                float((a.params[k].cpu() - v).abs().max())
+                / max(1.0, float(v.abs().max()))
+                for k, v in b.params.items())
+        same = {"cohort==full": bit_equal(gpu["cohort"], gpu["full"]),
+                "store==cohort": bit_equal(gpu["store"], gpu["cohort"])}
+        hist = gpu["cohort"].history
+        phase("attack_agreement", kind=kind, num_clients=ATTACK_M,
+              rounds=len(hist), knobs=ATTACK_KNOBS,
+              participants=[r.num_sampled for r in hist],
+              buckets=[r.cohort_size for r in hist],
+              adversarial=[r.adversarial for r in hist],
+              quarantined=[r.quarantined for r in hist],
+              ledger_card_vs_cpu_exact=exact,
+              max_param_err_over_scale=errs, cpu_replays_card_sweeps=True,
+              card_bit_identical=same,
+              final_loss={f: s.summary()["final_loss"]
+                          for f, s in gpu.items()})
+        if not all(exact.values()):
+            fail(f"attack {kind}: card and CPU ledgers differ: {exact}")
+        if max(errs.values()) > ATTACK_TOL:
+            fail(f"attack {kind}: card and CPU parameters differ: {errs}")
+        if not all(same.values()):
+            fail(f"attack {kind}: the card's forms differ: {same}")
+        if min(r.cohort_size for r in hist) >= ATTACK_M:
+            fail(f"attack {kind}: the cohort body never ran")
+        if not sum(r.adversarial for r in hist) > 0:
+            fail(f"attack {kind}: no adversary took part")
+        if kind == "nan" and [r.quarantined for r in hist] != \
+                [r.adversarial for r in hist]:
+            fail("attack nan: quarantined != adversarial")
+        for s in gpu.values():
+            if not async_params_finite(s):
+                fail(f"attack {kind}: non-finite parameters")
+        out[kind] = {"errs": errs, "exact": exact, "same": same}
+    return out
+
+
+def attack_noise_agreement() -> dict:
+    """``attack_noise``: the gauss attack's draws
+    (``attacks.client_attack_noise``) for 32 clients over every full-width
+    VGG leaf on the card against the CPU: entries that differ and the
+    largest difference in fp32 ulps of the CPU's value (at most 1)."""
+    import torch
+    from repro_torch.core.attacks import client_attack_noise
+    from repro_torch.models import paper_models as pm
+    params = pm.init_vgg(torch.Generator().manual_seed(0), 32, 3,
+                         widths=(32, 64, 128, 128), device="cpu")
+    leaves = {k: tuple(v.shape) for k, v in params.items()}
+    ids = list(range(0, 3200, 100))
+    card = client_attack_noise(0, 1, ids, leaves, "cuda")
+    cpu = client_attack_noise(0, 1, ids, leaves, "cpu")
+    entries = differ = 0
+    ulps = 0.0
+    for k, v in cpu.items():
+        d = (card[k].cpu() - v).abs()
+        spacing = torch.nextafter(v.abs(), torch.tensor(float("inf"))) \
+            - v.abs()
+        entries += v.numel()
+        differ += int((d > 0).sum())
+        ulps = max(ulps, float((d / spacing).max()))
+    phase("attack_noise", clients=len(ids), entries=entries,
+          entries_that_differ=differ, max_ulps=ulps)
+    if ulps > 1.0:
+        fail(f"gauss noise: card and CPU {ulps} ulps apart")
+    return {"entries": entries, "differ": differ, "max_ulps": ulps}
+
+
+def async_attack(device: str = "cuda") -> dict:
+    """``async_attack``: the async keystone (ideal fleet, ``AsyncConfig()``,
+    async == cohort bit for bit) on the three Byzantine presets at
+    LeNet-28, M = 32, 4 rounds, with error feedback and fig5's masking on
+    the kernels; then a nan attack (f = 0.3) on ``async-flaky``,
+    quarantined event by event: finite parameters, quarantined uploads
+    only from adversaries, the adversaries' residuals untouched."""
+    import torch
+    from repro_torch.core import strategy
+    from repro_torch.core.async_engine import AsyncConfig
+    from repro_torch.core.attacks import AttackModel
+    from repro_torch.core.hetero import HeteroModel
+    ideal = HeteroModel(profile="ideal")
+    out = {}
+    for name in ROBUST_PRESETS:
+        st = kernel_masking(strategy.get(name, hetero=ideal,
+                                         error_feedback=True,
+                                         async_cfg=AsyncConfig()))
+        runs = []
+        with deterministic_cudnn():
+            for engine in ("cohort", "async"):
+                server, batches, ns, _ = lenet_server(
+                    st, MAIN_M, 28, MAIN_M * 8 * MAIN_BATCH, MAIN_BATCH,
+                    device, engine=engine)
+                server.run(batches, ns, ASYNC_KEYSTONE_ROUNDS)
+                runs.append(server)
+        sync, buf = runs
+        exact = {"params_residuals": bit_equal(sync, buf),
+                 "adversarial": [r.adversarial for r in sync.history]
+                 == [r.adversarial for r in buf.history],
+                 "transport_bytes": sync.summary()["transport_bytes"]
+                 == buf.summary()["transport_bytes"],
+                 "num_sampled": [r.num_sampled for r in sync.history]
+                 == [r.arrivals for r in buf.history]}
+        phase("async_attack", preset=name, check="keystone",
+              rounds=len(buf.history),
+              num_sampled=[r.num_sampled for r in buf.history],
+              adversarial=[r.adversarial for r in buf.history],
+              flushes=[r.flushes for r in buf.history], exact=exact)
+        if not all(exact.values()):
+            fail(f"async attack keystone {name}: differs in {exact}")
+        if not sum(r.adversarial for r in buf.history) > 0:
+            fail(f"async attack keystone {name}: no adversary took part")
+        out[name] = exact
+    attack = AttackModel(kind="nan", fraction=0.3)
+    st = kernel_masking(strategy.get("async-flaky", error_feedback=True,
+                                     attack=attack))
+    server, batches, ns, _ = lenet_server(
+        st, MAIN_M, 28, MAIN_M * 8 * MAIN_BATCH, MAIN_BATCH, device,
+        engine="async")
+    stats = record_async_stats(server)
+    server.run(batches, ns, ASYNC_ROUNDS)
+    hist = server.history
+    adv = torch.from_numpy(attack.adversary_mask(MAIN_M).astype(bool))
+    res = server.store.residuals_dense()
+    untouched = all(not bool(v.cpu()[adv].any()) for v in res.values())
+    summ = server.summary()
+    phase("async_attack", preset="async-flaky", check="nan quarantine",
+          attack=summ["attack"], rounds=len(hist),
+          participants=[r.num_sampled for r in hist],
+          adversarial=[r.adversarial for r in hist],
+          quarantined=[r.quarantined for r in hist],
+          arrivals=[r.arrivals for r in hist],
+          sends=[s["sends"] for s in stats],
+          dropped=[r.dropped for r in hist],
+          timeouts=[r.timeouts for r in hist],
+          adversary_residuals_untouched=untouched)
+    if not async_params_finite(server):
+        fail("async nan attack: non-finite parameters")
+    if not summ["quarantined"] > 0:
+        fail("async nan attack: nothing was quarantined")
+    if any(r.quarantined > r.adversarial for r in hist):
+        fail("async nan attack: an honest upload was quarantined")
+    if not untouched:
+        fail("async nan attack: an adversary's residual moved")
+    out["async-flaky-nan"] = summ["quarantined"]
+    return out
+
+
+def old_row_l2(stacked: dict):
+    """The norm before the repair: ``torch.sum`` per leaf, whose order is
+    the device's; the yardstick of the repair's cost."""
+    import torch
+    return torch.sqrt(sum(
+        torch.sum(torch.square(stacked[k].float()).reshape(
+            stacked[k].shape[0], -1), 1) for k in sorted(stacked)))
+
+
+class recorded_norms:
+    """Within the block each norm-tracker update of ``server``'s rounds
+    keeps a device copy of the payload it read, the card's norms of it,
+    the cohort rows' old EMA values, the commit mask and the rows' ids.
+    ``check(t, n_samples)``, called between rounds (outside ``wall_s``),
+    recomputes the norms on the CPU from the payload and compares their
+    bits; folds each set into the store's norm vector; compares the
+    participants the CPU selection draws from the two vectors for round
+    t + 1 (the server's next participant scores); and drops the copies.
+    The first call also times ``_row_l2`` and the ``torch.sum`` form it
+    replaced on the first payload."""
+
+    def __init__(self, server):
+        self.server = server
+        self.kept, self.results, self.cost = [], [], None
+
+    def __enter__(self):
+        import numpy as np
+        from repro_torch.core import federated
+        self.real = (federated._row_l2, federated._norm_ema)
+        real_l2, real_ema = self.real
+        kept, store = self.kept, self.server.store
+        real_update = store.update_norms
+
+        def row_l2(stacked):
+            obs = real_l2(stacked)
+            kept.append({"payload": {k: v.clone()
+                                     for k, v in stacked.items()},
+                         "obs": obs})
+            return obs
+
+        def norm_ema(smp, old, obs, commit):
+            kept[-1].update(old=old.clone(), commit=commit.clone())
+            return real_ema(smp, old, obs, commit)
+
+        def update_norms(ids, values):
+            kept[-1]["ids"] = np.array(ids, dtype=np.int64)
+            return real_update(ids, values)
+
+        federated._row_l2, federated._norm_ema = row_l2, norm_ema
+        store.update_norms = update_norms
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import federated
+        federated._row_l2, federated._norm_ema = self.real
+        del self.server.store.update_norms
+
+    def check(self, t: int, n_samples) -> None:
+        import numpy as np
+        import torch
+        real_l2, real_ema = self.real
+        server = self.server
+        smp, M = server.strategy.sampler, server.cfg.num_clients
+        if self.cost is None and self.kept:
+            payload = self.kept[0]["payload"]
+            self.cost = {
+                "rows": int(next(iter(payload.values())).shape[0]),
+                "row_l2_ms": cuda_ms([lambda: real_l2(payload)], 10),
+                "torch_sum_l2_ms": cuda_ms([lambda: old_row_l2(payload)],
+                                           10)}
+        card_norms = server.store.norms.cpu()
+        cpu_norms = card_norms.clone()
+        bits, diff = True, 0.0
+        for rec in self.kept:
+            card = rec["obs"].cpu()
+            cpu = real_l2({k: v.cpu() for k, v in rec["payload"].items()})
+            bits = bits and torch.equal(card, cpu)
+            diff = max(diff, float((card - cpu).abs().max()))
+            cpu_norms[torch.from_numpy(rec["ids"])] = real_ema(
+                smp, rec["old"].cpu(), cpu, rec["commit"].cpu())
+        gen = torch.Generator()
+        gen.set_state(server._generator.get_state())
+        scores = torch.rand((M,), generator=gen)
+        ns = torch.as_tensor(np.asarray(n_samples), dtype=torch.float32)
+        parts = [smp.select(scores, server.schedule, t + 1, M, ns, norms)[0]
+                 for norms in (card_norms, cpu_norms)]
+        self.results.append({
+            "round": t, "updates": len(self.kept), "norm_bits_equal": bits,
+            "max_abs_diff": diff,
+            "norm_vectors_equal": torch.equal(card_norms, cpu_norms),
+            "next_participants_equal": torch.equal(parts[0], parts[1])})
+        self.kept.clear()
+
+
+# ---------------------------------------------------------------------------
 # The model zoo's serving slice: rwkv6-1.6b and hymba-1.5b
 # ---------------------------------------------------------------------------
 def zoo_counts() -> dict:
@@ -2958,6 +3466,13 @@ def main(argv) -> int:
     async_store()
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt:
         async_resume(ckpt)
+    # ---- 3d. Byzantine attacks and robust aggregation ---------------------
+    robust = run_robust_path(lms["vgg-fig5"]["history"][-1].mean_loss)
+    for name, run in robust.items():
+        round_time_line(f"vgg-{name}", run["history"])
+    attack_agreement()
+    attack_noise_agreement()
+    async_attack()
 
     # ---- 4. the per-array path and kernels 6–8 ---------------------------
     deltas = {"vgg": client_delta(lms["vgg-fig5"]),
@@ -3027,6 +3542,8 @@ def main(argv) -> int:
             "launches_per_round": fused["launches"][name] / rounds,
             "store_path_launches": store["launches"][name],
             "async_path_launches": async_run["launches"][name],
+            "robust_path_launches": {p: r["launches"][name]
+                                     for p, r in robust.items()},
             "max_abs_err": errs[name], "ms": rec["ms"],
             "warm_ms": rec["warm_ms"], "device_ms": rec["device_ms"],
             "wrapper_ms": rec["wrapper_ms"],

@@ -48,8 +48,13 @@ The host's random stream (corrupt draws, arrival jitter, drop draws) is a
 numpy ``Generator`` seeded with the round's words, consumed in the
 reference's order.  With instant arrivals (the ideal fleet), K = m_t and
 no faults, a round is the dispatch plus one flush of everyone at
-staleness 0, and bit-identical to the sync cohort round.  Byzantine
-attacks wait for ROADMAP Queue 1 item 13.
+staleness 0, and bit-identical to the sync cohort round.  Under an active
+:class:`~repro_torch.core.attacks.AttackModel` the dispatch sweep hands
+over the attacked payload: it enters the gate (a ``nan`` attack is
+quarantined event by event, as an injected corruption is), the flushes
+and the norm tracker, while the error-feedback commit reads the honest
+wire round trip; ``stats["adversarial"]`` counts the adversarial
+participants.
 """
 
 from __future__ import annotations
@@ -62,8 +67,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.client_store import DenseStore
-from repro_torch.core.federated import (_aggregate, _aggregator,
-                                        _check_attack, _finite_rows,
+from repro_torch.core.federated import (_active_attack, _aggregate,
+                                        _aggregator, _finite_rows,
                                         _norm_ema, _row_l2, _wire_feedback,
                                         _zero_rows, store_dispatch)
 from repro_torch.core.hetero import HeteroModel, arrival_stream
@@ -173,7 +178,12 @@ class AsyncRoundRunner:
         if acfg is None:
             acfg = getattr(strategy, "async_cfg", None)
         self.acfg = acfg if acfg is not None else AsyncConfig()
-        _check_attack(getattr(strategy, "attack", None))
+        # Byzantine adversaries: the dispatch sweep hands over the attacked
+        # payload, whose non-finite rows land in the same gate as injected
+        # corruption.
+        self.attack = _active_attack(getattr(strategy, "attack", None))
+        self._adv = (self.attack.adversary_mask(num_clients)
+                     if self.attack is not None else None)
         self.store = store
         self._crossround = self.acfg.max_round_stale > 0
         if self._crossround and store is None:
@@ -225,7 +235,8 @@ class AsyncRoundRunner:
     def run_round(self, params: Tree, prog, client_batches,
                   n_samples: torch.Tensor, t: int, scores: torch.Tensor,
                   event_words: Sequence[int], *, flops: float,
-                  wire_bytes: int, mask_scores: Optional[Callable] = None):
+                  wire_bytes: int, mask_scores: Optional[Callable] = None,
+                  attack_noise: Optional[Callable] = None):
         """Run one async buffered round: ``(params, stats)``.
 
         ``prog``: the store form's round for the cohort bucket
@@ -235,8 +246,9 @@ class AsyncRoundRunner:
         store) a provider ``client_batches(ids) -> (xs, ys)``;
         ``n_samples``: the (M,) CPU dataset sizes; ``scores``: round t's
         (M,) CPU participant uniforms; ``event_words``: the words that seed
-        the host's random stream; ``mask_scores(ids)`` gives the cohort's
-        random-mask scores.  ``stats`` is the host-side ledger the server
+        the host's random stream; ``mask_scores(ids)`` and
+        ``attack_noise(ids)`` give the cohort's random-mask scores and
+        gauss-attack noise.  ``stats`` is the host-side ledger the server
         turns into a ``RoundRecord``."""
         acfg = self.acfg
         M = self.num_clients
@@ -252,7 +264,9 @@ class AsyncRoundRunner:
         ids = d.ids.to(device)
         out = prog.compute(params, d.res, d.batches,
                            mask_scores(ids) if mask_scores is not None
-                           else None, d.drift)
+                           else None, d.drift, d.ids,
+                           attack_noise(ids) if attack_noise is not None
+                           else None)
         part_np = part.numpy()
         losses = out["losses"].detach().cpu().numpy().astype(np.float64)
         B = int(ids_np.shape[0])
@@ -261,16 +275,16 @@ class AsyncRoundRunner:
         store.mark_dispatched(np.flatnonzero(part_np > 0), t)
         rng = np.random.default_rng([int(w) for w in event_words])
 
-        # 2. chaos injection and the gate.  ``payload`` is what the server
-        # decodes; ``wired`` stays the honest round trip the EF commit
-        # reads.
+        # 2. the adversaries' payload, chaos injection and the gate.
+        # ``payload`` is what the server decodes; ``wired`` stays the honest
+        # round trip the EF commit reads.
         wired = out["wired"]
-        payload = wired
+        payload = out["attacked"]
         corrupt = np.zeros((M,), np.float32)
         if self._inject:
             corrupt = (rng.random(M) < acfg.corrupt_rate).astype(np.float32)
         if self._inject or acfg.quarantine:
-            payload, finite = self._gate(wired, corrupt[ids_np], device)
+            payload, finite = self._gate(payload, corrupt[ids_np], device)
             finite_c = finite.cpu().numpy()
         else:
             finite_c = np.ones((B,), np.float32)
@@ -498,6 +512,8 @@ class AsyncRoundRunner:
         stats = {
             "mean_loss": mean_loss,
             "num_sampled": int(n_part),
+            "adversarial": (int((part_np * self._adv).sum())
+                            if self._adv is not None else 0),
             "arrivals": arrivals,
             "timeouts": timeouts,
             "retries": retries,

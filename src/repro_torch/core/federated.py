@@ -42,7 +42,8 @@ Selection and the dropout draw run on the CPU from the (M,) draws, so a
 run on the card picks the clients a run on the CPU picks.
 
 A round is ``round_fn(params, state, client_batches, n_samples, t, scores,
-mask_scores=None, drop_scores=None) -> (params, state, metrics)``.
+mask_scores=None, drop_scores=None, attack_noise=None) -> (params, state,
+metrics)``.
 ``state`` holds the per-client server state: ``"residuals"`` (stacked
 error-feedback rows), ``"drift"`` (FedDyn's stacked drift rows, when the
 objective uses drift) and ``"norms"`` (the (M,) norm EMA, for an adaptive
@@ -50,7 +51,9 @@ sampler).  The reference threads a ``jax.random`` key; here a round takes
 the draws that key would have made: the (M,) uniform ``scores``, the
 per-client random-mask scores (``{leaf: (M, *shape)}``; the cohort body
 masks client i with row i of them) and, with a hetero fleet, the (M,)
-uniform ``drop_scores``.  Both bodies gate the decoded payload through the
+uniform ``drop_scores`` and, under a ``gauss`` attack, the clients'
+standard-normal ``attack_noise`` rows (``{leaf: (M, *shape)}``, gathered as
+the mask scores are).  Both bodies gate the decoded payload through the
 non-finite quarantine (``metrics["quarantined"]``).
 
 With ``FederatedConfig.error_feedback`` both bodies run the reference's
@@ -59,12 +62,22 @@ residual to its delta before masking, keeps the masked-out remainder, and
 — when the codec is lossy — also the wire loss ``u - w``.  Only
 participants whose upload arrived and passed the quarantine gate commit
 their new residual (and FedDyn drift, and norm); every other row keeps the
-old one.  Byzantine attacks wait for ROADMAP Queue 1 item 13.
+old one.
+
+An active :class:`~repro_torch.core.attacks.AttackModel` routes every
+form to the generalized body.  The server decodes the attacked payload:
+the adversary rows (a fixed (M,) assignment, gathered onto the buffer's
+rows) are transformed after the wire round trip and before the gate, and
+the gate, the norm tracker and the aggregator read that payload, while
+error feedback commits the honest round trip (a client's residual is what
+it failed to ship, not what an attacker forged in its name).
+``metrics["num_adversarial"]`` counts the adversarial participants.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
@@ -80,10 +93,6 @@ __all__ = ["FederatedConfig", "fedavg_aggregate", "cohort_select",
            "make_federated_round", "make_cohort_round",
            "make_store_selection", "make_store_compute", "StoreRound",
            "Dispatch", "store_dispatch", "make_store_round"]
-
-_ATTACKS = ("Byzantine attacks (an active AttackModel) are not ported yet: "
-            "ROADMAP Queue 1 item 13")
-
 
 @dataclasses.dataclass(frozen=True)
 class FederatedConfig:
@@ -157,22 +166,37 @@ def _residual_update(cfg: FederatedConfig, residuals: Tree, new_res: Tree,
     return _commit_rows(residuals, new_res, commit)
 
 
-def _is_plain(sampler, hetero) -> bool:
+def _is_plain(sampler, hetero, attack=None) -> bool:
     """True when the round reduces to the paper's body: uniform sampler,
-    no hetero fleet."""
-    return hetero is None and (sampler is None
-                               or isinstance(sampler, UniformSampler))
+    no hetero fleet, no attack."""
+    return hetero is None and attack is None and (
+        sampler is None or isinstance(sampler, UniformSampler))
 
 
-def _check_attack(attack) -> None:
-    if attack is not None and getattr(attack, "active", True):
-        raise NotImplementedError(_ATTACKS)
+def _active_attack(attack):
+    """The attack model, or None for none or a zero-fraction one."""
+    return attack if attack is not None and attack.active else None
+
+
+def _adversaries(attack, num_clients: int) -> Optional[torch.Tensor]:
+    """The (M,) fp32 CPU adversary assignment (None without an attack)."""
+    if attack is None:
+        return None
+    return torch.from_numpy(attack.adversary_mask(num_clients))
 
 
 def _aggregator(aggregator, normalize: bool) -> Callable:
     """The aggregation call with the sampler's weight semantics bound:
     FedAvg re-normalizes the weights, or takes Horvitz-Thompson weights as
-    they are."""
+    they are.  A rule that declares ``ht_compatible=False`` raises under
+    an HT sampler."""
+    if not normalize and aggregator is not None and not getattr(
+            aggregator, "ht_compatible", True):
+        raise TypeError(
+            f"aggregator {aggregator.name!r} is not Horvitz-Thompson "
+            "compatible but the sampler emits HT weights (normalize="
+            "False); use a weighted-rank aggregator (coordinate_median / "
+            "trimmed_mean) or a self-normalizing sampler")
     fn = aggregator.fn if aggregator is not None else fedavg_aggregate
     if normalize:
         return fn
@@ -183,11 +207,44 @@ def _aggregator(aggregator, normalize: bool) -> Callable:
     return agg_fn
 
 
+def _row_sumsq(leaf: torch.Tensor) -> torch.Tensor:
+    """Each row's fp32 sum of squares, reduced in an order its width alone
+    fixes: the squared row, zero-padded to a power of two p, is halved by
+    adding its two halves until one column is left.  Only elementwise IEEE
+    products and sums, so the card gives the CPU's bits (``torch.sum``
+    orders its partial sums by device).  No more than a (rows, p) buffer
+    is held: the lower half's squares, and the upper half's while they
+    are added in."""
+    flat = leaf.reshape(leaf.shape[0], math.prod(leaf.shape[1:])).float()
+    width = flat.shape[1]
+    if width <= 1:
+        return (flat * flat).sum(1) if width else flat.new_zeros(
+            flat.shape[0])
+    half = 1 << (width - 1).bit_length() - 1
+    acc = flat[:, :half] * flat[:, :half]
+    hi = flat[:, half:]
+    acc[:, :width - half] += hi * hi
+    while half > 1:
+        half //= 2
+        acc[:, :half] += acc[:, half:2 * half]
+        acc = acc[:, :half]
+    return acc[:, 0]
+
+
 def _row_l2(stacked: Tree) -> torch.Tensor:
-    """Per-client L2 norm over every leaf (sorted leaf order, fp32)."""
-    return torch.sqrt(sum(
-        torch.sum(torch.square(stacked[k].float()).reshape(
-            stacked[k].shape[0], -1), 1) for k in sorted(stacked)))
+    """Per-client L2 norm over every leaf, fp32, the same bits on every
+    device and for any batching of the rows: each leaf's row sum of
+    squares by :func:`_row_sumsq`, the leaves added in sorted-key order,
+    then the root in float64 rounded once to fp32, which is the correctly
+    rounded fp32 root (53 >= 2 * 24 + 2 bits) on both devices; torch's
+    vectorized fp32 ``sqrt`` on the CPU is not correctly rounded.
+    Selection reads these norms on the CPU, and at fleet scale one ulp of
+    a norm can move an importance draw to another client."""
+    total = None
+    for k in sorted(stacked):
+        s = _row_sumsq(stacked[k])
+        total = s if total is None else total + s
+    return torch.sqrt(total.double()).float()
 
 
 def _round_extras(sampler, hetero, cfg: FederatedConfig):
@@ -308,17 +365,19 @@ def make_federated_round(loss_fn: Callable, schedule: SamplingSchedule,
     B, ...) axes, ``n_samples`` the (num_clients,) dataset sizes.
     ``codec`` round-trips every upload; ``aggregator`` replaces plain
     FedAvg; ``sampler`` picks the participants and their weights;
-    ``hetero`` adds in-round upload dropout.
+    ``hetero`` adds in-round upload dropout; ``attack`` perturbs the
+    adversary rows of the decoded payload.
     """
-    _check_attack(attack)
+    attack = _active_attack(attack)
     uses_drift = cfg.client.objective.uses_drift
-    if _is_plain(sampler, hetero):
+    if _is_plain(sampler, hetero, attack):
         agg_fn = _aggregator(aggregator, True)
 
         def plain_fn(params: Tree, state: Dict[str, Any],
                      client_batches: Sequence[torch.Tensor],
                      n_samples: torch.Tensor, t, scores: torch.Tensor,
-                     mask_scores: Optional[Tree] = None, drop_scores=None):
+                     mask_scores: Optional[Tree] = None, drop_scores=None,
+                     attack_noise=None):
             residuals, drift = state["residuals"], state.get("drift")
             part_cpu = participation_mask(scores.cpu(), schedule, t,
                                           cfg.num_clients)
@@ -343,12 +402,14 @@ def make_federated_round(loss_fn: Callable, schedule: SamplingSchedule,
 
     smp, drop = _round_extras(sampler, hetero, cfg)
     agg_fn = _aggregator(aggregator, smp.normalize)
+    adv = _adversaries(attack, cfg.num_clients)
 
     def round_fn(params: Tree, state: Dict[str, Any],
                  client_batches: Sequence[torch.Tensor],
                  n_samples: torch.Tensor, t, scores: torch.Tensor,
                  mask_scores: Optional[Tree] = None,
-                 drop_scores: Optional[torch.Tensor] = None):
+                 drop_scores: Optional[torch.Tensor] = None,
+                 attack_noise: Optional[Tree] = None):
         residuals, drift = state["residuals"], state.get("drift")
         norms = state.get("norms")
         device = n_samples.device
@@ -361,8 +422,11 @@ def make_federated_round(loss_fn: Callable, schedule: SamplingSchedule,
             loss_fn, params, client_batches, cfg.client, residuals,
             cfg.error_feedback, mask_scores, drift)
         wired = roundtrip_stacked(codec, uploads)
-        finite = _finite_rows(wired)
-        new_params = _aggregate(agg_fn, params, wired, finite,
+        # What the server decodes: the adversary rows transformed.
+        payload = (wired if attack is None
+                   else attack.apply_stacked(wired, adv, attack_noise))
+        finite = _finite_rows(payload)
+        new_params = _aggregate(agg_fn, params, payload, finite,
                                 weights * finite, rows, cfg.client.upload)
         commit = arrived_d * finite
         out = {"residuals": _residual_update(cfg, residuals, new_res,
@@ -370,10 +434,13 @@ def make_federated_round(loss_fn: Callable, schedule: SamplingSchedule,
         if uses_drift:
             out["drift"] = _commit_rows(drift, new_drift, commit)
         if smp.adaptive:
-            out["norms"] = _norm_ema(smp, norms, _row_l2(wired), commit)
-        return new_params, out, _general_metrics(
+            out["norms"] = _norm_ema(smp, norms, _row_l2(payload), commit)
+        metrics = _general_metrics(
             losses, rows, part, arrived, (arrived_d * (1.0 - finite)).sum(),
             drop is not None)
+        if attack is not None:
+            metrics["num_adversarial"] = (part * adv).sum()
+        return new_params, out, metrics
 
     return round_fn
 
@@ -427,21 +494,29 @@ def make_store_selection(schedule: SamplingSchedule, cfg: FederatedConfig,
 def make_store_compute(loss_fn: Callable, cfg: FederatedConfig, *,
                        codec=None, attack=None):
     """The cohort's client sweep over pre-gathered state rows: local updates
-    → wire round trip.  Returns ``compute(params, cohort_res,
-    cohort_batches, mask_scores=None, cohort_drift=None) -> dict`` with
-    ``uploads`` / ``wired`` (pre- and post-wire stacked uploads),
-    ``new_res`` / ``new_drift`` (post-round state candidates) and
-    ``losses``.  ``mask_scores`` are the cohort's rows of the round's
-    random-mask scores, so client i masks with the draw any other form
-    gives it."""
-    _check_attack(attack)
+    → wire round trip → adversary injection.  Returns ``compute(params,
+    cohort_res, cohort_batches, mask_scores=None, cohort_drift=None,
+    cohort_ids=None, attack_noise=None) -> dict`` with ``uploads`` /
+    ``wired`` (pre- and post-wire stacked uploads), ``attacked`` (the
+    payload the server decodes: ``wired`` with the adversary rows
+    perturbed, ``wired`` itself without an attack), ``new_res`` /
+    ``new_drift`` (post-round state candidates) and ``losses``.
+    ``mask_scores`` and ``attack_noise`` are the cohort's rows of the
+    round's random-mask scores and attack noise, so client i draws what
+    any other form gives it; ``cohort_ids`` (CPU) place the adversaries
+    and are needed under an attack."""
+    attack = _active_attack(attack)
+    adv = _adversaries(attack, cfg.num_clients)
 
     def compute(params, cohort_res, cohort_batches, mask_scores=None,
-                cohort_drift=None):
+                cohort_drift=None, cohort_ids=None, attack_noise=None):
         uploads, new_res, new_drift, losses = stacked_client_update(
             loss_fn, params, cohort_batches, cfg.client, cohort_res,
             cfg.error_feedback, mask_scores, cohort_drift)
-        return {"uploads": uploads, "wired": roundtrip_stacked(codec, uploads),
+        wired = roundtrip_stacked(codec, uploads)
+        attacked = wired if attack is None else attack.apply_stacked(
+            wired, adv.index_select(0, cohort_ids.cpu()), attack_noise)
+        return {"uploads": uploads, "wired": wired, "attacked": attacked,
                 "new_res": new_res, "new_drift": new_drift, "losses": losses}
 
     return compute
@@ -467,8 +542,9 @@ def make_store_round(loss_fn: Callable, schedule: SamplingSchedule,
     """The store form of the generalized cohort round.
 
     ``body(params, cohort_res, cohort_drift, cohort_batches, cohort_ids,
-    part, weights, norms, mask_scores=None, drop_scores=None) ->
-    (new_params, new_rows, drift_rows, commit, norm_upd, metrics)``:
+    part, weights, norms, mask_scores=None, drop_scores=None,
+    attack_noise=None) -> (new_params, new_rows, drift_rows, commit,
+    norm_upd, metrics)``:
     ``part`` / ``weights`` are the selection's (M,) CPU vectors (the body
     folds the round's upload losses in), ``norms`` the full (M,) EMA or
     None; ``new_rows`` are the post-round residual candidates with the
@@ -483,13 +559,16 @@ def make_store_round(loss_fn: Callable, schedule: SamplingSchedule,
     if not 0 < cohort_size <= cfg.num_clients:
         raise ValueError(
             f"cohort_size {cohort_size} not in (0, {cfg.num_clients}]")
+    attack = _active_attack(attack)
     smp, drop = _round_extras(sampler, hetero, cfg)
     agg_fn = _aggregator(aggregator, smp.normalize)
     compute = make_store_compute(loss_fn, cfg, codec=codec, attack=attack)
     select = make_store_selection(schedule, cfg, cohort_size, sampler=smp)
+    adv = _adversaries(attack, cfg.num_clients)
 
     def body(params, cohort_res, cohort_drift, cohort_batches, cohort_ids,
-             part, weights, norms, mask_scores=None, drop_scores=None):
+             part, weights, norms, mask_scores=None, drop_scores=None,
+             attack_noise=None):
         # Everything the host sends the device goes before the sweep is
         # queued, so no copy waits for it.
         device = next(iter(params.values())).device
@@ -500,11 +579,11 @@ def make_store_round(loss_fn: Callable, schedule: SamplingSchedule,
         w_c = weights.index_select(0, cohort_ids).to(device)
         ids = cohort_ids.to(device)
         c = compute(params, cohort_res, cohort_batches, mask_scores,
-                    cohort_drift)
-        uploads, wired = c["uploads"], c["wired"]
-        finite = _finite_rows(wired)
-        new_params = _aggregate(agg_fn, params, wired, finite, w_c * finite,
-                                rows, cfg.client.upload)
+                    cohort_drift, cohort_ids, attack_noise)
+        uploads, wired, payload = c["uploads"], c["wired"], c["attacked"]
+        finite = _finite_rows(payload)
+        new_params = _aggregate(agg_fn, params, payload, finite,
+                                w_c * finite, rows, cfg.client.upload)
         commit = arr_c * finite
         new_rows = c["new_res"]
         if cfg.error_feedback and wired is not uploads:
@@ -512,10 +591,14 @@ def make_store_round(loss_fn: Callable, schedule: SamplingSchedule,
         norm_upd = None
         if smp.adaptive:
             norm_upd = _norm_ema(smp, norms.index_select(0, ids),
-                                 _row_l2(wired), commit)
+                                 _row_l2(payload), commit)
+        metrics = _general_metrics(c["losses"], rows, part, arrived,
+                                   (arr_c * (1.0 - finite)).sum(),
+                                   drop is not None)
+        if attack is not None:
+            metrics["num_adversarial"] = (part * adv).sum()
         return new_params, new_rows, c["new_drift"], commit, norm_upd, \
-            _general_metrics(c["losses"], rows, part, arrived,
-                             (arr_c * (1.0 - finite)).sum(), drop is not None)
+            metrics
 
     return StoreRound(select=select, body=body, compute=compute,
                       adaptive=smp.adaptive,
@@ -572,7 +655,7 @@ def make_cohort_round(loss_fn: Callable, schedule: SamplingSchedule,
     if not 0 < cohort_size <= cfg.num_clients:
         raise ValueError(
             f"cohort_size {cohort_size} not in (0, {cfg.num_clients}]")
-    _check_attack(attack)
+    attack = _active_attack(attack)
     uses_drift = cfg.client.objective.uses_drift
 
     def scatter(full: Tree, cohort_ids, rows: Tree) -> Tree:
@@ -583,13 +666,14 @@ def make_cohort_round(loss_fn: Callable, schedule: SamplingSchedule,
         return None if tree is None else {
             k: v.index_select(0, ids) for k, v in tree.items()}
 
-    if _is_plain(sampler, hetero):
+    if _is_plain(sampler, hetero, attack):
         agg_fn = _aggregator(aggregator, True)
 
         def plain_fn(params: Tree, state: Dict[str, Any],
                      client_batches: Sequence[torch.Tensor],
                      n_samples: torch.Tensor, t, scores: torch.Tensor,
-                     mask_scores: Optional[Tree] = None, drop_scores=None):
+                     mask_scores: Optional[Tree] = None, drop_scores=None,
+                     attack_noise=None):
             residuals, drift = state["residuals"], state.get("drift")
             cohort_ids, valid_cpu = cohort_select(
                 scores.cpu(), schedule, t, cfg.num_clients, cohort_size)
@@ -625,13 +709,14 @@ def make_cohort_round(loss_fn: Callable, schedule: SamplingSchedule,
 
     prog = make_store_round(loss_fn, schedule, cfg, cohort_size, codec=codec,
                             aggregator=aggregator, sampler=sampler,
-                            hetero=hetero)
+                            hetero=hetero, attack=attack)
 
     def round_fn(params: Tree, state: Dict[str, Any],
                  client_batches: Sequence[torch.Tensor],
                  n_samples: torch.Tensor, t, scores: torch.Tensor,
                  mask_scores: Optional[Tree] = None,
-                 drop_scores: Optional[torch.Tensor] = None):
+                 drop_scores: Optional[torch.Tensor] = None,
+                 attack_noise: Optional[Tree] = None):
         norms = state.get("norms")
         part, weights, cohort_ids = prog.select(norms, n_samples, t, scores)
         ids = cohort_ids.to(n_samples.device)
@@ -642,7 +727,8 @@ def make_cohort_round(loss_fn: Callable, schedule: SamplingSchedule,
             prog.body(params, cohort_res, cohort_drift,
                       [x.index_select(0, ids) for x in client_batches],
                       cohort_ids, part, weights, norms,
-                      gather(mask_scores, ids), drop_scores)
+                      gather(mask_scores, ids), drop_scores,
+                      gather(attack_noise, ids))
         out = {"residuals": state["residuals"]}
         if cfg.error_feedback:
             out["residuals"] = scatter(state["residuals"], ids, _commit_rows(

@@ -218,12 +218,22 @@ def _mix(z: torch.Tensor) -> torch.Tensor:
     return z ^ _srl(z, 31)
 
 
-def _stream_key(seed: int, t: int, leaf: int) -> int:
-    """The 64-bit key of one (seed, round, leaf) stream."""
+def _stream_key(*words: int) -> int:
+    """The 64-bit key of one stream, e.g. (seed, round, leaf)."""
     h = 0
-    for word in (seed, t, leaf):
+    for word in words:
         h = _mix_host((h ^ (word & _MASK64)) + _GOLDEN)
     return h
+
+
+def _stream_words(key: int, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Words 0..n-1 of each client's stream under ``key``: ``mix(mix(key ^
+    mix(i + G)) + (j + 1) G)`` for client i and entry j, (len(idx), n)
+    int64 on ``idx``'s device."""
+    rows = _mix(_mix(idx + _signed(_GOLDEN)) ^ _signed(key))
+    steps = (np.arange(1, n + 1, dtype=np.uint64)
+             * np.uint64(_GOLDEN)).view(np.int64)
+    return _mix(rows[:, None] + torch.from_numpy(steps).to(idx.device))
 
 
 def client_mask_scores(seed: int, t: int, ids,
@@ -244,13 +254,8 @@ def client_mask_scores(seed: int, t: int, ids,
     out = {}
     for ell, name in enumerate(sorted(leaves)):
         shape = tuple(int(d) for d in leaves[name])
-        n = int(np.prod(shape))
-        rows = _mix(idx + _signed(_GOLDEN)) ^ _signed(_stream_key(seed, t,
-                                                                  ell))
-        rows = _mix(rows)
-        steps = (np.arange(1, n + 1, dtype=np.uint64)
-                 * np.uint64(_GOLDEN)).view(np.int64)
-        z = _mix(rows[:, None] + torch.from_numpy(steps).to(idx.device))
+        z = _stream_words(_stream_key(seed, t, ell), idx,
+                          int(np.prod(shape)))
         out[name] = (_srl(z, 40).to(torch.float32) * 2.0 ** -24).reshape(
             (len(idx),) + shape)
     return out

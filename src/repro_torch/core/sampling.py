@@ -47,24 +47,25 @@ _SCAN_BLOCK = 16
 
 
 def _cumsum(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive fp32 prefix sum of a 1-D tensor, associated as XLA:CPU
-    evaluates the reference's ``jnp.cumsum``: sequential within blocks of
-    16, the block totals scanned the same way, and each block offset by the
-    total of the blocks before it.  ``torch.cumsum`` accumulates in
-    float64 on the CPU; near a CDF edge that moves a draw to the next
-    client."""
-    n = x.numel()
+    """Inclusive fp32 prefix sum along dim 0 (each column of a 2-D tensor
+    alone), associated as XLA:CPU evaluates the reference's
+    ``jnp.cumsum``: sequential within blocks of 16, the block totals
+    scanned the same way, and each block offset by the total of the blocks
+    before it.  ``torch.cumsum`` accumulates in float64 on the CPU; near a
+    CDF edge that moves a draw to the next client."""
+    n, rest = x.shape[0], tuple(x.shape[1:])
     nb = -(-n // _SCAN_BLOCK)
-    blocks = torch.cat([x, x.new_zeros(nb * _SCAN_BLOCK - n)]).reshape(
-        nb, _SCAN_BLOCK)
+    blocks = torch.cat([x, x.new_zeros((nb * _SCAN_BLOCK - n,) + rest)]
+                       ).reshape((nb, _SCAN_BLOCK) + rest)
     cols = [blocks[:, 0]]
     for j in range(1, _SCAN_BLOCK):
         cols.append(cols[-1] + blocks[:, j])
     inner = torch.stack(cols, 1)
     if nb > 1:
         totals = _cumsum(inner[:, -1])
-        inner = inner + torch.cat([x.new_zeros(1), totals[:-1]])[:, None]
-    return inner.reshape(-1)[:n]
+        inner = inner + torch.cat([x.new_zeros((1,) + rest),
+                                   totals[:-1]])[:, None]
+    return inner.reshape((-1,) + rest)[:n]
 
 
 def _ranks(scores: torch.Tensor) -> torch.Tensor:

@@ -51,7 +51,12 @@ server's device for just the clients a round runs (the same bits on every
 device, whatever M), or from a caller's ``mask_scores(t, M)`` callable.
 An async round seeds its host event stream with two uint32 words from a
 CPU generator seeded with ``seed + 3``, or with a caller's
-``event_seed(t)``.
+``event_seed(t)``.  Under a ``gauss`` attack the adversaries' noise comes
+from :func:`~repro_torch.core.attacks.client_attack_noise` keyed by the
+attack seed ``seed``, the round, the client and the leaf, for just the
+clients a round runs, or from a caller's ``attack_noise(t, ids)``.
+With an active attack ``RoundRecord.adversarial`` counts the adversarial
+participants and ``summary()`` names the attack.
 
 Transport is metered by the strategy's codec: ``RoundRecord.transport_bytes``
 counts the EXACT wire bytes of every upload.
@@ -73,10 +78,11 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.attacks import client_attack_noise
 from repro_torch.core.client import local_update_flops
 from repro_torch.core.client_store import ClientStateStore, DenseStore
 from repro_torch.core.compression import pytree_num_params
-from repro_torch.core.federated import store_dispatch
+from repro_torch.core.federated import _active_attack, store_dispatch
 from repro_torch.core.hetero import simulate_round
 from repro_torch.core.masking import client_mask_scores
 from repro_torch.device import resolve_device
@@ -113,6 +119,8 @@ class RoundRecord:
     mean_staleness: float = 0.0  # mean staleness of the applied uploads
     carried: int = 0            # earlier rounds' uploads applied (cross-round)
     pending: int = 0            # uploads still in flight for a later round
+    # --- Byzantine accounting (strategy.attack set) ---
+    adversarial: int = 0        # adversary-controlled participants this round
 
 
 class FederatedServer:
@@ -125,7 +133,8 @@ class FederatedServer:
                  mask_scores: Optional[Callable[[int, int], Any]] = None,
                  drop_scores: Optional[Callable[[int, int], Any]] = None,
                  store: Optional[ClientStateStore] = None,
-                 event_seed: Optional[Callable[[int], Any]] = None):
+                 event_seed: Optional[Callable[[int], Any]] = None,
+                 attack_noise: Optional[Callable[[int, Any], Any]] = None):
         """See :meth:`from_strategy`."""
         if engine not in ("cohort", "full", "async"):
             raise ValueError(f"unknown engine {engine!r}")
@@ -152,6 +161,12 @@ class FederatedServer:
         self._mask_scores = mask_scores
         self._drop_scores = drop_scores
         self._event_seed = event_seed
+        self._attack_noise = attack_noise
+        attack = _active_attack(strategy.attack)
+        self._noise_leaves = (
+            {k: tuple(v.shape) for k, v in self.params.items()}
+            if attack is not None and attack.needs_keys else {})
+        self._attack_seed = seed
         self._generator = torch.Generator().manual_seed(seed)
         self._drop_generator = torch.Generator().manual_seed(seed + 2)
         masking = self.cfg.client.masking
@@ -207,8 +222,9 @@ class FederatedServer:
                       mask_scores: Optional[Callable[[int, int], Any]] = None,
                       drop_scores: Optional[Callable[[int, int], Any]] = None,
                       store: Optional[ClientStateStore] = None,
-                      event_seed: Optional[Callable[[int], Any]] = None
-                      ) -> "FederatedServer":
+                      event_seed: Optional[Callable[[int], Any]] = None,
+                      attack_noise: Optional[Callable[[int, Any], Any]]
+                      = None) -> "FederatedServer":
         """Build a server from one strategy record.  ``device``: ``cuda``
         unless named (raises without a card).  ``scores(t, M)``, when given,
         supplies round t's (M,) uniform participant scores instead of the
@@ -217,7 +233,9 @@ class FederatedServer:
         of the server's own draw (random masking only); ``drop_scores(t,
         M)`` supplies round t's (M,) uniform upload-loss draws (hetero
         fleets, sync engines); ``event_seed(t)`` supplies the uint32 words
-        that seed round t's host event stream (``engine="async"``).
+        that seed round t's host event stream (``engine="async"``);
+        ``attack_noise(t, ids)`` supplies the standard-normal gauss-attack
+        rows ``{leaf: (len(ids), *shape)}`` of the clients ``ids``.
         ``store`` is the client-state backend
         (``repro_torch.core.client_store``), on the server's device; None
         builds a :class:`DenseStore`."""
@@ -225,7 +243,7 @@ class FederatedServer:
                    eval_fn=eval_fn, seed=seed, engine=engine, device=device,
                    scores=scores, mask_scores=mask_scores,
                    drop_scores=drop_scores, store=store,
-                   event_seed=event_seed)
+                   event_seed=event_seed, attack_noise=attack_noise)
 
     def _round_fn(self, bucket: int, form: str = "dense") -> tuple:
         """The (cached) round of one form for one cohort bucket and the
@@ -323,6 +341,27 @@ class FederatedServer:
         return {k: v.index_select(0, ids)
                 for k, v in self.round_mask_scores(t).items()}
 
+    def _cohort_attack_noise(self, t: int, ids) -> Optional[Tree]:
+        """Round t's gauss-attack noise rows of the clients ``ids`` on the
+        server's device (None unless the attack draws noise): the
+        ``attack_noise`` callable's, or :func:`client_attack_noise`."""
+        if not self._noise_leaves:
+            return None
+        ids_np = (ids.cpu().numpy() if isinstance(ids, torch.Tensor)
+                  else np.asarray(ids))
+        if self._attack_noise is None:
+            return client_attack_noise(self._attack_seed, t, ids_np,
+                                       self._noise_leaves, self.device)
+        given = self._attack_noise(t, ids_np)
+        out = {}
+        for k, shape in self._noise_leaves.items():
+            v = given[k]
+            if not isinstance(v, torch.Tensor):
+                v = torch.from_numpy(np.asarray(v, dtype=np.float32))
+            out[k] = v.to(self.device, torch.float32).reshape(
+                (len(ids_np),) + shape)
+        return out
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -397,7 +436,8 @@ class FederatedServer:
             transport_bytes=num_sampled * self.client_upload_bytes,
             wall_s=wall, compile_s=compile_s, cohort_size=bucket,
             flop_proxy=flops * bucket,
-            quarantined=int(metrics["quarantined"]))
+            quarantined=int(metrics["quarantined"]),
+            adversarial=int(metrics.get("num_adversarial", 0)))
         if self._traits is not None:
             sim = simulate_round(
                 self._traits, metrics["part_mask"].cpu().numpy(),
@@ -429,10 +469,13 @@ class FederatedServer:
         """One buffered round of the async engine.  Transport counts every
         transmission the fleet attempted, retries and deadline-cut sends
         included: those bytes crossed the uplink either way."""
-        mask_scores = None
+        mask_scores = attack_noise = None
         if self._mask_leaves:
             def mask_scores(ids):
                 return self._cohort_mask_scores(t, ids)
+        if self._noise_leaves:
+            def attack_noise(ids):
+                return self._cohort_attack_noise(t, ids)
         words = self._event_words(t)
         prog, compile_s = self._round_fn(bucket, "store")
         self._sync()
@@ -440,7 +483,8 @@ class FederatedServer:
         self.params, stats = self._async.run_round(
             self.params, prog, provider if provider is not None else batches,
             n_samples, t, scores, words, flops=flops,
-            wire_bytes=self.client_upload_bytes, mask_scores=mask_scores)
+            wire_bytes=self.client_upload_bytes, mask_scores=mask_scores,
+            attack_noise=attack_noise)
         self._sync()
         return RoundRecord(
             round=t, num_sampled=stats["num_sampled"],
@@ -455,7 +499,8 @@ class FederatedServer:
             arrivals=stats["arrivals"], timeouts=stats["timeouts"],
             retries=stats["retries"], flushes=stats["flushes"],
             mean_staleness=stats["mean_staleness"],
-            carried=stats["carried"], pending=stats["pending"])
+            carried=stats["carried"], pending=stats["pending"],
+            adversarial=stats["adversarial"])
 
     def _dense_round(self, t, bucket, batches, provider, n_samples, scores,
                      gamma, flops) -> RoundRecord:
@@ -464,9 +509,10 @@ class FederatedServer:
         round_fn, compile_s = self._round_fn(bucket)
         self._sync()
         t0 = time.perf_counter()
+        noise = self._cohort_attack_noise(t, np.arange(self.cfg.num_clients))
         self.params, state, metrics = round_fn(
             self.params, self._state(), batches, n_samples, t, scores,
-            self.round_mask_scores(t), drop_scores)
+            self.round_mask_scores(t), drop_scores, noise)
         self._commit_state(state)
         self._sync()
         return self._sync_record(t, bucket, metrics,
@@ -491,7 +537,7 @@ class FederatedServer:
             prog.body(self.params, d.res, d.drift, d.batches, d.ids, d.part,
                       d.weights, d.norms,
                       self._cohort_mask_scores(t, d.ids.to(self.device)),
-                      drop_scores)
+                      drop_scores, self._cohort_attack_noise(t, d.ids))
         ids_np = d.ids.numpy()
         # Θ_t went out to the participants: the versions staleness reads.
         store.mark_dispatched(ids_np[d.part.numpy()[ids_np] > 0], t)
@@ -512,7 +558,8 @@ class FederatedServer:
         """The whole resumable training state as one tree: under ``rng``
         the states of the server's generators (``participants``, seed;
         ``drop``, seed + 2; ``events``, seed + 3, on the async engine) and,
-        under random masking, the ``mask`` seed (seed + 1); the global
+        under random masking, the ``mask`` seed (seed + 1), under a
+        ``gauss`` attack the ``attack`` seed (seed); the global
         ``params``; and the store's state under the reference's keys.  The
         round counter goes in the checkpoint's manifest.  Like the
         reference's, it holds no upload still in flight across rounds
@@ -523,6 +570,8 @@ class FederatedServer:
             rng["mask"] = torch.tensor(self._mask_seed, dtype=torch.int64)
         if self._async is not None:
             rng["events"] = self._event_generator.get_state()
+        if self._noise_leaves:
+            rng["attack"] = torch.tensor(self._attack_seed, dtype=torch.int64)
         return {"rng": rng, "params": self.params, **self.store.state()}
 
     def save_state(self, ckpt_dir: str) -> str:
@@ -564,6 +613,8 @@ class FederatedServer:
             self._mask_seed = int(rng["mask"])
         if self._async is not None:
             self._event_generator.set_state(rng["events"])
+        if self._noise_leaves:
+            self._attack_seed = int(rng["attack"])
         self.params = params
         self._round = int(extra.get("round", step))
         return step
@@ -617,4 +668,9 @@ class FederatedServer:
                 sum(r.mean_staleness * r.arrivals for r in self.history)
                 / arrivals) if arrivals else 0.0
             out["carried"] = int(sum(r.carried for r in self.history))
+        attack = _active_attack(self.strategy.attack)
+        if attack is not None:
+            out["attack"] = f"{attack.kind}(f={attack.fraction})"
+            out["adversarial_uploads"] = int(
+                sum(r.adversarial for r in self.history))
         return out

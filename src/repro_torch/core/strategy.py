@@ -14,9 +14,12 @@ the paper presets ``dense-baseline``, ``fig3``, ``fig4`` and ``fig5``, the
 wire presets ``fig5-int8``, ``fig5-fused``, ``fig5-fused-int8`` and
 ``fig5-bitmap``, the adaptive-sampler and fleet presets
 ``fig3-importance`` and ``hetero-dropout``, the async presets
-``async-mobile``, ``async-crossround`` and ``async-flaky``, and the
-objective presets ``fig5-prox``, ``fig5-dyn`` and ``noniid-dyn``.  The
-codec has three axes (``default_codec``): int8 or not, the ``jnp`` codecs
+``async-mobile``, ``async-crossround`` and ``async-flaky``, the
+objective presets ``fig5-prox``, ``fig5-dyn`` and ``noniid-dyn``, and the
+Byzantine presets ``byzantine-signflip``, ``robust-median`` and
+``robust-krum`` (an :class:`~repro_torch.core.attacks.AttackModel` on the
+``attack`` axis, a rule of ``get_aggregator`` on the ``aggregator``
+axis).  The codec has three axes (``default_codec``): int8 or not, the ``jnp`` codecs
 or the ``fused`` kernel path, the ``coo`` or the ``bitmap`` wire;
 replacing the mask policy re-derives the codec on the same axes.
 """
@@ -26,13 +29,16 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Tuple
 
+import torch
+
 from repro_torch.core.async_engine import AsyncConfig
+from repro_torch.core.attacks import AttackModel
 from repro_torch.core.client import ClientConfig
 from repro_torch.core.codecs import (BitmapCodec, ChainCodec,
                                      FusedSparseCodec, IdentityCodec,
                                      Int8Codec, SparseCodec, UploadCodec)
-from repro_torch.core.federated import (FederatedConfig, fedavg_aggregate,
-                                        make_cohort_round,
+from repro_torch.core.federated import (FederatedConfig, _row_l2,
+                                        fedavg_aggregate, make_cohort_round,
                                         make_federated_round,
                                         make_store_round)
 from repro_torch.core.hetero import HeteroModel
@@ -42,7 +48,8 @@ from repro_torch.core.sampling import (ClientSampler, DynamicSampling,
                                        ImportanceSampler, SamplingSchedule,
                                        StaticSampling, UniformSampler)
 
-__all__ = ["MaskPolicy", "Aggregator", "FEDAVG", "FedStrategy",
+__all__ = ["MaskPolicy", "Aggregator", "FEDAVG", "clipped_fedavg",
+           "get_aggregator", "aggregator_names", "FedStrategy",
            "default_codec", "build_round", "launches_kernels", "register",
            "get", "names"]
 
@@ -104,13 +111,71 @@ class MaskPolicy:
 @dataclasses.dataclass(frozen=True)
 class Aggregator:
     """Server-side combination rule ``fn(global_params, uploads, weights,
-    upload_semantics, normalize=True) -> params`` over stacked uploads."""
+    upload_semantics, normalize=True) -> params`` over stacked uploads;
+    ``normalize=False`` means Horvitz-Thompson weights, used as they are.
+    Zero-weight rows must be absent from the result.  ``ht_compatible=
+    False`` (the Krum family: selection ignores weight magnitudes) makes a
+    round that pairs the rule with an HT sampler raise a ``TypeError``
+    when it is built."""
 
     name: str
     fn: Callable
+    ht_compatible: bool = True
 
 
 FEDAVG = Aggregator("fedavg", fedavg_aggregate)
+
+
+def clipped_fedavg(max_norm: float) -> Aggregator:
+    """FedAvg over per-client norm-clipped uploads: each row scaled by
+    ``min(1, max_norm / ||u||)`` (the norm is ``federated._row_l2``'s).
+    A zero upload stays zero."""
+    if max_norm <= 0.0:
+        raise ValueError(
+            f"clipped_fedavg: max_norm must be > 0, got {max_norm}")
+
+    def agg(global_params, uploads, weights, upload_semantics,
+            normalize=True):
+        factor = torch.clamp(
+            max_norm / torch.clamp(_row_l2(uploads), min=1e-12), max=1.0)
+        clipped = {k: u * factor.reshape((-1,) + (1,) * (u.dim() - 1))
+                   for k, u in uploads.items()}
+        return fedavg_aggregate(global_params, clipped, weights,
+                                upload_semantics, normalize=normalize)
+
+    return Aggregator(f"clipped_fedavg({max_norm})", agg)
+
+
+# Imported after Aggregator is defined: robust.py builds its records from
+# this module.
+from repro_torch.core import robust as _robust  # noqa: E402
+
+_AGGREGATORS: Dict[str, Callable[..., Aggregator]] = {
+    "fedavg": lambda: FEDAVG,
+    "clipped_fedavg": clipped_fedavg,
+    "coordinate_median": _robust.coordinate_median,
+    "trimmed_mean": _robust.trimmed_mean,
+    "krum": _robust.krum,
+    "multi_krum": _robust.multi_krum,
+    "norm_filter": _robust.norm_filter,
+}
+
+
+def get_aggregator(name: str, *args, **kwargs) -> Aggregator:
+    """Build a registered aggregator by factory name, knobs as arguments
+    (``get_aggregator("trimmed_mean", 0.2)``)."""
+    try:
+        factory = _AGGREGATORS[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown aggregator {name!r}; registered: "
+            f"{', '.join(aggregator_names())}") from None
+    return factory(*args, **kwargs)
+
+
+def aggregator_names() -> Tuple[str, ...]:
+    """Sorted factory names accepted by :func:`get_aggregator`."""
+    return tuple(sorted(_AGGREGATORS))
 
 
 def default_codec(masking: MaskPolicy, quantized: bool = False,
@@ -187,6 +252,7 @@ class FedStrategy:
     error_feedback: bool = False
     objective: LocalObjective = LocalObjective()
     async_cfg: AsyncConfig | None = None
+    attack: AttackModel | None = None
 
     def client_config(self) -> ClientConfig:
         """The per-client hyperparameter record this strategy implies."""
@@ -247,7 +313,8 @@ def build_round(strategy: FedStrategy, loss_fn: Callable, num_clients: int,
                          "'full', 'cohort' and 'store')")
     cfg = strategy.federated_config(num_clients)
     kw = dict(codec=strategy.codec, aggregator=strategy.aggregator,
-              sampler=strategy.sampler, hetero=strategy.hetero)
+              sampler=strategy.sampler, hetero=strategy.hetero,
+              attack=strategy.attack)
     if form == "full":
         return make_federated_round(loss_fn, strategy.sampling, cfg, **kw)
     if cohort_size is None:
@@ -411,3 +478,30 @@ register(get("fig5").replace(
 register(get("fig5-dyn").replace(
     name="noniid-dyn",
     sampler=ImportanceSampler()))
+
+# ---- Byzantine-robustness presets ------------------------------------------
+# All three run fig5's sparse operating point (beta = 0.1, gamma = 0.5, COO
+# wire) with a sampling floor of 5, which keeps every cohort an honest
+# majority at f = 0.3 and gives Krum the n >= f + 3 candidates it needs.
+_ROBUST_SAMPLING = DynamicSampling(initial_rate=1.0, beta=0.1, min_clients=5)
+# Amplified sign flip: at strength 4 and f = 0.3 the FedAvg mean is
+# 0.7 u - 1.2 u = -0.5 u, an ascent direction.
+_SIGNFLIP = AttackModel(kind="sign_flip", fraction=0.3, strength=4.0)
+
+# "byzantine-signflip": the attacked baseline, plain FedAvg.
+register(get("fig5").replace(
+    name="byzantine-signflip",
+    sampling=_ROBUST_SAMPLING,
+    attack=_SIGNFLIP))
+
+# "robust-median": the same attacked fleet under the coordinate-wise
+# weighted median (breakdown point 1/2).
+register(get("byzantine-signflip").replace(
+    name="robust-median",
+    aggregator=_robust.coordinate_median()))
+
+# "robust-krum": the same attacked fleet under multi-Krum (f = 2 suspected
+# rows, the m = 2 most central candidates averaged).
+register(get("byzantine-signflip").replace(
+    name="robust-krum",
+    aggregator=_robust.multi_krum(f=2, m=2)))

@@ -154,27 +154,24 @@ def test_async_presets_equal_the_reference(name):
 
 
 def test_unknown_engine_and_active_attack_raise():
+    """An unknown engine raises.  Attacks are ported (item 13), so an
+    active one now builds the async runner; what still raises with one is
+    a Krum-family rule under the Horvitz-Thompson weights of an adaptive
+    sampler, as in the sync builders."""
     with pytest.raises(ValueError, match="unknown engine"):
         _port(tst.get("fig3"), 4, engine="buffered")
-
-    @dataclasses.dataclass(frozen=True)
-    class Attacked(tst.FedStrategy):
-        attack: object = None
-
-    @dataclasses.dataclass(frozen=True)
-    class Attack:
-        active: bool = True
-
-    st = Attacked(**{f.name: getattr(tst.get("async-mobile"), f.name)
-                     for f in dataclasses.fields(tst.FedStrategy)},
-                  attack=Attack())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        _port(st, 4, engine="async")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        AsyncRoundRunner(st, 4)
-    # An inactive attack model passes, as in the sync builders.
-    _port(dataclasses.replace(st, attack=Attack(active=False)), 4,
-          engine="async")
+    st = tst.get("async-mobile", attack=tst.get("robust-krum").attack)
+    runner = AsyncRoundRunner(st, 4)
+    assert runner.attack is st.attack
+    assert runner._adv.tobytes() == st.attack.adversary_mask(4).tobytes()
+    with pytest.raises(TypeError, match="Horvitz-Thompson"):
+        _port(st.replace(sampler=tst.get("fig3-importance").sampler,
+                         aggregator=tst.get("robust-krum").aggregator), 4,
+              engine="async")
+    # An inactive attack model is no attack, as in the sync builders.
+    inactive = AsyncRoundRunner(
+        st.replace(attack=dataclasses.replace(st.attack, fraction=0.0)), 4)
+    assert inactive.attack is None and inactive._adv is None
 
 
 def test_crossround_and_drift_need_a_store():
@@ -196,6 +193,14 @@ KEYSTONE = {
     "fig3+threshold": lambda: tst.get("fig3", hetero=IDEAL,
                                       error_feedback=True,
                                       sampler=ThresholdSampler()),
+    # The Byzantine presets: both engines aggregate the attacked payload
+    # of the shared dispatch sweep.
+    "byzantine-signflip": lambda: tst.get("byzantine-signflip", hetero=IDEAL,
+                                          error_feedback=True),
+    "robust-median": lambda: tst.get("robust-median", hetero=IDEAL,
+                                     error_feedback=True),
+    "robust-krum": lambda: tst.get("robust-krum", hetero=IDEAL,
+                                   error_feedback=True),
 }
 
 
@@ -227,6 +232,10 @@ def test_async_equals_the_cohort_engine_bit_for_bit(case):
         assert b.cohort_size == a.cohort_size
         assert b.flushes <= 1 and b.mean_staleness == 0.0
         assert b.timeouts == b.retries == b.quarantined == 0
+        assert b.adversarial == a.adversarial
+    if st.attack is not None:
+        assert sum(r.adversarial for r in buf.history) > 0
+        assert buf.summary()["attack"] == sync.summary()["attack"]
     np.testing.assert_allclose([r.mean_loss for r in sync.history],
                                [r.mean_loss for r in buf.history],
                                rtol=1e-6, equal_nan=True)

@@ -478,7 +478,9 @@ def test_registry_and_codec_derivation():
                                 "fig5-bitmap", "fig3-importance",
                                 "hetero-dropout", "fig5-prox", "fig5-dyn",
                                 "noniid-dyn", "async-mobile",
-                                "async-crossround", "async-flaky"}
+                                "async-crossround", "async-flaky",
+                                "byzantine-signflip", "robust-median",
+                                "robust-krum"}
     st = tst.get("fig5", masking=tst.MaskPolicy.selective(0.5,
                                                           backend="kernel"))
     assert isinstance(st.codec, tcodecs.SparseCodec) and st.codec.gamma == 0.5
@@ -496,18 +498,23 @@ def test_registry_and_codec_derivation():
 
 
 def test_objectives_wait_for_their_roadmap_item():
-    """Active FedProx/FedDyn are ported; only attacks still wait for their
-    ROADMAP item (13), and zero strengths stay the plain loss itself."""
+    """Active FedProx/FedDyn are ported, and so are attacks (item 13): an
+    active attack model builds the generalized round where it used to
+    raise, and a zero-fraction one the plain round.  Zero strengths stay
+    the plain loss itself."""
     assert LocalObjective.prox(0.1).active
     assert LocalObjective.dyn(0.1).uses_drift
     fn = object()
     assert LocalObjective.prox(0.0).localize(fn) is fn
     assert LocalObjective.dyn(0.0).localize(fn) is fn
     assert not LocalObjective.none().uses_drift
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tfed.make_federated_round(None, tst.get("fig5").sampling,
-                                  tst.get("fig5").federated_config(4),
-                                  attack=object())
+    from repro_torch.core.attacks import AttackModel
+    args = (None, tst.get("fig5").sampling,
+            tst.get("fig5").federated_config(4))
+    attacked = tfed.make_federated_round(
+        *args, attack=AttackModel(kind="nan", fraction=0.5))
+    plain = tfed.make_federated_round(*args, attack=AttackModel())
+    assert attacked.__name__ == "round_fn" and plain.__name__ == "plain_fn"
 
 
 # ------------------------------------------------------------------ device

@@ -716,3 +716,123 @@ def test_sharded_store_on_card_matches_cpu(cuda):
             assert torch.equal(rows["cuda"][tree][k].cpu(), v), (tree, k)
         for k, v in cpu._pools[tree].items():
             assert torch.equal(gpu._pools[tree][k].cpu(), v), (tree, k)
+
+
+# ------------------------------------------------ attacks and robust rules
+def test_row_l2_on_card_has_the_cpu_bits(cuda):
+    """The repaired norm: the same bits on the card as on the CPU, over
+    leaves of 1 to 147,456 entries, 256 rows, and magnitudes 1e-3 to 1e3."""
+    from repro_torch.core.federated import _row_l2
+    gen = torch.Generator().manual_seed(7)
+    tree = {f"l{i}": torch.randn((256, n), generator=gen) * scale
+            for i, (n, scale) in enumerate([(1, 1.0), (3, 1e3), (1000, 1e-3),
+                                            (147_456, 0.1), (4097, 1.0)])}
+    tree["l3"][:, ::3] = 0.0
+    got = _row_l2({k: v.to(cuda) for k, v in tree.items()}).cpu()
+    assert torch.equal(got, _row_l2(tree))
+
+
+def test_attack_noise_on_card_is_within_an_ulp_of_the_cpu(cuda):
+    from repro_torch.core.attacks import client_attack_noise
+    leaves = {"w": (300, 7), "b": (5,)}
+    ids = [0, 3, 99, 123_456]
+    got = client_attack_noise(3, 2, ids, leaves)
+    want = client_attack_noise(3, 2, ids, leaves, "cpu")
+    for k, v in want.items():
+        g = got[k].cpu()
+        ulp = torch.nextafter(v.abs(), torch.tensor(float("inf"))) - v.abs()
+        assert bool(((g - v).abs() <= ulp).all()), k
+
+
+@pytest.mark.parametrize("rule", ["coordinate_median", "trimmed_mean",
+                                  "krum", "multi_krum", "norm_filter"])
+def test_robust_rules_on_card_match_cpu(cuda, rule):
+    """Sparse uploads with zero-weight rows: the median and Krum's choice
+    exact, multi-Krum's ranks and the filter's kept rows exact; the
+    weighted sums they end in (the trimmed mean's, FedAvg's over the kept
+    rows) within 1e-6: the card's reductions run in another order."""
+    args = {"trimmed_mean": (0.2,), "krum": (1,), "multi_krum": (1, 3),
+            "norm_filter": (6.0,)}.get(rule, ())
+    agg = strategy.get_aggregator(rule, *args)
+    gen = torch.Generator().manual_seed(1)
+    up = {"w": torch.randn((9, 6, 5), generator=gen),
+          "b": torch.randn((9, 3), generator=gen)}
+    up["w"][torch.rand((9, 6, 5), generator=gen) < 0.6] = 0.0
+    w = torch.randint(1, 50, (9,), generator=gen).float()
+    w[[0, 4]] = 0.0
+    g = {k: torch.randn(v.shape[1:], generator=gen) for k, v in up.items()}
+    want = agg.fn(g, up, w, "delta")
+    got = agg.fn({k: v.to(cuda) for k, v in g.items()},
+                 {k: v.to(cuda) for k, v in up.items()}, w.to(cuda), "delta")
+    for k, v in want.items():
+        if rule in ("trimmed_mean", "multi_krum", "norm_filter"):
+            torch.testing.assert_close(got[k].cpu(), v, rtol=1e-6,
+                                       atol=1e-6)
+        else:
+            assert torch.equal(got[k].cpu(), v), k
+    from repro_torch.core import robust
+    from repro_torch.core.federated import _row_l2
+    if rule == "multi_krum":
+        ranks = [torch.argsort(torch.argsort(
+            robust._krum_scores(u, ww, 1)[0].cpu(), stable=True),
+            stable=True) for u, ww in
+            ((up, w), ({k: v.to(cuda) for k, v in up.items()}, w.to(cuda)))]
+        assert torch.equal(ranks[0], ranks[1])
+    if rule == "norm_filter":
+        assert torch.equal(_row_l2({k: v.to(cuda) for k, v in up.items()})
+                           .cpu() <= 6.0, _row_l2(up) <= 6.0)
+
+
+@pytest.mark.parametrize("kind", ["sign_flip", "scale", "gauss", "zero",
+                                  "nan"])
+def test_attacked_forms_on_card_are_bit_identical(cuda, kind):
+    """LeNet-12, M = 10, 5 rounds, fig5 with error feedback under each
+    attack kind: on the card the cohort, full and store forms give the same
+    parameters and residuals bit for bit, and the card's ledger is the
+    CPU's."""
+    from repro_torch.core.attacks import AttackModel
+    from repro_torch.core.client_store import ShardedStore
+    ds = class_gaussian_images(num_train=320, image_size=12, seed=0)
+    xs, ys, ns = iid_partition_images(ds.train_x, ds.train_y, 10, 16, seed=0)
+    st = strategy.get("fig5", error_feedback=True).replace(
+        attack=AttackModel(kind=kind, fraction=0.3, strength=2.0, sigma=0.05))
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for device in ("cuda", "cpu"):
+            for form in ("full", "cohort", "store"):
+                params = pm.init_lenet(torch.Generator().manual_seed(0),
+                                       image_size=12, device=device)
+                store = (ShardedStore(10, params, 10) if form == "store"
+                         else None)
+                server = FederatedServer.from_strategy(
+                    st, pm.classifier_loss(pm.lenet_forward), params, 10,
+                    seed=0, device=device, store=store,
+                    engine="full" if form == "full" else "cohort")
+                if form == "store":
+                    xd, yd = (torch.as_tensor(a).to(device) for a in (xs, ys))
+                    server.run(lambda ids, xd=xd, yd=yd: (
+                        xd[torch.as_tensor(ids).to(device)],
+                        yd[torch.as_tensor(ids).to(device)]), ns, 5)
+                else:
+                    server.run((xs, ys), ns, 5)
+                runs[device, form] = server
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    def ledger(s):
+        return [(r.num_sampled, r.cohort_size, r.adversarial, r.quarantined,
+                 r.transport_bytes) for r in s.history]
+
+    full = runs["cuda", "full"]
+    assert min(r.cohort_size for r in runs["cuda", "cohort"].history) < 10
+    for form in ("cohort", "store"):
+        other = runs["cuda", form]
+        for k, v in full.params.items():
+            assert torch.equal(v, other.params[k]), (form, k)
+        ra, rb = full.store.residuals_dense(), other.store.residuals_dense()
+        for k in ra:
+            assert torch.equal(ra[k], rb[k]), (form, k)
+    for form in ("full", "cohort", "store"):
+        assert ledger(runs["cuda", form]) == ledger(runs["cpu", form])
+    assert sum(r.adversarial for r in full.history) > 0
