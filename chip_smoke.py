@@ -164,7 +164,36 @@ with a nonzero exit:
      160 tokens against 160 ``decode_step``s at every position, atol 2e-3 /
      rtol 1e-3 (the reference's own check);
    - ``kernel_time`` of both kernels at the serving shapes, as in phase 5;
-7. (``--profile`` only) ``torch.profiler`` over two more rounds of the
+7. the pod round and the training path on full-width qwen2-1.5b
+   (1,543,910,912 parameters; fp32 master weights, bf16 compute):
+   - ``train_guard``: the wkv6 and ssm_scan wrappers raise under grad mode
+     on the card when an input requires a gradient (no backward yet);
+   - ``fed_pod_path``: ``launch.fedtrain.make_fed_round`` with
+     ``FedPodConfig.from_strategy`` of fig5 on the kernels (C = 4, E = 2,
+     1 x 4096 markov_text tokens a step, the COO wire budgeted per
+     first-axis slice), 3 rounds of ``DynamicSampling`` participation from
+     a CPU generator, the counts set to 0 just before each round and read
+     just after (kernels 1-3: 4 / 8 / 4 a round, each call on one client's
+     152,401-segment, 1,621,854,208-element packed delta); per round the
+     wall time, ``mean_loss``, ``num_sampled``, launches and peak memory;
+     round 1's first client's masks on the kernels against the plain
+     versions on the card, bit for bit, with every slice's kept count
+     within its wire slots; then one traced round (device idle share);
+   - ``fed_pod_cohort``: ``make_cohort_fed_round`` on NCCL, world size 1,
+     against ``make_fed_round`` from the same state (``num_sampled``
+     exact, loss rtol 1e-6, parameters rtol 1e-3 / atol 1e-4);
+   - ``fed_pod_agreement``: reduced width, the card's round against the
+     CPU masking the card's deltas (masks exact, parameters within 1e-6 of
+     the aggregate's scale);
+   - ``train_standard``: three ``make_train_step`` AdamW steps at 1 x 4096
+     tokens (loss, grad norm, wall time, peak memory) and one ``lm_loss``
+     forward and backward's time;
+   - ``flash_vjp``: attention's backward at 12/2 heads, D 128, T 4096,
+     bf16, against autograd of the plain attention (relative errors, the
+     bytes each keeps for its backward, fwd+bwd times beside
+     ``scaled_dot_product_attention`` as a yardstick) and attention's
+     share of a local step (28 layers);
+8. (``--profile`` only) ``torch.profiler`` over two more rounds of the
    fused LeNet path, of ``vgg-fig5``, of ``noniid-dyn`` and of the store
    path, and over one prefill and 11
    decode steps of each served arch: device busy time by kernel and the
@@ -310,6 +339,13 @@ SSM_SHAPE = (SERVE_B, SERVE_T, 1600, 16)     # hymba-1.5b: d 1600, N 16
 WKV6_TOL = {"atol": 1e-3, "rtol": 1e-4}
 SSM_TOL = {"atol": 1e-4, "rtol": 1e-5}
 CONSISTENCY_TOL = {"atol": 2e-3, "rtol": 1e-3}   # tests/test_models.py
+# The pod round on full-width qwen2-1.5b: C clients, E local steps of B
+# sequences of T tokens (train_4k's length), 3 rounds; kernels 1-3 launch
+# 1 histogram, 2 counts and 1 apply per client and round.
+POD_C, POD_E, POD_B, POD_T, POD_ROUNDS = 4, 2, 1, 4096, 3
+POD_PARAMS, POD_SEGMENTS, POD_LAYERS = 1_543_910_912, 152_401, 28
+POD_LAUNCHES = {"segmented_histogram": POD_C, "segmented_count": 2 * POD_C,
+                "segmented_apply": POD_C}
 ZOO_LIBRARY_NOTE = ("no single PyTorch call computes the RWKV6 wkv "
                     "recurrence or a selective-SSM scan")
 LIBRARY_NOTE = ("no single PyTorch call computes a segmented suffix "
@@ -3367,6 +3403,421 @@ def fresh_process_compile_s() -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# The pod round and the training path on full-width qwen2-1.5b
+# ---------------------------------------------------------------------------
+def pod_strategy():
+    """fig5 with its selective masking on the segmented kernels (fig5
+    itself names the bisection backend)."""
+    from repro_torch.core import strategy
+    from repro_torch.core.strategy import MaskPolicy
+    return strategy.get("fig5").with_masking(
+        MaskPolicy.selective(0.5, backend="kernel"))
+
+
+def pod_batches(cfg, rounds: int, seed: int = 0) -> list:
+    """Per round {"tokens", "labels"} of (C, E, 1, T): markov_text tokens,
+    as ``launch.train.synth_batches`` cuts them."""
+    import torch
+    from repro_torch.launch import train
+    steps = train.synth_batches(cfg, POD_C * POD_B, POD_T, POD_E * rounds,
+                                seed)
+    out = []
+    for t in range(rounds):
+        sl = steps[t * POD_E:(t + 1) * POD_E]
+        out.append({k: torch.stack([b[k] for b in sl])
+                    .reshape(POD_E, POD_C, POD_B, POD_T).transpose(0, 1)
+                    .contiguous() for k in ("tokens", "labels")})
+    return out
+
+
+def plain_slice_mask(delta: dict, fed_cfg):
+    """The kernel route's masking of one (1, ...)-stacked client delta on
+    the kernels' plain versions: (masked leaves, kept per segment, k per
+    segment)."""
+    import torch
+    from repro_torch.core.masking import _refine_sweeps_for
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import packing as pk
+    from repro_torch.kernels import segmented as seg
+    names, spec, x2d, seg_ids, nc = ops._packed_cohort(
+        delta, fed_cfg.min_leaf_size, True)
+    k = ops._segment_k(spec, fed_cfg.gamma, nc, x2d.device)
+    hist = seg.segmented_histogram_plain(x2d, seg_ids, k.numel())
+    lo, hi, cnt_lo, cnt_hi = seg.select_thresholds(hist, k)
+    for sweep in range(_refine_sweeps_for(fed_cfg.bisect_iters)):
+        cand = seg.candidate_taus(lo, hi, ops.DEFAULT_CANDIDATES,
+                                  geometric=(sweep == 0))
+        counts = seg.segmented_count_plain(x2d, seg_ids, cand)
+        lo, hi, cnt_lo, cnt_hi = seg.shrink_brackets(
+            lo, hi, cnt_lo, cnt_hi, cand, counts, k)
+    out, kept = seg.segmented_apply_plain(
+        x2d, seg_ids, torch.where(cnt_hi >= 1, hi, lo))
+    del x2d
+    leaves = dict(zip(names, pk.unpack_stacked(out, spec)))
+    return leaves, kept[:, 0], k, spec.num_segments
+
+
+def pod_segments(params: dict, min_leaf_size: int) -> int:
+    """Segments of one client's delta on the kernel route: one per
+    first-axis slice of a maskable leaf of ndim >= 2, one per maskable
+    vector."""
+    return sum((p.shape[0] if p.dim() >= 2 else 1) for p in params.values()
+               if p.numel() >= min_leaf_size)
+
+
+def fed_pod_path() -> dict:
+    """``make_fed_round`` on full-width qwen2-1.5b (fp32 master weights,
+    bf16 compute) for POD_ROUNDS rounds of fig5 on the kernels, the counts
+    set to 0 just before each round and read just after; round 1's first
+    client held against the plain versions; then one traced round."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.sampling import participation_mask
+    from repro_torch.launch import fedtrain as ft
+    from repro_torch.models import transformer as tr
+    cfg = get_arch("qwen2-1.5b")
+    st = pod_strategy()
+    fed_cfg = ft.FedPodConfig.from_strategy(st, POD_C, local_steps=POD_E)
+    if not (fed_cfg.use_kernel and fed_cfg.codec.axis0_slices):
+        fail(f"pod config is not the kernel route on the axis-0 wire: "
+             f"{fed_cfg}")
+    state = tr.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg, device="cuda")
+    n_params = tr.param_count(state)
+    if n_params != POD_PARAMS:
+        fail(f"qwen2-1.5b has {n_params} parameters")
+    segments = pod_segments(state, fed_cfg.min_leaf_size)
+    if segments != POD_SEGMENTS:
+        fail(f"the pod delta packs into {segments} segments")
+    batches = pod_batches(cfg, POD_ROUNDS + 2)
+    gen = torch.Generator().manual_seed(0)
+    n_samples = torch.ones(POD_C)
+    kept_client = {}
+
+    def observe(client, delta, masked):
+        if not kept_client and client == 0:
+            kept_client.update(delta=delta, masked=masked)
+
+    fed_round = ft.make_fed_round(cfg, fed_cfg, observe=observe)
+    log = []
+    for t in range(1, POD_ROUNDS + 1):
+        part = participation_mask(torch.rand(POD_C, generator=gen),
+                                  st.sampling, t, POD_C)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_counts()
+        t0 = time.perf_counter()
+        state, m = fed_round(state, batches[t - 1], n_samples, part,
+                             key=(1, t))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in zoo_counts().items() if v}
+        rec = {"round": t, "wall_s": wall,
+               "mean_loss": float(m["mean_loss"]),
+               "num_sampled": float(m["num_sampled"]),
+               "participation": part.tolist(), "launches": counts,
+               "segments": segments,
+               "max_memory_allocated_gb":
+                   torch.cuda.max_memory_allocated() / 1e9}
+        print(json.dumps({"phase": "fed_pod_round", **rec}), flush=True)
+        log.append(rec)
+        if counts != POD_LAUNCHES:
+            fail(f"pod round {t} launched {counts}, not {POD_LAUNCHES}")
+        if not math.isfinite(rec["mean_loss"]):
+            fail(f"pod round {t} loss {rec['mean_loss']}")
+        if rec["num_sampled"] != float(part.sum()):
+            fail(f"pod round {t} sampled {rec['num_sampled']}")
+        if t == 1:
+            torch.cuda.synchronize()
+            plain, kept, k, S = plain_slice_mask(kept_client["delta"],
+                                                 fed_cfg)
+            same = all(torch.equal(plain[n], kept_client["masked"][n])
+                       for n in plain)
+            within = bool((kept <= k).all())
+            phase("fed_pod_keep_bits", client=0, segments=S,
+                  elements=sum(v.numel() for v in plain.values()),
+                  keep_bits_equal_plain=same, kept_within_slots=within,
+                  kept_total=int(kept.sum()), slots_total=int(k.sum()))
+            del plain, kept_client["delta"], kept_client["masked"]
+            if not (same and within):
+                fail("pod round 1: kernel masks differ from the plain "
+                     "versions or overflow a slice's slots")
+    bad = [n for n, v in state.items() if not torch.isfinite(v).all()]
+    if bad:
+        fail(f"non-finite parameters after the pod rounds: {bad[:4]}")
+    part = participation_mask(torch.rand(POD_C, generator=gen), st.sampling,
+                              POD_ROUNDS + 1, POD_C)
+    profile_device("fed_pod_round", lambda: fed_round(
+        state, batches[POD_ROUNDS], n_samples, part, key=(1, POD_ROUNDS + 1)),
+        1, "round")
+    phase("fed_pod_path", arch=cfg.name, params=n_params,
+          compute_dtype=cfg.compute_dtype, clients=POD_C,
+          local_steps=POD_E, tokens_per_step=POD_B * POD_T,
+          strategy="fig5 + kernel masking", codec=fed_cfg.codec.name,
+          rounds=len(log), wall_s=[r["wall_s"] for r in log],
+          mean_loss=[r["mean_loss"] for r in log],
+          num_sampled=[r["num_sampled"] for r in log],
+          peak_gb=max(r["max_memory_allocated_gb"] for r in log))
+    launches = {}
+    for rec in log:
+        for name, n in rec["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    return {"cfg": cfg, "fed_cfg": fed_cfg, "state": state,
+            "batches": batches, "gen": gen, "strategy": st, "log": log,
+            "launches": launches}
+
+
+def free_port() -> int:
+    """A TCP port on localhost that nothing listens on now."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def fed_pod_cohort(pod: dict) -> None:
+    """``make_cohort_fed_round`` on NCCL, world size 1, against
+    ``make_fed_round`` from the same state and batches on the card."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.sampling import participation_mask
+    from repro_torch.launch import fedtrain as ft
+    cfg, fed_cfg, state = pod["cfg"], pod["fed_cfg"], pod["state"]
+    t = POD_ROUNDS + 2
+    part = participation_mask(torch.rand(POD_C, generator=pod["gen"]),
+                              pod["strategy"].sampling, t, POD_C)
+    batches = pod["batches"][t - 1]
+    masks, equal = {}, []
+
+    def keep_full(client, delta, masked):
+        masks[client] = torch.cat([(v != 0).reshape(-1)
+                                   for v in masked.values()])
+
+    def check_cohort(client, delta, masked):
+        equal.append(bool(torch.equal(masks.pop(client), torch.cat(
+            [(v != 0).reshape(-1) for v in masked.values()]))))
+
+    t0 = time.perf_counter()
+    full, m_full = ft.make_fed_round(cfg, fed_cfg, observe=keep_full)(
+        state, batches, torch.ones(POD_C), part, key=(1, t))
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    full = {k: v.cpu() for k, v in full.items()}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        cohort = ft.make_cohort_fed_round(cfg, fed_cfg, POD_C,
+                                          observe=check_cohort)
+        t0 = time.perf_counter()
+        new, m = cohort(state, batches, torch.ones(POD_C), range(POD_C),
+                        part, key=(1, t))
+        torch.cuda.synchronize()
+        cohort_s = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    masks_equal = len(equal) == POD_C and all(equal)
+    worst = 0.0
+    ok = True
+    for k, v in new.items():
+        a, b = v.float().cpu(), full[k].float()
+        ok &= bool(torch.allclose(a, b, rtol=1e-3, atol=1e-4))
+        worst = max(worst, float((a - b).abs().max()))
+    loss_rel = abs(float(m["mean_loss"]) - float(m_full["mean_loss"])) / \
+        abs(float(m_full["mean_loss"]))
+    phase("fed_pod_cohort", backend="nccl", world_size=1,
+          num_sampled=[float(m["num_sampled"]), float(m_full["num_sampled"])],
+          mean_loss=[float(m["mean_loss"]), float(m_full["mean_loss"])],
+          loss_rel=loss_rel, max_param_diff=worst, masks_equal=masks_equal,
+          full_round_s=full_s, cohort_round_s=cohort_s)
+    if float(m["num_sampled"]) != float(m_full["num_sampled"]) or \
+            loss_rel > 1e-6 or not ok:
+        fail("the NCCL cohort round disagrees with the full round")
+
+
+def fed_pod_agreement() -> None:
+    """Reduced qwen2-1.5b (bf16 compute) on the card against the CPU: the
+    CPU masks the card's deltas (plain versions) and aggregates its own
+    masks; keep masks exact, parameters within 1e-6 of the aggregate's
+    scale."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import fedtrain as ft
+    from repro_torch.models import transformer as tr
+    cfg = get_arch("qwen2-1.5b").reduced()
+    fed_cfg = ft.FedPodConfig.from_strategy(pod_strategy(), 4, local_steps=2)
+    params = tr.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (4, 2, 2, 32),
+                         generator=torch.Generator().manual_seed(1))
+    batches = {"tokens": toks, "labels": torch.roll(toks, -1, -1)}
+    part = torch.tensor([1.0, 0.0, 1.0, 1.0])
+    seen = {}
+    new, m = ft.make_fed_round(cfg, fed_cfg, observe=lambda c, d, k: seen.
+                               __setitem__(c, ({n: v.cpu() for n, v in
+                                                d.items()},
+                                               {n: v.cpu() for n, v in
+                                                k.items()})))(
+        {k: v.cuda() for k, v in params.items()}, batches, torch.ones(4),
+        part)
+    upload = ft._Upload(params, fed_cfg.codec)
+    w = ft._weights(part, torch.ones(4), True)
+    masks_equal = True
+    for c in range(4):
+        delta, masked = seen[c]
+        cpu_masked = ft.mask_deltas(delta, fed_cfg)
+        masks_equal &= all(torch.equal(cpu_masked[n], masked[n])
+                           for n in masked)
+        upload.add(cpu_masked, float(w[c]))
+    cpu_new = upload.apply(params)
+    scale = float(upload.flat.abs().max())
+    worst = max(float((new[k].cpu() - cpu_new[k]).abs().max())
+                for k in params)
+    phase("fed_pod_agreement", arch=cfg.name, clients=4,
+          masks_equal=masks_equal, max_param_diff=worst, aggregate_scale=scale,
+          mean_loss=float(m["mean_loss"]))
+    if not masks_equal or worst > 1e-6 * scale:
+        fail("the pod round on the card disagrees with the CPU")
+
+
+def step_time(cfg, params, batch) -> float:
+    """Milliseconds of one lm_loss forward and backward (CUDA events,
+    median of 3 after a warm-up)."""
+    import torch
+    from repro_torch.models import transformer as tr
+
+    def once():
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        loss = tr.lm_loss(leaves, cfg, batch)
+        torch.autograd.grad(loss, list(leaves.values()))
+    return cuda_ms([once], reps=3)
+
+
+def train_standard() -> dict:
+    """``make_train_step`` (AdamW) for three steps at full width on 1 x
+    4096 tokens a step; then one local step's time."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps, train
+    from repro_torch.models import transformer as tr
+    cfg = get_arch("qwen2-1.5b")
+    step = steps.make_train_step(cfg, learning_rate=3e-4)
+    params = tr.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg, device="cuda")
+    opt_state = step.optimizer.init(params)
+    batches = train.synth_batches(cfg, POD_B, POD_T, 3, seed=0)
+    log = []
+    torch.cuda.reset_peak_memory_stats()
+    for b in batches:
+        b = {k: v.cuda() for k, v in b.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, b)
+        torch.cuda.synchronize()
+        log.append({"loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"]),
+                    "wall_s": time.perf_counter() - t0})
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del opt_state
+    torch.cuda.empty_cache()
+    batch = {k: v.cuda() for k, v in batches[0].items()}
+    local_ms = step_time(cfg, params, batch)
+    phase("train_standard", arch=cfg.name, optimizer="adamw",
+          tokens_per_step=POD_B * POD_T, steps=log, peak_gb=peak,
+          lm_loss_fwd_bwd_ms=local_ms)
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+               for r in log):
+        fail(f"train_standard: non-finite loss or grad norm {log}")
+    return {"local_step_ms": local_ms}
+
+
+def flash_vjp_phase(local_step_ms: float) -> None:
+    """The attention backward at qwen2-1.5b's head shapes (12 query heads
+    over 2 KV heads, D 128, T 4096, bf16): (dq, dk, dv) against autograd
+    of the plain attention (fp32, whole logits), the bytes each keeps for
+    its backward, and their times; attention's share of a local step."""
+    import torch
+    from repro_torch.models import attention as attn
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shape = (1, POD_T, 12, 128), (1, POD_T, 2, 128)
+    q = torch.randn(shape[0], generator=gen, device="cuda").bfloat16()
+    k = torch.randn(shape[1], generator=gen, device="cuda").bfloat16()
+    v = torch.randn(shape[1], generator=gen, device="cuda").bfloat16()
+    g = torch.randn(shape[0], generator=gen, device="cuda").bfloat16()
+
+    def plain(q, k, v):
+        qf = q.float().transpose(1, 2) * 128 ** -0.5
+        kf = k.float().transpose(1, 2).repeat_interleave(6, 1)
+        vf = v.float().transpose(1, 2).repeat_interleave(6, 1)
+        logits = qf @ kf.transpose(2, 3)
+        mask = torch.ones(POD_T, POD_T, dtype=torch.bool,
+                          device="cuda").tril()
+        p = torch.softmax(logits.masked_fill(~mask, -1e30), -1)
+        return (p @ vf).transpose(1, 2)
+
+    def run(fn, inputs):
+        saved = []
+        with torch.autograd.graph.saved_tensors_hooks(
+                lambda t: saved.append(t.numel() * t.element_size()) or t,
+                lambda t: t):
+            out = fn(*inputs)
+        grads = torch.autograd.grad(out, inputs, g.to(out.dtype))
+        return out, grads, sum(saved)
+
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    out, grads, saved = run(attn.flash_attention, ins)
+    ins_p = [t.float().clone().requires_grad_() for t in (q, k, v)]
+    out_p, grads_p, saved_p = run(plain, ins_p)
+    errs = [float((a.detach().float() - b.detach()).abs().max()
+                   / b.detach().abs().max())
+            for a, b in zip((out, *grads), (out_p, *grads_p))]
+    del out_p, grads_p
+    torch.cuda.empty_cache()
+    flash_ms = cuda_ms([lambda: run(attn.flash_attention, ins)], reps=5)
+    plain_ms = cuda_ms([lambda: run(plain, ins_p)], reps=5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ins_s = [t.transpose(1, 2).clone().requires_grad_() for t in (q, k, v)]
+    library_ms = cuda_ms([lambda: torch.autograd.grad(
+        sdpa(ins_s[0], ins_s[1], ins_s[2], is_causal=True,
+             enable_gqa=True), ins_s, g.transpose(1, 2))], reps=5)
+    share = POD_LAYERS * flash_ms / local_step_ms
+    phase("flash_vjp", shape={"q": list(shape[0]), "kv": list(shape[1])},
+          dtype="bfloat16", rel_err=dict(zip(("out", "dq", "dk", "dv"), errs)),
+          saved_bytes=saved, plain_saved_bytes=saved_p,
+          fwd_bwd_ms=flash_ms, plain_fwd_bwd_ms=plain_ms,
+          library_fwd_bwd_ms=library_ms,
+          library="scaled_dot_product_attention (yardstick only)",
+          attention_share_of_local_step=share)
+    if max(errs) > 2e-2:
+        fail(f"flash VJP against the plain attention: {errs}")
+    if saved * 8 > saved_p:
+        fail(f"flash VJP keeps {saved} bytes, the plain one {saved_p}")
+
+
+def train_guard() -> None:
+    """The wkv6 and ssm_scan wrappers refuse a grad-mode call on the card
+    with an input that requires a gradient, and run under no_grad."""
+    import torch
+    from repro_torch.kernels import ssm_scan as ssk
+    from repro_torch.kernels import wkv6 as wk
+    w_in = [t.cuda() for t in wkv6_inputs(1, 16, 2, 32, seed=0)]
+    s_in = [t.cuda() for t in ssm_inputs(1, 16, 8, 16, seed=0)]
+    refused = {}
+    for name, fn, ins in (("wkv6", wk.wkv6, w_in),
+                          ("ssm_scan", ssk.ssm_scan, s_in)):
+        grad_in = [ins[0].clone().requires_grad_()] + ins[1:]
+        try:
+            fn(*grad_in)
+            refused[name] = False
+        except RuntimeError as e:
+            refused[name] = "no backward" in str(e)
+        with torch.no_grad():
+            fn(*grad_in)
+    phase("train_guard", refused=refused)
+    if not all(refused.values()):
+        fail(f"a forward-only kernel ran under grad mode: {refused}")
+
+
 def at_large(rec: dict) -> dict:
     """A kernel's times and bound on the 2^26-element input."""
     return {key: rec[key] for key in ("ms", "warm_ms", "device_ms",
@@ -3520,6 +3971,20 @@ def main(argv) -> int:
     for arch in ZOO_ARCHS:
         serve_consistency(arch)
     zoo_times = time_zoo_kernels()
+    # ---- 7. the pod round and the training path ---------------------------
+    torch.cuda.empty_cache()
+    section_t0 = time.perf_counter()
+    train_guard()
+    pod = fed_pod_path()
+    fed_pod_cohort(pod)
+    pod_launches = pod["launches"]
+    del pod
+    torch.cuda.empty_cache()
+    fed_pod_agreement()
+    trained = train_standard()
+    torch.cuda.empty_cache()
+    flash_vjp_phase(trained["local_step_ms"])
+    phase("pod_and_training_section", seconds=time.perf_counter() - section_t0)
     if trace:
         profile_rounds(fused, "fig5-fused-int8")
         profile_rounds(lms["vgg-fig5"], "vgg-fig5")
@@ -3544,6 +4009,9 @@ def main(argv) -> int:
             "async_path_launches": async_run["launches"][name],
             "robust_path_launches": {p: r["launches"][name]
                                      for p, r in robust.items()},
+            "fed_pod_path_launches": pod_launches.get(name, 0),
+            "fed_pod_launches_per_round": pod_launches.get(name, 0)
+            / POD_ROUNDS,
             "max_abs_err": errs[name], "ms": rec["ms"],
             "warm_ms": rec["warm_ms"], "device_ms": rec["device_ms"],
             "wrapper_ms": rec["wrapper_ms"],

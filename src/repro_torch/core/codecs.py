@@ -5,6 +5,9 @@
 * ``SparseCodec``      — per-leaf COO of a masked delta: ``k = max(1,
   round(gamma * n))`` int32 index + value slots per maskable leaf, plus the
   leaf's int32 shape vector; leaves under ``min_leaf_size`` ship dense.
+  With ``axis0_slices`` an ndim >= 2 leaf gets ``shape[0] * max(1,
+  round(gamma * shape[0]-slice size))`` slots instead: the budget of the
+  pod round's per-first-axis-slice masks (``with_axis0_slices``).
 * ``Int8Codec``        — symmetric per-tensor int8 quantisation of every
   float leaf (zeros stay zero); 4 -> 1 value bytes.
 * ``BitmapCodec``      — per-leaf 1-bit/element membership bitmap + k
@@ -47,7 +50,7 @@ Tree = Dict[str, torch.Tensor]
 
 __all__ = ["UploadCodec", "IdentityCodec", "SparseCodec", "Int8Codec",
            "BitmapCodec", "ChainCodec", "FusedSparseCodec",
-           "tree_wire_nbytes", "roundtrip_stacked"]
+           "tree_wire_nbytes", "roundtrip_stacked", "with_axis0_slices"]
 
 
 def _wire_leaves(wire: Any):
@@ -189,6 +192,10 @@ class _SlotCodec(UploadCodec):
     def _slots(self, size: int) -> int:
         return min(max(1, int(round(self.gamma * size))), size)
 
+    def _leaf_slots(self, shape) -> int:
+        """Slots of a leaf of ``shape`` (one client's)."""
+        return self._slots(math.prod(shape))
+
     def _sparse(self, size: int) -> bool:
         return size >= self.min_leaf_size and self.gamma < 1.0
 
@@ -198,7 +205,7 @@ class _SlotCodec(UploadCodec):
 
     def encode(self, tree: Tree) -> Dict[str, Any]:
         """Encode every maskable leaf (small leaves ship dense)."""
-        return {k: self._encode_one(v, self._slots(v.numel()))
+        return {k: self._encode_one(v, self._leaf_slots(tuple(v.shape)))
                 if self._sparse(v.numel()) else v for k, v in tree.items()}
 
     def decode(self, wire: Dict[str, Any]) -> Tree:
@@ -215,8 +222,9 @@ class _SlotCodec(UploadCodec):
             if not self._sparse(size):
                 out[k] = v
                 continue
-            member, vals = self._encode_rows(v.reshape(v.shape[0], size),
-                                             self._slots(size))
+            member, vals = self._encode_rows(
+                v.reshape(v.shape[0], size),
+                self._leaf_slots(tuple(v.shape[1:])))
             out[k] = {self._key: member, "values": vals,
                       "shape": torch.tensor(tuple(v.shape[1:]),
                                             dtype=torch.int32)}
@@ -239,7 +247,14 @@ class _SlotCodec(UploadCodec):
 @dataclasses.dataclass(frozen=True)
 class SparseCodec(_SlotCodec):
     """Per-leaf COO wire format for masked uploads (see module docstring):
-    one batched stable sort per leaf."""
+    one batched stable sort per leaf.
+
+    ``axis0_slices`` (default False) budgets an ndim >= 2 leaf per
+    first-axis slice, ``shape[0] * max(1, round(gamma * slice size))``
+    slots, as the pod round's masks keep per slice
+    (``launch.fedtrain``); a vector keeps the whole-leaf budget."""
+
+    axis0_slices: bool = False
 
     _key = "indices"
     _encode_one = staticmethod(encode_sparse)
@@ -250,7 +265,14 @@ class SparseCodec(_SlotCodec):
     @property
     def name(self) -> str:  # type: ignore[override]
         """Wire-format label surfaced in ``FederatedServer.summary()``."""
-        return f"sparse(gamma={self.gamma})"
+        suffix = ", per-slice" if self.axis0_slices else ""
+        return f"sparse(gamma={self.gamma}{suffix})"
+
+    def _leaf_slots(self, shape) -> int:
+        """Per-first-axis-slice budget with ``axis0_slices``."""
+        if self.axis0_slices and len(shape) >= 2:
+            return shape[0] * self._slots(math.prod(shape[1:]))
+        return self._slots(math.prod(shape))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -422,6 +444,18 @@ class FusedSparseCodec(UploadCodec):
         the kernels need real tensors, so the shape-only template goes
         through the oracle."""
         return self._oracle().wire_bytes(tree)
+
+
+def with_axis0_slices(codec: UploadCodec) -> UploadCodec:
+    """Re-budget every :class:`SparseCodec` stage (chains included) to the
+    pod round's per-first-axis-slice masks (``SparseCodec.axis0_slices``);
+    every other codec, the whole-leaf bitmap and fused wires among them,
+    comes back as it is."""
+    if isinstance(codec, SparseCodec):
+        return dataclasses.replace(codec, axis0_slices=True)
+    if isinstance(codec, ChainCodec):
+        return ChainCodec(tuple(with_axis0_slices(s) for s in codec.stages))
+    return codec
 
 
 def roundtrip_stacked(codec: UploadCodec | None, stacked: Tree) -> Tree:

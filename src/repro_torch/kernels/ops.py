@@ -111,15 +111,20 @@ def pytree_sweep_count(num_leaves: int, *, segmented: bool = True,
     return num_leaves * (iters + 2)
 
 
-def _packed_cohort(tree: Tree, min_leaf_size: int):
+def _packed_cohort(tree: Tree, min_leaf_size: int,
+                   axis0_slices: bool = False):
     """Pack the maskable leaves of a client-stacked tree: ``(names, spec,
-    x2d, seg_ids, num_clients)``, or None when no leaf is maskable."""
+    x2d, seg_ids, num_clients)``, or None when no leaf is maskable.  With
+    ``axis0_slices`` each first-axis slice of a leaf of ndim >= 2 (per
+    client) is a segment of its own."""
     names = [n for n, leaf in tree.items() if leaf[0].numel() >= min_leaf_size]
     if not names:
         return None
     leaves = [tree[n] for n in names]
     num_clients = leaves[0].shape[0]
-    spec = pk.build_pack_spec([leaf[0] for leaf in leaves])
+    slices = [leaf.shape[1] if axis0_slices and leaf.dim() >= 3 else 1
+              for leaf in leaves]
+    spec = pk.build_pack_spec([leaf[0] for leaf in leaves], slices)
     x2d = pk.pack_stacked(leaves, spec)
     seg_ids = spec.seg_ids(num_clients, device=x2d.device)
     return names, spec, x2d, seg_ids, num_clients
@@ -127,9 +132,11 @@ def _packed_cohort(tree: Tree, min_leaf_size: int):
 
 def _segment_k(spec: pk.PackSpec, gamma: float, num_clients: int,
                device) -> torch.Tensor:
-    return torch.tensor([max(1, int(round(gamma * ls.size)))
-                         for ls in spec.leaves], dtype=torch.int32
-                        ).repeat(num_clients).to(device)
+    """(C * S,) int32 k = max(1, round(gamma * size)) of every segment."""
+    sizes, inverse = torch.unique(spec.segment_sizes(), return_inverse=True)
+    ks = torch.tensor([max(1, int(round(gamma * int(n)))) for n in sizes],
+                      dtype=torch.int32)
+    return ks[inverse].repeat(num_clients).to(device)
 
 
 def _refine_taus(x2d, seg_ids, hist, k, refine_sweeps: int,
@@ -150,7 +157,8 @@ def _refine_taus(x2d, seg_ids, hist, k, refine_sweeps: int,
 
 def topk_mask_stacked(tree: Tree, gamma: float, *, min_leaf_size: int = 256,
                       refine_sweeps: int = DEFAULT_REFINE_SWEEPS,
-                      candidates: int = DEFAULT_CANDIDATES) -> Tree:
+                      candidates: int = DEFAULT_CANDIDATES,
+                      axis0_slices: bool = False) -> Tree:
     """Selective masking of a client-stacked tree (leading client axis on
     every leaf) in ``refine_sweeps + 2`` kernel launches for the whole
     cohort.  Leaves with fewer than ``min_leaf_size`` elements per client
@@ -158,8 +166,13 @@ def topk_mask_stacked(tree: Tree, gamma: float, *, min_leaf_size: int = 256,
     :func:`topk_mask_pytree` gives: at most k = max(1, round(gamma * size))
     entries kept when the k-th and (k+1)-th magnitudes differ by more than
     the final bracket (~1% of tau), all tied entries kept otherwise.
+
+    ``axis0_slices``: a maskable leaf of ndim >= 2 is masked per
+    first-axis slice (each slice its own segment, k from the slice's
+    size), as the pod round's kernel route masks; vectors stay whole.
     """
-    packed = None if gamma >= 1.0 else _packed_cohort(tree, min_leaf_size)
+    packed = None if gamma >= 1.0 else _packed_cohort(tree, min_leaf_size,
+                                                      axis0_slices)
     if packed is None:
         return tree
     names, spec, x2d, seg_ids, num_clients = packed
@@ -177,13 +190,15 @@ def topk_mask_stacked(tree: Tree, gamma: float, *, min_leaf_size: int = 256,
 
 def topk_mask_pytree(tree: Tree, gamma: float, *, min_leaf_size: int = 256,
                      refine_sweeps: int = DEFAULT_REFINE_SWEEPS,
-                     candidates: int = DEFAULT_CANDIDATES) -> Tree:
+                     candidates: int = DEFAULT_CANDIDATES,
+                     axis0_slices: bool = False) -> Tree:
     """Whole-model selective masking of ONE client's delta tree in
     ``refine_sweeps + 2`` sweeps (see :func:`topk_mask_stacked`)."""
     stacked = topk_mask_stacked({n: leaf[None] for n, leaf in tree.items()},
                                 gamma, min_leaf_size=min_leaf_size,
                                 refine_sweeps=refine_sweeps,
-                                candidates=candidates)
+                                candidates=candidates,
+                                axis0_slices=axis0_slices)
     return {n: leaf[0] for n, leaf in stacked.items()}
 
 

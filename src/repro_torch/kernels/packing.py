@@ -12,6 +12,11 @@ C consecutive copies of the per-client layout, client c's leaf l becoming
 segment ``c * L + l``.  Every segment keeps its own k and thresholds, so one
 sweep over the whole cohort gives the same result as masking each client on
 its own.
+
+A leaf may also be packed as ``slices`` segments, one per first-axis slice
+(the pod round masks an ndim >= 2 leaf slice by slice): each slice is
+padded to whole rows on its own, and the row -> segment map is built with
+tensor ops, so a leaf of 152,064 slices costs no Python loop over them.
 """
 
 from __future__ import annotations
@@ -37,6 +42,24 @@ class LeafSpec:
     size: int
     offset: int      # element offset of the leaf's first entry
     num_rows: int    # SEG_LANE-wide rows this leaf occupies (size padded up)
+    slices: int = 1  # segments: one per first-axis slice, each padded alone
+
+    @property
+    def slice_size(self) -> int:
+        """Elements of one segment of this leaf."""
+        return self.size // self.slices
+
+    @property
+    def slice_rows(self) -> int:
+        """Rows of one segment of this leaf."""
+        return self.num_rows // self.slices
+
+    def segment_view(self, flat: torch.Tensor) -> torch.Tensor:
+        """This leaf's (C, slices, slice_size) entries within ``flat``, the
+        (C, rows * SEG_LANE) packed buffer (a view)."""
+        part = flat[:, self.offset:self.offset + self.num_rows * SEG_LANE]
+        return part.reshape(flat.shape[0], self.slices,
+                            self.slice_rows * SEG_LANE)[:, :, :self.slice_size]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,36 +71,51 @@ class PackSpec:
 
     @property
     def num_segments(self) -> int:
-        """Number of packed leaves (segments)."""
-        return len(self.leaves)
+        """Number of segments: one per leaf, or per slice of a sliced
+        leaf."""
+        return sum(ls.slices for ls in self.leaves)
 
     @property
     def rows(self) -> int:
         """Total SEG_LANE-wide rows in the packed buffer."""
         return self.total_rows
 
+    def segment_sizes(self) -> torch.Tensor:
+        """(num_segments,) int64 elements of each segment, in order."""
+        return torch.cat([torch.full((ls.slices,), ls.slice_size,
+                                     dtype=torch.int64)
+                          for ls in self.leaves])
+
     def seg_ids(self, num_clients: int = 1, device=None) -> torch.Tensor:
         """(rows * num_clients,) int32 row -> segment map.  With
         ``num_clients`` > 1 it describes the stacked layout, where client
         c's leaf l is segment ``c * num_segments + l``."""
-        one = torch.empty((self.total_rows,), dtype=torch.int32)
-        for s, leaf in enumerate(self.leaves):
-            start = leaf.offset // SEG_LANE
-            one[start:start + leaf.num_rows] = s
+        rows = torch.cat([torch.full((ls.slices,), ls.slice_rows,
+                                     dtype=torch.int64)
+                          for ls in self.leaves])
+        one = torch.repeat_interleave(
+            torch.arange(self.num_segments, dtype=torch.int32), rows)
         shift = torch.arange(num_clients, dtype=torch.int32)[:, None]
         out = (one[None, :] + shift * self.num_segments).reshape(-1)
         return out if device is None else out.to(device)
 
 
-def build_pack_spec(leaves: Sequence[torch.Tensor]) -> PackSpec:
-    """Derive the static packing layout from leaf shapes/dtypes only."""
+def build_pack_spec(leaves: Sequence[torch.Tensor],
+                    slices: Sequence[int] | None = None) -> PackSpec:
+    """Derive the static packing layout from leaf shapes/dtypes only;
+    ``slices[i]`` segments for leaf i (which must divide its size), one by
+    default."""
     specs: List[LeafSpec] = []
     offset = 0
-    for leaf in leaves:
+    for i, leaf in enumerate(leaves):
         size = leaf.numel()
-        num_rows = max(1, -(-size // SEG_LANE))
+        parts = 1 if slices is None else int(slices[i])
+        if parts < 1 or size % parts:
+            raise ValueError(f"leaf {i} of {size} entries cannot be cut "
+                             f"into {parts} slices")
+        num_rows = parts * max(1, -(-(size // parts) // SEG_LANE))
         specs.append(LeafSpec(tuple(leaf.shape), leaf.dtype, size, offset,
-                              num_rows))
+                              num_rows, parts))
         offset += num_rows * SEG_LANE
     return PackSpec(tuple(specs), offset // SEG_LANE)
 
@@ -90,7 +128,7 @@ def pack_stacked(leaves: Sequence[torch.Tensor],
     buf = torch.zeros((num_clients, spec.rows * SEG_LANE),
                       dtype=torch.float32, device=leaves[0].device)
     for leaf, ls in zip(leaves, spec.leaves):
-        buf[:, ls.offset:ls.offset + ls.size] = leaf.reshape(num_clients, -1)
+        ls.segment_view(buf)[...] = leaf.reshape(num_clients, ls.slices, -1)
     return buf.reshape(num_clients * spec.rows, SEG_LANE)
 
 
@@ -99,9 +137,8 @@ def unpack_stacked(x2d: torch.Tensor, spec: PackSpec) -> List[torch.Tensor]:
     shapes and dtypes."""
     flat = x2d.reshape(-1, spec.rows * SEG_LANE)
     num_clients = flat.shape[0]
-    return [flat[:, ls.offset:ls.offset + ls.size]
-            .reshape((num_clients,) + ls.shape).to(ls.dtype)
-            for ls in spec.leaves]
+    return [ls.segment_view(flat).reshape((num_clients,) + ls.shape)
+            .to(ls.dtype) for ls in spec.leaves]
 
 
 def pack_leaves(leaves: Sequence[torch.Tensor],

@@ -75,10 +75,20 @@ def ssm_scan(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
              h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """a, bx: (B, T, d, N) fp32; c: (B, T, N); h0: (B, d, N).  Returns
     (y (B, T, d), hT (B, d, N)), fp32.  Any T and d; on the card N must
-    divide 32."""
+    divide 32.
+
+    The CUDA kernel has no backward: on the card, under grad mode with any
+    input requiring a gradient, this raises rather than return outputs
+    that would silently cut the gradient.  The plain version (the CPU)
+    is differentiable."""
     _check(a, bx, c, h0)
     if a.device.type == "cpu":
         return ssm_scan_plain(a, bx, c, h0)
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (a, bx, c, h0)):
+        raise RuntimeError("the CUDA ssm_scan kernel has no backward yet "
+                           "(ROADMAP Queue 1): call it under torch.no_grad() "
+                           "or on detached inputs")
     B, T, d, N = a.shape
     if N not in CUDA_STATE_DIMS:
         raise ValueError(f"the CUDA ssm_scan kernel takes state dims that "

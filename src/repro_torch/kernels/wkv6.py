@@ -184,10 +184,20 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          s0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """r, k, v, logw: (B, T, H, D) fp32 (``logw`` < 0, the log decay);
     u: (H, D); s0: (B, H, D, D).  Returns (y (B, T, H, D), sT (B, H, D, D)),
-    all contiguous fp32.  Any T; on the card D must be 32 or 64."""
+    all contiguous fp32.  Any T; on the card D must be 32 or 64.
+
+    The CUDA kernel has no backward: on the card, under grad mode with any
+    input requiring a gradient, this raises rather than return outputs
+    that would silently cut the gradient.  The plain version (the CPU)
+    is differentiable."""
     _check(r, k, v, logw, u, s0)
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, logw, u, s0)
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (r, k, v, logw, u, s0)):
+        raise RuntimeError("the CUDA wkv6 kernel has no backward yet "
+                           "(ROADMAP Queue 1): call it under torch.no_grad() "
+                           "or on detached inputs")
     B, T, H, D = r.shape
     if D not in CUDA_HEAD_DIMS:
         raise ValueError(f"the CUDA wkv6 kernel takes head dims "

@@ -1,19 +1,14 @@
-"""Attention (counterpart of ``repro/models/attention.py`` and the forward
-of ``repro/models/flash_vjp.py``): GQA with RoPE, a blocked prefill path
-and a single-token decode path over full or sliding (ring-buffer) KV
-caches.
+"""Attention (counterpart of ``repro/models/attention.py``): GQA with RoPE,
+a blocked train and prefill path and a single-token decode path over full
+or sliding (ring-buffer) KV caches.
 
 The reference computes attention in jnp, not in Pallas, so the port's is
 plain PyTorch too:
 
-* ``flash_attention`` (prefill, forward only) walks query blocks; each
-  block takes the keys it can see (causal, and the window for sliding
-  layers), computes fp32 logits, masks them with :func:`visibility` and
-  applies an exact softmax: unnormalised ``exp(l - max)`` cast to the
-  value dtype, multiplied with V in fp32, divided by the fp32 row sum.
-  That is the reference's online softmax when the keys fit in one of its
-  2048-wide blocks (every prompt up to 2048 tokens), and equal to it up to
-  rounding beyond.
+* ``flash_attention`` (train and prefill) is ``models/flash_vjp.py``'s
+  blocked exact softmax; where a gradient is needed it runs as
+  ``flash_vjp.FlashAttention``, whose backward recomputes the
+  probabilities from the saved output and log-sum-exp.
 * ``decode_attention`` writes the new key and value into the cache *in
   place* (the reference returns a new cache; the port updates the tensor
   and returns the cache with its index advanced) and attends one token.
@@ -60,36 +55,23 @@ def _scaled(q: torch.Tensor, scale: float) -> torch.Tensor:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     *, attn: str = "full", window: int = 0,
                     softcap_val: float = 0.0, scale: Optional[float] = None,
-                    block_q: int = 512) -> torch.Tensor:
-    """q: (B, T, H, D); k, v: (B, T, KV, D) with H a multiple of KV (GQA).
-    Returns (B, T, H, D) in q's dtype.  Causal over positions ``[0..T)``."""
-    B, T, H, D = q.shape
-    KV = k.shape[2]
-    groups = H // KV
-    scale = scale if scale is not None else D ** -0.5
-    qh = _scaled(q, scale).transpose(1, 2)                  # (B,H,T,D)
-    kh = k.transpose(1, 2).repeat_interleave(groups, dim=1)  # (B,H,T,D)
-    vh = v.transpose(1, 2).repeat_interleave(groups, dim=1)
-    pos = torch.arange(T, device=q.device)
-    out = torch.empty((B, H, T, D), dtype=q.dtype, device=q.device)
-    for qs in range(0, T, block_q):
-        qe = min(T, qs + block_q)
-        k_lo = 0                        # the first key a query can see
-        if attn == "sliding" and window > 0:
-            k_lo = max(0, qs - window + 1)
-        elif attn == "chunked" and window > 0:
-            k_lo = qs // window * window
-        logits = qh[:, :, qs:qe].float() @ \
-            kh[:, :, k_lo:qe].float().transpose(2, 3)
-        if softcap_val > 0.0:
-            logits = softcap_val * torch.tanh(logits / softcap_val)
-        vis = visibility(pos[qs:qe], pos[k_lo:qe], attn, window)
-        logits = torch.where(vis, logits, NEG_INF)
-        p = torch.exp(logits - logits.amax(-1, keepdim=True))
-        lsum = p.sum(-1, keepdim=True)
-        acc = p.to(v.dtype).float() @ vh[:, :, k_lo:qe].float()
-        out[:, :, qs:qe] = (acc / lsum.clamp_min(1e-30)).to(q.dtype)
-    return out.transpose(1, 2)
+                    q_offset: int = 0, block_q: int = 512) -> torch.Tensor:
+    """q: (B, T, H, D); k, v: (B, S, KV, D) with H a multiple of KV (GQA).
+    Returns (B, T, H, D) in q's dtype.  Causal; query positions are
+    ``q_offset + [0..T)`` and key positions ``[0..S)``.
+
+    Where a gradient is needed (grad mode on and q, k or v requiring one)
+    this is ``flash_vjp.FlashAttention``, whose backward recomputes the
+    probabilities; otherwise the same forward without saving anything."""
+    from repro_torch.models import flash_vjp
+    scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return flash_vjp.FlashAttention.apply(q, k, v, attn, window,
+                                              softcap_val, scale, q_offset,
+                                              block_q)
+    return flash_vjp.flash_forward(q, k, v, attn=attn, window=window,
+                                   softcap_val=softcap_val, scale=scale,
+                                   q_offset=q_offset, block_q=block_q)[0]
 
 
 class KVCache(NamedTuple):

@@ -9,21 +9,32 @@ Structure
   pattern position ``i``; its leaves carry a leading ``num_groups`` axis,
   and the model walks the groups in a Python loop (group-major, as the
   reference's scan does).
-* ``forward``     -- prefill: tokens -> padded-vocab logits (B, T, V).
-  ``remat`` is accepted for the reference's signature and has no effect:
-  nothing here keeps activations for a backward pass.
+* ``forward``     -- train and prefill: tokens -> padded-vocab logits (B,
+  T, V), differentiable.  Under grad mode with ``remat`` every
+  ``remat_span`` groups run under ``torch.utils.checkpoint``, as the
+  reference's ``jax.checkpoint(group_body)``: only the residual stream at
+  the span boundaries is kept, and the spans are recomputed in the
+  backward.  Attention keeps its output and log-sum-exp
+  (``models/flash_vjp.py``).
+* ``cross_entropy`` / ``lm_loss`` -- the reference's weighted-mean cross
+  entropy (log-sum-exp in fp32, the max taken as a constant, weight-0
+  positions masked rather than sliced) and the training loss.
 * ``decode_step`` -- one token against a ``DecodeState`` (KV caches with
   ring buffers on windowed layers, wkv/ssm states on recurrent layers).
   The caches are updated in place; the state passed in is consumed.
 * ``layer_view``  -- the flat dict split once into each (group, pattern
   position)'s layer dict.  ``forward`` and ``decode_step`` take either
-  form; a decode loop passes the view so no step rebuilds it.
+  form; a decode loop passes the view so no step rebuilds it.  The split
+  unbinds each stacked leaf once, so a backward gathers each leaf's
+  gradient in one stack rather than one full-size buffer a group.
 
 Layer kinds: ``rwkv`` (time mix + channel mix), ``hymba`` (attention and
 an SSM in parallel, ``0.5 (y + s)``, then the MLP) and ``attn`` (the same
 without the SSM).  Text modality and the dense MLP only: ``moe``,
 ``vision_stub`` and ``audio_stub`` raise ``NotImplementedError`` (ROADMAP
-Queue 1 item 16).
+Queue 1 item 16).  The wkv6 and ssm_scan CUDA kernels have no backward
+yet: on the card their wrappers raise under grad mode, so rwkv6 and hymba
+train on the CPU only.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.bridge import flatten_tree, tree_map, unflatten_tree
 from repro_torch.configs.base import ArchConfig, LayerSpec
@@ -43,8 +55,9 @@ from repro_torch.models.common import (dense_init, embed_init, init_device,
                                        init_norm, norm_apply, softcap)
 
 __all__ = ["padded_vocab", "init_params", "param_count", "LayerView",
-           "layer_view", "embed_tokens", "forward", "DecodeState",
-           "init_decode_state", "decode_step", "Decoder"]
+           "layer_view", "embed_tokens", "forward", "cross_entropy",
+           "lm_loss", "DecodeState", "init_decode_state", "decode_step",
+           "Decoder"]
 
 Params = Dict[str, torch.Tensor]
 _NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 16)"
@@ -162,8 +175,11 @@ def layer_view(params, cfg: ArchConfig) -> LayerView:
     if isinstance(params, LayerView):
         return params
     tree = unflatten_tree(params)
+    # lists, not tuples: tree_map walks into tuples
+    groups = tuple(tree_map(lambda t: list(t.unbind(0)), layer)
+                   for layer in tree["layers"])
     layers = tuple(
-        tuple(tree_map(lambda t: t[gi], tree["layers"][p_idx])
+        tuple(tree_map(lambda parts: parts[gi], groups[p_idx])
               for p_idx in range(len(cfg.layer_pattern)))
         for gi in range(cfg.num_groups))
     top = {key: sub for key, sub in tree.items() if key != "layers"}
@@ -171,7 +187,7 @@ def layer_view(params, cfg: ArchConfig) -> LayerView:
 
 
 # ===========================================================================
-# layer application (prefill)
+# layer application (train and prefill)
 # ===========================================================================
 def _mlp_apply(p: dict, x: torch.Tensor, act: str, gated: bool,
                cdt) -> torch.Tensor:
@@ -248,7 +264,7 @@ def _init_recur_state(cfg: ArchConfig, spec: LayerSpec, batch: int,
 
 
 # ===========================================================================
-# forward (prefill)
+# forward, loss
 # ===========================================================================
 def embed_tokens(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                  cdt) -> torch.Tensor:
@@ -274,7 +290,9 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     """Returns (logits (B, T, padded vocab) in the compute dtype, aux loss).
 
     params: the flat dict or its :func:`layer_view`.  tokens: (B, T) int.
-    Every recurrent layer starts from a zero state."""
+    Every recurrent layer starts from a zero state.  With ``remat`` and
+    grad mode on, each span of ``cfg.remat_span`` groups (1 unless it
+    divides the group count, as in the reference) is checkpointed."""
     _check_supported(cfg)
     if prefix_embeds is not None:
         raise NotImplementedError(f"prefix embeddings {_NOT_PORTED}")
@@ -284,13 +302,55 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     B, T = x.shape[:2]
     positions = torch.arange(T, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for group in view.layers:
-        for spec, lp in zip(cfg.layer_pattern, group):
-            rc = _init_recur_state(cfg, spec, B, stacked=False,
-                                   device=x.device)
-            x, _, a = _apply_layer(cfg, spec, lp, x, positions, rc, cdt)
-            aux = aux + a
+    span = cfg.remat_span if cfg.num_groups % max(cfg.remat_span, 1) == 0 \
+        else 1
+    span = max(span, 1)
+
+    def body(groups, x, aux):
+        for group in groups:
+            for spec, lp in zip(cfg.layer_pattern, group):
+                rc = _init_recur_state(cfg, spec, B, stacked=False,
+                                       device=x.device)
+                x, _, a = _apply_layer(cfg, spec, lp, x, positions, rc, cdt)
+                aux = aux + a
+        return x, aux
+
+    for g0 in range(0, len(view.layers), span):
+        groups = view.layers[g0:g0 + span]
+        if remat and torch.is_grad_enabled():
+            x, aux = checkpoint(body, groups, x, aux, use_reentrant=False)
+        else:
+            x, aux = body(groups, x, aux)
     return _logits(view.top, cfg, x, cdt), aux
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Weighted mean cross entropy over the last axis, as the reference's:
+    the row max is a constant (``stop_gradient``) subtracted in the logits'
+    dtype, the log-sum-exp is summed in fp32, the correct-class logit is
+    read in the logits' dtype and widened, and weight-0 positions count
+    for nothing (masked, never sliced).  Without weights: the plain
+    mean."""
+    m = logits.detach().amax(-1)
+    shifted = (logits - m[..., None]).float()
+    lse = m.float() + torch.log(torch.exp(shifted).sum(-1))
+    correct = logits.gather(-1, labels.long()[..., None])[..., 0].float()
+    nll = lse - correct
+    if weights is None:
+        return nll.mean()
+    w = weights.float()
+    return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def lm_loss(params, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """Training loss of a text batch ``{"tokens": (B, T), "labels": (B,
+    T)}``: the mean cross entropy over every token, plus
+    ``cfg.router_aux_coef`` times the forward's aux loss.  The forward
+    runs with ``remat`` on, as the reference's ``lm_loss``."""
+    logits, aux = forward(params, cfg, batch["tokens"],
+                          batch.get("prefix_embeds"))
+    return cross_entropy(logits, batch["labels"]) + cfg.router_aux_coef * aux
 
 
 # ===========================================================================

@@ -836,3 +836,97 @@ def test_attacked_forms_on_card_are_bit_identical(cuda, kind):
     for form in ("full", "cohort", "store"):
         assert ledger(runs["cuda", form]) == ledger(runs["cpu", form])
     assert sum(r.adversarial for r in full.history) > 0
+
+
+# ------------------------------------------------------- the training path
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
+def test_forward_only_kernels_refuse_grad_mode(cuda, arch):
+    """wkv6 and ssm_scan have no backward: under grad mode with an input
+    that requires a gradient the wrappers raise (so does ``lm_loss`` of
+    the model on them), and under no_grad they run."""
+    if arch == "rwkv6-1.6b":
+        fn, x = wk.wkv6, [t.to(cuda) for t in _wkv6_inputs(1, 16, 2, 32, 0)]
+    else:
+        gen = torch.Generator().manual_seed(1)
+        fn = ssk.ssm_scan
+        x = [torch.sigmoid(torch.randn((1, 16, 8, 16), generator=gen)),
+             torch.randn((1, 16, 8, 16), generator=gen),
+             torch.randn((1, 16, 16), generator=gen),
+             torch.randn((1, 8, 16), generator=gen)]
+        x = [t.to(cuda) for t in x]
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn(x[0].clone().requires_grad_(), *x[1:])
+    with torch.no_grad():
+        fn(x[0].clone().requires_grad_(), *x[1:])
+    import dataclasses
+    cfg = get_arch(arch).reduced()
+    if arch == "hymba-1.5b":
+        cfg = dataclasses.replace(cfg, layer_pattern=cfg.layer_pattern[:1],
+                                  num_layers=1)
+    params = tr.init_params(torch.Generator().manual_seed(0), cfg,
+                            device=cuda)
+    params = {k: v.requires_grad_() for k, v in params.items()}
+    toks = torch.randint(0, cfg.vocab_size, (1, 8), device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tr.lm_loss(params, cfg, {"tokens": toks, "labels": toks})
+
+
+@pytest.mark.parametrize("kind", ["full", "sliding", "chunked"])
+def test_flash_attention_backward_on_card_matches_cpu(cuda, kind):
+    """fp32, GQA 4/2, softcap, q_offset: output and (dq, dk, dv) on the
+    card against the CPU, rtol 1e-4 / atol 1e-5."""
+    from repro_torch.models import attention as attn
+    gen = torch.Generator().manual_seed(2)
+    q = torch.randn((2, 40, 4, 16), generator=gen)
+    k, v = (torch.randn((2, 48, 2, 16), generator=gen) for _ in range(2))
+    g = torch.randn((2, 40, 4, 16), generator=gen)
+    outs = []
+    for dev in ("cpu", cuda):
+        ins = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        out = attn.flash_attention(*ins, attn=kind, window=16,
+                                   softcap_val=30.0, q_offset=8, block_q=16)
+        grads = torch.autograd.grad(out, ins, g.to(dev))
+        outs.append([t.detach().cpu() for t in (out, *grads)])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-5)
+
+
+def test_pod_round_on_card_matches_cpu(cuda):
+    """The reduced pod round (fig5 on the kernels, axis-0 wire) on the
+    card; the CPU masks each card delta on the plain versions (masks bit
+    for bit) and aggregates its own masks (parameters bit for bit: the
+    same masks, wire and fp32 sum order)."""
+    from repro_torch.core.strategy import MaskPolicy
+    from repro_torch.launch import fedtrain as ft
+    cfg = get_arch("qwen2-1.5b").reduced()
+    st = strategy.get("fig5").with_masking(
+        MaskPolicy.selective(0.5, backend="kernel"))
+    fed_cfg = ft.FedPodConfig.from_strategy(st, 4, local_steps=2)
+    params = tr.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (4, 2, 2, 32),
+                         generator=torch.Generator().manual_seed(1))
+    batches = {"tokens": toks, "labels": torch.roll(toks, -1, -1)}
+    part = torch.tensor([1.0, 1.0, 0.0, 1.0])
+    seen = {}
+    seg.reset_launch_counts()
+    new, m = ft.make_fed_round(cfg, fed_cfg, observe=lambda c, d, k: seen.
+                               __setitem__(c, ({n: v.cpu() for n, v in
+                                                d.items()},
+                                               {n: v.cpu() for n, v in
+                                                k.items()})))(
+        {k: v.to(cuda) for k, v in params.items()}, batches, torch.ones(4),
+        part)
+    torch.cuda.synchronize()
+    assert seg.launch_counts()["segmented_count"] == 8
+    assert float(m["num_sampled"]) == 3.0
+    upload = ft._Upload(params, fed_cfg.codec)
+    w = ft._weights(part, torch.ones(4), True)
+    for c in range(4):
+        delta, masked = seen[c]
+        cpu_masked = ft.mask_deltas(delta, fed_cfg)
+        for n in masked:
+            assert torch.equal(cpu_masked[n], masked[n]), (c, n)
+        upload.add(cpu_masked, float(w[c]))
+    for k, v in upload.apply(params).items():
+        assert torch.equal(new[k].cpu(), v), k

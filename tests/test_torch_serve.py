@@ -46,7 +46,8 @@ T_SEQ = 40          # > the reduced sliding window of 32
 PROMPT, GEN = 24, 16
 FP32_TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_TOL = dict(rtol=0.0, atol=0.125)
-FULL_PARAMS = {"rwkv6-1.6b": 1_483_280_384, "hymba-1.5b": 1_403_905_600}
+FULL_PARAMS = {"rwkv6-1.6b": 1_483_280_384, "hymba-1.5b": 1_403_905_600,
+               "qwen2-1.5b": 1_543_910_912}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -93,7 +94,7 @@ def test_config_fields_match_reference(arch, reduced):
 
 def test_unported_archs_raise_naming_the_roadmap():
     with pytest.raises(KeyError, match="item 16"):
-        get_arch("qwen2-1.5b")
+        get_arch("gemma2-2b")
     with pytest.raises(KeyError, match="unknown"):
         get_arch("gpt-5")
     cfg = dataclasses.replace(get_arch("hymba-1.5b").reduced(),
