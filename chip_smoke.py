@@ -166,8 +166,14 @@ with a nonzero exit:
    - ``kernel_time`` of both kernels at the serving shapes, as in phase 5;
 7. the pod round and the training path on full-width qwen2-1.5b
    (1,543,910,912 parameters; fp32 master weights, bf16 compute):
-   - ``train_guard``: the wkv6 and ssm_scan wrappers raise under grad mode
-     on the card when an input requires a gradient (no backward yet);
+   - ``zoo_grad_parity``: the wkv6 and ssm_scan backward kernels against
+     their plain backwards on the card (T = 100 at D = 32 and 64 and N =
+     16, the strongest decay, and the training shapes (1, 4096, 32, 64)
+     and (1, 4096, 1600, 16); nonzero s0 / h0 and dsT / dhT): each
+     gradient's largest difference over its largest magnitude within 1e-4
+     (wkv6) or 1e-5 (ssm_scan), finite, two runs bit for bit; and each
+     autograd.Function through ``torch.autograd.grad`` against autograd of
+     the plain forward;
    - ``fed_pod_path``: ``launch.fedtrain.make_fed_round`` with
      ``FedPodConfig.from_strategy`` of fig5 on the kernels (C = 4, E = 2,
      1 x 4096 markov_text tokens a step, the COO wire budgeted per
@@ -193,6 +199,23 @@ with a nonzero exit:
      bytes each keeps for its backward, fwd+bwd times beside
      ``scaled_dot_product_attention`` as a yardstick) and attention's
      share of a local step (28 layers);
+7b. the zoo's training path, rwkv6-1.6b and hymba-1.5b at full width and
+   depth (fp32 master weights, bf16 compute), through the backward
+   kernels:
+   - ``train_zoo`` per arch: three ``make_train_step`` AdamW steps of 1 x
+     4096 tokens (loss, grad norm, wall time, the forward and backward
+     kernels' launches a step with the counts set to 0 just before and read
+     just after: 48 / 24 and 64 / 32 predicted, peak memory), one
+     ``lm_loss`` fwd+bwd's time and, traced, the backward kernels' share;
+   - ``fed_pod_path`` on rwkv6-1.6b: the reference's own federated command
+     (``src/repro/launch/train.py:13``) at the pod setup above (68,090
+     segments; launches 4 / 8 / 4 and wkv6 384 / wkv6_backward 192 a
+     round), 3 rounds, round 1's first client's masks bit for bit against
+     the plain versions, no trace;
+   - ``zoo_train_agreement``: reduced rwkv6 and hymba (head dim 32, N 16,
+     fp32), one ``lm_loss``'s gradients on the card against the CPU, rtol
+     1e-3 and atol 1e-4 of each leaf's largest magnitude;
+   - ``kernel_time`` of both backward kernels at the training shapes;
 8. (``--profile`` only) ``torch.profiler`` over two more rounds of the
    fused LeNet path, of ``vgg-fig5``, of ``noniid-dyn`` and of the store
    path, and over one prefill and 11
@@ -346,8 +369,42 @@ POD_C, POD_E, POD_B, POD_T, POD_ROUNDS = 4, 2, 1, 4096, 3
 POD_PARAMS, POD_SEGMENTS, POD_LAYERS = 1_543_910_912, 152_401, 28
 POD_LAUNCHES = {"segmented_histogram": POD_C, "segmented_count": 2 * POD_C,
                 "segmented_apply": POD_C}
+# The pod round per arch: parameters, segments of one client's delta on
+# the kernel route, and the zoo kernels' launches a round beside kernels
+# 1-3 (C clients x E steps x, a layer, two forwards under remat and one
+# backward).
+POD_ARCHS = {"qwen2-1.5b": (POD_PARAMS, POD_SEGMENTS, {}),
+             "rwkv6-1.6b": (1_483_280_384, 68_090,
+                            {"wkv6": POD_C * POD_E * 48,
+                             "wkv6_backward": POD_C * POD_E * 24})}
+# The zoo's training path: arch -> (its kernel, forward and backward
+# launches a train step: remat runs a layer's forward again in the
+# backward; hymba's remat span is its 16-layer group).
+ZOO_TRAIN = {"rwkv6-1.6b": ("wkv6", 48, 24),
+             "hymba-1.5b": ("ssm_scan", 64, 32)}
+TRAIN_WKV6_SHAPE = (POD_B, POD_T, 32, 64)     # rwkv6-1.6b, 1 x 4096 tokens
+TRAIN_SSM_SHAPE = (POD_B, POD_T, 1600, 16)    # hymba-1.5b
+# Backward kernel against plain backward: the largest difference of each
+# gradient over its largest magnitude (fp32 both; other chunkings and
+# summation orders).
+GRAD_REL_TOL = {"wkv6": 1e-4, "ssm_scan": 1e-5}
+# Reduced rwkv6 and hymba: lm_loss gradients on the card against the CPU,
+# fp32 with TF32 off.  An entry near 0 agrees only to the leaf's scale:
+# hymba's 16 layers of sums in other orders (attention, the SSM branch,
+# the kernels' chunkings) reach 2.5e-5 of a leaf's largest magnitude.
+ZOO_AGREE_RTOL = 1e-3
+ZOO_AGREE_ATOL = 1e-4            # of each leaf's largest magnitude
 ZOO_LIBRARY_NOTE = ("no single PyTorch call computes the RWKV6 wkv "
                     "recurrence or a selective-SSM scan")
+ZOO_BWD_LIBRARY_NOTE = ("no single PyTorch call computes the gradient of "
+                        "the RWKV6 wkv recurrence or of a selective-SSM scan")
+ZOO_BWD_REPLACES_NOTE = {
+    "wkv6_backward": "replaces no TPU kernel: the reference takes this "
+                     "gradient by XLA autodiff of src/repro/models/"
+                     "rwkv.py:76 (wkv6_chunked)",
+    "ssm_scan_backward": "replaces no TPU kernel: the reference takes this "
+                         "gradient by XLA autodiff of src/repro/models/"
+                         "ssm.py:58 (ssm_forward's scan)"}
 LIBRARY_NOTE = ("no single PyTorch call computes a segmented suffix "
                 "histogram, a per-segment multi-threshold count, a per-row-"
                 "tau select with counts, a segmented histogram with a "
@@ -635,7 +692,8 @@ def time_kernels(label: str, x2d, seg_ids, k, count_candidates=()) -> dict:
         kernels = [launcher(name, i) for i in range(copies)]
         rec = {"ms": measure.cuda_loop_ms(kernels),
                "warm_ms": measure.cuda_loop_ms(kernels[:1]),
-               **measure.device_ms(kernels, kernel_symbol(name)),
+               **measure.device_ms(kernels, kernel_symbol(name),
+                                   events_fallback=True),
                "wrapper_ms": cuda_ms([lambda x=x: wrapper(x) for x in xs]),
                "plain_ms": cuda_ms([lambda x=x: plain(x) for x in xs],
                                    reps=5),
@@ -3466,17 +3524,20 @@ def pod_segments(params: dict, min_leaf_size: int) -> int:
                if p.numel() >= min_leaf_size)
 
 
-def fed_pod_path() -> dict:
-    """``make_fed_round`` on full-width qwen2-1.5b (fp32 master weights,
-    bf16 compute) for POD_ROUNDS rounds of fig5 on the kernels, the counts
-    set to 0 just before each round and read just after; round 1's first
-    client held against the plain versions; then one traced round."""
+def fed_pod_path(arch: str = "qwen2-1.5b", trace: bool = True) -> dict:
+    """``make_fed_round`` on a full-width arch of POD_ARCHS (fp32 master
+    weights, bf16 compute) for POD_ROUNDS rounds of fig5 on the kernels,
+    the counts set to 0 just before each round and read just after; round
+    1's first client held against the plain versions; then, with
+    ``trace``, one traced round."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.core.sampling import participation_mask
     from repro_torch.launch import fedtrain as ft
     from repro_torch.models import transformer as tr
-    cfg = get_arch("qwen2-1.5b")
+    cfg = get_arch(arch)
+    want_params, want_segments, zoo_launches = POD_ARCHS[arch]
+    want_launches = {**POD_LAUNCHES, **zoo_launches}
     st = pod_strategy()
     fed_cfg = ft.FedPodConfig.from_strategy(st, POD_C, local_steps=POD_E)
     if not (fed_cfg.use_kernel and fed_cfg.codec.axis0_slices):
@@ -3485,11 +3546,11 @@ def fed_pod_path() -> dict:
     state = tr.init_params(torch.Generator(device="cuda").manual_seed(0),
                            cfg, device="cuda")
     n_params = tr.param_count(state)
-    if n_params != POD_PARAMS:
-        fail(f"qwen2-1.5b has {n_params} parameters")
+    if n_params != want_params:
+        fail(f"{arch} has {n_params} parameters")
     segments = pod_segments(state, fed_cfg.min_leaf_size)
-    if segments != POD_SEGMENTS:
-        fail(f"the pod delta packs into {segments} segments")
+    if segments != want_segments:
+        fail(f"the {arch} pod delta packs into {segments} segments")
     batches = pod_batches(cfg, POD_ROUNDS + 2)
     gen = torch.Generator().manual_seed(0)
     n_samples = torch.ones(POD_C)
@@ -3513,7 +3574,7 @@ def fed_pod_path() -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {k: v for k, v in zoo_counts().items() if v}
-        rec = {"round": t, "wall_s": wall,
+        rec = {"arch": arch, "round": t, "wall_s": wall,
                "mean_loss": float(m["mean_loss"]),
                "num_sampled": float(m["num_sampled"]),
                "participation": part.tolist(), "launches": counts,
@@ -3522,8 +3583,9 @@ def fed_pod_path() -> dict:
                    torch.cuda.max_memory_allocated() / 1e9}
         print(json.dumps({"phase": "fed_pod_round", **rec}), flush=True)
         log.append(rec)
-        if counts != POD_LAUNCHES:
-            fail(f"pod round {t} launched {counts}, not {POD_LAUNCHES}")
+        if counts != want_launches:
+            fail(f"{arch} pod round {t} launched {counts}, not "
+                 f"{want_launches}")
         if not math.isfinite(rec["mean_loss"]):
             fail(f"pod round {t} loss {rec['mean_loss']}")
         if rec["num_sampled"] != float(part.sum()):
@@ -3535,7 +3597,7 @@ def fed_pod_path() -> dict:
             same = all(torch.equal(plain[n], kept_client["masked"][n])
                        for n in plain)
             within = bool((kept <= k).all())
-            phase("fed_pod_keep_bits", client=0, segments=S,
+            phase("fed_pod_keep_bits", arch=arch, client=0, segments=S,
                   elements=sum(v.numel() for v in plain.values()),
                   keep_bits_equal_plain=same, kept_within_slots=within,
                   kept_total=int(kept.sum()), slots_total=int(k.sum()))
@@ -3546,11 +3608,12 @@ def fed_pod_path() -> dict:
     bad = [n for n, v in state.items() if not torch.isfinite(v).all()]
     if bad:
         fail(f"non-finite parameters after the pod rounds: {bad[:4]}")
-    part = participation_mask(torch.rand(POD_C, generator=gen), st.sampling,
-                              POD_ROUNDS + 1, POD_C)
-    profile_device("fed_pod_round", lambda: fed_round(
-        state, batches[POD_ROUNDS], n_samples, part, key=(1, POD_ROUNDS + 1)),
-        1, "round")
+    if trace:
+        part = participation_mask(torch.rand(POD_C, generator=gen),
+                                  st.sampling, POD_ROUNDS + 1, POD_C)
+        profile_device("fed_pod_round", lambda: fed_round(
+            state, batches[POD_ROUNDS], n_samples, part,
+            key=(1, POD_ROUNDS + 1)), 1, "round")
     phase("fed_pod_path", arch=cfg.name, params=n_params,
           compute_dtype=cfg.compute_dtype, clients=POD_C,
           local_steps=POD_E, tokens_per_step=POD_B * POD_T,
@@ -3794,28 +3857,331 @@ def flash_vjp_phase(local_step_ms: float) -> None:
         fail(f"flash VJP keeps {saved} bytes, the plain one {saved_p}")
 
 
-def train_guard() -> None:
-    """The wkv6 and ssm_scan wrappers refuse a grad-mode call on the card
-    with an input that requires a gradient, and run under no_grad."""
+# ---------------------------------------------------------------------------
+# The zoo's training path: the backward kernels, rwkv6-1.6b and hymba-1.5b
+# ---------------------------------------------------------------------------
+def backward_case(kernel: str, shape, seed: int, strong: bool = False):
+    """Forward inputs and output adjoints on the card: (wkv6) r, k, v,
+    logw, u, s0 as :func:`wkv6_inputs`, dy, dsT ~ N(0, 1); (ssm_scan) a,
+    bx, c, h0 as :func:`ssm_inputs`, dy, dhT ~ N(0, 1)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    if kernel == "wkv6":
+        B, T, H, D = shape
+        x = wkv6_inputs(*shape, seed=seed, strong=strong)
+        adj = [torch.randn((B, T, H, D), generator=gen, device="cuda"),
+               torch.randn((B, H, D, D), generator=gen, device="cuda")]
+    else:
+        B, T, d, N = shape
+        x = ssm_inputs(*shape, seed=seed)
+        adj = [torch.randn((B, T, d), generator=gen, device="cuda"),
+               torch.randn((B, d, N), generator=gen, device="cuda")]
+    return x, adj
+
+
+def rel_errs(got, want) -> list:
+    """Per gradient: the largest difference over the largest magnitude."""
+    return [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            for a, b in zip(got, want)]
+
+
+def zoo_grad_parity() -> dict:
+    """Each backward kernel against its plain backward on the card: T = 100
+    (a partial chunk) at D = 32 and 64 and N = 16, the model's strongest
+    decay, and the training shapes (1, 4096, 32, 64) and (1, 4096, 1600,
+    16); nonzero s0 / h0 and dsT / dhT.  Each gradient's largest
+    difference over its largest magnitude within GRAD_REL_TOL, finite, and
+    two runs of the kernel bit for bit; then each autograd.Function
+    through ``torch.autograd.grad`` against autograd of the plain
+    forward.  Returns each kernel's largest abs error at its training
+    shape."""
     import torch
     from repro_torch.kernels import ssm_scan as ssk
     from repro_torch.kernels import wkv6 as wk
-    w_in = [t.cuda() for t in wkv6_inputs(1, 16, 2, 32, seed=0)]
-    s_in = [t.cuda() for t in ssm_inputs(1, 16, 8, 16, seed=0)]
-    refused = {}
-    for name, fn, ins in (("wkv6", wk.wkv6, w_in),
-                          ("ssm_scan", ssk.ssm_scan, s_in)):
-        grad_in = [ins[0].clone().requires_grad_()] + ins[1:]
-        try:
-            fn(*grad_in)
-            refused[name] = False
-        except RuntimeError as e:
-            refused[name] = "no backward" in str(e)
-        with torch.no_grad():
-            fn(*grad_in)
-    phase("train_guard", refused=refused)
-    if not all(refused.values()):
-        fail(f"a forward-only kernel ran under grad mode: {refused}")
+    fns = {"wkv6": (wk.wkv6_backward, wk.wkv6_backward_plain,
+                    ("dr", "dk", "dv", "dlogw", "du", "ds0")),
+           "ssm_scan": (ssk.ssm_scan_backward, ssk.ssm_scan_backward_plain,
+                        ("da", "dbx", "dc", "dh0"))}
+    cases = [("wkv6", "T100_D32", (2, 100, 4, 32), False),
+             ("wkv6", "T100_D64", (2, 100, 4, 64), False),
+             ("wkv6", "strong_decay", (1, 200, 2, 64), True),
+             ("wkv6", "training", TRAIN_WKV6_SHAPE, False),
+             ("ssm_scan", "T100_N16", (2, 100, 40, 16), False),
+             ("ssm_scan", "training", TRAIN_SSM_SHAPE, False)]
+    errs = {}
+    for kernel, label, shape, strong in cases:
+        kern, plain, names = fns[kernel]
+        x, adj = backward_case(kernel, shape, seed=21, strong=strong)
+        first = kern(*x, *adj)
+        torch.cuda.synchronize()
+        again = kern(*x, *adj)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(first, again))
+        want = plain(*x, *adj)
+        rel = rel_errs(first, want)
+        finite = all(bool(g.isfinite().all()) for g in first)
+        phase("zoo_grad_parity", kernel=f"{kernel}_backward", case=label,
+              shape=list(shape), rel_err=dict(zip(names, rel)),
+              tol=GRAD_REL_TOL[kernel], bits_equal_on_rerun=same,
+              finite=finite)
+        if not (same and finite and max(rel) <= GRAD_REL_TOL[kernel]):
+            fail(f"{kernel} backward kernel ({label}): rel errors {rel}, "
+                 f"bits equal {same}, finite {finite}")
+        if label == "training":
+            errs[f"{kernel}_backward"] = max(
+                float((a - b).abs().max()) for a, b in zip(first, want))
+        del x, adj, first, again, want
+        torch.cuda.empty_cache()
+    for kernel, shape, fwd, plain_fwd in (
+            ("wkv6", (2, 100, 4, 64), wk.wkv6, wk.wkv6_plain),
+            ("ssm_scan", (2, 100, 40, 16), ssk.ssm_scan,
+             ssk.ssm_scan_plain)):
+        x, adj = backward_case(kernel, shape, seed=22)
+        grads = []
+        for fn in (fwd, plain_fwd):
+            leaves = [t.clone().requires_grad_() for t in x]
+            outs = fn(*leaves)
+            loss = sum((o * a).sum() for o, a in zip(outs, adj))
+            grads.append(torch.autograd.grad(loss, leaves))
+        rel = rel_errs(*grads)
+        phase("zoo_grad_autograd", kernel=kernel, shape=list(shape),
+              rel_err_against_autograd_of_plain=rel, tol=GRAD_REL_TOL[kernel])
+        if max(rel) > GRAD_REL_TOL[kernel]:
+            fail(f"{kernel}'s Function disagrees with autograd of its plain "
+                 f"forward: {rel}")
+    return errs
+
+
+def traced_fwd_bwd(cfg, params, batch, kernel: str) -> dict:
+    """One ``lm_loss`` forward and backward under the profiler: the device
+    time of the recurrence's forward and backward kernels and of all
+    kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as tr
+
+    def once():
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        loss = tr.lm_loss(leaves, cfg, batch)
+        torch.autograd.grad(loss, list(leaves.values()))
+    once()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        once()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    def ms(match):
+        return sum(e.time_range.elapsed_us() for e in events
+                   if match(e.name)) / 1e3
+    return {"device_ms": ms(lambda n: True),
+            "forward_kernel_device_ms": ms(lambda n: f"{kernel}_kernel" in n),
+            "backward_kernels_device_ms": ms(lambda n: f"{kernel}_bwd" in n),
+            "backward_kernel_records": sum(f"{kernel}_bwd" in e.name
+                                           for e in events),
+            "device_records": len(events)}
+
+
+def train_zoo(arch: str) -> dict:
+    """``make_train_step`` (AdamW) for three steps of 1 x 4096 tokens on
+    full-width ``arch`` (fp32 master weights, bf16 compute): per step the
+    loss, grad norm, wall time and the launches of its recurrence's forward
+    and backward kernels (counts set to 0 just before each step and read
+    just after), the peak memory; then one ``lm_loss`` fwd+bwd's time and,
+    from one traced fwd+bwd, the backward kernels' share of it."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps, train
+    from repro_torch.models import transformer as tr
+    kernel, fwd_want, bwd_want = ZOO_TRAIN[arch]
+    n_params = ZOO_ARCHS[arch][2]
+    cfg = get_arch(arch)
+    step = steps.make_train_step(cfg, learning_rate=3e-4)
+    params = tr.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg, device="cuda")
+    if tr.param_count(params) != n_params:
+        fail(f"{arch}: {tr.param_count(params)} parameters")
+    opt_state = step.optimizer.init(params)
+    batches = train.synth_batches(cfg, POD_B, POD_T, 3, seed=0)
+    log = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for b in batches:
+        b = {k: v.cuda() for k, v in b.items()}
+        reset_all_counts()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = zoo_counts()
+        log.append({"loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"]), "wall_s": wall,
+                    "launches": {kernel: counts[kernel],
+                                 f"{kernel}_backward":
+                                     counts[f"{kernel}_backward"]}})
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del opt_state
+    torch.cuda.empty_cache()
+    batch = {k: v.cuda() for k, v in batches[0].items()}
+    local_ms = step_time(cfg, params, batch)
+    traced = traced_fwd_bwd(cfg, params, batch, kernel)
+    predicted = {kernel: fwd_want, f"{kernel}_backward": bwd_want}
+    phase("train_zoo", arch=arch, params=n_params, optimizer="adamw",
+          compute_dtype=cfg.compute_dtype, tokens_per_step=POD_B * POD_T,
+          steps=log, peak_gb=peak, lm_loss_fwd_bwd_ms=local_ms,
+          predicted_launches_per_step=predicted,
+          launches_as_predicted=all(r["launches"] == predicted for r in log),
+          backward_share_of_fwd_bwd=traced["backward_kernels_device_ms"]
+          / local_ms, traced=traced)
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+               for r in log):
+        fail(f"train_zoo {arch}: non-finite loss or grad norm {log}")
+    if any(min(r["launches"].values()) == 0 for r in log):
+        fail(f"train_zoo {arch}: a step did not run both kernels {log}")
+    del params
+    torch.cuda.empty_cache()
+    return {"launches_per_step": log[0]["launches"],
+            "launches": {k: sum(r["launches"][k] for r in log)
+                         for k in predicted},
+            "lm_loss_fwd_bwd_ms": local_ms}
+
+
+def zoo_train_agreement() -> None:
+    """Reduced rwkv6-1.6b and hymba-1.5b (head dim 32, N 16; fp32 compute,
+    2 x 100 tokens: a partial wkv6 chunk): one ``lm_loss``'s gradients on
+    the card (the kernels forward and backward) against the port's CPU run
+    (the plain versions), each leaf within rtol ZOO_AGREE_RTOL and atol
+    ZOO_AGREE_ATOL of its largest magnitude (fp32 sums in other orders on
+    the two devices and the kernels' own chunkings), TF32 off."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tr
+    for arch, (kernel, _, _) in ZOO_TRAIN.items():
+        cfg = dataclasses.replace(get_arch(arch).reduced(),
+                                  compute_dtype="float32")
+        params = tr.init_params(torch.Generator().manual_seed(0), cfg,
+                                device="cpu")
+        toks = torch.randint(0, cfg.vocab_size, (2, 100),
+                             generator=torch.Generator().manual_seed(1))
+        batch = {"tokens": toks, "labels": torch.roll(toks, -1, -1)}
+        runs = []
+        for dev in ("cpu", "cuda"):
+            reset_all_counts()
+            leaves = {k: v.to(dev).requires_grad_() for k, v in params.items()}
+            loss = tr.lm_loss(leaves, cfg, {k: v.to(dev)
+                                            for k, v in batch.items()})
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            runs.append((float(loss.detach()), [g.cpu() for g in grads],
+                         zoo_counts()))
+        (cpu_loss, cpu_g, _), (card_loss, card_g, launches) = runs
+        worst, ok = 0.0, True
+        for a, b in zip(card_g, cpu_g):
+            scale = float(b.abs().max())
+            worst = max(worst, float((a - b).abs().max()) / max(scale, 1e-30))
+            ok &= bool(torch.allclose(a, b, rtol=ZOO_AGREE_RTOL,
+                                      atol=ZOO_AGREE_ATOL * scale))
+        phase("zoo_train_agreement", arch=cfg.name, layers=cfg.num_layers,
+              loss=[card_loss, cpu_loss], worst_rel_to_leaf_max=worst,
+              rtol=ZOO_AGREE_RTOL, atol_of_leaf_max=ZOO_AGREE_ATOL,
+              launches={k: launches[k]
+                        for k in (kernel, f"{kernel}_backward")})
+        if not ok or launches[f"{kernel}_backward"] == 0:
+            fail(f"{arch}: lm_loss gradients on the card disagree with the "
+                 f"CPU (worst {worst}) or skipped the backward kernel")
+
+
+def wkv6_bwd_work(B: int, T: int, H: int, D: int) -> dict:
+    """Bytes the wkv6 gradient must move (r, k, v, logw, dy, s0, dsT, u read
+    once; dr, dk, dv, dlogw, ds0, du written once) and the operations its
+    step recurrence needs a step and head: the forward state update again
+    (3 D^2: decay, outer product, sum), the adjoint's products G v and
+    G^T k (2 D^2 each), dlogw's rowsum of G * S (2 D^2), dr's S dy (2 D^2)
+    and the adjoint's update (3 D^2): 14 D^2, plus O(D) terms."""
+    bytes_ = 4 * (9 * B * T * H * D + 3 * B * H * D * D + 2 * H * D)
+    ops = B * H * T * (14 * D * D + 12 * D)
+    return {"bytes": bytes_, "operations": ops}
+
+
+def ssm_bwd_work(B: int, T: int, d: int, N: int) -> dict:
+    """Bytes (a, bx, c, h0, dy, dhT read once; da, dbx, dc, dh0 written
+    once) and operations (per (t, c, n): h again, a multiply-add; g's
+    multiply-add and decay; da's multiply; dC's multiply and add: 8)."""
+    bytes_ = 4 * (4 * B * T * d * N + 2 * B * T * N + 3 * B * d * N
+                  + B * T * d)
+    return {"bytes": bytes_, "operations": 8 * B * T * d * N}
+
+
+def time_zoo_backward() -> dict:
+    """Each backward kernel at its training shape: ``ms`` (the C launcher
+    back to back on rotating copies of inputs, outputs and scratch over
+    four times the L2 size), ``warm_ms`` (one set), ``device_ms`` (the
+    profiler's time of its kernels a call), ``wrapper_ms`` (one Python
+    call with its checks and allocations), ``plain_ms`` and the bound."""
+    import torch
+    from repro_torch.kernels import build, measure
+    from repro_torch.kernels import ssm_scan as ssk
+    from repro_torch.kernels import wkv6 as wk
+    lib = build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    B, T, H, D = TRAIN_WKV6_SHAPE
+    Bs, Ts, d, N = TRAIN_SSM_SHAPE
+    specs = {  # output and scratch shapes, C launcher + ints, wrapper, plain
+        "wkv6_backward": (
+            "wkv6", TRAIN_WKV6_SHAPE,
+            [TRAIN_WKV6_SHAPE] * 4 + [(H, D), (B, H, D, D)]
+            + list(wk.backward_scratch_shapes(B, T, H, D)),
+            lib.wkv6_backward_launch, (B, T, H, D), wk.wkv6_backward,
+            wk.wkv6_backward_plain, wkv6_bwd_work(*TRAIN_WKV6_SHAPE)),
+        "ssm_scan_backward": (
+            "ssm_scan", TRAIN_SSM_SHAPE,
+            [TRAIN_SSM_SHAPE] * 2 + [(Bs, Ts, N), (Bs, d, N)]
+            + list(ssk.backward_scratch_shapes(Bs, Ts, d, N)),
+            lib.ssm_scan_backward_launch, (Bs, Ts, d, N),
+            ssk.ssm_scan_backward, ssk.ssm_scan_backward_plain,
+            ssm_bwd_work(*TRAIN_SSM_SHAPE))}
+    results = {}
+    for name, (kernel, shape, out_shapes, fn, ints, wrapper, plain, work) \
+            in specs.items():
+        x, adj = backward_case(kernel, shape, seed=23)
+        x = x + adj
+        copies = max(2, -(-4 * l2 // sum(t.nbytes for t in x)))
+        xs = [x] + [[t.clone() for t in x] for _ in range(copies - 1)]
+        ys = [[torch.empty(s, device="cuda") for s in out_shapes]
+              for _ in range(copies)]
+        ptrs = [[t.data_ptr() for t in xs[i] + ys[i]] for i in range(copies)]
+        kernels = [lambda p=p: fn(*p, *ints, stream) for p in ptrs]
+        bytes_ms = work["bytes"] / HBM_BYTES_PER_S * 1e3
+        ops_ms = work["operations"] / FP32_OPS_PER_S * 1e3
+        # The profiler has lost every record of a backward kernel in three
+        # sessions in a row on the card: the time between CUDA events then
+        # stands in, marked by ``device_source``.
+        dev = measure.device_ms(kernels, f"{kernel}_bwd", launches=10,
+                                events_fallback=True)
+        traced = dev["kernel_records"] is not None
+        rec = {"shape": list(shape),
+               "ms": measure.cuda_loop_ms(kernels, launches=10),
+               "warm_ms": measure.cuda_loop_ms(kernels[:1], launches=10),
+               "device_ms": dev["device_ms"] * dev["kernel_records"]
+               / dev["calls"] if traced else dev["device_ms"],
+               "device_source": dev.get("device_source", "trace"),
+               "device_records": dev["device_records"],
+               "kernel_records": dev["kernel_records"], "calls": dev["calls"],
+               "wrapper_ms": cuda_ms([lambda v=v: wrapper(*v) for v in xs],
+                                     reps=5),
+               "plain_ms": cuda_ms([lambda v=v: plain(*v) for v in xs],
+                                   reps=3),
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "bytes_ms": bytes_ms, "ops_ms": ops_ms, "library_ms": None,
+               **work, "buffers": copies}
+        results[name] = rec
+        phase("kernel_time", case="training", kernel=name, **rec)
+        del x, adj, xs, ys, kernels
+        torch.cuda.empty_cache()
+    return results
 
 
 def at_large(rec: dict) -> dict:
@@ -3974,7 +4340,7 @@ def main(argv) -> int:
     # ---- 7. the pod round and the training path ---------------------------
     torch.cuda.empty_cache()
     section_t0 = time.perf_counter()
-    train_guard()
+    zoo_grad_errs = zoo_grad_parity()
     pod = fed_pod_path()
     fed_pod_cohort(pod)
     pod_launches = pod["launches"]
@@ -3985,6 +4351,17 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     flash_vjp_phase(trained["local_step_ms"])
     phase("pod_and_training_section", seconds=time.perf_counter() - section_t0)
+    # ---- 7b. the zoo's training path: rwkv6-1.6b and hymba-1.5b ----------
+    section_t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    zoo_train = {arch: train_zoo(arch) for arch in ZOO_TRAIN}
+    zoo_pod = fed_pod_path("rwkv6-1.6b", trace=False)
+    zoo_pod_launches = zoo_pod["launches"]
+    del zoo_pod
+    torch.cuda.empty_cache()
+    zoo_train_agreement()
+    zoo_bwd_times = time_zoo_backward()
+    phase("zoo_training_section", seconds=time.perf_counter() - section_t0)
     if trace:
         profile_rounds(fused, "fig5-fused-int8")
         profile_rounds(lms["vgg-fig5"], "vgg-fig5")
@@ -4014,6 +4391,7 @@ def main(argv) -> int:
             / POD_ROUNDS,
             "max_abs_err": errs[name], "ms": rec["ms"],
             "warm_ms": rec["warm_ms"], "device_ms": rec["device_ms"],
+            "device_source": rec.get("device_source", "trace"),
             "wrapper_ms": rec["wrapper_ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -4082,7 +4460,34 @@ def main(argv) -> int:
             "kernel_operations": rec["kernel_operations"],
             **({"kernel_exponentials": rec["kernel_exponentials"]}
                if "kernel_exponentials" in rec else {}),
+            "launches_per_train_step":
+                zoo_train[arch]["launches_per_step"][name],
             "library_note": ZOO_LIBRARY_NOTE})
+    for name, arch in (("wkv6_backward", "rwkv6-1.6b"),
+                       ("ssm_scan_backward", "hymba-1.5b")):
+        rec = zoo_bwd_times[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/"
+                      + ("wkv6_backward.cu" if name == "wkv6_backward"
+                         else "ssm_scan.cu"),
+            "replaces": None, "replaces_note": ZOO_BWD_REPLACES_NOTE[name],
+            "path": f"{arch} make_train_step (AdamW), 3 steps of "
+                    f"{POD_B} x {POD_T} tokens, full width and depth",
+            "launches": zoo_train[arch]["launches"][name],
+            "launches_per_train_step":
+                zoo_train[arch]["launches_per_step"][name],
+            **({"fed_pod_path_launches": zoo_pod_launches[name],
+                "fed_pod_launches_per_round": zoo_pod_launches[name]
+                / POD_ROUNDS} if name in zoo_pod_launches else {}),
+            "shape": rec["shape"], "max_abs_err": zoo_grad_errs[name],
+            "ms": rec["ms"], "warm_ms": rec["warm_ms"],
+            "device_ms": rec["device_ms"],
+            "device_source": rec["device_source"],
+            "wrapper_ms": rec["wrapper_ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "library_note": ZOO_BWD_LIBRARY_NOTE})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,38 @@
 // four flops; y, c, h0 and hT add little.  At the serving shape that is
 // 3.46 GB, 1.03 ms at 3.35 TB/s, against 0.03 ms of arithmetic: it is bound
 // by device-memory bytes.
+//
+// The backward (ssm_scan_bwd_kernel, behind ssm_scan_backward_launch)
+// replaces no TPU kernel: the reference gets this gradient from XLA autodiff
+// of src/repro/models/ssm.py:58 (ssm_forward's scan).  It is here because
+// the port's model runs the forward above, which autograd cannot see into.
+// With g the running adjoint of h, per (b, c, n):
+//
+//   g <- dhT;  for t = T-1 .. 0:  g += dy_t[c] C_t[n];  dbx_t = g;
+//   da_t = g h_{t-1};  dC_t[n] += dy_t[c] h_t[c, n];  g <- a_t g;   dh0 = g
+//
+// Same thread map as the forward: one thread per (b, c, n), the N lanes of
+// a channel in one warp.  h_{t-1} is recomputed, never obtained by dividing
+// by a_t (which can underflow to 0): a first sweep runs the forward from h0
+// and stores h at the start of every chunk of kChunk = 16 steps in a scratch
+// buffer (B, ceil(T / 16), d, N); the reverse sweep then recomputes each
+// chunk's 16 states into registers from its checkpoint and walks the chunk
+// backwards.  Both sweeps load the next chunk's inputs into registers while
+// the current chunk computes, so a thread waits on device memory about
+// once a sweep, not once a chunk (or a step).  dC_t[n] is a sum over the
+// d channels, which span blocks: each warp sums its channels with a
+// shuffle butterfly, each block its warps in a fixed order into a partial
+// (B, blocks, T, N), and a second kernel adds the partials in block order.
+// No float atomics, so two runs give the same bits.
+//
+// What bounds the backward: the function reads a, bx (and c, dy, h0, dhT)
+// once and writes da, dbx (and dC, dh0) once.  At Hymba's training shape
+// (1, 4096, 1600, 16) a, bx, da and dbx are 419.4 MB each, about 1.68 GB,
+// 0.50 ms at 3.35 TB/s; its 8 flops per (t, c, n) take 0.01 ms.  This
+// kernel reads a and bx twice (the checkpoint sweep and the recompute) and
+// moves the checkpoints and partials besides (26 MB each at that shape):
+// about 2.6 GB, 0.78 ms at 3.35 TB/s.  A first build that loaded each
+// step's dy and C where it used them waited on device memory every step.
 
 #include <cuda_runtime.h>
 
@@ -100,6 +132,180 @@ int launch(const float* a, const float* bx, const float* c, const float* h0,
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int kChunk = 16;          // steps between checkpoints (backward)
+constexpr int kWarps = kThreads / 32;
+
+// One chunk's a and bx of a thread, steps t0 .. t0 + 15: a = 1 and bx = 0
+// outside [0, T) (h unchanged).  Loads only: the caller uses them a chunk
+// later, so they are in flight while the current chunk computes.
+__device__ __forceinline__ void fetch_ab(float (&at)[kChunk],
+                                         float (&bt)[kChunk],
+                                         const float* __restrict__ ap,
+                                         const float* __restrict__ bp,
+                                         long long dn, int t0, int T,
+                                         bool active) {
+#pragma unroll
+  for (int j = 0; j < kChunk; ++j) {
+    const long long t = t0 + j;
+    const bool ok = active && t >= 0 && t < T;
+    at[j] = ok ? ap[t * dn] : 1.0f;
+    bt[j] = ok ? bp[t * dn] : 0.0f;
+  }
+}
+
+// The same chunk's dy[t, c] and C[t, n] (zeros outside [0, T)).
+__device__ __forceinline__ void fetch_yc(float (&yt)[kChunk],
+                                         float (&ct)[kChunk],
+                                         const float* __restrict__ dyp,
+                                         const float* __restrict__ cp, int d,
+                                         int N, int t0, int T, bool active) {
+#pragma unroll
+  for (int j = 0; j < kChunk; ++j) {
+    const long long t = t0 + j;
+    const bool ok = t >= 0 && t < T;
+    yt[j] = ok && active ? dyp[t * d] : 0.0f;
+    ct[j] = ok ? cp[t * N] : 0.0f;
+  }
+}
+
+template <int N>
+__global__ void __launch_bounds__(kThreads)
+ssm_scan_bwd_kernel(const float* __restrict__ a, const float* __restrict__ bx,
+                    const float* __restrict__ c, const float* __restrict__ h0,
+                    const float* __restrict__ dy,
+                    const float* __restrict__ dhT, float* __restrict__ da,
+                    float* __restrict__ dbx, float* __restrict__ dh0,
+                    float* __restrict__ hk, float* __restrict__ dcp, int T,
+                    int d) {
+  __shared__ float part[kWarps][kChunk][N];   // dC: one partial a warp
+  const int b = blockIdx.y;
+  const int idx = blockIdx.x * kThreads + threadIdx.x;   // channel * N + n
+  const int ch = idx / N;
+  const int n = idx - ch * N;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool active = ch < d;
+  const long long dn = static_cast<long long>(d) * N;
+  const int nchunks = (T + kChunk - 1) / kChunk;
+  const float* ap = a + static_cast<long long>(b) * T * dn + idx;
+  const float* bp = bx + static_cast<long long>(b) * T * dn + idx;
+  const float* cp = c + static_cast<long long>(b) * T * N + n;
+  const float* dyp = dy + static_cast<long long>(b) * T * d + ch;
+  float* dap = da + static_cast<long long>(b) * T * dn + idx;
+  float* dbp = dbx + static_cast<long long>(b) * T * dn + idx;
+  float* hkp = hk + static_cast<long long>(b) * nchunks * dn + idx;
+
+  // 1. The forward from h0; h at the start of every chunk to the scratch.
+  float h = active ? h0[b * dn + idx] : 0.0f;
+  float at[kChunk], bt[kChunk], an[kChunk], bn[kChunk];
+  fetch_ab(at, bt, ap, bp, dn, 0, T, active);
+  for (int k = 0; k < nchunks; ++k) {
+    if (active) hkp[k * dn] = h;
+    fetch_ab(an, bn, ap, bp, dn, (k + 1) * kChunk, T, active);
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      h = at[j] * h + bt[j];
+      at[j] = an[j];
+      bt[j] = bn[j];
+    }
+  }
+
+  // 2. The adjoint, chunk by chunk from the last, each chunk's states
+  // recomputed from its checkpoint: hs[j] = h_{t0 + j - 1}.  The chunk
+  // before's inputs load while this one computes.
+  float g = active ? dhT[b * dn + idx] : 0.0f;
+  float* dcb = dcp + (static_cast<long long>(b) * gridDim.x + blockIdx.x) *
+                         T * N;
+  float yt[kChunk], ct[kChunk], yn[kChunk], cn[kChunk];
+  const int tl = (nchunks - 1) * kChunk;
+  fetch_ab(at, bt, ap, bp, dn, tl, T, active);
+  fetch_yc(yt, ct, dyp, cp, d, N, tl, T, active);
+  float hk0 = active && nchunks > 0 ? hkp[(nchunks - 1) * dn] : 0.0f;
+  for (int k = nchunks - 1; k >= 0; --k) {
+    const int t0 = k * kChunk;
+    fetch_ab(an, bn, ap, bp, dn, t0 - kChunk, T, active);
+    fetch_yc(yn, cn, dyp, cp, d, N, t0 - kChunk, T, active);
+    const float hkn = active && k > 0 ? hkp[(k - 1) * dn] : 0.0f;
+    float hs[kChunk + 1];
+    hs[0] = hk0;
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) hs[j + 1] = at[j] * hs[j] + bt[j];
+#pragma unroll
+    for (int j = kChunk - 1; j >= 0; --j) {
+      const long long t = t0 + j;
+      if (t < T) {                        // the same t in every thread
+        g += yt[j] * ct[j];
+        if (active) {
+          dbp[t * dn] = g;
+          dap[t * dn] = g * hs[j];
+        }
+        float p = yt[j] * hs[j + 1];
+#pragma unroll
+        for (int off = N; off < 32; off <<= 1) {
+          p += __shfl_xor_sync(kFull, p, off);
+        }
+        if (lane < N) part[warp][j][lane] = p;
+        g *= at[j];
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < kChunk * N; i += kThreads) {
+      const int j = i / N, m = i - (i / N) * N;
+      if (t0 + j < T) {
+        float sum = 0.0f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) sum += part[w][j][m];
+        dcb[static_cast<long long>(t0 + j) * N + m] = sum;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      at[j] = an[j];
+      bt[j] = bn[j];
+      yt[j] = yn[j];
+      ct[j] = cn[j];
+    }
+    hk0 = hkn;
+  }
+  if (active) dh0[b * dn + idx] = g;
+}
+
+// dC[b, t, n] = the blocks' partials in block order.
+__global__ void __launch_bounds__(kThreads)
+ssm_scan_bwd_dc_kernel(const float* __restrict__ dcp, float* __restrict__ dc,
+                       int blocks, long long tn) {
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (i >= tn) return;
+  const float* p = dcp + static_cast<long long>(blockIdx.y) * blocks * tn + i;
+  float sum = 0.0f;
+  for (int k = 0; k < blocks; ++k) sum += p[k * tn];
+  dc[static_cast<long long>(blockIdx.y) * tn + i] = sum;
+}
+
+int bwd_blocks(int d, int N) {
+  return static_cast<int>((static_cast<long long>(d) * N + kThreads - 1) /
+                          kThreads);
+}
+
+template <int N>
+int launch_bwd(const float* a, const float* bx, const float* c,
+               const float* h0, const float* dy, const float* dhT, float* da,
+               float* dbx, float* dc, float* dh0, float* hk, float* dcp, int B,
+               int T, int d, cudaStream_t st) {
+  const int blocks = bwd_blocks(d, N);
+  ssm_scan_bwd_kernel<N><<<dim3(blocks, B), kThreads, 0, st>>>(
+      a, bx, c, h0, dy, dhT, da, dbx, dh0, hk, dcp, T, d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tn = static_cast<long long>(T) * N;
+  if (tn > 0) {
+    const dim3 grid(static_cast<unsigned>((tn + kThreads - 1) / kThreads), B);
+    ssm_scan_bwd_dc_kernel<<<grid, kThreads, 0, st>>>(dcp, dc, blocks, tn);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -121,6 +327,46 @@ int ssm_scan_launch(const float* a, const float* bx, const float* c,
     case 32: return launch<32>(a, bx, c, h0, y, hT, B, T, d, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The backward: a, bx, c, h0 as for ssm_scan_launch; dy (B, T, d) and dhT
+// (B, d, N) the adjoints of y and hT; da, dbx (B, T, d, N), dc (B, T, N)
+// and dh0 (B, d, N) out.  Scratch: hk (B, chunks, d, N) and dcp (B, blocks,
+// T, N), with chunks and blocks from ssm_scan_backward_config.  Returns the
+// first CUDA error (0 on success), or cudaErrorInvalidValue for an N that
+// does not divide 32.
+int ssm_scan_backward_launch(const float* a, const float* bx, const float* c,
+                             const float* h0, const float* dy,
+                             const float* dhT, float* da, float* dbx,
+                             float* dc, float* dh0, float* hk, float* dcp,
+                             int B, int T, int d, int N, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || d <= 0) return 0;
+  switch (N) {
+#define SSM_BWD_CASE(n)                                                     \
+  case n:                                                                   \
+    return launch_bwd<n>(a, bx, c, h0, dy, dhT, da, dbx, dc, dh0, hk, dcp,  \
+                         B, T, d, st);
+    SSM_BWD_CASE(1)
+    SSM_BWD_CASE(2)
+    SSM_BWD_CASE(4)
+    SSM_BWD_CASE(8)
+    SSM_BWD_CASE(16)
+    SSM_BWD_CASE(32)
+#undef SSM_BWD_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The backward's scratch shapes: blocks per batch row and checkpoints per
+// channel lane.
+int ssm_scan_backward_config(int T, int d, int N, int* blocks, int* chunks) {
+  if (d < 0 || T < 0 || N <= 0 || 32 % N) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  *blocks = bwd_blocks(d, N);
+  *chunks = (T + kChunk - 1) / kChunk;
+  return 0;
 }
 
 }  // extern "C"

@@ -177,7 +177,8 @@ def cuda_loop_ms(fns, launches: int = 50, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(fns, symbol: str, launches: int = 50) -> dict:
+def device_ms(fns, symbol: str, launches: int = 50,
+              events_fallback: bool = False) -> dict:
     """``launches`` calls back to back, as in :func:`cuda_loop_ms`, under
     ``torch.profiler`` (after one call of each of ``fns``, so that the L2
     holds what these calls leave there and not what ran before them, and
@@ -186,20 +187,30 @@ def device_ms(fns, symbol: str, launches: int = 50) -> dict:
     gaps, whatever the host's pace), the device records of the trace, the
     kernel's records and the calls made.  A call that puts more than the
     kernel on the stream shows as more records than kernel records.  A
-    session whose trace lost every record of the kernel (it happens on the
-    card now and then) is run again, three sessions at the most."""
+    call that returns a nonzero error code raises.  A session whose trace
+    lost every record of the kernel (it happens on the card now and then)
+    is run again, three sessions at the most.  When all three lost them,
+    it raises, naming the records the last trace held; or, with
+    ``events_fallback``, it returns the time a call between two CUDA
+    events (:func:`cuda_loop_ms`, launch gaps included) as ``device_ms``,
+    with ``device_source`` "cuda_events" and no record counts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for fn in fns:
-        fn()
+
+    def call(i):
+        rc = fns[i % len(fns)]()
+        if isinstance(rc, int) and rc:
+            raise RuntimeError(f"kernel launch returned cudaError {rc}")
+    for i in range(len(fns)):
+        call(i)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]):
-        fns[0]()
+        call(0)
         torch.cuda.synchronize()
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for i in range(launches):
-                fns[i % len(fns)]()
+                call(i)
             torch.cuda.synchronize()
         events = [e for e in prof.events()
                   if e.device_type == DeviceType.CUDA]
@@ -207,7 +218,15 @@ def device_ms(fns, symbol: str, launches: int = 50) -> dict:
         if mine:
             break
     else:
-        raise RuntimeError(f"the trace holds no record of {symbol}")
+        if events_fallback:
+            return {"device_ms": cuda_loop_ms(fns, launches=launches),
+                    "device_records": None, "kernel_records": None,
+                    "calls": launches, "device_source": "cuda_events",
+                    "lost_sessions": 3}
+        seen = sorted({e.name for e in events})
+        raise RuntimeError(f"the trace holds no record of {symbol} in 3 "
+                           f"sessions; the last held {len(events)} device "
+                           f"records: {seen[:8]}")
     return {"device_ms": sum(e.time_range.elapsed_us() for e in mine)
             / 1e3 / len(mine),
             "device_records": len(events), "kernel_records": len(mine),

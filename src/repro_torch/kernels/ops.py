@@ -25,7 +25,8 @@ bitmap payloads without re-reading the fp32 data.
 
 ``ssm_scan(a, bx, c, h0)`` and ``wkv6(r, k, v, logw, u, s0)`` are the two
 recurrences of the model zoo (``kernels.ssm_scan``, ``kernels.wkv6``) in the
-models' own layouts, any T, no padding.
+models' own layouts, any T, no padding; both are differentiable, through
+``torch.autograd.Function``s whose backwards are kernels too.
 
 Trees are flat ``{name: tensor}`` dicts in the reference's leaf order
 (``repro_torch.bridge``).
@@ -417,7 +418,8 @@ def ssm_scan(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
 
     a, bx: (B, T, d, N) decay and input terms (the layout models/ssm.py
     uses); c: (B, T, N); h0: (B, d, N), any float dtype (computed in fp32).
-    Returns (y (B, T, d), hT (B, d, N)) fp32."""
+    Returns (y (B, T, d), hT (B, d, N)) fp32.  Differentiable: the casts
+    are autograd's, the scan ``ssm_scan.SsmScanFunction``."""
     return ssk.ssm_scan(_f32(a), _f32(bx), _f32(c), _f32(h0))
 
 
@@ -426,5 +428,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """RWKV6 wkv recurrence on the CUDA kernel (``kernels.wkv6``).
 
     r/k/v/logw: (B, T, H, D); u: (H, D); s0: (B, H, D, D), any float dtype
-    (computed in fp32).  Returns (y (B, T, H, D), sT (B, H, D, D)) fp32."""
+    (computed in fp32).  Returns (y (B, T, H, D), sT (B, H, D, D)) fp32.
+    Differentiable: the casts are autograd's, the recurrence
+    ``wkv6.Wkv6Function``."""
     return wk.wkv6(_f32(r), _f32(k), _f32(v), _f32(logw), _f32(u), _f32(s0))

@@ -10,35 +10,52 @@ in the layout the model uses: a, bx (B, T, d, N), c (B, T, N), h0 (B, d, N)
 
 ``ssm_scan`` is the wrapper around the hand-written CUDA kernel
 (``csrc/ssm_scan.cu``, any N that divides 32); ``ssm_scan_plain`` is the
-same recurrence in plain PyTorch.  The wrapper takes the plain version only
-for a tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
-Every launch adds one to the count (:func:`launch_counts`).
+same recurrence in plain PyTorch.  Its gradient is :class:`SsmScanFunction`,
+whose backward is ``ssm_scan_backward``: a second hand-written kernel in the
+same file, with ``ssm_scan_backward_plain`` beside it.  With g the running
+adjoint of h, per (b, c, n):
+
+    g <- dhT
+    for t = T-1 ... 0:
+        g <- g + dy_t[c] C_t[n]
+        dbx_t = g;  da_t = g h_{t-1};  dC_t[n] += dy_t[c] h_t[c, n]  (sum over c)
+        g <- a_t g
+    dh0 = g
+
+Each wrapper takes its plain version only for a tensor on the CPU; for a
+CUDA tensor it launches its kernel or raises.  Every launch adds one to
+the wrapper's count (:func:`launch_counts`).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels.segmented import _launch, _library
 
-__all__ = ["CUDA_STATE_DIMS", "ssm_scan", "ssm_scan_plain", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["CUDA_STATE_DIMS", "ssm_scan", "ssm_scan_plain",
+           "ssm_scan_backward", "ssm_scan_backward_plain", "SsmScanFunction",
+           "backward_scratch_shapes",
+           "launch_counts", "reset_launch_counts"]
 
 CUDA_STATE_DIMS = (1, 2, 4, 8, 16, 32)
 
-_LAUNCHES: Dict[str, int] = {"ssm_scan": 0}
+_LAUNCHES: Dict[str, int] = {"ssm_scan": 0, "ssm_scan_backward": 0}
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches since the last reset (CUDA only)."""
+    """Kernel launches of each wrapper since the last reset (CUDA only)."""
     return dict(_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    """Set the launch count to 0."""
-    _LAUNCHES["ssm_scan"] = 0
+    """Set the launch counts to 0."""
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
 
 
 def _check(a, bx, c, h0) -> None:
@@ -59,6 +76,12 @@ def _check(a, bx, c, h0) -> None:
         raise ValueError(f"unsupported device {a.device}")
 
 
+def _check_state_dim(N: int) -> None:
+    if N not in CUDA_STATE_DIMS:
+        raise ValueError(f"the CUDA ssm_scan kernels take state dims that "
+                         f"divide 32 {CUDA_STATE_DIMS}, got {N}")
+
+
 def ssm_scan_plain(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
                    h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`ssm_scan`: one step at a time."""
@@ -71,31 +94,126 @@ def ssm_scan_plain(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
     return y, h
 
 
-def ssm_scan(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
-             h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """a, bx: (B, T, d, N) fp32; c: (B, T, N); h0: (B, d, N).  Returns
-    (y (B, T, d), hT (B, d, N)), fp32.  Any T and d; on the card N must
-    divide 32.
+def ssm_scan_backward_plain(a: torch.Tensor, bx: torch.Tensor,
+                            c: torch.Tensor, h0: torch.Tensor,
+                            dy: torch.Tensor, dhT: torch.Tensor
+                            ) -> Tuple[torch.Tensor, ...]:
+    """Plain version of :func:`ssm_scan_backward`: the forward's states
+    kept, then the adjoint one step at a time."""
+    B, T, d, N = a.shape
+    hs = torch.empty((B, T + 1, d, N), dtype=torch.float32, device=a.device)
+    hs[:, 0] = h0
+    for t in range(T):
+        hs[:, t + 1] = a[:, t] * hs[:, t] + bx[:, t]
+    g = dhT.float().clone()
+    da, dbx = torch.empty_like(a), torch.empty_like(bx)
+    dc = torch.empty_like(c)
+    for t in range(T - 1, -1, -1):
+        g = g + dy[:, t, :, None] * c[:, t, None, :]
+        dbx[:, t] = g
+        da[:, t] = g * hs[:, t]
+        dc[:, t] = torch.einsum("bd,bdn->bn", dy[:, t], hs[:, t + 1])
+        g = a[:, t] * g
+    return da, dbx, dc, g
 
-    The CUDA kernel has no backward: on the card, under grad mode with any
-    input requiring a gradient, this raises rather than return outputs
-    that would silently cut the gradient.  The plain version (the CPU)
-    is differentiable."""
-    _check(a, bx, c, h0)
+
+def _forward(a, bx, c, h0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward on the tensors' device: the plain version on the CPU,
+    the kernel on the card."""
     if a.device.type == "cpu":
         return ssm_scan_plain(a, bx, c, h0)
-    if torch.is_grad_enabled() and any(
-            x.requires_grad for x in (a, bx, c, h0)):
-        raise RuntimeError("the CUDA ssm_scan kernel has no backward yet "
-                           "(ROADMAP Queue 1): call it under torch.no_grad() "
-                           "or on detached inputs")
     B, T, d, N = a.shape
-    if N not in CUDA_STATE_DIMS:
-        raise ValueError(f"the CUDA ssm_scan kernel takes state dims that "
-                         f"divide 32 {CUDA_STATE_DIMS}, got {N}")
+    _check_state_dim(N)
     y = torch.empty((B, T, d), dtype=torch.float32, device=a.device)
     hT = torch.empty_like(h0)
     _launch("ssm_scan", _library().ssm_scan_launch, a.data_ptr(),
             bx.data_ptr(), c.data_ptr(), h0.data_ptr(), y.data_ptr(),
             hT.data_ptr(), B, T, d, N, counts=_LAUNCHES)
     return y, hT
+
+
+def backward_scratch_shapes(B: int, T: int, d: int, N: int) -> tuple:
+    """The CUDA backward's scratch buffers: h every 16 steps (B, chunks, d,
+    N) and the blocks' partials of dc (B, blocks, T, N)."""
+    blocks, chunks = ctypes.c_int(), ctypes.c_int()
+    err = _library().ssm_scan_backward_config(T, d, N, ctypes.byref(blocks),
+                                              ctypes.byref(chunks))
+    if err:
+        raise RuntimeError(f"ssm_scan_backward_config failed: {err}")
+    return (B, chunks.value, d, N), (B, blocks.value, T, N)
+
+
+def ssm_scan_backward(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
+                      h0: torch.Tensor, dy: torch.Tensor, dhT: torch.Tensor
+                      ) -> Tuple[torch.Tensor, ...]:
+    """The gradient of :func:`ssm_scan`: forward inputs as there, dy (B, T,
+    d) and dhT (B, d, N) the outputs' adjoints.  Returns (da, dbx, dc, dh0),
+    fp32, shaped as a, bx, c and h0.
+
+    The kernel recomputes h from h0 (checkpoints every 16 steps in a
+    scratch buffer, the steps between them in registers), so it never
+    divides by a; dc sums over channels in a fixed order (a partial a block,
+    then a second pass), so two runs give the same bits."""
+    _check(a, bx, c, h0)
+    B, T, d, N = a.shape
+    for name, x, shape in (("dy", dy, (B, T, d)), ("dhT", dhT, (B, d, N))):
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32")
+        if x.device != a.device:
+            raise ValueError(f"{name} is on {x.device}, a on {a.device}")
+    if a.device.type == "cpu":
+        return ssm_scan_backward_plain(a, bx, c, h0, dy, dhT)
+    _check_state_dim(N)
+    lib = _library()
+    da, dbx = torch.empty_like(a), torch.empty_like(bx)
+    dc, dh0 = torch.empty_like(c), torch.empty_like(h0)
+    hk, dcp = (torch.empty(shape, dtype=torch.float32, device=a.device)
+               for shape in backward_scratch_shapes(B, T, d, N))
+    _launch("ssm_scan_backward", lib.ssm_scan_backward_launch, a.data_ptr(),
+            bx.data_ptr(), c.data_ptr(), h0.data_ptr(), dy.data_ptr(),
+            dhT.data_ptr(), da.data_ptr(), dbx.data_ptr(), dc.data_ptr(),
+            dh0.data_ptr(), hk.data_ptr(), dcp.data_ptr(), B, T, d, N,
+            counts=_LAUNCHES)
+    return da, dbx, dc, dh0
+
+
+class SsmScanFunction(torch.autograd.Function):
+    """:func:`ssm_scan` with its gradient: the forward kernel (or plain
+    version) forward, :func:`ssm_scan_backward` backward.  Keeps the
+    inputs only; h is recomputed in the backward."""
+
+    @staticmethod
+    def forward(ctx, a, bx, c, h0):
+        ctx.save_for_backward(a, bx, c, h0)
+        return _forward(a, bx, c, h0)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy, dhT):
+        a, bx, c, h0 = ctx.saved_tensors
+        dy = torch.zeros((*a.shape[:3],), dtype=torch.float32,
+                         device=a.device) if dy is None else \
+            dy.float().contiguous()
+        dhT = torch.zeros_like(h0) if dhT is None else \
+            dhT.float().contiguous()
+        grads = ssm_scan_backward(a, bx, c, h0, dy, dhT)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
+
+
+def ssm_scan(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
+             h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """a, bx: (B, T, d, N) fp32; c: (B, T, N); h0: (B, d, N).  Returns
+    (y (B, T, d), hT (B, d, N)), fp32.  Any T and d; on the card N must
+    divide 32.
+
+    Under grad mode with an input that requires a gradient this runs
+    through :class:`SsmScanFunction`, whose backward is the backward
+    kernel on the card and its plain version on the CPU."""
+    _check(a, bx, c, h0)
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (a, bx, c, h0)):
+        return SsmScanFunction.apply(a, bx, c, h0)
+    return _forward(a, bx, c, h0)

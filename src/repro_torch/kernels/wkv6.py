@@ -47,20 +47,50 @@ The kernel:
 ``wkv6_plain`` is the same function in plain PyTorch with one exponent per
 pair, an oracle independent of that factorization; ``_wkv6_subchunk_plain``
 mirrors the kernel's own formulation on the CPU and is called only by the
-tests.  The wrapper takes the plain version only for a tensor on the CPU;
-for a CUDA tensor it launches the kernel or raises.  Every launch adds one
-to the count (:func:`launch_counts`).
+tests.
+
+The gradient is :class:`Wkv6Function`, whose backward is ``wkv6_backward``:
+a second hand-written kernel (``csrc/wkv6_backward.cu``) with
+``wkv6_backward_plain`` beside it.  Per chunk, in reverse chunk order, with
+S and S' the chunk's start and end states, dS' the adjoint carried in from
+the next chunk (dsT for the last), beta_t = r_t.u.k_t and delta_t =
+dy_t.v_t:
+
+    dA[t,s] = dy_t . v_s                                          (s < t)
+    dv_s = sum_{t>s} A[t,s] dy_t + beta_s dy_s + (k_s e^{cum_L - cum_s})^T dS'
+    dr_t = e^{cp_t} (S dy_t) + sum_{s<t} dA[t,s] k_s e^{cp_t - cum_s}
+           + delta_t u k_t
+    dk_s = sum_{t>s} dA[t,s] r_t e^{cp_t - cum_s} + delta_s u r_s
+           + e^{cum_L - cum_s} (dS' v_s)
+    du  += sum_t delta_t r_t k_t                    (also summed over B)
+    dS   = diag(e^{cum_L}) dS' + sum_t (r_t e^{cp_t}) dy_t^T
+    P_t = r_t (dr_t - delta_t u k_t),  Q_s = k_s (dk_s - delta_s u r_s),
+    Z = rowsum(dS' * S')
+    dlogw_i = sum_{t>i} P_t - sum_{s>=i} Q_s + Z
+
+and ds0 is dS after the first chunk.  P_t and -Q_s are the adjoints of
+cp_t = cum_{t-1} and cum_s, Z that of cum_L through S', so dlogw is their
+reverse prefix within the chunk.  Every exponent is <= 0, as in the
+forward.
+
+Each wrapper takes its plain version only for a tensor on the CPU; for a
+CUDA tensor it launches its kernel or raises.  Every launch adds one to
+the wrapper's count (:func:`launch_counts`).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels.segmented import _launch, _library
 
 __all__ = ["CHUNK", "SUBCHUNK", "CUDA_HEAD_DIMS", "wkv6", "wkv6_plain",
+           "wkv6_backward", "wkv6_backward_plain", "Wkv6Function",
+           "backward_scratch_shapes",
            "launch_counts", "reset_launch_counts"]
 
 CHUNK = 64
@@ -68,17 +98,18 @@ SUBCHUNK = 16
 CUDA_HEAD_DIMS = (32, 64)
 LOG2E = 1.4426950408889634
 
-_LAUNCHES: Dict[str, int] = {"wkv6": 0}
+_LAUNCHES: Dict[str, int] = {"wkv6": 0, "wkv6_backward": 0}
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches since the last reset (CUDA only)."""
+    """Kernel launches of each wrapper since the last reset (CUDA only)."""
     return dict(_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    """Set the launch count to 0."""
-    _LAUNCHES["wkv6"] = 0
+    """Set the launch counts to 0."""
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
 
 
 def _check(r, k, v, logw, u, s0) -> None:
@@ -98,6 +129,12 @@ def _check(r, k, v, logw, u, s0) -> None:
             raise ValueError(f"{name} is on {x.device}, r on {r.device}")
     if r.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {r.device}")
+
+
+def _check_head_dim(D: int) -> None:
+    if D not in CUDA_HEAD_DIMS:
+        raise ValueError(f"the CUDA wkv6 kernels take head dims "
+                         f"{CUDA_HEAD_DIMS}, got {D}")
 
 
 def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -179,29 +216,83 @@ def _wkv6_subchunk_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y.transpose(1, 2).contiguous(), S
 
 
-def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         logw: torch.Tensor, u: torch.Tensor,
-         s0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """r, k, v, logw: (B, T, H, D) fp32 (``logw`` < 0, the log decay);
-    u: (H, D); s0: (B, H, D, D).  Returns (y (B, T, H, D), sT (B, H, D, D)),
-    all contiguous fp32.  Any T; on the card D must be 32 or 64.
+def _chunk_states(kh, vh, lh, s0) -> list:
+    """The state at the start of every chunk and after the last, from the
+    (B, H, T, D) inputs: len = number of chunks + 1."""
+    S = s0.float()
+    states = [S]
+    for t0 in range(0, kh.shape[2], CHUNK):
+        kb, vb, lb = (x[:, :, t0:t0 + CHUNK] for x in (kh, vh, lh))
+        cum = torch.cumsum(lb, dim=2)
+        last = cum[:, :, -1:]
+        S = torch.exp(last).transpose(2, 3) * S + \
+            (kb * torch.exp(last - cum)).transpose(2, 3) @ vb
+        states.append(S)
+    return states
 
-    The CUDA kernel has no backward: on the card, under grad mode with any
-    input requiring a gradient, this raises rather than return outputs
-    that would silently cut the gradient.  The plain version (the CPU)
-    is differentiable."""
-    _check(r, k, v, logw, u, s0)
+
+def wkv6_backward_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        logw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+                        dy: torch.Tensor, dsT: torch.Tensor
+                        ) -> Tuple[torch.Tensor, ...]:
+    """Plain version of :func:`wkv6_backward`: the module docstring's
+    formulas chunk by chunk, one exponent per pair, the chunk-start states
+    recomputed from s0."""
+    B, T, H, D = r.shape
+    rh, kh, vh, lh, dyh = (x.float().transpose(1, 2)
+                           for x in (r, k, v, logw, dy))
+    uu = u.float()[None, :, None, :]
+    states = _chunk_states(kh, vh, lh, s0)
+    dr, dk, dv, dlw = (torch.empty((B, H, T, D), dtype=torch.float32,
+                                   device=r.device) for _ in range(4))
+    du = torch.zeros((H, D), dtype=torch.float32, device=r.device)
+    dS = dsT.float().clone()
+    for c in range(len(states) - 2, -1, -1):
+        t0 = c * CHUNK
+        rb, kb, vb, lb, dyb = (x[:, :, t0:t0 + CHUNK]
+                               for x in (rh, kh, vh, lh, dyh))
+        L = rb.shape[2]
+        cum = torch.cumsum(lb, dim=2)                         # (B,H,L,D)
+        cp = torch.cat([torch.zeros_like(cum[:, :, :1]), cum[:, :, :-1]], 2)
+        last = cum[:, :, -1:]
+        lower = torch.ones((L, L), dtype=torch.bool, device=r.device
+                           ).tril(-1)                         # s < t
+        pair = torch.exp(torch.where(lower[:, :, None],
+                                     cp[:, :, :, None] - cum[:, :, None],
+                                     -torch.inf))             # (B,H,t,s,D)
+        A = (rb[:, :, :, None] * kb[:, :, None] * pair).sum(-1)
+        dA = torch.where(lower, dyb @ vb.transpose(2, 3), 0.0)
+        beta = (rb * uu * kb).sum(-1, keepdim=True)           # (B,H,L,1)
+        delta = (dyb * vb).sum(-1, keepdim=True)
+        kd = torch.exp(last - cum)
+        q_part = torch.exp(cp) * (dyb @ states[c].transpose(2, 3))
+        r_pair = (dA[..., None] * kb[:, :, None] * pair).sum(3)
+        k_pair = (dA[..., None] * rb[:, :, :, None] * pair).sum(2)
+        k_state = kd * (vb @ dS.transpose(2, 3))
+        dv[:, :, t0:t0 + L] = (A.transpose(2, 3) @ dyb + beta * dyb
+                               + (kb * kd) @ dS)
+        dr[:, :, t0:t0 + L] = q_part + r_pair + delta * uu * kb
+        dk[:, :, t0:t0 + L] = k_pair + k_state + delta * uu * rb
+        du += (delta * rb * kb).sum((0, 2))
+        P = rb * (q_part + r_pair)
+        Q = kb * (k_pair + k_state)
+        Z = (dS * states[c + 1]).sum(-1)[:, :, None]          # (B,H,1,D)
+        p_after = torch.flip(torch.cumsum(torch.flip(P, [2]), 2), [2]) - P
+        q_from = torch.flip(torch.cumsum(torch.flip(Q, [2]), 2), [2])
+        dlw[:, :, t0:t0 + L] = p_after - q_from + Z
+        dS = torch.exp(last).transpose(2, 3) * dS + \
+            (rb * torch.exp(cp)).transpose(2, 3) @ dyb
+    return (*(x.transpose(1, 2).contiguous() for x in (dr, dk, dv, dlw)),
+            du, dS)
+
+
+def _forward(r, k, v, logw, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward on the tensors' device: the plain version on the CPU,
+    the kernel on the card."""
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, logw, u, s0)
-    if torch.is_grad_enabled() and any(
-            x.requires_grad for x in (r, k, v, logw, u, s0)):
-        raise RuntimeError("the CUDA wkv6 kernel has no backward yet "
-                           "(ROADMAP Queue 1): call it under torch.no_grad() "
-                           "or on detached inputs")
     B, T, H, D = r.shape
-    if D not in CUDA_HEAD_DIMS:
-        raise ValueError(f"the CUDA wkv6 kernel takes head dims "
-                         f"{CUDA_HEAD_DIMS}, got {D}")
+    _check_head_dim(D)
     for name, x in (("r", r), ("k", k), ("v", v), ("logw", logw),
                     ("s0", s0)):
         if x.data_ptr() % 16:
@@ -213,3 +304,98 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             v.data_ptr(), logw.data_ptr(), u.data_ptr(), s0.data_ptr(),
             y.data_ptr(), sT.data_ptr(), B, T, H, D, counts=_LAUNCHES)
     return y, sT
+
+
+def backward_scratch_shapes(B: int, T: int, H: int, D: int) -> tuple:
+    """The CUDA backward's scratch buffers: the chunk-start states (B, H,
+    chunks, D, D), the value-column slices' partials of dr, dk and dlogw
+    (3, slices, B, T, H, D) and of du (slices, B, H, D)."""
+    slices, chunks = ctypes.c_int(), ctypes.c_int()
+    err = _library().wkv6_backward_config(T, D, ctypes.byref(slices),
+                                          ctypes.byref(chunks))
+    if err:
+        raise RuntimeError(f"wkv6_backward_config failed: {err}")
+    ns = slices.value
+    return ((B, H, chunks.value, D, D), (3, ns, B, T, H, D),
+            (ns, B, H, D))
+
+
+def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  logw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+                  dy: torch.Tensor, dsT: torch.Tensor
+                  ) -> Tuple[torch.Tensor, ...]:
+    """The gradient of :func:`wkv6`: its inputs, dy (B, T, H, D) and dsT
+    (B, H, D, D) the outputs' adjoints.  Returns (dr, dk, dv, dlogw, du,
+    ds0), fp32, shaped as r, k, v, logw, u and s0; du is summed over B
+    and T.
+
+    The kernel recomputes the chunk-start states from s0 into a scratch
+    buffer (nothing is saved by the forward), splits each head's value
+    columns over blocks and adds their partials of dr, dk, dlogw and du in
+    a fixed order, so two runs give the same bits (``csrc/wkv6_backward.cu``).
+    """
+    _check(r, k, v, logw, u, s0)
+    B, T, H, D = r.shape
+    for name, x, shape in (("dy", dy, (B, T, H, D)),
+                           ("dsT", dsT, (B, H, D, D))):
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32")
+        if x.device != r.device:
+            raise ValueError(f"{name} is on {x.device}, r on {r.device}")
+    if r.device.type == "cpu":
+        return wkv6_backward_plain(r, k, v, logw, u, s0, dy, dsT)
+    _check_head_dim(D)
+    lib = _library()
+    dr, dk, dv, dlogw = (torch.empty_like(r) for _ in range(4))
+    du, ds0 = torch.empty_like(u), torch.empty_like(s0)
+    states, parts, du_parts = (
+        torch.empty(shape, dtype=torch.float32, device=r.device)
+        for shape in backward_scratch_shapes(B, T, H, D))
+    _launch("wkv6_backward", lib.wkv6_backward_launch, r.data_ptr(),
+            k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
+            s0.data_ptr(), dy.data_ptr(), dsT.data_ptr(), dr.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dlogw.data_ptr(), du.data_ptr(),
+            ds0.data_ptr(), states.data_ptr(), parts.data_ptr(),
+            du_parts.data_ptr(), B, T, H, D, counts=_LAUNCHES)
+    return dr, dk, dv, dlogw, du, ds0
+
+
+class Wkv6Function(torch.autograd.Function):
+    """:func:`wkv6` with its gradient: the forward kernel (or plain
+    version) forward, :func:`wkv6_backward` backward.  Keeps the inputs
+    only; the chunk-start states are recomputed in the backward."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, s0):
+        ctx.save_for_backward(r, k, v, logw, u, s0)
+        return _forward(r, k, v, logw, u, s0)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy, dsT):
+        r, k, v, logw, u, s0 = ctx.saved_tensors
+        dy = torch.zeros_like(r) if dy is None else dy.float().contiguous()
+        dsT = torch.zeros_like(s0) if dsT is None else \
+            dsT.float().contiguous()
+        grads = wkv6_backward(r, k, v, logw, u, s0, dy, dsT)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         logw: torch.Tensor, u: torch.Tensor,
+         s0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r, k, v, logw: (B, T, H, D) fp32 (``logw`` < 0, the log decay);
+    u: (H, D); s0: (B, H, D, D).  Returns (y (B, T, H, D), sT (B, H, D, D)),
+    all contiguous fp32.  Any T; on the card D must be 32 or 64.
+
+    Under grad mode with an input that requires a gradient this runs
+    through :class:`Wkv6Function`, whose backward is the backward kernel
+    on the card and its plain version on the CPU."""
+    _check(r, k, v, logw, u, s0)
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (r, k, v, logw, u, s0)):
+        return Wkv6Function.apply(r, k, v, logw, u, s0)
+    return _forward(r, k, v, logw, u, s0)

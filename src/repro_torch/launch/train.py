@@ -14,16 +14,20 @@ On the CPU, with a reduced architecture:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --reduced --device cpu --steps 10 --batch 8 --seq 128
-  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \\
       --reduced --device cpu --mode federated --rounds 5 --clients 4 \\
       --gamma 0.2 --beta 0.1
 
-On the card the same commands without ``--device`` (and without
-``--reduced`` for the full width); the cohort form with
-``torchrun --nproc_per_node 1 -m repro_torch.launch.train ... --mode
-federated``.  ``--mesh`` is accepted for the reference's command lines: it
-must be ``1x1``, or for a federated run under ``torchrun`` name as many
-devices as there are ranks.
+(the second is the reference's own federated command).  On the card the
+same commands without ``--device`` (and without ``--reduced`` for the full
+width, e.g. ``--arch rwkv6-1.6b --mode federated --clients 4 --gamma 0.5
+--beta 0.1 --batch 1 --seq 4096``); the cohort form with ``torchrun
+--nproc_per_node 1 -m repro_torch.launch.train ... --mode federated``.
+Every arch of the port trains on both devices: rwkv6-1.6b's wkv6 and
+hymba-1.5b's ssm_scan run their backward kernels on the card.
+``--mesh`` is accepted for the reference's command lines: it must be
+``1x1``, or for a federated run under ``torchrun`` name as many devices
+as there are ranks.
 """
 
 from __future__ import annotations

@@ -32,9 +32,10 @@ Layer kinds: ``rwkv`` (time mix + channel mix), ``hymba`` (attention and
 an SSM in parallel, ``0.5 (y + s)``, then the MLP) and ``attn`` (the same
 without the SSM).  Text modality and the dense MLP only: ``moe``,
 ``vision_stub`` and ``audio_stub`` raise ``NotImplementedError`` (ROADMAP
-Queue 1 item 16).  The wkv6 and ssm_scan CUDA kernels have no backward
-yet: on the card their wrappers raise under grad mode, so rwkv6 and hymba
-train on the CPU only.
+Queue 1 item 16).  The wkv6 and ssm_scan recurrences are differentiable
+on both devices: their ``torch.autograd.Function``s run the backward
+kernels on the card and the plain backwards on the CPU, and a remat span
+runs their forward again in the backward.
 """
 
 from __future__ import annotations

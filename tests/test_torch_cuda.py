@@ -3,7 +3,8 @@ plain PyTorch version, ``ops.topk_mask`` on the card against the same
 pipeline on the CPU, the fig5 and fig5-fused-int8 rounds (LeNet) and
 the random-mask round (GRU-LM) on the card against the same rounds on the
 CPU, the reduced rwkv6 and hymba serving paths on the card (wkv6 and
-ssm_scan kernels) against the same paths on the CPU (plain versions), and
+ssm_scan kernels) against the same paths on the CPU (plain versions), the
+wkv6 and ssm_scan backward kernels against their plain backwards, and
 the sharded client-state store's gather and scatter on the card against
 the CPU's.  They skip without a card.  This file
 imports no JAX, so on a machine without it run it alone:
@@ -604,7 +605,7 @@ def test_wkv6_call_is_one_launch(cuda):
     wk.reset_launch_counts()
     wk.wkv6(*x)
     torch.cuda.synchronize()
-    assert wk.launch_counts() == {"wkv6": 1}
+    assert wk.launch_counts() == {"wkv6": 1, "wkv6_backward": 0}
 
 
 def test_wkv6_kernel_refuses_unaligned_inputs(cuda):
@@ -840,35 +841,59 @@ def test_attacked_forms_on_card_are_bit_identical(cuda, kind):
 
 # ------------------------------------------------------- the training path
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
-def test_forward_only_kernels_refuse_grad_mode(cuda, arch):
-    """wkv6 and ssm_scan have no backward: under grad mode with an input
-    that requires a gradient the wrappers raise (so does ``lm_loss`` of
-    the model on them), and under no_grad they run."""
+def test_recurrence_backward_kernels_on_card(cuda, arch):
+    """wkv6 and ssm_scan differentiate on the card through their
+    autograd.Functions: the gradients (one launch of the backward kernel)
+    against the plain backward on the same card tensors, each within 1e-4
+    (wkv6) or 1e-5 (ssm_scan) of its largest magnitude; two runs of the
+    backward bit for bit; and ``lm_loss`` of the reduced model
+    backpropagates through both kernels to finite gradients."""
+    gen = torch.Generator().manual_seed(1)
     if arch == "rwkv6-1.6b":
-        fn, x = wk.wkv6, [t.to(cuda) for t in _wkv6_inputs(1, 16, 2, 32, 0)]
+        fwd, bwd, tol = wk.wkv6, wk.wkv6_backward_plain, 1e-4
+        counts = wk
+        x = _wkv6_inputs(2, 100, 2, 64, 0)
+        adj = [torch.randn((2, 100, 2, 64), generator=gen),
+               torch.randn((2, 2, 64, 64), generator=gen)]
     else:
-        gen = torch.Generator().manual_seed(1)
-        fn = ssk.ssm_scan
-        x = [torch.sigmoid(torch.randn((1, 16, 8, 16), generator=gen)),
-             torch.randn((1, 16, 8, 16), generator=gen),
-             torch.randn((1, 16, 16), generator=gen),
-             torch.randn((1, 8, 16), generator=gen)]
-        x = [t.to(cuda) for t in x]
-    with pytest.raises(RuntimeError, match="no backward"):
-        fn(x[0].clone().requires_grad_(), *x[1:])
-    with torch.no_grad():
-        fn(x[0].clone().requires_grad_(), *x[1:])
+        fwd, bwd, tol = ssk.ssm_scan, ssk.ssm_scan_backward_plain, 1e-5
+        counts = ssk
+        x = [torch.sigmoid(torch.randn((2, 100, 40, 16), generator=gen)),
+             torch.randn((2, 100, 40, 16), generator=gen),
+             torch.randn((2, 100, 16), generator=gen),
+             torch.randn((2, 40, 16), generator=gen)]
+        adj = [torch.randn((2, 100, 40), generator=gen),
+               torch.randn((2, 40, 16), generator=gen)]
+    x = [t.to(cuda) for t in x]
+    adj = [t.to(cuda) for t in adj]
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in x]
+        outs = fwd(*leaves)
+        counts.reset_launch_counts()
+        runs.append(torch.autograd.grad(
+            sum((o * a).sum() for o, a in zip(outs, adj)), leaves))
+        torch.cuda.synchronize()
+        assert sum(counts.launch_counts().values()) == 1
+    want = bwd(*x, *adj)
+    for g, again, w in zip(runs[0], runs[1], want):
+        assert torch.equal(g, again)
+        assert float((g - w).abs().max()) <= tol * float(w.abs().max())
     import dataclasses
     cfg = get_arch(arch).reduced()
     if arch == "hymba-1.5b":
-        cfg = dataclasses.replace(cfg, layer_pattern=cfg.layer_pattern[:1],
-                                  num_layers=1)
+        cfg = dataclasses.replace(cfg, layer_pattern=cfg.layer_pattern[:2],
+                                  num_layers=2)
     params = tr.init_params(torch.Generator().manual_seed(0), cfg,
                             device=cuda)
     params = {k: v.requires_grad_() for k, v in params.items()}
-    toks = torch.randint(0, cfg.vocab_size, (1, 8), device=cuda)
-    with pytest.raises(RuntimeError, match="no backward"):
-        tr.lm_loss(params, cfg, {"tokens": toks, "labels": toks})
+    toks = torch.randint(0, cfg.vocab_size, (1, 70), device=cuda)
+    counts.reset_launch_counts()
+    loss = tr.lm_loss(params, cfg, {"tokens": toks, "labels": toks})
+    grads = torch.autograd.grad(loss, list(params.values()))
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert min(counts.launch_counts().values()) > 0
 
 
 @pytest.mark.parametrize("kind", ["full", "sliding", "chunked"])

@@ -29,6 +29,18 @@ from repro_torch.kernels import segmented as tseg
 LENET_MASKED = [(5, 5, 6, 16), (784, 120), (120, 84), (84, 10)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Broadcast comparisons over (rows, candidates) on the CPU: with
+    several test workers on one machine, torch's intra-op threads only
+    contend (the tier-1 run's six workers made one such test about a
+    hundred times slower).  Restored after the module."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _bits(a) -> np.ndarray:
     return np.asarray(a, np.float32).view(np.int32)
 

@@ -7,6 +7,15 @@ numpy and handed to both packages.  Tolerances: atol 1e-5 for the scan,
 as tests/test_kernels.py holds the Pallas kernel to its oracle; 1e-4 for
 the whole branch (a softplus, exponentials and two projections before the
 scan, summed in other orders).
+
+The backward (``ssm_scan_backward_plain``, behind ``SsmScanFunction``) is
+held against autograd of the plain forward and ``jax.vjp`` of the
+reference's oracle ``ssm_scan_ref`` in its (B, T, N, D) layout, with a
+nonzero h0 and an adjoint for hT: rtol 1e-4 and atol 1e-5 of the
+gradient's largest magnitude against autograd (the same products summed
+in other orders), rtol 1e-4 and atol 1e-5 of it against ``jax.vjp``
+(XLA's reverse scan, the same recurrence; the largest difference seen is
+about 1e-7 of the scale).
 """
 
 import numpy as np
@@ -22,6 +31,16 @@ from repro_torch import bridge
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssm_scan as ssk
 from repro_torch.models import ssm
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small tensors: with several test workers on one machine, torch's
+    intra-op threads only contend.  Restored after the module."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
 
 
 def _inputs(B, T, d, N, seed=0):
@@ -55,7 +74,8 @@ def test_ssm_scan_matches_pallas_kernel_and_oracles(shape):
         np.testing.assert_allclose(y.numpy(), yr, atol=1e-5)
         np.testing.assert_allclose(hT.numpy(), hr.transpose(0, 2, 1),
                                    atol=1e-5)
-    assert ssk.launch_counts() == {"ssm_scan": 0}     # CPU: plain version
+    assert ssk.launch_counts() == {"ssm_scan": 0,      # CPU: plain version
+                                   "ssm_scan_backward": 0}
 
 
 @pytest.mark.parametrize("bad", ["rank", "c", "h0", "dtype"])
@@ -117,3 +137,64 @@ def test_ssm_step_matches_reference_and_forward(branch):
                                atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(h.numpy(), h_fwd.numpy(), atol=1e-4,
                                rtol=1e-4)
+
+
+BWD_SHAPES = [(2, 100, 5, 16), (1, 37, 3, 4)]
+
+
+def _adjoints(B, T, d, N, seed=3):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, T, d)).astype(np.float32),
+            rng.standard_normal((B, d, N)).astype(np.float32))
+
+
+def _close(got, want, rtol, atol_frac, name):
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(
+        got, want, rtol=rtol, atol=atol_frac * float(np.abs(want).max()),
+        err_msg=name)
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ssm_scan_backward_matches_autograd_and_jax_vjp(shape):
+    x = _inputs(*shape)
+    dy, dhT = _adjoints(*shape)
+    tx = [torch.from_numpy(v) for v in x]
+    grads = ssk.ssm_scan_backward_plain(*tx, torch.from_numpy(dy),
+                                        torch.from_numpy(dhT))
+    leaves = [v.clone().requires_grad_() for v in tx]
+    y, hT = ssk.ssm_scan_plain(*leaves)
+    auto = torch.autograd.grad(
+        (y * torch.from_numpy(dy)).sum() + (hT * torch.from_numpy(dhT)).sum(),
+        leaves)
+    a, bx, c, h0 = x
+    tr = (a.transpose(0, 1, 3, 2), bx.transpose(0, 1, 3, 2), c,
+          h0.transpose(0, 2, 1))
+    _, vjp = jax.vjp(jref.ssm_scan_ref, *(jnp.asarray(v) for v in tr))
+    ja, jbx, jc, jh0 = vjp((jnp.asarray(dy), jnp.asarray(dhT.transpose(0, 2,
+                                                                        1))))
+    ref = (np.asarray(ja).transpose(0, 1, 3, 2),
+           np.asarray(jbx).transpose(0, 1, 3, 2), np.asarray(jc),
+           np.asarray(jh0).transpose(0, 2, 1))
+    for name, g, ga, gr in zip(("da", "dbx", "dc", "dh0"), grads, auto, ref):
+        _close(g.numpy(), ga.numpy(), 1e-4, 1e-5, name)
+        _close(g.numpy(), gr, 1e-4, 1e-5, name)
+
+
+def test_ssm_scan_function_carries_the_plain_backward():
+    """Under grad mode the wrapper (and ops.ssm_scan) runs SsmScanFunction:
+    on the CPU its gradients are the plain backward's, bit for bit; the
+    gradients asked for only, hT's adjoint absent taken as zeros."""
+    x = [torch.from_numpy(v) for v in _inputs(2, 100, 5, 16)]
+    dy, _ = _adjoints(2, 100, 5, 16)
+    leaves = [v.clone().requires_grad_(i != 2) for i, v in enumerate(x)]
+    y, _ = ops.ssm_scan(*leaves)
+    assert y.grad_fn is not None
+    got = torch.autograd.grad((y * torch.from_numpy(dy)).sum(),
+                              [leaves[0], leaves[1], leaves[3]])
+    want = ssk.ssm_scan_backward_plain(*x, torch.from_numpy(dy),
+                                       torch.zeros_like(x[3]))
+    for g, w in zip(got, (want[0], want[1], want[3])):
+        assert torch.equal(g, w)
+    assert ssk.launch_counts() == {"ssm_scan": 0, "ssm_scan_backward": 0}

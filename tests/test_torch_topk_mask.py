@@ -25,6 +25,17 @@ from repro_torch.kernels import topk_mask as tk
 N = 3001                      # not a multiple of 1024: the kernels' tail
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The per-array kernels' plain versions on the CPU: with several test
+    workers on one machine, torch's intra-op threads only contend.
+    Restored after the module."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _bits(a) -> np.ndarray:
     return np.asarray(a, np.float32).view(np.int32)
 

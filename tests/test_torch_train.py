@@ -25,6 +25,14 @@ Tolerances.
   up to lr: the key bias's true gradient is 0 (it shifts a query's logits
   by a constant), and a few other entries have gradients near 0.
 - The loader: byte-identical arrays.
+- The recurrent zoo (reduced ``rwkv6-1.6b``, and ``hymba-1.5b`` cut to two
+  layers, one full and one sliding), fp32: every leaf's gradient through
+  ``Wkv6Function`` / ``SsmScanFunction`` (their plain backwards on the
+  CPU) against ``jax.grad`` of the reference's ``lm_loss``, rtol 1e-4 /
+  atol 1e-5 as the qwen2 case.
+- The reference's federated command on reduced rwkv6 (``--gamma 0.2
+  --beta 0.1``, 2 rounds, 4 clients): ``sampled`` each round equal to the
+  reference's ``DynamicSampling``, finite losses.
 """
 
 import dataclasses
@@ -168,6 +176,38 @@ def test_remat_gives_the_same_gradients(span):
     assert loss_on == loss_off
     for name in on:
         assert torch.equal(on[name], off[name]), name
+
+
+def _zoo_cfgs(arch: str):
+    """fp32 reduced configs of ``arch`` for both packages; hymba's pattern
+    cut to its first two layers (full attention, then sliding)."""
+    out = []
+    for get in (get_arch, ref_get_arch):
+        cfg = dataclasses.replace(get(arch).reduced(), compute_dtype="float32")
+        if arch == "hymba-1.5b":
+            cfg = dataclasses.replace(cfg, layer_pattern=cfg.layer_pattern[:2],
+                                      num_layers=2)
+        out.append(cfg)
+    return out
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
+def test_zoo_lm_loss_gradients_match_jax_grad(arch):
+    cfg, rcfg = _zoo_cfgs(arch)
+    params = tr.init_params(torch.Generator().manual_seed(1), cfg,
+                            device="cpu")
+    ref_params = bridge.params_to_numpy(params)
+    batch = _batch(cfg, seed=4)
+    ref_loss, ref_grads = jax.jit(jax.value_and_grad(
+        lambda p: ref_tr.lm_loss(p, rcfg, batch)))(ref_params)
+    ref_grads = bridge.flatten_tree(
+        jax.tree.map(lambda g: np.asarray(g, np.float32), ref_grads))
+    loss, grads = _port_grads(params, cfg, batch)
+    np.testing.assert_allclose(loss, float(ref_loss), rtol=1e-5)
+    assert list(grads) == list(ref_grads)
+    for name, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), ref_grads[name], rtol=1e-4,
+                                   atol=1e-5, err_msg=name)
 
 
 def test_lm_loss_trains_through_the_plain_recurrences():
@@ -344,6 +384,25 @@ def test_train_cli_runs_both_modes_and_the_loss_falls(capsys, tmp_path):
     with pytest.raises(ValueError, match="mesh"):
         train.main(["--arch", "qwen2-1.5b", "--reduced", "--device", "cpu",
                     "--mesh", "2x1", "--steps", "1"])
+
+
+def test_train_cli_runs_the_references_federated_rwkv6_command(capsys):
+    """``--arch rwkv6-1.6b --reduced --mode federated --clients 4 --gamma
+    0.2 --beta 0.1``, the reference's own example, on the CPU: two rounds
+    whose ``sampled`` follows the reference's DynamicSampling."""
+    from repro.core.sampling import DynamicSampling
+    train.main(["--arch", "rwkv6-1.6b", "--reduced", "--device", "cpu",
+                "--mode", "federated", "--clients", "4", "--gamma", "0.2",
+                "--beta", "0.1", "--rounds", "2", "--batch", "1", "--seq",
+                "32", "--local-steps", "1"])
+    lines = [line for line in capsys.readouterr().out.splitlines()
+             if line.startswith("round")]
+    schedule = DynamicSampling(initial_rate=1.0, beta=0.1)
+    assert len(lines) == 2
+    for t, line in enumerate(lines, start=1):
+        sampled = int(line.split("sampled=")[1].split("/")[0])
+        assert sampled == int(schedule.num_clients(t, 4)), line
+    assert all(np.isfinite(x) for x in _losses("\n".join(lines), "round"))
 
 
 def test_synth_batches_match_reference():

@@ -12,8 +12,19 @@ packages.  Tolerances: 2e-3 (abs and rel) against the reference's chunked
 forms, as tests/test_kernels.py holds them against each other; 1e-4 abs
 and 1e-5 rel against the step-by-step recurrence (outputs up to about 45
 in size), which both chunked forms must reproduce.
+
+The backward (``wkv6_backward_plain``, behind ``Wkv6Function``) is held
+against autograd of ``wkv6_plain`` (rtol 1e-4, atol 1e-5 of each
+gradient's largest magnitude: the same products in other orders), also at
+the model's strongest decay and at exactly one chunk, and
+against ``jax.vjp`` of the reference's ``wkv6_chunked`` with per-step
+decays logw >= -1, where the reference's factored form stays finite
+(its factors e^{-cum} reach e^64 at T = 64): rtol 1e-4, atol 1e-5 of the
+gradient's scale (the largest difference seen is 1.1e-6 of it).
+T = 100 leaves a partial chunk; s0 and the adjoint of sT are nonzero.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -24,6 +35,16 @@ from repro.models import rwkv as jrwkv
 from repro_torch.kernels import build, ops, profile_wkv6
 from repro_torch.kernels import wkv6 as wk
 from repro_torch.models import rwkv
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small tensors: with several test workers on one machine, torch's
+    intra-op threads only contend.  Restored after the module."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
 
 
 def _inputs(B, T, H, D, seed=11):
@@ -92,7 +113,8 @@ def test_wkv6_chunked_routes_through_the_wrapper():
     y, s = rwkv.wkv6_chunked(*(torch.from_numpy(a) for a in x))
     y2, s2 = _port(x)
     assert np.array_equal(y.numpy(), y2) and np.array_equal(s.numpy(), s2)
-    assert wk.launch_counts() == {"wkv6": 0}     # CPU: plain version
+    assert wk.launch_counts() == {"wkv6": 0,      # CPU: plain version
+                                  "wkv6_backward": 0}
 
 
 def test_reference_chunked_wkv6_overflows_where_the_port_does_not():
@@ -217,3 +239,82 @@ def test_profile_marks_cover_every_phase_and_stay_out_of_the_build():
     for m in range(profile_wkv6.MARKS):
         assert f"WKV6_MARK({m});" in src
     assert not any("WKV6_PROFILE" in flag for flag in build.NVCC_FLAGS)
+
+
+def _adjoints(B, T, H, D, seed=12):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, T, H, D)).astype(np.float32),
+            rng.standard_normal((B, H, D, D)).astype(np.float32))
+
+
+GRAD_NAMES = ("dr", "dk", "dv", "dlogw", "du", "ds0")
+
+
+def _close(got, want, rtol, atol_frac, name):
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(
+        got, want, rtol=rtol, atol=atol_frac * float(np.abs(want).max()),
+        err_msg=name)
+
+
+def _autograd_of_plain(x, dy, dsT):
+    leaves = [torch.from_numpy(a).requires_grad_() for a in x]
+    y, s = wk.wkv6_plain(*leaves)
+    loss = (y * torch.from_numpy(dy)).sum() + (s * torch.from_numpy(dsT)).sum()
+    return [g.numpy() for g in torch.autograd.grad(loss, leaves)]
+
+
+@pytest.mark.parametrize("case", ["T100_D32", "T100_D64", "strong_decay",
+                                  "T64_one_chunk"])
+def test_wkv6_backward_plain_matches_autograd(case):
+    shape = {"T100_D32": (2, 100, 2, 32), "T100_D64": (1, 100, 2, 64),
+             "strong_decay": (1, 100, 2, 32), "T64_one_chunk": (2, 64, 2, 8)}
+    x = _inputs(*shape[case])
+    if case == "strong_decay":
+        x[3][..., :16] = -np.exp(4.0)
+    dy, dsT = _adjoints(*shape[case])
+    grads = wk.wkv6_backward_plain(*(torch.from_numpy(a) for a in x),
+                                   torch.from_numpy(dy),
+                                   torch.from_numpy(dsT))
+    assert all(bool(g.isfinite().all()) for g in grads)
+    for name, g, want in zip(GRAD_NAMES, grads, _autograd_of_plain(x, dy,
+                                                                    dsT)):
+        _close(g.numpy(), want, 1e-4, 1e-5, name)
+
+
+@pytest.mark.parametrize("shape", [(2, 100, 2, 32), (1, 64, 2, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_wkv6_backward_plain_matches_jax_vjp(shape):
+    x = _inputs(*shape)
+    rng = np.random.default_rng(13)
+    x[3] = -np.exp(rng.uniform(-4.0, 0.0, shape)).astype(np.float32)
+    dy, dsT = _adjoints(*shape)
+    grads = wk.wkv6_backward_plain(*(torch.from_numpy(a) for a in x),
+                                   torch.from_numpy(dy),
+                                   torch.from_numpy(dsT))
+    _, vjp = jax.vjp(jax.jit(jrwkv.wkv6_chunked),
+                     *(jnp.asarray(a) for a in x))
+    ref = vjp((jnp.asarray(dy), jnp.asarray(dsT)))
+    for name, g, want in zip(GRAD_NAMES, grads, ref):
+        assert np.isfinite(np.asarray(want)).all(), name
+        _close(g.numpy(), want, 1e-4, 1e-5, name)
+
+
+def test_wkv6_function_carries_the_plain_backward():
+    """Under grad mode the wrapper (and ops.wkv6, rwkv.wkv6_chunked) runs
+    Wkv6Function: on the CPU its gradients are the plain backward's, bit
+    for bit; only the gradients asked for, sT's adjoint absent taken as
+    zeros."""
+    x = _inputs(2, 100, 2, 32)
+    dy, _ = _adjoints(2, 100, 2, 32)
+    leaves = [torch.from_numpy(a).requires_grad_(i != 5)
+              for i, a in enumerate(x)]
+    y, _ = rwkv.wkv6_chunked(*leaves)
+    assert y.grad_fn is not None
+    got = torch.autograd.grad((y * torch.from_numpy(dy)).sum(), leaves[:5])
+    want = wk.wkv6_backward_plain(*(torch.from_numpy(a) for a in x),
+                                  torch.from_numpy(dy),
+                                  torch.zeros((2, 2, 32, 32)))
+    for g, w in zip(got, want[:5]):
+        assert torch.equal(g, w)
+    assert wk.launch_counts() == {"wkv6": 0, "wkv6_backward": 0}
