@@ -171,9 +171,11 @@ with a nonzero exit:
      16, the strongest decay, and the training shapes (1, 4096, 32, 64)
      and (1, 4096, 1600, 16); nonzero s0 / h0 and dsT / dhT): each
      gradient's largest difference over its largest magnitude within 1e-4
-     (wkv6) or 1e-5 (ssm_scan), finite, two runs bit for bit; and each
-     autograd.Function through ``torch.autograd.grad`` against autograd of
-     the plain forward;
+     (wkv6) or 1e-5 (ssm_scan), finite, two runs bit for bit; the
+     checkpointing ssm_scan forward's y, hT and checkpoints against the
+     plain versions (``ssm_checkpoint_parity``, atol 1e-4 / rtol 1e-5, T
+     = 1, 17, 25, 65 and the training shape); and each autograd.Function
+     through ``torch.autograd.grad`` against autograd of the plain forward;
    - ``fed_pod_path``: ``launch.fedtrain.make_fed_round`` with
      ``FedPodConfig.from_strategy`` of fig5 on the kernels (C = 4, E = 2,
      1 x 4096 markov_text tokens a step, the COO wire budgeted per
@@ -388,6 +390,9 @@ TRAIN_SSM_SHAPE = (POD_B, POD_T, 1600, 16)    # hymba-1.5b
 # gradient over its largest magnitude (fp32 both; other chunkings and
 # summation orders).
 GRAD_REL_TOL = {"wkv6": 1e-4, "ssm_scan": 1e-5}
+# Kernels a backward call launches (csrc/wkv6_backward.cu: terms, scan,
+# gradients, du; csrc/ssm_scan.cu: the sweep and the dC sum).
+BWD_KERNELS = {"wkv6": 4, "ssm_scan": 2}
 # Reduced rwkv6 and hymba: lm_loss gradients on the card against the CPU,
 # fp32 with TF32 off.  An entry near 0 agrees only to the leaf's scale:
 # hymba's 16 layers of sums in other orders (attention, the SSM branch,
@@ -3886,15 +3891,16 @@ def rel_errs(got, want) -> list:
 
 
 def zoo_grad_parity() -> dict:
-    """Each backward kernel against its plain backward on the card: T = 100
-    (a partial chunk) at D = 32 and 64 and N = 16, the model's strongest
-    decay, and the training shapes (1, 4096, 32, 64) and (1, 4096, 1600,
-    16); nonzero s0 / h0 and dsT / dhT.  Each gradient's largest
-    difference over its largest magnitude within GRAD_REL_TOL, finite, and
-    two runs of the kernel bit for bit; then each autograd.Function
-    through ``torch.autograd.grad`` against autograd of the plain
-    forward.  Returns each kernel's largest abs error at its training
-    shape."""
+    """Each backward kernel against its plain backward on the card: T = 1,
+    a step past a chunk (wkv6's 64, ssm_scan's checkpoints of 16) and T =
+    100 (a partial chunk) at B = 2, D = 32 and 64 and N = 16, the model's
+    strongest decay, and the training shapes (1, 4096, 32, 64) and (1,
+    4096, 1600, 16); nonzero s0 / h0 and dsT / dhT.  Each gradient's
+    largest difference over its largest magnitude within GRAD_REL_TOL,
+    finite, and two runs of the kernel bit for bit; then the checkpointing
+    forward against its plain version; then each autograd.Function through
+    ``torch.autograd.grad`` against autograd of the plain forward.
+    Returns each kernel's largest abs error at its training shape."""
     import torch
     from repro_torch.kernels import ssm_scan as ssk
     from repro_torch.kernels import wkv6 as wk
@@ -3902,10 +3908,18 @@ def zoo_grad_parity() -> dict:
                     ("dr", "dk", "dv", "dlogw", "du", "ds0")),
            "ssm_scan": (ssk.ssm_scan_backward, ssk.ssm_scan_backward_plain,
                         ("da", "dbx", "dc", "dh0"))}
-    cases = [("wkv6", "T100_D32", (2, 100, 4, 32), False),
+    cases = [("wkv6", "T1_D32", (2, 1, 4, 32), False),
+             ("wkv6", "T1_D64", (2, 1, 4, 64), False),
+             ("wkv6", "T65_D32", (2, 65, 4, 32), False),
+             ("wkv6", "T65_D64", (2, 65, 4, 64), False),
+             ("wkv6", "T100_D32", (2, 100, 4, 32), False),
              ("wkv6", "T100_D64", (2, 100, 4, 64), False),
              ("wkv6", "strong_decay", (1, 200, 2, 64), True),
+             ("wkv6", "strong_decay_B2_D32", (2, 130, 2, 32), True),
              ("wkv6", "training", TRAIN_WKV6_SHAPE, False),
+             ("ssm_scan", "T1_N16", (2, 1, 40, 16), False),
+             ("ssm_scan", "T17_N16", (2, 17, 40, 16), False),
+             ("ssm_scan", "T65_N16", (2, 65, 40, 16), False),
              ("ssm_scan", "T100_N16", (2, 100, 40, 16), False),
              ("ssm_scan", "training", TRAIN_SSM_SHAPE, False)]
     errs = {}
@@ -3931,6 +3945,36 @@ def zoo_grad_parity() -> dict:
             errs[f"{kernel}_backward"] = max(
                 float((a - b).abs().max()) for a, b in zip(first, want))
         del x, adj, first, again, want
+        torch.cuda.empty_cache()
+    # The checkpointing forward (ssm_scan_kernel<N, true>, which training
+    # runs): y and hT against the plain scan, the checkpoints h_{16 k}
+    # against the plain checkpointing forward, at T = 1, a pass of 16 and a
+    # step, the eight-step remainder loop (T = 25), T = 65 and the training
+    # shape; and y beside the serving forward's.
+    for label, shape in (("T1", (2, 1, 40, 16)), ("T17", (2, 17, 40, 16)),
+                         ("T25", (2, 25, 40, 16)), ("T65", (2, 65, 40, 16)),
+                         ("training", TRAIN_SSM_SHAPE)):
+        x = ssm_inputs(*shape, seed=24)
+        y, hT, hk = ssk._forward(*x, checkpoints=True)
+        y_serving = ssk._forward(*x)[0]
+        torch.cuda.synchronize()
+        yp, hp, hkp = ssk._ssm_scan_checkpoint_plain(*x)
+        yq, hq = ssk.ssm_scan_plain(*x)
+        plain_same = bool(torch.equal(yp, yq) and torch.equal(hp, hq))
+        err = {name: float((got - want).abs().max()) for name, got, want in
+               (("y", y, yp), ("hT", hT, hp), ("hk", hk, hkp))}
+        ok = all(bool(torch.allclose(got, want, **SSM_TOL)) for got, want in
+                 ((y, yp), (hT, hp), (hk, hkp)))
+        finite = all(bool(t.isfinite().all()) for t in (y, hT, hk))
+        phase("ssm_checkpoint_parity", case=label, shape=list(shape),
+              hk_shape=list(hk.shape), max_abs_err=err, tol=SSM_TOL,
+              max_abs_y=float(yp.abs().max()), finite=finite,
+              plain_checkpointing_equals_plain_scan=plain_same,
+              y_bits_equal_serving_forward=bool(torch.equal(y, y_serving)))
+        if not (ok and finite and plain_same):
+            fail(f"ssm_scan's checkpointing forward ({label}) disagrees "
+                 f"with its plain version: {err}, finite {finite}")
+        del x, y, hT, hk, y_serving, yp, hp, hkp, yq, hq
         torch.cuda.empty_cache()
     for kernel, shape, fwd, plain_fwd in (
             ("wkv6", (2, 100, 4, 64), wk.wkv6, wk.wkv6_plain),
@@ -4118,7 +4162,10 @@ def time_zoo_backward() -> dict:
     back to back on rotating copies of inputs, outputs and scratch over
     four times the L2 size), ``warm_ms`` (one set), ``device_ms`` (the
     profiler's time of its kernels a call), ``wrapper_ms`` (one Python
-    call with its checks and allocations), ``plain_ms`` and the bound."""
+    call with its checks and allocations), ``plain_ms`` and the bound.
+    ssm_scan_backward takes the checkpoints its forward wrote (h every 16
+    steps); the forward at that shape is timed without and with them, in
+    turns (phase ``ssm_scan_checkpoint_time``)."""
     import torch
     from repro_torch.kernels import build, measure
     from repro_torch.kernels import ssm_scan as ssk
@@ -4128,39 +4175,53 @@ def time_zoo_backward() -> dict:
     l2 = torch.cuda.get_device_properties(0).L2_cache_size
     B, T, H, D = TRAIN_WKV6_SHAPE
     Bs, Ts, d, N = TRAIN_SSM_SHAPE
+    chunks = -(-Ts // ssk.CHECKPOINT)
+
+    def with_checkpoints(x):
+        """(a, bx, c, h0, dy, dhT) -> the launcher's (a, bx, c, hk, dy,
+        dhT) and the wrapper's keyword."""
+        hk = ssk._forward(*x[:4], checkpoints=True)[2]
+        return [*x[:3], hk, *x[4:]], {"hk": hk}
     specs = {  # output and scratch shapes, C launcher + ints, wrapper, plain
         "wkv6_backward": (
             "wkv6", TRAIN_WKV6_SHAPE,
             [TRAIN_WKV6_SHAPE] * 4 + [(H, D), (B, H, D, D)]
             + list(wk.backward_scratch_shapes(B, T, H, D)),
             lib.wkv6_backward_launch, (B, T, H, D), wk.wkv6_backward,
-            wk.wkv6_backward_plain, wkv6_bwd_work(*TRAIN_WKV6_SHAPE)),
+            wk.wkv6_backward_plain, wkv6_bwd_work(*TRAIN_WKV6_SHAPE),
+            lambda x: (x, {})),
         "ssm_scan_backward": (
             "ssm_scan", TRAIN_SSM_SHAPE,
             [TRAIN_SSM_SHAPE] * 2 + [(Bs, Ts, N), (Bs, d, N)]
             + list(ssk.backward_scratch_shapes(Bs, Ts, d, N)),
             lib.ssm_scan_backward_launch, (Bs, Ts, d, N),
             ssk.ssm_scan_backward, ssk.ssm_scan_backward_plain,
-            ssm_bwd_work(*TRAIN_SSM_SHAPE))}
+            ssm_bwd_work(*TRAIN_SSM_SHAPE), with_checkpoints)}
     results = {}
-    for name, (kernel, shape, out_shapes, fn, ints, wrapper, plain, work) \
-            in specs.items():
+    for name, (kernel, shape, out_shapes, fn, ints, wrapper, plain, work,
+               prep) in specs.items():
         x, adj = backward_case(kernel, shape, seed=23)
         x = x + adj
         copies = max(2, -(-4 * l2 // sum(t.nbytes for t in x)))
         xs = [x] + [[t.clone() for t in x] for _ in range(copies - 1)]
+        preps = [prep(v) for v in xs]
         ys = [[torch.empty(s, device="cuda") for s in out_shapes]
               for _ in range(copies)]
-        ptrs = [[t.data_ptr() for t in xs[i] + ys[i]] for i in range(copies)]
+        ptrs = [[t.data_ptr() for t in preps[i][0] + ys[i]]
+                for i in range(copies)]
         kernels = [lambda p=p: fn(*p, *ints, stream) for p in ptrs]
         bytes_ms = work["bytes"] / HBM_BYTES_PER_S * 1e3
         ops_ms = work["operations"] / FP32_OPS_PER_S * 1e3
         # The profiler has lost every record of a backward kernel in three
-        # sessions in a row on the card: the time between CUDA events then
+        # sessions in a row on the card, and some of them in one session
+        # (5 of wkv6_backward's 40): the time between CUDA events then
         # stands in, marked by ``device_source``.
         dev = measure.device_ms(kernels, f"{kernel}_bwd", launches=10,
                                 events_fallback=True)
-        traced = dev["kernel_records"] is not None
+        traced = dev["kernel_records"] == BWD_KERNELS[kernel] * dev["calls"]
+        if dev["kernel_records"] is not None and not traced:
+            dev.update(device_ms=measure.cuda_loop_ms(kernels, launches=10),
+                       device_source="cuda_events")
         rec = {"shape": list(shape),
                "ms": measure.cuda_loop_ms(kernels, launches=10),
                "warm_ms": measure.cuda_loop_ms(kernels[:1], launches=10),
@@ -4169,17 +4230,48 @@ def time_zoo_backward() -> dict:
                "device_source": dev.get("device_source", "trace"),
                "device_records": dev["device_records"],
                "kernel_records": dev["kernel_records"], "calls": dev["calls"],
-               "wrapper_ms": cuda_ms([lambda v=v: wrapper(*v) for v in xs],
-                                     reps=5),
+               "wrapper_ms": cuda_ms([lambda v=v, kw=p[1]: wrapper(*v, **kw)
+                                      for v, p in zip(xs, preps)], reps=5),
                "plain_ms": cuda_ms([lambda v=v: plain(*v) for v in xs],
                                    reps=3),
                "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                "bytes_ms": bytes_ms, "ops_ms": ops_ms, "library_ms": None,
-               **work, "buffers": copies}
+               **work, "buffers": copies,
+               "scratch_shapes": [list(s) for s in
+                                  out_shapes[6 if kernel == "wkv6" else 4:]]}
         results[name] = rec
         phase("kernel_time", case="training", kernel=name, **rec)
-        del x, adj, xs, ys, kernels
+        if kernel == "ssm_scan":
+            # The forward at the training shape without and with its
+            # checkpoints, in turns (plain, saving, saving, plain).
+            fwd = []
+            for i in range(copies):
+                a, bx, c, h0 = xs[i][:4]
+                y = torch.empty((Bs, Ts, d), device="cuda")
+                hT = torch.empty((Bs, d, N), device="cuda")
+                hk = torch.empty((Bs, chunks, d, N), device="cuda")
+                fwd.append([t.data_ptr() for t in (a, bx, c, h0, y, hT)]
+                           + [hk.data_ptr()])
+                xs[i] += [y, hT, hk]
+            plain_fwd = [lambda p=p: lib.ssm_scan_launch(
+                *p[:6], Bs, Ts, d, N, stream) for p in fwd]
+            saving = [lambda p=p: lib.ssm_scan_checkpoint_launch(
+                *p, Bs, Ts, d, N, stream) for p in fwd]
+            turns = [("no_checkpoints", plain_fwd), ("checkpoints", saving),
+                     ("checkpoints", saving), ("no_checkpoints", plain_fwd)]
+            times = {"no_checkpoints": [], "checkpoints": []}
+            for label, fns in turns:
+                times[label].append(measure.cuda_loop_ms(fns, launches=10))
+            rec_f = {"shape": list(shape),
+                     "ms_no_checkpoints": times["no_checkpoints"],
+                     "ms_checkpoints": times["checkpoints"],
+                     "checkpoint_bytes": Bs * chunks * d * N * 4,
+                     "extra_ms": statistics.median(times["checkpoints"])
+                     - statistics.median(times["no_checkpoints"])}
+            results["ssm_scan_checkpoint_time"] = rec_f
+            phase("ssm_scan_checkpoint_time", **rec_f)
+        del x, adj, xs, ys, kernels, preps
         torch.cuda.empty_cache()
     return results
 

@@ -105,10 +105,11 @@ SIGNATURES = {
     "wkv6_launch": [_PTR] * 8 + [_I32] * 4 + [_PTR],
     "wkv6_config": [_I32, _PTR, _PTR, _PTR],
     "ssm_scan_launch": [_PTR] * 6 + [_I32] * 4 + [_PTR],
-    "ssm_scan_backward_launch": [_PTR] * 12 + [_I32] * 4 + [_PTR],
-    "ssm_scan_backward_config": [_I32] * 3 + [_PTR] * 2,
-    "wkv6_backward_launch": [_PTR] * 17 + [_I32] * 4 + [_PTR],
-    "wkv6_backward_config": [_I32] * 2 + [_PTR] * 2,
+    "ssm_scan_checkpoint_launch": [_PTR] * 7 + [_I32] * 4 + [_PTR],
+    "ssm_scan_backward_launch": [_PTR] * 11 + [_I32] * 4 + [_PTR],
+    "ssm_scan_backward_config": [_I32] * 2 + [_PTR],
+    "wkv6_backward_launch": [_PTR] * 18 + [_I32] * 4 + [_PTR],
+    "wkv6_backward_config": [_I32] * 2 + [_PTR],
 }
 
 

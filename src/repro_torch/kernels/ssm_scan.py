@@ -12,8 +12,14 @@ in the layout the model uses: a, bx (B, T, d, N), c (B, T, N), h0 (B, d, N)
 (``csrc/ssm_scan.cu``, any N that divides 32); ``ssm_scan_plain`` is the
 same recurrence in plain PyTorch.  Its gradient is :class:`SsmScanFunction`,
 whose backward is ``ssm_scan_backward``: a second hand-written kernel in the
-same file, with ``ssm_scan_backward_plain`` beside it.  With g the running
-adjoint of h, per (b, c, n):
+same file, with ``ssm_scan_backward_plain`` beside it.  Under autograd the
+forward kernel also writes h every ``CHECKPOINT`` steps, h_{16 k} (B,
+ceil(T / 16), d, N), which the Function saves; the backward recomputes
+each 16-step chunk's states from its checkpoint, so it reads a and bx once
+and never divides by a.  ``_ssm_scan_checkpoint_plain`` and
+``_ssm_scan_backward_from_checkpoints_plain`` mirror that split on the CPU
+for the tests; the CPU path itself keeps no checkpoints.  With g the
+running adjoint of h, per (b, c, n):
 
     g <- dhT
     for t = T-1 ... 0:
@@ -30,19 +36,20 @@ the wrapper's count (:func:`launch_counts`).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels.segmented import _launch, _library
 
-__all__ = ["CUDA_STATE_DIMS", "ssm_scan", "ssm_scan_plain",
+__all__ = ["CHECKPOINT", "CUDA_STATE_DIMS", "ssm_scan", "ssm_scan_plain",
            "ssm_scan_backward", "ssm_scan_backward_plain", "SsmScanFunction",
            "backward_scratch_shapes",
            "launch_counts", "reset_launch_counts"]
 
 CUDA_STATE_DIMS = (1, 2, 4, 8, 16, 32)
+CHECKPOINT = 16                  # steps between the forward's checkpoints
 
 _LAUNCHES: Dict[str, int] = {"ssm_scan": 0, "ssm_scan_backward": 0}
 
@@ -117,43 +124,96 @@ def ssm_scan_backward_plain(a: torch.Tensor, bx: torch.Tensor,
     return da, dbx, dc, g
 
 
-def _forward(a, bx, c, h0) -> Tuple[torch.Tensor, torch.Tensor]:
+def _ssm_scan_checkpoint_plain(a: torch.Tensor, bx: torch.Tensor,
+                               c: torch.Tensor, h0: torch.Tensor
+                               ) -> Tuple[torch.Tensor, ...]:
+    """The checkpointing forward in plain PyTorch: y, hT and h_{16 k} (B,
+    ceil(T / 16), d, N), the state before step 16 k.  For the tests."""
+    B, T, d, N = a.shape
+    h = h0.float()
+    y = torch.empty((B, T, d), dtype=torch.float32, device=a.device)
+    hk = torch.empty((B, -(-T // CHECKPOINT), d, N), dtype=torch.float32,
+                     device=a.device)
+    for t in range(T):
+        if t % CHECKPOINT == 0:
+            hk[:, t // CHECKPOINT] = h
+        h = a[:, t] * h + bx[:, t]
+        y[:, t] = torch.einsum("bdn,bn->bd", h, c[:, t])
+    return y, h, hk
+
+
+def _ssm_scan_backward_from_checkpoints_plain(
+        a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor, hk: torch.Tensor,
+        dy: torch.Tensor, dhT: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The backward kernel's one sweep in plain PyTorch: chunk by chunk
+    from the last, each chunk's states recomputed from its checkpoint,
+    then walked backwards.  For the tests."""
+    B, T, d, N = a.shape
+    g = dhT.float().clone()
+    da, dbx = torch.empty_like(a), torch.empty_like(bx)
+    dc = torch.empty_like(c)
+    for k in range(hk.shape[1] - 1, -1, -1):
+        t0 = k * CHECKPOINT
+        t1 = min(t0 + CHECKPOINT, T)
+        hs = [hk[:, k]]
+        for t in range(t0, t1):
+            hs.append(a[:, t] * hs[-1] + bx[:, t])
+        for t in range(t1 - 1, t0 - 1, -1):
+            g = g + dy[:, t, :, None] * c[:, t, None, :]
+            dbx[:, t] = g
+            da[:, t] = g * hs[t - t0]
+            dc[:, t] = torch.einsum("bd,bdn->bn", dy[:, t], hs[t - t0 + 1])
+            g = a[:, t] * g
+    return da, dbx, dc, g
+
+
+def _forward(a, bx, c, h0, checkpoints: bool = False) -> tuple:
     """The forward on the tensors' device: the plain version on the CPU,
-    the kernel on the card."""
+    the kernel on the card; with ``checkpoints`` (card only) also h_{16 k}
+    (B, ceil(T / 16), d, N) as a third output."""
     if a.device.type == "cpu":
         return ssm_scan_plain(a, bx, c, h0)
     B, T, d, N = a.shape
     _check_state_dim(N)
     y = torch.empty((B, T, d), dtype=torch.float32, device=a.device)
     hT = torch.empty_like(h0)
-    _launch("ssm_scan", _library().ssm_scan_launch, a.data_ptr(),
+    if not checkpoints:
+        _launch("ssm_scan", _library().ssm_scan_launch, a.data_ptr(),
+                bx.data_ptr(), c.data_ptr(), h0.data_ptr(), y.data_ptr(),
+                hT.data_ptr(), B, T, d, N, counts=_LAUNCHES)
+        return y, hT
+    hk = torch.empty((B, -(-T // CHECKPOINT), d, N), dtype=torch.float32,
+                     device=a.device)
+    _launch("ssm_scan", _library().ssm_scan_checkpoint_launch, a.data_ptr(),
             bx.data_ptr(), c.data_ptr(), h0.data_ptr(), y.data_ptr(),
-            hT.data_ptr(), B, T, d, N, counts=_LAUNCHES)
-    return y, hT
+            hT.data_ptr(), hk.data_ptr(), B, T, d, N, counts=_LAUNCHES)
+    return y, hT, hk
 
 
 def backward_scratch_shapes(B: int, T: int, d: int, N: int) -> tuple:
-    """The CUDA backward's scratch buffers: h every 16 steps (B, chunks, d,
-    N) and the blocks' partials of dc (B, blocks, T, N)."""
-    blocks, chunks = ctypes.c_int(), ctypes.c_int()
-    err = _library().ssm_scan_backward_config(T, d, N, ctypes.byref(blocks),
-                                              ctypes.byref(chunks))
+    """The CUDA backward's scratch buffer: the blocks' partials of dc (B,
+    blocks, T, N)."""
+    blocks = ctypes.c_int()
+    err = _library().ssm_scan_backward_config(d, N, ctypes.byref(blocks))
     if err:
         raise RuntimeError(f"ssm_scan_backward_config failed: {err}")
-    return (B, chunks.value, d, N), (B, blocks.value, T, N)
+    return ((B, blocks.value, T, N),)
 
 
 def ssm_scan_backward(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
-                      h0: torch.Tensor, dy: torch.Tensor, dhT: torch.Tensor
+                      h0: torch.Tensor, dy: torch.Tensor, dhT: torch.Tensor,
+                      hk: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, ...]:
     """The gradient of :func:`ssm_scan`: forward inputs as there, dy (B, T,
     d) and dhT (B, d, N) the outputs' adjoints.  Returns (da, dbx, dc, dh0),
     fp32, shaped as a, bx, c and h0.
 
-    The kernel recomputes h from h0 (checkpoints every 16 steps in a
-    scratch buffer, the steps between them in registers), so it never
-    divides by a; dc sums over channels in a fixed order (a partial a block,
-    then a second pass), so two runs give the same bits."""
+    On the card the kernel recomputes h from the forward's checkpoints
+    ``hk`` (h_{16 k}, (B, ceil(T / 16), d, N), as ``SsmScanFunction``
+    saves them; when None the checkpointing forward runs first), the
+    steps between them in registers, so it never divides by a; dc sums
+    over channels in a fixed order (a partial a block, then a second
+    pass), so two runs give the same bits."""
     _check(a, bx, c, h0)
     B, T, d, N = a.shape
     for name, x, shape in (("dy", dy, (B, T, d)), ("dhT", dhT, (B, d, N))):
@@ -166,39 +226,51 @@ def ssm_scan_backward(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
     if a.device.type == "cpu":
         return ssm_scan_backward_plain(a, bx, c, h0, dy, dhT)
     _check_state_dim(N)
+    if hk is None:
+        hk = _forward(a, bx, c, h0, checkpoints=True)[2]
+    elif (tuple(hk.shape) != (B, -(-T // CHECKPOINT), d, N)
+          or hk.dtype != torch.float32 or not hk.is_contiguous()
+          or hk.device != a.device):
+        raise ValueError(f"hk must be contiguous float32 (B, ceil(T / "
+                         f"{CHECKPOINT}), d, N) on {a.device}")
     lib = _library()
     da, dbx = torch.empty_like(a), torch.empty_like(bx)
     dc, dh0 = torch.empty_like(c), torch.empty_like(h0)
-    hk, dcp = (torch.empty(shape, dtype=torch.float32, device=a.device)
-               for shape in backward_scratch_shapes(B, T, d, N))
+    dcp = torch.empty(backward_scratch_shapes(B, T, d, N)[0],
+                      dtype=torch.float32, device=a.device)
     _launch("ssm_scan_backward", lib.ssm_scan_backward_launch, a.data_ptr(),
-            bx.data_ptr(), c.data_ptr(), h0.data_ptr(), dy.data_ptr(),
+            bx.data_ptr(), c.data_ptr(), hk.data_ptr(), dy.data_ptr(),
             dhT.data_ptr(), da.data_ptr(), dbx.data_ptr(), dc.data_ptr(),
-            dh0.data_ptr(), hk.data_ptr(), dcp.data_ptr(), B, T, d, N,
-            counts=_LAUNCHES)
+            dh0.data_ptr(), dcp.data_ptr(), B, T, d, N, counts=_LAUNCHES)
     return da, dbx, dc, dh0
 
 
 class SsmScanFunction(torch.autograd.Function):
     """:func:`ssm_scan` with its gradient: the forward kernel (or plain
     version) forward, :func:`ssm_scan_backward` backward.  Keeps the
-    inputs only; h is recomputed in the backward."""
+    inputs and, on the card, the forward's checkpoints h_{16 k}; the states
+    between them are recomputed in the backward."""
 
     @staticmethod
     def forward(ctx, a, bx, c, h0):
-        ctx.save_for_backward(a, bx, c, h0)
-        return _forward(a, bx, c, h0)
+        if a.device.type == "cpu":
+            ctx.save_for_backward(a, bx, c, h0)
+            return _forward(a, bx, c, h0)
+        y, hT, hk = _forward(a, bx, c, h0, checkpoints=True)
+        ctx.save_for_backward(a, bx, c, h0, hk)
+        return y, hT
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy, dhT):
-        a, bx, c, h0 = ctx.saved_tensors
+        a, bx, c, h0, *hk = ctx.saved_tensors
         dy = torch.zeros((*a.shape[:3],), dtype=torch.float32,
                          device=a.device) if dy is None else \
             dy.float().contiguous()
         dhT = torch.zeros_like(h0) if dhT is None else \
             dhT.float().contiguous()
-        grads = ssm_scan_backward(a, bx, c, h0, dy, dhT)
+        grads = ssm_scan_backward(a, bx, c, h0, dy, dhT,
+                                  hk=hk[0] if hk else None)
         return tuple(g if need else None
                      for g, need in zip(grads, ctx.needs_input_grad))
 

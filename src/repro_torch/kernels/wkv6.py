@@ -73,6 +73,19 @@ cp_t = cum_{t-1} and cum_s, Z that of cum_L through S', so dlogw is their
 reverse prefix within the chunk.  Every exponent is <= 0, as in the
 forward.
 
+The backward kernels run in three passes, so that each chunk's gradients
+get a block of their own (2,048 blocks at rwkv6-1.6b's training shape):
+each chunk's state terms K = (k e^{cum_L - cum})^T v and G = (r
+e^{cp})^T dy; the serial scans over the chunks, the chunk-start states
+forward from s0 and their adjoints back from dsT, into two scratch buffers
+(B, H, chunks + 1, D, D) and (B, H, chunks, D, D); then every chunk's dv,
+dr, dk, dlogw and partial of du over all D value columns.  The pair decays
+are split at the end of the earlier step's sub-chunk, so that A's, dr's
+and dk's off-diagonal blocks are 3xTF32 products on the tensor cores and
+only the diagonal 16 x 16 blocks take a per-pair exponent, shared by the
+three sums.  ``_wkv6_backward_chunked_plain`` mirrors that formulation on
+the CPU for the tests.
+
 Each wrapper takes its plain version only for a tensor on the CPU; for a
 CUDA tensor it launches its kernel or raises.  Every launch adds one to
 the wrapper's count (:func:`launch_counts`).
@@ -286,6 +299,118 @@ def wkv6_backward_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             du, dS)
 
 
+def _wkv6_backward_chunked_plain(r: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, logw: torch.Tensor,
+                                 u: torch.Tensor, s0: torch.Tensor,
+                                 dy: torch.Tensor, dsT: torch.Tensor
+                                 ) -> Tuple[torch.Tensor, ...]:
+    """The CUDA backward's three passes in plain PyTorch, split as the
+    kernels split them: chunks of ``CHUNK`` padded with zero rows,
+    log2e-scaled prefix sums and ``exp2``; (1) each chunk's own state
+    terms K = kd^T v and G = qe^T dy and its decay 2^{cum_L}; (2) the two
+    serial scans over the chunks, the states forward from s0 and their
+    adjoints back from dsT; (3) every chunk's gradients at once, with the
+    pair decays split at the end of the earlier step's sub-chunk b = 16 m
+    + 15 (K' = k 2^{cum_b - cum}, R_m = r 2^{cp - cum_b}, both <= 1) so
+    that every off-diagonal block of A, of dr's pair sum and of dk's pair
+    sum is a product, and inside each diagonal 16 x 16 block the
+    lower-left 8 x 8 quarter split again at the block's step 7; one
+    exponent per (pair, channel) in the diagonal blocks, shared by A, dr
+    and dk.  For the tests; nothing on the main path calls it."""
+    B, T, H, D = r.shape
+    L, SC = CHUNK, SUBCHUNK
+    n = -(-T // L)
+    pad = n * L - T
+
+    def chunks(x):
+        x = torch.nn.functional.pad(x.float().transpose(1, 2),
+                                    (0, 0, 0, pad))
+        return x.reshape(B, H, n, L, D)
+    rb, kb, vb, lb, dyb = (chunks(x) for x in (r, k, v, logw, dy))
+    uu = u.float()[None, :, None, None, :]
+    cum = torch.cumsum(lb * LOG2E, dim=3)                     # (B,H,n,L,D)
+    cp = torch.cat([torch.zeros_like(cum[..., :1, :]), cum[..., :-1, :]], 3)
+    last = cum[..., -1:, :]
+    # 1. Each chunk's state terms and decay.
+    kd = kb * torch.exp2(last - cum)
+    qe = rb * torch.exp2(cp)
+    Kc = kd.transpose(-1, -2) @ vb                            # (B,H,n,D,D)
+    Gc = qe.transpose(-1, -2) @ dyb
+    dec = torch.exp2(last).transpose(-1, -2)                  # (B,H,n,D,1)
+    # 2. The serial scans.
+    S = s0.float()
+    states = [S]
+    for c in range(n):
+        S = dec[:, :, c] * S + Kc[:, :, c]
+        states.append(S)
+    G = dsT.float()
+    adj = [G] * n
+    for c in range(n - 1, -1, -1):
+        adj[c] = G
+        G = dec[:, :, c] * G + Gc[:, :, c]
+    ds0 = G
+    S0, S1 = torch.stack(states[:-1], 2), torch.stack(states[1:], 2)
+    dS = torch.stack(adj, 2)                                  # (B,H,n,D,D)
+    # 3. The gradients.
+    dA = dyb @ vb.transpose(-1, -2)                           # (B,H,n,t,s)
+    delta = torch.diagonal(dA, dim1=-2, dim2=-1)[..., None]   # (B,H,n,L,1)
+    beta = (rb * uu * kb).sum(-1, keepdim=True)
+    A = torch.zeros_like(dA)
+    DR, DK = torch.zeros_like(rb), torch.zeros_like(kb)
+    lower = torch.ones((SC, SC), dtype=torch.bool, device=r.device).tril(-1)
+    half = SC // 2
+    for j in range(L // SC):
+        sl = slice(SC * j, SC * (j + 1))
+        cu, cpj = cum[..., sl, :], cp[..., sl, :]
+        e = torch.exp2(torch.where(lower[:, :, None],
+                                   cpj[..., :, None, :] - cu[..., None, :, :],
+                                   -torch.inf))              # (...,t,s,D)
+        mid = cu[..., half - 1:half, :]
+        qb = torch.exp2(cpj[..., half:, :] - mid)             # rows t >= 8
+        kq = torch.exp2(mid - cu[..., :half, :])              # columns s < 8
+        e[..., half:, :half, :] = qb[..., :, None, :] * kq[..., None, :, :]
+        rk = rb[..., sl, None, :] * kb[..., None, sl, :] * e
+        A[..., sl, sl] = rk.sum(-1)
+        dAj = torch.where(lower, dA[..., sl, sl], 0.0)[..., None]
+        DR[..., sl, :] = (dAj * kb[..., None, sl, :] * e).sum(-2)
+        DK[..., sl, :] = (dAj * rb[..., sl, None, :] * e).sum(-3)
+    Kp = torch.zeros_like(kb)
+    R = {}
+    for m in range(L // SC - 1):
+        sl, b = slice(SC * m, SC * (m + 1)), SC * m + SC - 1
+        Kp[..., sl, :] = kb[..., sl, :] * torch.exp2(
+            cum[..., b:b + 1, :] - cum[..., sl, :])
+        R[m] = rb[..., b + 1:, :] * torch.exp2(cp[..., b + 1:, :]
+                                               - cum[..., b:b + 1, :])
+    dr = torch.exp2(cp) * (dyb @ S0.transpose(-1, -2)) + DR
+    dk = torch.exp2(last - cum) * (vb @ dS.transpose(-1, -2)) + DK
+    for m in range(L // SC - 1):
+        sl, b = slice(SC * m, SC * (m + 1)), SC * m + SC - 1
+        for j in range(m + 1, L // SC):
+            tl = slice(SC * j, SC * (j + 1))
+            Rj = R[m][..., SC * j - b - 1:SC * (j + 1) - b - 1, :]
+            A[..., tl, sl] = Rj @ Kp[..., sl, :].transpose(-1, -2)
+            dr[..., tl, :] += torch.exp2(cp[..., tl, :]
+                                         - cum[..., b:b + 1, :]) * (
+                dA[..., tl, sl] @ Kp[..., sl, :])
+        dk[..., sl, :] += torch.exp2(cum[..., b:b + 1, :]
+                                     - cum[..., sl, :]) * (
+            dA[..., b + 1:, sl].transpose(-1, -2) @ R[m])
+    dv = A.transpose(-1, -2) @ dyb + beta * dyb + kd @ dS
+    P, Q = rb * dr, kb * dk
+    dr = dr + delta * uu * kb
+    dk = dk + delta * uu * rb
+    Z = (dS * S1).sum(-1)[..., None, :]                       # (B,H,n,1,D)
+    W = torch.cat([P[..., 1:, :], torch.zeros_like(P[..., :1, :])], 3) - Q
+    dlw = Z + torch.flip(torch.cumsum(torch.flip(W, [3]), 3), [3])
+    du = (delta * rb * kb).sum((0, 2, 3))
+
+    def unchunk(x):
+        return x.reshape(B, H, n * L, D)[:, :, :T].transpose(1, 2) \
+            .contiguous()
+    return (*(unchunk(x) for x in (dr, dk, dv, dlw)), du, ds0)
+
+
 def _forward(r, k, v, logw, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward on the tensors' device: the plain version on the CPU,
     the kernel on the card."""
@@ -307,17 +432,16 @@ def _forward(r, k, v, logw, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def backward_scratch_shapes(B: int, T: int, H: int, D: int) -> tuple:
-    """The CUDA backward's scratch buffers: the chunk-start states (B, H,
-    chunks, D, D), the value-column slices' partials of dr, dk and dlogw
-    (3, slices, B, T, H, D) and of du (slices, B, H, D)."""
-    slices, chunks = ctypes.c_int(), ctypes.c_int()
-    err = _library().wkv6_backward_config(T, D, ctypes.byref(slices),
-                                          ctypes.byref(chunks))
+    """The CUDA backward's scratch buffers: the chunk-start states and the
+    last end state (B, H, chunks + 1, D, D), each chunk's end-state adjoint
+    (B, H, chunks, D, D), each chunk's decay 2^{cum_L} and its partial of
+    du (B, H, chunks, D)."""
+    chunks = ctypes.c_int()
+    err = _library().wkv6_backward_config(T, D, ctypes.byref(chunks))
     if err:
         raise RuntimeError(f"wkv6_backward_config failed: {err}")
-    ns = slices.value
-    return ((B, H, chunks.value, D, D), (3, ns, B, T, H, D),
-            (ns, B, H, D))
+    n = chunks.value
+    return (B, H, n + 1, D, D), (B, H, n, D, D), (B, H, n, D), (B, H, n, D)
 
 
 def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -329,11 +453,12 @@ def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ds0), fp32, shaped as r, k, v, logw, u and s0; du is summed over B
     and T.
 
-    The kernel recomputes the chunk-start states from s0 into a scratch
-    buffer (nothing is saved by the forward), splits each head's value
-    columns over blocks and adds their partials of dr, dk, dlogw and du in
-    a fixed order, so two runs give the same bits (``csrc/wkv6_backward.cu``).
-    """
+    The kernels (``csrc/wkv6_backward.cu``) run in three passes: each
+    chunk's state terms, the serial scans of the states and their adjoints
+    over the chunks (nothing is saved by the forward), then a block a
+    chunk for its gradients; du adds the chunks' partials in a fixed order,
+    so two runs give the same bits.  On the card r, k, v, logw and dy must
+    start on 16-byte boundaries."""
     _check(r, k, v, logw, u, s0)
     B, T, H, D = r.shape
     for name, x, shape in (("dy", dy, (B, T, H, D)),
@@ -347,18 +472,22 @@ def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if r.device.type == "cpu":
         return wkv6_backward_plain(r, k, v, logw, u, s0, dy, dsT)
     _check_head_dim(D)
+    for name, x in (("r", r), ("k", k), ("v", v), ("logw", logw),
+                    ("dy", dy)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary for "
+                             f"the CUDA wkv6 backward kernels")
     lib = _library()
     dr, dk, dv, dlogw = (torch.empty_like(r) for _ in range(4))
     du, ds0 = torch.empty_like(u), torch.empty_like(s0)
-    states, parts, du_parts = (
-        torch.empty(shape, dtype=torch.float32, device=r.device)
-        for shape in backward_scratch_shapes(B, T, H, D))
+    scratch = [torch.empty(shape, dtype=torch.float32, device=r.device)
+               for shape in backward_scratch_shapes(B, T, H, D)]
     _launch("wkv6_backward", lib.wkv6_backward_launch, r.data_ptr(),
             k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
             s0.data_ptr(), dy.data_ptr(), dsT.data_ptr(), dr.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), dlogw.data_ptr(), du.data_ptr(),
-            ds0.data_ptr(), states.data_ptr(), parts.data_ptr(),
-            du_parts.data_ptr(), B, T, H, D, counts=_LAUNCHES)
+            ds0.data_ptr(), *(x.data_ptr() for x in scratch), B, T, H, D,
+            counts=_LAUNCHES)
     return dr, dk, dv, dlogw, du, ds0
 
 

@@ -896,6 +896,68 @@ def test_recurrence_backward_kernels_on_card(cuda, arch):
     assert min(counts.launch_counts().values()) > 0
 
 
+@pytest.mark.parametrize("kernel,shape,strong", [
+    ("wkv6", (2, 1, 2, 32), False), ("wkv6", (2, 1, 2, 64), False),
+    ("wkv6", (2, 65, 2, 32), False), ("wkv6", (2, 65, 2, 64), False),
+    ("wkv6", (2, 130, 2, 64), True), ("ssm_scan", (2, 1, 40, 16), False),
+    ("ssm_scan", (2, 17, 40, 16), False), ("ssm_scan", (2, 65, 40, 16),
+                                             False)],
+    ids=lambda x: "x".join(map(str, x)) if isinstance(x, tuple) else str(x))
+def test_recurrence_backward_kernels_at_grid_edges(cuda, kernel, shape,
+                                                   strong):
+    """The backward kernels at the edges of their grids (T = 1, a step past
+    a chunk, B = 2, D = 32 and 64, the strongest decay): finite, two runs
+    bit for bit, each gradient within 1e-4 (wkv6) or 1e-5 (ssm_scan) of its
+    largest magnitude of the plain backward's."""
+    gen = torch.Generator().manual_seed(3)
+    if kernel == "wkv6":
+        B, T, H, D = shape
+        x = _wkv6_inputs(B, T, H, D, 4, strong=strong)
+        adj = [torch.randn((B, T, H, D), generator=gen),
+               torch.randn((B, H, D, D), generator=gen)]
+        kern, plain, tol = wk.wkv6_backward, wk.wkv6_backward_plain, 1e-4
+    else:
+        B, T, d, N = shape
+        x = [torch.sigmoid(torch.randn(shape, generator=gen)),
+             torch.randn(shape, generator=gen),
+             torch.randn((B, T, N), generator=gen),
+             torch.randn((B, d, N), generator=gen)]
+        adj = [torch.randn((B, T, d), generator=gen),
+               torch.randn((B, d, N), generator=gen)]
+        kern, plain, tol = (ssk.ssm_scan_backward,
+                            ssk.ssm_scan_backward_plain, 1e-5)
+    x = [t.to(cuda) for t in x]
+    adj = [t.to(cuda) for t in adj]
+    first, again = kern(*x, *adj), kern(*x, *adj)
+    torch.cuda.synchronize()
+    want = plain(*x, *adj)
+    for g, g2, w in zip(first, again, want):
+        assert torch.equal(g, g2)
+        assert bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) <= tol * float(
+            w.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("T", [1, 17, 25, 65])
+def test_ssm_scan_checkpointing_forward_matches_plain(cuda, T):
+    """The forward that training runs (it also writes h every 16 steps):
+    y and hT against the plain scan, the checkpoints against the plain
+    checkpointing forward, atol 1e-4 / rtol 1e-5, at T = 1, one pass of 16
+    and a step, the eight-step remainder and a step past four passes."""
+    gen = torch.Generator().manual_seed(5)
+    shape = (2, T, 40, 16)
+    x = [torch.sigmoid(torch.randn(shape, generator=gen)),
+         torch.randn(shape, generator=gen),
+         torch.randn((2, T, 16), generator=gen),
+         torch.randn((2, 40, 16), generator=gen)]
+    x = [t.to(cuda) for t in x]
+    y, hT, hk = ssk._forward(*x, checkpoints=True)
+    torch.cuda.synchronize()
+    assert tuple(hk.shape) == (2, -(-T // ssk.CHECKPOINT), 40, 16)
+    for got, want in zip((y, hT, hk), ssk._ssm_scan_checkpoint_plain(*x)):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+
+
 @pytest.mark.parametrize("kind", ["full", "sliding", "chunked"])
 def test_flash_attention_backward_on_card_matches_cpu(cuda, kind):
     """fp32, GQA 4/2, softcap, q_offset: output and (dq, dk, dv) on the

@@ -198,3 +198,67 @@ def test_ssm_scan_function_carries_the_plain_backward():
     for g, w in zip(got, (want[0], want[1], want[3])):
         assert torch.equal(g, w)
     assert ssk.launch_counts() == {"ssm_scan": 0, "ssm_scan_backward": 0}
+
+
+# The CUDA path's split: the forward's checkpoints h_{16 k} and a backward
+# that recomputes each 16-step chunk from them (ssm_scan._ssm_scan_
+# checkpoint_plain, _ssm_scan_backward_from_checkpoints_plain).
+@pytest.mark.parametrize("shape", [(2, 1, 3, 4), (2, 37, 5, 16),
+                                   (1, 64, 4, 8)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ssm_scan_checkpoints_are_the_states_every_16_steps(shape):
+    B, T, d, N = shape
+    tx = [torch.from_numpy(v) for v in _inputs(*shape)]
+    y, hT, hk = ssk._ssm_scan_checkpoint_plain(*tx)
+    yp, hTp = ssk.ssm_scan_plain(*tx)
+    assert torch.equal(y, yp) and torch.equal(hT, hTp)
+    a, bx, _, h = tx
+    states = [h]
+    for t in range(T):
+        h = a[:, t] * h + bx[:, t]
+        states.append(h)
+    assert tuple(hk.shape) == (B, -(-T // ssk.CHECKPOINT), d, N)
+    for k in range(hk.shape[1]):
+        assert torch.equal(hk[:, k], states[ssk.CHECKPOINT * k])
+
+
+@pytest.mark.parametrize("T", [37, 64])
+def test_ssm_scan_backward_from_checkpoints_matches_plain_and_jax_vjp(T):
+    shape = (2, T, 5, 16)
+    x = _inputs(*shape)
+    dy, dhT = _adjoints(*shape)
+    tx = [torch.from_numpy(v) for v in x]
+    hk = ssk._ssm_scan_checkpoint_plain(*tx)[2]
+    grads = ssk._ssm_scan_backward_from_checkpoints_plain(
+        *tx[:3], hk, torch.from_numpy(dy), torch.from_numpy(dhT))
+    want = ssk.ssm_scan_backward_plain(*tx, torch.from_numpy(dy),
+                                       torch.from_numpy(dhT))
+    a, bx, c, h0 = x
+    tr = (a.transpose(0, 1, 3, 2), bx.transpose(0, 1, 3, 2), c,
+          h0.transpose(0, 2, 1))
+    _, vjp = jax.vjp(jref.ssm_scan_ref, *(jnp.asarray(v) for v in tr))
+    ja, jbx, jc, jh0 = vjp((jnp.asarray(dy),
+                            jnp.asarray(dhT.transpose(0, 2, 1))))
+    ref = (np.asarray(ja).transpose(0, 1, 3, 2),
+           np.asarray(jbx).transpose(0, 1, 3, 2), np.asarray(jc),
+           np.asarray(jh0).transpose(0, 2, 1))
+    for name, g, w, gr in zip(("da", "dbx", "dc", "dh0"), grads, want, ref):
+        _close(g.numpy(), w.numpy(), 1e-4, 1e-5, name)
+        _close(g.numpy(), gr, 1e-4, 1e-5, name)
+
+
+@pytest.mark.parametrize("T", [17, 100])
+def test_ssm_scan_function_matches_autograd_of_the_plain_forward(T):
+    """SsmScanFunction (the wrapper under grad mode) against autograd
+    through ssm_scan_plain's steps, every input's gradient."""
+    shape = (2, T, 5, 16)
+    x = [torch.from_numpy(v) for v in _inputs(*shape)]
+    dy, dhT = (torch.from_numpy(v) for v in _adjoints(*shape))
+    grads = []
+    for fn in (ssk.ssm_scan, ssk.ssm_scan_plain):
+        leaves = [v.clone().requires_grad_() for v in x]
+        y, hT = fn(*leaves)
+        grads.append(torch.autograd.grad((y * dy).sum() + (hT * dhT).sum(),
+                                         leaves))
+    for name, g, w in zip(("da", "dbx", "dc", "dh0"), *grads):
+        _close(g.numpy(), w.numpy(), 1e-4, 1e-5, name)

@@ -318,3 +318,71 @@ def test_wkv6_function_carries_the_plain_backward():
     for g, w in zip(got, want[:5]):
         assert torch.equal(g, w)
     assert wk.launch_counts() == {"wkv6": 0, "wkv6_backward": 0}
+
+
+# The CUDA backward's own three-pass formulation (wkv6._wkv6_backward_
+# chunked_plain: chunks of 64 padded with zero rows, the chunk terms, the
+# two serial scans, the split pair decays and the diagonal blocks' shared
+# exponents) at T = 1, past a chunk and over three chunks.
+CHUNKED_T = [1, 100, 200]
+
+
+def _step_recurrence_grads(x, dy, dsT):
+    """Autograd of the port's single-token recurrence, T times."""
+    leaves = [torch.from_numpy(a).requires_grad_() for a in x]
+    r, k, v, logw, u, S = leaves
+    ys = []
+    for t in range(r.shape[1]):
+        sl = slice(t, t + 1)
+        y, S = rwkv.wkv6_step(r[:, sl], k[:, sl], v[:, sl], logw[:, sl], u, S)
+        ys.append(y)
+    loss = (torch.cat(ys, 1) * torch.from_numpy(dy)).sum() + \
+        (S * torch.from_numpy(dsT)).sum()
+    return [g.numpy() for g in torch.autograd.grad(loss, leaves)]
+
+
+def _chunked(x, dy, dsT):
+    grads = wk._wkv6_backward_chunked_plain(
+        *(torch.from_numpy(a) for a in x), torch.from_numpy(dy),
+        torch.from_numpy(dsT))
+    assert all(bool(g.isfinite().all()) for g in grads)
+    return [g.numpy() for g in grads]
+
+
+@pytest.mark.parametrize("D", SUB_D)
+@pytest.mark.parametrize("T", CHUNKED_T)
+def test_wkv6_backward_chunked_form_matches_plain_and_jax_vjp(T, D):
+    shape = (2, T, 2, D)
+    x = _inputs(*shape)
+    rng = np.random.default_rng(14)
+    x[3] = -np.exp(rng.uniform(-4.0, 0.0, shape)).astype(np.float32)
+    dy, dsT = _adjoints(*shape)
+    got = _chunked(x, dy, dsT)
+    plain = wk.wkv6_backward_plain(*(torch.from_numpy(a) for a in x),
+                                   torch.from_numpy(dy),
+                                   torch.from_numpy(dsT))
+    _, vjp = jax.vjp(jax.jit(jrwkv.wkv6_chunked),
+                     *(jnp.asarray(a) for a in x))
+    ref = vjp((jnp.asarray(dy), jnp.asarray(dsT)))
+    for name, g, want, jwant in zip(GRAD_NAMES, got, plain, ref):
+        _close(g, want.numpy(), 1e-4, 1e-5, name)
+        _close(g, jwant, 1e-4, 1e-5, name)
+
+
+@pytest.mark.parametrize("shape", [(2, 200, 2, 32), (2, 100, 1, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_wkv6_backward_chunked_form_at_the_models_strongest_decay(shape):
+    """logw = -e^4 on half the channels, where the reference's factored
+    form overflows: against the plain backward and autograd of the step
+    recurrence."""
+    x = _inputs(*shape)
+    x[3][..., : shape[3] // 2] = -np.exp(4.0)
+    dy, dsT = _adjoints(*shape)
+    got = _chunked(x, dy, dsT)
+    plain = wk.wkv6_backward_plain(*(torch.from_numpy(a) for a in x),
+                                   torch.from_numpy(dy),
+                                   torch.from_numpy(dsT))
+    steps = _step_recurrence_grads(x, dy, dsT)
+    for name, g, want, swant in zip(GRAD_NAMES, got, plain, steps):
+        _close(g, want.numpy(), 1e-4, 1e-5, name)
+        _close(g, swant, 1e-4, 1e-5, name)
