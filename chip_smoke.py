@@ -146,7 +146,9 @@ with a nonzero exit:
    and ``compile_s`` of every main path and adaptive path; and ``fresh_process_round_time``:
    the fig5 path in a fresh process with an empty build directory, whose
    round 1 ``compile_s`` takes the kernel library's nvcc build;
-6. the model zoo's serving slice, rwkv6-1.6b and hymba-1.5b:
+6. the model zoo's serving slice, rwkv6-1.6b and hymba-1.5b, and
+   gemma2-2b, qwen2.5-14b and qwen2-moe-a2.7b (no kernel of the port:
+   their prefill and generate must launch none):
    - ``zoo_kernel_parity``: the wkv6 and ssm_scan CUDA kernels against
      their plain versions at the full-width serving shapes ((8, 2048, 32,
      64) and (8, 2048, 1600, 16)), at head dim 32, at T = 100 and T = 1,
@@ -162,7 +164,20 @@ with a nonzero exit:
      time per step;
    - ``serve_consistency`` per arch at full width in fp32: ``forward`` over
      160 tokens against 160 ``decode_step``s at every position, atol 2e-3 /
-     rtol 1e-3 (the reference's own check);
+     rtol 1e-3 (the reference's own check); not for the MoE, whose decode
+     routes each step's tokens as one group of capacity 1 (qwen2.5-14b's
+     fp32 weights take 59.1 GB);
+   - ``moe_card_agreement``: reduced qwen2-moe-a2.7b (2 layers, top 4 of
+     60 experts padded to 64, then of 37 padded to 48; fp32): ``forward``
+     over 2 x 128 tokens in groups of 64 (capacity binds) and 16
+     ``decode_step``s on the card and the CPU from the same weights:
+     expert ids, capacity positions, keep masks and dropped counts equal
+     call by call, no padded expert picked, logits within 1e-3 of their
+     largest magnitude; then ``moe_full_width_layer``: one full-width MoE
+     layer (d 2048, 60 experts padded to 64, the 5632-wide shared FFN;
+     fp32) over 1 x 4096 tokens in groups of 512 (capacity 42) on the
+     card and the CPU: ids, positions and keep mask equal, y and the aux
+     loss within 1e-3 of their scale;
    - ``kernel_time`` of both kernels at the serving shapes, as in phase 5;
 7. the pod round and the training path on full-width qwen2-1.5b
    (1,543,910,912 parameters; fp32 master weights, bf16 compute):
@@ -218,6 +233,17 @@ with a nonzero exit:
      fp32), one ``lm_loss``'s gradients on the card against the CPU, rtol
      1e-3 and atol 1e-4 of each leaf's largest magnitude;
    - ``kernel_time`` of both backward kernels at the training shapes;
+7c. gemma2-2b, qwen2.5-14b and qwen2-moe-a2.7b at full width (fp32
+   master weights, bf16 compute):
+   - ``train_lm`` per arch: three ``make_train_step`` AdamW steps of 1 x
+     4096 tokens at TRAIN_DEPTH's layers (gemma2-2b whole; the other two
+     cut to the most layers whose step fits): loss, grad norm, wall time,
+     no launch of a kernel of the port, peak memory, the MoE's aux loss,
+     one ``lm_loss`` fwd+bwd's time;
+   - ``fed_pod_path`` on gemma2-2b at POD_DEPTH's layers (the pod setup of
+     section 7, 3 rounds): kernels 1-3 at 4 / 8 / 4 a round, round 1's
+     first client's masks bit for bit against the plain versions, no
+     trace;
 8. (``--profile`` only) ``torch.profiler`` over two more rounds of the
    fused LeNet path, of ``vgg-fig5``, of ``noniid-dyn`` and of the store
    path, and over one prefill and 11
@@ -350,9 +376,19 @@ WIRE_EDGE_ROWS = (1, 3, 5, 4095, 33 * 1024 + 5)   # 33797: 32-row blocks
 LARGE_COUNT_CANDIDATES = (32, 4096)   # timed at 2^26 beside the path's 16
 SMALL_RTOL = 1e-3                # card vs CPU: reduction order differs
 # The model zoo's serving slice: arch -> (its kernel, launches per prefill,
-# parameters at full width).
+# parameters at full width).  gemma2-2b, qwen2.5-14b and qwen2-moe-a2.7b
+# run no kernel of the port: attention, the MLPs and the MoE are torch ops.
 ZOO_ARCHS = {"rwkv6-1.6b": ("wkv6", 24, 1_483_280_384),
-             "hymba-1.5b": ("ssm_scan", 32, 1_403_905_600)}
+             "hymba-1.5b": ("ssm_scan", 32, 1_403_905_600),
+             "gemma2-2b": (None, 0, 2_614_222_080),
+             "qwen2.5-14b": (None, 0, 14_770_033_664),
+             "qwen2-moe-a2.7b": (None, 0, 15_146_928_128)}
+# serve == prefill at full depth in fp32: not the MoE, whose decode routes
+# each step's B tokens as one group of capacity max(1, int(B * 4 / 60 *
+# 1.25)) = 1 and so drops picks the forward keeps (the reference's
+# tests/test_models.py leaves it out too; moe_card_agreement holds its
+# decode to the CPU's instead)
+CONSISTENCY_ARCHS = ("rwkv6-1.6b", "hymba-1.5b", "gemma2-2b", "qwen2.5-14b")
 SERVE_B, SERVE_T = 8, 2048       # prefill: 8 prompts of 2048 tokens
 GEN_PROMPT, GEN_TOKENS = 64, 32  # generate: 64-token prompts, 32 greedy
 PREFILL_REPS = 3
@@ -378,7 +414,13 @@ POD_LAUNCHES = {"segmented_histogram": POD_C, "segmented_count": 2 * POD_C,
 POD_ARCHS = {"qwen2-1.5b": (POD_PARAMS, POD_SEGMENTS, {}),
              "rwkv6-1.6b": (1_483_280_384, 68_090,
                             {"wkv6": POD_C * POD_E * 48,
-                             "wkv6_backward": POD_C * POD_E * 24})}
+                             "wkv6_backward": POD_C * POD_E * 24}),
+             "gemma2-2b": (1_835_608_320, 256_145, {})}
+# Depth of a pod round where the whole model does not fit the card (whole
+# periods of the pattern), the most that fit after the script's earlier
+# phases, as TRAIN_DEPTH's.  gemma2-2b: 256,000 embedding rows make
+# 256,000 of the delta's segments.
+POD_DEPTH = {"gemma2-2b": 16}
 # The zoo's training path: arch -> (its kernel, forward and backward
 # launches a train step: remat runs a layer's forward again in the
 # backward; hymba's remat span is its 16-layer group).
@@ -399,6 +441,17 @@ BWD_KERNELS = {"wkv6": 4, "ssm_scan": 2}
 # the kernels' chunkings) reach 2.5e-5 of a leaf's largest magnitude.
 ZOO_AGREE_RTOL = 1e-3
 ZOO_AGREE_ATOL = 1e-4            # of each leaf's largest magnitude
+# The MoE on the card against the CPU (reduced qwen2-moe-a2.7b): real
+# experts of each run (padded to 64 and to 48), 2 x 128 tokens in groups
+# of 64, 16 decode steps; then one full-width layer (d 2048, 60 experts
+# padded to 64, the 5632-wide shared FFN) over 1 x 4096 tokens in the
+# default groups of 512.
+MOE_AGREE_EXPERTS = (60, 37)
+MOE_AGREE_B, MOE_AGREE_T, MOE_AGREE_GROUP, MOE_AGREE_STEPS = 2, 128, 64, 16
+# Training at full width: layers of each run (gemma2-2b whole), the most
+# whose AdamW step (fp32 masters, 1 x 4096 tokens) fits after the
+# script's earlier phases: one layer more runs out of memory there.
+TRAIN_DEPTH = {"gemma2-2b": 26, "qwen2.5-14b": 6, "qwen2-moe-a2.7b": 4}
 ZOO_LIBRARY_NOTE = ("no single PyTorch call computes the RWKV6 wkv "
                     "recurrence or a selective-SSM scan")
 ZOO_BWD_LIBRARY_NOTE = ("no single PyTorch call computes the gradient of "
@@ -3169,7 +3222,8 @@ def serve_path(arch: str, trace: bool = False) -> dict:
     first_s = time.perf_counter() - t0
     launches = zoo_counts()
     want = {name: 0 for name in launches}
-    want[kernel] = layers
+    if kernel:
+        want[kernel] = layers
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     walls = []
     for _ in range(PREFILL_REPS):
@@ -3232,13 +3286,17 @@ def serve_consistency(arch: str) -> dict:
     """The reference's serve == prefill check at full width and depth in
     fp32 (params and compute): ``forward`` over 160 tokens (2.5 wkv6
     chunks, so the tail runs) and 160 ``decode_step``s agree at every
-    position within atol 2e-3, rtol 1e-3."""
+    position within atol 2e-3, rtol 1e-3.  Not for the MoE
+    (CONSISTENCY_ARCHS says why); qwen2.5-14b's fp32 weights take 59.1 GB,
+    so the card must hold nothing else."""
     import dataclasses
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import transformer as tr
     kernel, layers, _ = ZOO_ARCHS[arch]
     cfg = dataclasses.replace(get_arch(arch), compute_dtype="float32")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda").manual_seed(1)
     params = tr.init_params(gen, cfg, "float32", device="cuda")
     toks = torch.randint(0, cfg.vocab_size, (2, CONSISTENCY_T),
@@ -3246,7 +3304,8 @@ def serve_consistency(arch: str) -> dict:
     with torch.no_grad():
         reset_all_counts()
         fwd = tr.forward(params, cfg, toks)[0][..., :cfg.vocab_size]
-        launches = zoo_counts()[kernel]
+        launches = zoo_counts()[kernel] if kernel else \
+            sum(zoo_counts().values())
         state = tr.init_decode_state(cfg, 2, CONSISTENCY_T + 1, "float32",
                                      device="cuda")
         dec = []
@@ -3259,12 +3318,15 @@ def serve_consistency(arch: str) -> dict:
     ok = bool(torch.allclose(dec, fwd, **CONSISTENCY_TOL))
     worst = (err - CONSISTENCY_TOL["rtol"] * fwd.abs()).max()
     phase("serve_consistency", arch=arch, dtype="float32",
-          tokens=CONSISTENCY_T, batch=2, launches={kernel: launches},
+          tokens=CONSISTENCY_T, batch=2, launches={kernel or "all": launches},
+          params_gb=4 * tr.param_count(params) / 1e9,
+          peak_gb=torch.cuda.max_memory_allocated() / 1e9,
           max_abs_err=float(err.max()), logits_abs_max=float(fwd.abs().max()),
           max_excess_over_rtol=float(worst), tol=CONSISTENCY_TOL,
           err_by_quarter=[float(q.max()) for q in err.chunk(4, dim=1)])
     if launches != layers:
-        fail(f"{arch}: forward launched {kernel} {launches} times")
+        fail(f"{arch}: forward launched {kernel or 'kernels'} {launches} "
+             f"times")
     if not ok:
         fail(f"{arch}: forward and decode disagree by {float(err.max())}")
     del params, fwd, dec, state
@@ -3534,13 +3596,16 @@ def fed_pod_path(arch: str = "qwen2-1.5b", trace: bool = True) -> dict:
     weights, bf16 compute) for POD_ROUNDS rounds of fig5 on the kernels,
     the counts set to 0 just before each round and read just after; round
     1's first client held against the plain versions; then, with
-    ``trace``, one traced round."""
+    ``trace``, one traced round.  Full depth unless POD_DEPTH cuts it."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.core.sampling import participation_mask
     from repro_torch.launch import fedtrain as ft
     from repro_torch.models import transformer as tr
     cfg = get_arch(arch)
+    if arch in POD_DEPTH:
+        cfg = dataclasses.replace(cfg, num_layers=POD_DEPTH[arch])
     want_params, want_segments, zoo_launches = POD_ARCHS[arch]
     want_launches = {**POD_LAUNCHES, **zoo_launches}
     st = pod_strategy()
@@ -3620,6 +3685,7 @@ def fed_pod_path(arch: str = "qwen2-1.5b", trace: bool = True) -> dict:
             state, batches[POD_ROUNDS], n_samples, part,
             key=(1, POD_ROUNDS + 1)), 1, "round")
     phase("fed_pod_path", arch=cfg.name, params=n_params,
+          layers=cfg.num_layers, full_layers=get_arch(arch).num_layers,
           compute_dtype=cfg.compute_dtype, clients=POD_C,
           local_steps=POD_E, tokens_per_step=POD_B * POD_T,
           strategy="fig5 + kernel masking", codec=fed_cfg.codec.name,
@@ -4136,6 +4202,264 @@ def zoo_train_agreement() -> None:
                  f"CPU (worst {worst}) or skipped the backward kernel")
 
 
+# ---------------------------------------------------------------------------
+# gemma2-2b, qwen2.5-14b and qwen2-moe-a2.7b: the MoE on the card against
+# the CPU, and the training runs
+# ---------------------------------------------------------------------------
+def routing_log(log: list, group_size: int = 0):
+    """A context in which every ``moe.route`` call appends its ``Routing``
+    to ``log`` and, if ``group_size`` is given, groups tokens by it
+    (``moe_ffn`` takes its grouping from the routing, so the forward runs
+    with those groups)."""
+    import contextlib
+    from repro_torch.models import moe
+
+    @contextlib.contextmanager
+    def patched():
+        original = moe.route
+
+        def record(*args, **kw):
+            if group_size:
+                kw = {**kw, "group_size": group_size}
+            r = original(*args, **kw)
+            log.append(r)
+            return r
+        moe.route = record
+        try:
+            yield log
+        finally:
+            moe.route = original
+    return patched()
+
+
+def moe_card_agreement() -> dict:
+    """Reduced qwen2-moe-a2.7b (d 256, 2 layers, top 4 over 60 experts
+    padded to 64, then 37 padded to 48; fp32, TF32 off): ``forward`` over
+    2 x 128 tokens in groups of 64 (capacity 5 slots an expert, so picks
+    are dropped) and 16 ``decode_step``s (groups of the 2 tokens, capacity
+    1) on the card and on the CPU from the same weights.  Every call's
+    expert ids, capacity positions and keep mask, and so the dropped
+    counts, must be equal; no padded expert may be picked; the logits must
+    agree within SMALL_RTOL of their largest magnitude; no kernel of the
+    port launches.  Then :func:`moe_full_width_layer`."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tr
+    out = {}
+    for real in MOE_AGREE_EXPERTS:
+        cfg = dataclasses.replace(
+            get_arch("qwen2-moe-a2.7b").reduced(), num_layers=2,
+            moe_experts=real, moe_pad_experts=True, moe_topk=4,
+            compute_dtype="float32", param_dtype_serve="float32")
+        params = tr.init_params(torch.Generator().manual_seed(0), cfg,
+                                "float32", device="cpu")
+        toks = torch.randint(0, cfg.vocab_size, (MOE_AGREE_B, MOE_AGREE_T),
+                             generator=torch.Generator().manual_seed(1))
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            log = []
+            on = {k: v.to(dev) for k, v in params.items()}
+            reset_all_counts()
+            with torch.no_grad(), routing_log(log, MOE_AGREE_GROUP):
+                logits = tr.forward(on, cfg, toks.to(dev))[0]
+                state = tr.init_decode_state(cfg, MOE_AGREE_B,
+                                             MOE_AGREE_STEPS + 1, "float32",
+                                             device=dev)
+                view = tr.layer_view(on, cfg)
+                dec = []
+                for t in range(MOE_AGREE_STEPS):
+                    lg, state = tr.decode_step(view, cfg, state,
+                                               toks[:, t:t + 1].to(dev))
+                    dec.append(lg)
+            runs[dev] = {
+                "logits": logits.cpu(), "decode": torch.cat(dec, 1).cpu(),
+                "routes": [(r.expert_ids.cpu(), r.positions.cpu(),
+                            r.keep.cpu(), r.gates.cpu(), r.capacity)
+                           for r in log],
+                "launches": sum(zoo_counts().values())}
+        card, cpu = runs["cuda"], runs["cpu"]
+        same = len(card["routes"]) == len(cpu["routes"]) == \
+            cfg.num_layers * (1 + MOE_AGREE_STEPS)
+        gate_err = 0.0
+        for a, b in zip(card["routes"], cpu["routes"]):
+            same &= all(torch.equal(x, y) for x, y in zip(a[:3], b[:3]))
+            same &= a[4] == b[4]
+            gate_err = max(gate_err, float((a[3] - b[3]).abs().max()))
+        n_fwd = cfg.num_layers
+        dropped = {dev: [int((~r[2]).sum()) for r in run["routes"]]
+                   for dev, run in runs.items()}
+        max_id = max(int(r[0].max()) for r in card["routes"])
+        errs = {}
+        for key in ("logits", "decode"):
+            scale = float(cpu[key].abs().max())
+            errs[key] = float((card[key] - cpu[key]).abs().max()) / scale
+        rec = {"real_experts": real, "padded_experts": cfg.padded_experts,
+               "topk": cfg.moe_topk, "layers": cfg.num_layers,
+               "tokens": MOE_AGREE_B * MOE_AGREE_T, "group": MOE_AGREE_GROUP,
+               "forward_capacity": card["routes"][0][4],
+               "decode_capacity": card["routes"][-1][4],
+               "decode_steps": MOE_AGREE_STEPS,
+               "routing_equal": bool(same),
+               "forward_dropped": dropped["cuda"][:n_fwd],
+               "decode_dropped": sum(dropped["cuda"][n_fwd:]),
+               "dropped_equal": dropped["cuda"] == dropped["cpu"],
+               "max_expert_id": max_id, "gate_max_abs_err": gate_err,
+               "rel_err": errs, "rtol_of_max": SMALL_RTOL,
+               "launches": card["launches"]}
+        phase("moe_card_agreement", **rec)
+        if not (same and rec["dropped_equal"]):
+            fail(f"MoE routing on the card differs from the CPU's ({real} "
+                 f"real experts)")
+        if max_id >= real:
+            fail(f"the MoE picked padded expert {max_id} of "
+                 f"{cfg.padded_experts} ({real} real)")
+        if sum(rec["forward_dropped"]) == 0:
+            fail("the MoE agreement's capacity did not bind")
+        if max(errs.values()) > SMALL_RTOL or card["launches"]:
+            fail(f"MoE logits on the card disagree with the CPU: {errs}, "
+                 f"launches {card['launches']}")
+        out[real] = rec
+    out["full_width"] = moe_full_width_layer()
+    return out
+
+
+def moe_full_width_layer() -> dict:
+    """One full-width qwen2-moe-a2.7b MoE layer (d 2048, top 4 over 60
+    experts padded to 64, experts 1408 wide, the 5632-wide shared FFN;
+    fp32, TF32 off) over 1 x 4096 tokens in ``moe_ffn``'s default groups
+    of 512 (capacity 42 slots an expert), on the card and on the CPU from
+    the same weights.  The expert ids, capacity positions and keep mask
+    must be equal, no padded expert picked, y within SMALL_RTOL of its
+    largest magnitude and the aux loss within SMALL_RTOL of its own; no
+    kernel of the port launches."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+    cfg = get_arch("qwen2-moe-a2.7b")
+    params = moe.init_moe_params(
+        torch.Generator().manual_seed(0), cfg.d_model, cfg.padded_experts,
+        cfg.moe_d_ff, cfg.moe_shared_d_ff, cfg.gated_mlp, torch.float32,
+        device="cpu")
+    x = torch.randn((POD_B, POD_T, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        log = []
+        on = {k: v.to(dev) for k, v in params.items()}
+        reset_all_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad(), routing_log(log):
+            y, aux = moe.moe_ffn(on, x.to(dev), topk=cfg.moe_topk,
+                                 act=cfg.act, gated=cfg.gated_mlp,
+                                 real_experts=cfg.moe_experts)
+            y = y.cpu()
+        r = log[0]
+        runs[dev] = {"y": y, "aux": float(aux), "seconds":
+                     time.perf_counter() - t0, "capacity": r.capacity,
+                     "route": [t.cpu() for t in (r.expert_ids, r.positions,
+                                                 r.keep)],
+                     "launches": sum(zoo_counts().values())}
+        del on, log, r
+    del params
+    torch.cuda.empty_cache()
+    card, cpu = runs["cuda"], runs["cpu"]
+    same = card["capacity"] == cpu["capacity"] and all(
+        torch.equal(a, b) for a, b in zip(card["route"], cpu["route"]))
+    ids, _, keep = card["route"]
+    y_err = float((card["y"] - cpu["y"]).abs().max()) / \
+        float(cpu["y"].abs().max())
+    aux_err = abs(card["aux"] - cpu["aux"]) / abs(cpu["aux"])
+    rec = {"d_model": cfg.d_model, "real_experts": cfg.moe_experts,
+           "padded_experts": cfg.padded_experts, "topk": cfg.moe_topk,
+           "expert_d_ff": cfg.moe_d_ff, "shared_d_ff": cfg.moe_shared_d_ff,
+           "tokens": POD_B * POD_T, "groups": int(ids.shape[0]),
+           "group": int(ids.shape[1]), "capacity": card["capacity"],
+           "routing_equal": bool(same), "dropped": int((~keep).sum()),
+           "max_expert_id": int(ids.max()), "y_rel_err": y_err,
+           "aux": card["aux"], "aux_rel_err": aux_err,
+           "rtol_of_max": SMALL_RTOL, "card_s": card["seconds"],
+           "cpu_s": cpu["seconds"], "launches": card["launches"]}
+    phase("moe_full_width_layer", **rec)
+    if not same:
+        fail("the full-width MoE layer's routing on the card differs from "
+             "the CPU's")
+    if rec["max_expert_id"] >= cfg.moe_experts:
+        fail(f"the full-width MoE layer picked padded expert "
+             f"{rec['max_expert_id']}")
+    if max(y_err, aux_err) > SMALL_RTOL or card["launches"]:
+        fail(f"the full-width MoE layer on the card disagrees with the "
+             f"CPU: y {y_err}, aux {aux_err}, launches {card['launches']}")
+    return rec
+
+
+def train_lm(arch: str) -> dict:
+    """``make_train_step`` (AdamW) for three steps of 1 x 4096 tokens on
+    ``arch`` at full width, at TRAIN_DEPTH[arch] layers (fp32 master
+    weights, bf16 compute): per step the loss, grad norm and wall time, no
+    launch of a kernel of the port (counts set to 0 just before each step
+    and read just after), the peak memory; then the forward's aux loss at
+    the trained weights and one ``lm_loss`` fwd+bwd's time."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps, train
+    from repro_torch.models import transformer as tr
+    full = get_arch(arch)
+    layers = TRAIN_DEPTH[arch]
+    cfg = dataclasses.replace(full, num_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = steps.make_train_step(cfg, learning_rate=3e-4, optimizer="adamw")
+    params = tr.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg, device="cuda")
+    n_params = tr.param_count(params)
+    opt_state = step.optimizer.init(params)
+    batches = train.synth_batches(cfg, POD_B, POD_T, 3, seed=0)
+    log = []
+    for b in batches:
+        b = {k: v.cuda() for k, v in b.items()}
+        torch.cuda.synchronize()
+        reset_all_counts()
+        t0 = time.perf_counter()
+        new_params, new_state, m = step(params, opt_state, b)
+        torch.cuda.synchronize()
+        log.append({"loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"]),
+                    "wall_s": time.perf_counter() - t0,
+                    "launches": sum(zoo_counts().values())})
+        # the step consumes its dicts: the forward below reads the
+        # trained weights through the dict it passed in
+        if new_params is not params or new_state is not opt_state:
+            fail(f"train_lm {arch}: the step returned new dicts")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del opt_state
+    torch.cuda.empty_cache()
+    batch = {k: v.cuda() for k, v in batches[0].items()}
+    with torch.no_grad():
+        aux = float(tr.forward(params, cfg, batch["tokens"])[1])
+    local_ms = step_time(cfg, params, batch)
+    per_period = sum(v.numel() for k, v in params.items()
+                     if k.startswith("layers.")) / cfg.num_groups
+    phase("train_lm", arch=arch, params=n_params, layers=layers,
+          full_layers=full.num_layers, optimizer="adamw",
+          compute_dtype=cfg.compute_dtype, tokens_per_step=POD_B * POD_T,
+          steps=log, peak_gb=peak, aux_loss=aux,
+          lm_loss_fwd_bwd_ms=local_ms,
+          next_period_state_gb=16 * per_period / 1e9,
+          card_gb=torch.cuda.get_device_properties(0).total_memory / 1e9)
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+               for r in log):
+        fail(f"train_lm {arch}: non-finite loss or grad norm {log}")
+    if any(r["launches"] for r in log):
+        fail(f"train_lm {arch}: a step launched a kernel of the port {log}")
+    if full.moe_experts and not aux > 0:
+        fail(f"train_lm {arch}: MoE aux loss {aux}")
+    del params
+    torch.cuda.empty_cache()
+    return {"peak_gb": peak, "layers": layers, "steps": log}
+
+
 def wkv6_bwd_work(B: int, T: int, H: int, D: int) -> dict:
     """Bytes the wkv6 gradient must move (r, k, v, logw, dy, s0, dsT, u read
     once; dr, dk, dv, dlogw, ds0, du written once) and the operations its
@@ -4425,9 +4749,12 @@ def main(argv) -> int:
     del main_in, large_in
     torch.cuda.empty_cache()
     zoo_errs = zoo_kernel_parity()
+    section_t0 = time.perf_counter()
     serves = {arch: serve_path(arch, trace) for arch in ZOO_ARCHS}
-    for arch in ZOO_ARCHS:
+    for arch in CONSISTENCY_ARCHS:
         serve_consistency(arch)
+    moe_card_agreement()
+    phase("serving_section", seconds=time.perf_counter() - section_t0)
     zoo_times = time_zoo_kernels()
     # ---- 7. the pod round and the training path ---------------------------
     torch.cuda.empty_cache()
@@ -4454,6 +4781,16 @@ def main(argv) -> int:
     zoo_train_agreement()
     zoo_bwd_times = time_zoo_backward()
     phase("zoo_training_section", seconds=time.perf_counter() - section_t0)
+    # ---- 7c. gemma2-2b, qwen2.5-14b, qwen2-moe-a2.7b: training, pod round -
+    section_t0 = time.perf_counter()
+    for arch in TRAIN_DEPTH:
+        train_lm(arch)
+    gemma_pod = fed_pod_path("gemma2-2b", trace=False)
+    gemma_pod_launches = gemma_pod["launches"]
+    del gemma_pod
+    torch.cuda.empty_cache()
+    phase("new_archs_training_section",
+          seconds=time.perf_counter() - section_t0)
     if trace:
         profile_rounds(fused, "fig5-fused-int8")
         profile_rounds(lms["vgg-fig5"], "vgg-fig5")
@@ -4481,6 +4818,9 @@ def main(argv) -> int:
             "fed_pod_path_launches": pod_launches.get(name, 0),
             "fed_pod_launches_per_round": pod_launches.get(name, 0)
             / POD_ROUNDS,
+            "gemma2_pod_path_launches": gemma_pod_launches.get(name, 0),
+            "gemma2_pod_launches_per_round":
+                gemma_pod_launches.get(name, 0) / POD_ROUNDS,
             "max_abs_err": errs[name], "ms": rec["ms"],
             "warm_ms": rec["warm_ms"], "device_ms": rec["device_ms"],
             "device_source": rec.get("device_source", "trace"),

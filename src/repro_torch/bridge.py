@@ -87,6 +87,15 @@ def _to_tensor(arr: np.ndarray) -> torch.Tensor:
 
 def params_to_numpy(params: Dict[str, torch.Tensor]) -> Any:
     """The port's flat dict of tensors -> nested dicts (and tuples) of
-    numpy arrays, the layout the reference's parameter pytrees use."""
-    return unflatten_tree({name: leaf.detach().cpu().numpy()
+    numpy arrays, the layout the reference's parameter pytrees use.  A
+    bfloat16 leaf keeps its bits (as an ``ml_dtypes`` bfloat16 array)."""
+    return unflatten_tree({name: _to_numpy(leaf)
                            for name, leaf in params.items()})
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes        # numpy has no bfloat16 of its own
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()

@@ -1,5 +1,5 @@
 """Config registry of the port: ``get_arch(id)`` for the architectures the
-port runs.  The reference registers ten; the other seven are still to be
+port runs.  The reference registers ten; the other four are still to be
 ported (ROADMAP Queue 1 item 16) and raise a ``KeyError`` saying so."""
 
 from __future__ import annotations
@@ -16,9 +16,11 @@ _ARCH_MODULES = {
     "hymba-1.5b": "hymba_1_5b",
     "rwkv6-1.6b": "rwkv6_1_6b",
     "qwen2-1.5b": "qwen2_1_5b",
+    "gemma2-2b": "gemma2_2b",
+    "qwen2.5-14b": "qwen2_5_14b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
 }
-_NOT_PORTED = ("internvl2-26b", "gemma2-2b", "qwen2-moe-a2.7b", "qwen2-72b",
-               "musicgen-medium", "qwen2.5-14b",
+_NOT_PORTED = ("internvl2-26b", "qwen2-72b", "musicgen-medium",
                "llama4-maverick-400b-a17b")
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -16,7 +16,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as tr
 from repro_torch.optim import (adafactor, adamw, apply_updates,
-                               clip_by_global_norm, sgd)
+                               global_norm_scale, sgd)
 
 __all__ = ["params_specs", "make_train_step", "make_prefill_step",
            "make_serve_step"]
@@ -42,8 +42,21 @@ def make_train_step(cfg: ArchConfig, *, learning_rate: float = 3e-4,
     ``num_layers * d_model^2`` or with 64 experts or more, AdamW
     otherwise, as the reference.  fp32 master weights of ndim >= 2 are
     cast once a step to the compute dtype and the loss runs on the casts;
-    the gradients flow back through the casts to fp32.  The returned step
-    carries ``.optimizer`` for ``opt.init(params)``."""
+    the gradients flow back through the casts to fp32.  As in the
+    reference, that includes the MoE router (fp32 in every tree): routing
+    widens the cast back to fp32.  The returned step
+    carries ``.optimizer`` for ``opt.init(params)``.
+
+    The step consumes ``params`` and ``opt_state``: it clips, updates and
+    applies one leaf at a time, writing each leaf's new value and state
+    into the dicts it was given, and returns them.  So beside the fp32
+    weights, gradients and moments (16 bytes a parameter under AdamW) it
+    holds one leaf's temporaries, not whole trees of clipped gradients,
+    updates, new moments and new weights.  The values are those of the
+    whole-tree update, bit for bit: every leaf's update depends only on
+    its own gradient, state and the shared step count and clip factor.
+    Leaves are replaced, never written in place: a caller that needs the
+    pre-step weights keeps ``dict(params)``, at the cost of holding both."""
     if optimizer == "auto":
         big = cfg.num_layers * cfg.d_model ** 2 > 3e10 or \
             cfg.moe_experts >= 64
@@ -66,15 +79,33 @@ def make_train_step(cfg: ArchConfig, *, learning_rate: float = 3e-4,
             loss = tr.cross_entropy(logits, batch["labels"]) + \
                 cfg.router_aux_coef * aux
             grads = torch.autograd.grad(loss, list(leaves.values()))
+        del leaves, logits
         with torch.no_grad():
-            grads, gnorm = clip_by_global_norm(dict(zip(params, grads)),
-                                               clip_norm)
-            updates, opt_state = opt.update(grads, opt_state, params)
-            params = apply_updates(params, updates)
+            grads = dict(zip(params, grads))
+            scale, gnorm = global_norm_scale(grads, clip_norm)
+            count = opt_state["count"]
+            for k in list(grads):
+                updates, new = opt.update({k: grads.pop(k) * scale},
+                                          _leaf_state(opt_state, k, count),
+                                          {k: params[k]})
+                params[k] = apply_updates({k: params[k]}, updates)[k]
+                for name, tree in new.items():
+                    if isinstance(tree, dict):
+                        opt_state[name][k] = tree[k]
+                    else:               # the step count, the same each leaf
+                        opt_state[name] = tree
         return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
 
     train_step.optimizer = opt
     return train_step
+
+
+def _leaf_state(state: dict, name: str, count: torch.Tensor) -> dict:
+    """The optimizer state of leaf ``name``: each per-leaf tree cut to that
+    leaf, the step count as it was before this step."""
+    return {key: ({name: tree[name]} if isinstance(tree, dict) else
+                  count if key == "count" else tree)
+            for key, tree in state.items()}
 
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:

@@ -136,7 +136,8 @@ def dense_init(generator: torch.Generator, shape: Tuple[int, ...], dtype,
     card); a generator on a card draws on it."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else fan_in ** -0.5
-    return (std * truncated_normal(generator, shape, device)).to(dtype)
+    # scaled in place: one fp32 buffer of the leaf's size, not two
+    return truncated_normal(generator, shape, device).mul_(std).to(dtype)
 
 
 def embed_init(generator: torch.Generator, vocab: int, d: int, dtype,

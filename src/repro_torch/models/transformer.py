@@ -30,12 +30,18 @@ Structure
 
 Layer kinds: ``rwkv`` (time mix + channel mix), ``hymba`` (attention and
 an SSM in parallel, ``0.5 (y + s)``, then the MLP) and ``attn`` (the same
-without the SSM).  Text modality and the dense MLP only: ``moe``,
-``vision_stub`` and ``audio_stub`` raise ``NotImplementedError`` (ROADMAP
-Queue 1 item 16).  The wkv6 and ssm_scan recurrences are differentiable
-on both devices: their ``torch.autograd.Function``s run the backward
-kernels on the card and the plain backwards on the CPU, and a remat span
-runs their forward again in the backward.
+without the SSM).  The MLP is dense or, with ``mlp="moe"``, the
+mixture of experts of ``models/moe.py``; its aux loss adds to the
+forward's.  The forward and ``decode_step`` both pass the real expert
+count, so padded experts are never routed (the reference's forward
+omits it and routes them; ROADMAP Queue 3).  gemma2 archs scale the
+embeddings by sqrt(d_model), as the reference does.  Text modality only:
+``vision_stub``, ``audio_stub`` and prefix embeddings raise
+``NotImplementedError`` (ROADMAP Queue 1 item 16).  The wkv6 and
+ssm_scan recurrences are differentiable on both devices: their
+``torch.autograd.Function``s run the backward kernels on the card and
+the plain backwards on the CPU, and a remat span runs their forward
+again in the backward.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from repro_torch.bridge import flatten_tree, tree_map, unflatten_tree
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (dense_init, embed_init, init_device,
@@ -79,8 +86,6 @@ def _check_supported(cfg: ArchConfig) -> None:
     if cfg.modality != "text":
         raise NotImplementedError(f"modality {cfg.modality!r} {_NOT_PORTED}")
     for spec in cfg.layer_pattern:
-        if spec.mlp == "moe":
-            raise NotImplementedError(f"the MoE MLP {_NOT_PORTED}")
         if spec.kind not in ("rwkv", "hymba", "attn"):
             raise ValueError(f"unknown layer kind {spec.kind!r}")
 
@@ -125,6 +130,12 @@ def _init_layer(generator, cfg: ArchConfig, spec: LayerSpec, dtype,
             stack=stack, device=device)
     if spec.mlp != "none":
         p["norm2"] = norm()
+    if spec.mlp == "moe":
+        p["moe"] = moe_lib.init_moe_params(
+            generator, cfg.d_model, cfg.padded_experts,
+            cfg.moe_d_ff or cfg.d_ff, cfg.moe_shared_d_ff, cfg.gated_mlp,
+            dtype, stack=stack, device=device)
+    elif spec.mlp != "none":
         p["mlp"] = _init_mlp(generator, cfg.d_model, cfg.d_ff,
                              cfg.gated_mlp, dtype, stack, device)
     return p
@@ -201,6 +212,18 @@ def _mlp_apply(p: dict, x: torch.Tensor, act: str, gated: bool,
     return h @ p["wo"].to(cdt)
 
 
+def _ffn_apply(cfg: ArchConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
+               cdt):
+    """The layer's MLP on ``x``: (y, aux loss); the dense MLP's aux is
+    None."""
+    h = norm_apply(x, p["norm2"], cfg.norm)
+    if spec.mlp == "moe":
+        return moe_lib.moe_ffn(p["moe"], h.to(cdt), topk=cfg.moe_topk,
+                               act=cfg.act, gated=cfg.gated_mlp,
+                               real_experts=cfg.moe_experts)
+    return _mlp_apply(p["mlp"], h, cfg.act, cfg.gated_mlp, cdt), None
+
+
 def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
                  positions: torch.Tensor, recur_state, cdt):
     """Returns (x, new_recur_state, aux_loss)."""
@@ -235,8 +258,9 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
     x = x + y.to(x.dtype)
 
     if spec.mlp != "none":
-        h = norm_apply(x, p["norm2"], cfg.norm)
-        y = _mlp_apply(p["mlp"], h, cfg.act, cfg.gated_mlp, cdt)
+        y, moe_aux = _ffn_apply(cfg, spec, p, x, cdt)
+        if moe_aux is not None:
+            aux = aux + moe_aux
         x = x + y.to(x.dtype)
     return x, new_state, aux
 
@@ -269,10 +293,15 @@ def _init_recur_state(cfg: ArchConfig, spec: LayerSpec, batch: int,
 # ===========================================================================
 def embed_tokens(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                  cdt) -> torch.Tensor:
-    """(B, T) int token ids -> (B, T, d) embeddings in ``cdt``."""
+    """(B, T) int token ids -> (B, T, d) embeddings in ``cdt``; gemma2
+    archs (by name, as the reference keys it) scale them by sqrt(d_model),
+    held in the compute dtype."""
     if cfg.modality != "text":
         raise NotImplementedError(f"modality {cfg.modality!r} {_NOT_PORTED}")
-    return params["embed"][tokens.long()].to(cdt)
+    e = params["embed"][tokens.long()].to(cdt)
+    if cfg.name.startswith("gemma2"):
+        e = e * torch.tensor(cfg.d_model ** 0.5, dtype=cdt, device=e.device)
+    return e
 
 
 def _logits(tree: dict, cfg: ArchConfig, x: torch.Tensor,
@@ -429,8 +458,7 @@ def _decode_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
     x = x + y.to(x.dtype)
 
     if spec.mlp != "none":
-        h = norm_apply(x, p["norm2"], cfg.norm)
-        y = _mlp_apply(p["mlp"], h, cfg.act, cfg.gated_mlp, cdt)
+        y, _ = _ffn_apply(cfg, spec, p, x, cdt)
         x = x + y.to(x.dtype)
     return x, new_cache
 

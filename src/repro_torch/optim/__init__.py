@@ -3,8 +3,9 @@
 
 from repro_torch.optim.optimizers import (Optimizer, adafactor, adam, adamw,
                                           apply_updates, clip_by_global_norm,
-                                          sgd)
+                                          global_norm_scale, sgd)
 from repro_torch.optim.schedules import constant, cosine_decay, warmup_cosine
 
 __all__ = ["Optimizer", "sgd", "adam", "adamw", "adafactor", "apply_updates",
-           "clip_by_global_norm", "constant", "cosine_decay", "warmup_cosine"]
+           "clip_by_global_norm", "global_norm_scale", "constant",
+           "cosine_decay", "warmup_cosine"]

@@ -18,7 +18,7 @@ from typing import Callable, Dict, NamedTuple, Union
 import torch
 
 __all__ = ["Optimizer", "sgd", "adam", "adamw", "adafactor", "apply_updates",
-           "clip_by_global_norm"]
+           "clip_by_global_norm", "global_norm_scale"]
 
 Tree = Dict[str, torch.Tensor]
 Schedule = Union[float, Callable[[torch.Tensor], torch.Tensor]]
@@ -109,12 +109,18 @@ def apply_updates(params: Tree, updates: Tree) -> Tree:
     return {k: p + updates[k].to(p.dtype) for k, p in params.items()}
 
 
+def global_norm_scale(grads: Tree, max_norm: float):
+    """(``min(1, max_norm / (norm + 1e-9))``, the fp32 global norm): the
+    factor :func:`clip_by_global_norm` scales every gradient by."""
+    sq = [torch.sum(torch.square(g.float())) for g in grads.values()]
+    gnorm = torch.sqrt(torch.stack(sq).sum())
+    return torch.clamp(max_norm / (gnorm + 1e-9), max=1.0), gnorm
+
+
 def clip_by_global_norm(grads: Tree, max_norm: float):
     """Scale every gradient by ``min(1, max_norm / (norm + 1e-9))``;
     returns (clipped grads, the fp32 global norm before clipping)."""
-    sq = [torch.sum(torch.square(g.float())) for g in grads.values()]
-    gnorm = torch.sqrt(torch.stack(sq).sum())
-    scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
+    scale, gnorm = global_norm_scale(grads, max_norm)
     return {k: g * scale for k, g in grads.items()}, gnorm
 
 

@@ -6,7 +6,9 @@ CPU, the reduced rwkv6 and hymba serving paths on the card (wkv6 and
 ssm_scan kernels) against the same paths on the CPU (plain versions), the
 wkv6 and ssm_scan backward kernels against their plain backwards, and
 the sharded client-state store's gather and scatter on the card against
-the CPU's.  They skip without a card.  This file
+the CPU's, the MoE's routing on the card against the CPU's, reduced
+gemma2's decode against its forward on the card, and the new archs'
+parameter trees initialised on the card.  They skip without a card.  This file
 imports no JAX, so on a machine without it run it alone:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -1017,3 +1019,111 @@ def test_pod_round_on_card_matches_cpu(cuda):
         upload.add(cpu_masked, float(w[c]))
     for k, v in upload.apply(params).items():
         assert torch.equal(new[k].cpu(), v), k
+
+
+def _moe_cfg(real: int):
+    """Reduced qwen2-moe-a2.7b: 2 layers, top 4 over ``real`` experts
+    padded to a multiple of 16, fp32."""
+    import dataclasses
+    return dataclasses.replace(
+        get_arch("qwen2-moe-a2.7b").reduced(), num_layers=2,
+        moe_experts=real, moe_pad_experts=True, moe_topk=4,
+        compute_dtype="float32", param_dtype_serve="float32")
+
+
+def _routed_run(cfg, params, toks, device, steps_: int, monkeypatch):
+    """forward over ``toks`` in groups of 32 and ``steps_`` decode steps
+    on ``device``: (logits, decode logits, every call's (ids, positions,
+    keep))."""
+    from repro_torch.models import moe
+    log = []
+    original = moe.route
+
+    def record(*args, **kw):
+        r = original(*args, **{**kw, "group_size": 32})
+        log.append(r)
+        return r
+    monkeypatch.setattr(moe, "route", record)
+    on = {k: v.to(device) for k, v in params.items()}
+    with torch.no_grad():
+        logits = tr.forward(on, cfg, toks.to(device))[0]
+        state = tr.init_decode_state(cfg, toks.shape[0], steps_ + 1,
+                                     "float32", device=device)
+        dec = []
+        for t in range(steps_):
+            lg, state = tr.decode_step(on, cfg, state,
+                                       toks[:, t:t + 1].to(device))
+            dec.append(lg)
+    monkeypatch.undo()
+    return (logits.cpu(), torch.cat(dec, 1).cpu(),
+            [(r.expert_ids.cpu(), r.positions.cpu(), r.keep.cpu())
+             for r in log])
+
+
+@pytest.mark.parametrize("real", [13, 60])
+def test_moe_routing_on_card_matches_cpu(cuda, real, monkeypatch):
+    """The MoE through forward (2 x 64 tokens in groups of 32: capacity
+    binds) and 8 decode steps on the card and the CPU from the same
+    weights: ids, capacity positions and keep masks equal call by call,
+    no padded expert picked, logits within 1e-3 of their largest
+    magnitude, no kernel of the port launched."""
+    cfg = _moe_cfg(real)
+    params = tr.init_params(torch.Generator().manual_seed(0), cfg,
+                            "float32", device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(1))
+    for module in (seg, tk, wk, ssk):
+        module.reset_launch_counts()
+    card = _routed_run(cfg, params, toks, cuda, 8, monkeypatch)
+    assert all(sum(m.launch_counts().values()) == 0
+               for m in (seg, tk, wk, ssk))
+    cpu = _routed_run(cfg, params, toks, "cpu", 8, monkeypatch)
+    assert len(card[2]) == len(cpu[2]) == cfg.num_layers * 9
+    for a, b in zip(card[2], cpu[2]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        assert int(a[0].max()) < real
+    assert sum(int((~keep).sum()) for _, _, keep in card[2][:2]) > 0
+    for got, want in zip(card[:2], cpu[:2]):
+        assert float((got - want).abs().max()) <= \
+            1e-3 * float(want.abs().max())
+
+
+def test_gemma2_decode_agrees_with_forward_on_card(cuda):
+    """Reduced gemma2-2b in fp32 on the card: the forward over 40 tokens
+    (past the 32-token window) and 40 decode steps agree within the
+    reference's serve == prefill tolerance (atol 2e-3, rtol 1e-3)."""
+    import dataclasses
+    cfg = dataclasses.replace(get_arch("gemma2-2b").reduced(),
+                              compute_dtype="float32")
+    params = tr.init_params(torch.Generator(device=cuda).manual_seed(0),
+                            cfg, "float32", device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    with torch.no_grad():
+        fwd = tr.forward(params, cfg, toks)[0][..., :cfg.vocab_size]
+        state = tr.init_decode_state(cfg, 2, 41, "float32", device=cuda)
+        dec = []
+        for t in range(40):
+            lg, state = tr.decode_step(params, cfg, state, toks[:, t:t + 1])
+            dec.append(lg)
+    torch.testing.assert_close(torch.cat(dec, 1), fwd.float(), atol=2e-3,
+                               rtol=1e-3)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen2.5-14b",
+                                  "qwen2-moe-a2.7b"])
+def test_new_arch_init_on_card_matches_the_specs(cuda, arch):
+    """``init_params`` on the card (bf16) has the names, shapes and dtypes
+    of ``steps.params_specs`` (which the CPU tests hold to the reference's
+    tree): bf16 leaves, the MoE router in fp32."""
+    cfg = get_arch(arch).reduced()
+    got = tr.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                         "bfloat16", device=cuda)
+    want = steps.params_specs(cfg, "bfloat16")
+    assert list(got) == list(want)
+    for name, t in got.items():
+        assert t.is_cuda and t.shape == want[name].shape, name
+        assert t.dtype == want[name].dtype, name
+        assert t.dtype == (torch.float32 if name.endswith(".router")
+                           else torch.bfloat16), name
+        assert bool(t.isfinite().all()), name

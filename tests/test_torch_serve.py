@@ -15,7 +15,16 @@ Cases (``reduced()`` configs; the reference's seed 0 for the parameters,
   specs (full + sliding) at 4 layers, 2 groups, to keep the reference's
   compile time down; 4 heads over 4 KV heads (no GQA);
 - ``hymba-gqa``: the same with 2 KV heads, which exercises the grouped
-  heads as the full 25/5 config does.
+  heads as the full 25/5 config does;
+- ``gemma2``: gemma2-2b reduced (one sliding and one full layer, 4 heads
+  over 4 KV heads): the sqrt(d_model) embedding scale, both softcaps,
+  GeGLU, tied embeddings and the 32-token ring buffer;
+- ``moe``: qwen2-moe-a2.7b reduced to 2 layers of 4 experts, top 2, one
+  fused shared expert; fp32 only.  Its decode routes each step's 2 tokens
+  as one group of capacity 1, so it drops picks the forward keeps: the
+  serve == prefill check leaves it out, as the reference's
+  ``tests/test_models.py`` does, and its decode is held to the
+  reference's ``decode_step`` instead.
 
 Tolerances.  fp32 (params and compute): logits rtol 1e-4 with atol 1e-4
 (XLA and torch sum in other orders; logits are up to about 4); greedy
@@ -26,6 +35,8 @@ differently.
 """
 
 import dataclasses
+import runpy
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -42,12 +53,18 @@ from repro_torch.configs import ARCH_IDS, get_arch
 from repro_torch.launch import serve, steps
 from repro_torch.models import transformer as tr
 
+ROOT = Path(__file__).resolve().parents[1]
 T_SEQ = 40          # > the reduced sliding window of 32
 PROMPT, GEN = 24, 16
 FP32_TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_TOL = dict(rtol=0.0, atol=0.125)
 FULL_PARAMS = {"rwkv6-1.6b": 1_483_280_384, "hymba-1.5b": 1_403_905_600,
-               "qwen2-1.5b": 1_543_910_912}
+               "qwen2-1.5b": 1_543_910_912, "gemma2-2b": 2_614_222_080,
+               "qwen2.5-14b": 14_770_033_664,
+               "qwen2-moe-a2.7b": 15_146_928_128}
+CASE_ARCH = {"rwkv": "rwkv6-1.6b", "hymba": "hymba-1.5b",
+             "hymba-gqa": "hymba-1.5b", "gemma2": "gemma2-2b",
+             "moe": "qwen2-moe-a2.7b"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -62,11 +79,10 @@ def one_torch_thread():
 
 
 def _case_cfg(get, case: str, dtype: str):
-    arch = "rwkv6-1.6b" if case == "rwkv" else "hymba-1.5b"
-    cfg = get(arch).reduced()
-    if case == "rwkv":
+    cfg = get(CASE_ARCH[case]).reduced()
+    if case in ("rwkv", "moe"):
         cfg = dataclasses.replace(cfg, num_layers=2)
-    else:
+    elif case.startswith("hymba"):
         cfg = dataclasses.replace(cfg, layer_pattern=cfg.layer_pattern[:2],
                                   num_layers=4)
     if case == "hymba-gqa":
@@ -94,7 +110,7 @@ def test_config_fields_match_reference(arch, reduced):
 
 def test_unported_archs_raise_naming_the_roadmap():
     with pytest.raises(KeyError, match="item 16"):
-        get_arch("gemma2-2b")
+        get_arch("musicgen-medium")
     with pytest.raises(KeyError, match="unknown"):
         get_arch("gpt-5")
     cfg = dataclasses.replace(get_arch("hymba-1.5b").reduced(),
@@ -113,11 +129,13 @@ def test_full_param_specs_match_reference(arch):
     assert list(port) == [_path_name(path) for path, _ in flat]
     assert [tuple(t.shape) for t in port.values()] == \
         [tuple(leaf.shape) for _, leaf in flat]
-    assert all(t.dtype == torch.bfloat16 for t in port.values())
+    # bf16, but for the MoE router: fp32 in both
+    assert [str(t.dtype).split(".")[1] for t in port.values()] == \
+        [str(leaf.dtype) for _, leaf in flat]
     assert tr.param_count(port) == FULL_PARAMS[arch]
 
 
-@pytest.mark.parametrize("case", ["rwkv", "hymba"])
+@pytest.mark.parametrize("case", ["rwkv", "hymba", "gemma2", "moe"])
 def test_init_params_names_shapes_and_distributions(case):
     """Names, shapes and constants exact; random leaves at the reference's
     scale (their sample standard deviations within 15%, 30% for a leaf of
@@ -143,17 +161,22 @@ def test_init_params_names_shapes_and_distributions(case):
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_bridge_round_trip_with_tuple_layers(arch):
-    ref = ref_tr.init_params(jax.random.PRNGKey(1),
-                             ref_get_arch(arch).reduced(), "float32")
-    port = bridge.params_from_numpy(jax.tree.map(np.asarray, ref),
-                                    device="cpu")
-    assert isinstance(bridge.unflatten_tree(port)["layers"], tuple)
-    back = bridge.params_to_numpy(port)
-    assert jax.tree_util.tree_structure(back) == \
-        jax.tree_util.tree_structure(ref)
-    for a, b in zip(jax.tree_util.tree_leaves(back),
-                    jax.tree_util.tree_leaves(ref)):
-        assert np.array_equal(a, np.asarray(b))
+    """fp32 and bf16 trees; in a bf16 tree the MoE router stays fp32."""
+    for dtype in ("float32", "bfloat16"):
+        ref = ref_tr.init_params(jax.random.PRNGKey(1),
+                                 ref_get_arch(arch).reduced(), dtype)
+        port = bridge.params_from_numpy(jax.tree.map(np.asarray, ref),
+                                        device="cpu")
+        assert isinstance(bridge.unflatten_tree(port)["layers"], tuple)
+        for name, t in port.items():
+            want = "float32" if name.endswith(".router") else dtype
+            assert str(t.dtype) == f"torch.{want}", name
+        back = bridge.params_to_numpy(port)
+        assert jax.tree_util.tree_structure(back) == \
+            jax.tree_util.tree_structure(ref)
+        for a, b in zip(jax.tree_util.tree_leaves(back),
+                        jax.tree_util.tree_leaves(ref)):
+            assert a.dtype == b.dtype and np.array_equal(a, np.asarray(b))
 
 
 def test_bridge_keeps_bfloat16_bits():
@@ -170,7 +193,10 @@ def test_bridge_keeps_bfloat16_bits():
 
 # ------------------------------------------------- the serving path, per case
 CASES = [(case, dtype) for dtype in ("float32", "bfloat16")
-         for case in ("rwkv", "hymba", "hymba-gqa")]
+         for case in ("rwkv", "hymba", "hymba-gqa", "gemma2")] + \
+    [("moe", "float32")]
+# serve == prefill holds where decode routes as the forward does: not MoE
+CONSISTENT = [c for c in CASES if c[0] != "moe"]
 
 
 @pytest.fixture(scope="module", params=CASES, ids=lambda c: f"{c[0]}-{c[1]}")
@@ -188,9 +214,10 @@ def served(request):
                     np.int32)
     out = {"case": case, "dtype": dtype, "cfg": cfg, "params": params,
            "tokens": toks}
-    out["ref_logits"] = np.asarray(jax.jit(
-        lambda p, t: ref_tr.forward(p, ref_cfg, t)[0])(ref_params, toks),
-        np.float32)
+    ref_logits, ref_aux = jax.jit(
+        lambda p, t: ref_tr.forward(p, ref_cfg, t))(ref_params, toks)
+    out["ref_logits"] = np.asarray(ref_logits, np.float32)
+    out["ref_aux"] = float(ref_aux)
     out["ref_prefill"] = np.asarray(jax.jit(ref_steps.make_prefill_step(
         ref_cfg))(ref_params, {"tokens": toks}))
     step = jax.jit(lambda p, s, t: ref_tr.decode_step(p, ref_cfg, s, t))
@@ -218,7 +245,12 @@ def test_forward_logits_match_reference(served):
                                  torch.from_numpy(served["tokens"]))
     assert logits.shape == (2, T_SEQ, tr.padded_vocab(cfg))
     assert logits.dtype == tr._dt(served["dtype"])
-    assert float(aux) == 0.0
+    assert aux.dtype == torch.float32
+    if served["case"] == "moe":
+        assert float(aux) > 0.0
+        np.testing.assert_allclose(float(aux), served["ref_aux"], rtol=1e-5)
+    else:
+        assert float(aux) == served["ref_aux"] == 0.0
     np.testing.assert_allclose(logits.float().numpy(), served["ref_logits"],
                                **_tol(served))
 
@@ -271,9 +303,12 @@ def test_generate_greedy_matches_reference(served):
                                                PROMPT + GEN + 1))
 
 
+@pytest.mark.parametrize("served", CONSISTENT, indirect=True,
+                         ids=lambda c: f"{c[0]}-{c[1]}")
 def test_decode_agrees_with_forward(served):
     """The port's own serve == prefill check, the reference's
-    tests/test_models.py tolerance at fp32 (atol 2e-3, rtol 1e-3)."""
+    tests/test_models.py tolerance at fp32 (atol 2e-3, rtol 1e-3).  Not
+    for MoE (the module docstring says why)."""
     cfg = served["cfg"]
     model = tr.Decoder(cfg, served["params"])
     toks = torch.from_numpy(served["tokens"])
@@ -305,3 +340,16 @@ def test_serve_cli_runs_on_the_cpu(capsys):
                 "--prompt-len", "4", "--gen", "3", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "generated (2, 3) on cpu" in out
+
+
+def test_serve_demo_torch_runs_on_the_cpu(capsys):
+    """``examples/serve_demo_torch.py`` (reduced gemma2-2b by default) with
+    ``--device cpu``; without it the demo runs on the card."""
+    demo = runpy.run_path(str(ROOT / "examples" / "serve_demo_torch.py"))
+    demo["main"](["--batch", "2", "--prompt-len", "4", "--gen", "3",
+                  "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "arch=gemma2-2b-smoke: generated (2, 3) tokens on cpu" in out
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            demo["main"](["--gen", "1"])

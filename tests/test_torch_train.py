@@ -18,6 +18,8 @@ Tolerances.
   forward).
 - Optimizers and schedules on a small tree, three updates: rtol 1e-6 /
   atol 1e-7 (Adafactor's factored means sum in other orders).
+- ``make_train_step`` applies its update leaf by leaf, in place: the bits
+  of the whole-tree update, under AdamW, SGD and Adafactor.
 - ``make_train_step``, three AdamW steps under fp32 compute: loss and
   grad norm rtol 1e-4; all but 0.01% of the parameters within atol 2e-5,
   and the rest within the two runs' Adam steps (2 lr a step).  Adam's
@@ -25,11 +27,13 @@ Tolerances.
   up to lr: the key bias's true gradient is 0 (it shifts a query's logits
   by a constant), and a few other entries have gradients near 0.
 - The loader: byte-identical arrays.
-- The recurrent zoo (reduced ``rwkv6-1.6b``, and ``hymba-1.5b`` cut to two
-  layers, one full and one sliding), fp32: every leaf's gradient through
-  ``Wkv6Function`` / ``SsmScanFunction`` (their plain backwards on the
-  CPU) against ``jax.grad`` of the reference's ``lm_loss``, rtol 1e-4 /
-  atol 1e-5 as the qwen2 case.
+- The zoo (reduced ``rwkv6-1.6b``, ``hymba-1.5b`` cut to two layers, one
+  full and one sliding, ``gemma2-2b`` and ``qwen2-moe-a2.7b``), fp32: every
+  leaf's gradient (through ``Wkv6Function`` / ``SsmScanFunction``, their
+  plain backwards on the CPU; through gemma2's softcaps and embedding
+  scale; through the MoE's gates, experts and aux loss) against
+  ``jax.grad`` of the reference's ``lm_loss``, rtol 1e-4 / atol 1e-5 as
+  the qwen2 case.
 - The reference's federated command on reduced rwkv6 (``--gamma 0.2
   --beta 0.1``, 2 rounds, 4 clients): ``sampled`` each round equal to the
   reference's ``DynamicSampling``, finite losses.
@@ -191,7 +195,8 @@ def _zoo_cfgs(arch: str):
     return out
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b", "gemma2-2b",
+                                  "qwen2-moe-a2.7b"])
 def test_zoo_lm_loss_gradients_match_jax_grad(arch):
     cfg, rcfg = _zoo_cfgs(arch)
     params = tr.init_params(torch.Generator().manual_seed(1), cfg,
@@ -205,6 +210,9 @@ def test_zoo_lm_loss_gradients_match_jax_grad(arch):
     loss, grads = _port_grads(params, cfg, batch)
     np.testing.assert_allclose(loss, float(ref_loss), rtol=1e-5)
     assert list(grads) == list(ref_grads)
+    if cfg.moe_experts:     # the aux term reaches the router
+        assert cfg.router_aux_coef > 0
+        assert float(grads["layers.0.moe.router"].abs().max()) > 0
     for name, g in grads.items():
         np.testing.assert_allclose(g.numpy(), ref_grads[name], rtol=1e-4,
                                    atol=1e-5, err_msg=name)
@@ -328,6 +336,38 @@ def test_train_step_matches_reference_for_three_adamw_steps():
     diff = np.abs(got - want)
     assert diff.max() <= 3 * 2 * 1e-3          # 3 steps of at most lr each
     assert (diff > 2e-5).sum() <= 1e-4 * diff.size, (diff > 2e-5).sum()
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "sgd", "adafactor"])
+def test_train_step_updates_leaf_by_leaf_with_the_whole_tree_bits(optimizer):
+    """The step clips, updates and applies one leaf at a time, in the dicts
+    it was given: three steps give the bits of the whole-tree
+    ``clip_by_global_norm`` / ``update`` / ``apply_updates`` path."""
+    cfg, _ = _cfgs("float32")
+    step = steps.make_train_step(cfg, learning_rate=1e-2,
+                                 optimizer=optimizer)
+    opt = step.optimizer
+    params = tr.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    want = {k: v.clone() for k, v in params.items()}
+    state, want_state = opt.init(params), opt.init(want)
+    for i in range(3):
+        batch = _tb(_batch(cfg, seed=20 + i))
+        new, new_state, m = step(params, state, batch)
+        assert new is params and new_state is state     # consumed
+        leaves = {k: p.detach().requires_grad_() for k, p in want.items()}
+        loss = tr.lm_loss(leaves, cfg, batch)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        with torch.no_grad():
+            grads, gnorm = optim.clip_by_global_norm(
+                dict(zip(want, grads)), 1.0)
+            updates, want_state = opt.update(grads, want_state, want)
+            want = optim.apply_updates(want, updates)
+        assert float(m["loss"]) == float(loss.detach())
+        assert float(m["grad_norm"]) == float(gnorm)
+    assert int(state["count"]) == int(want_state["count"]) == 3
+    for k in want:
+        assert torch.equal(params[k], want[k]), k
 
 
 def test_train_step_casts_matrices_to_the_compute_dtype():
