@@ -147,33 +147,43 @@ with a nonzero exit:
    the fig5 path in a fresh process with an empty build directory, whose
    round 1 ``compile_s`` takes the kernel library's nvcc build;
 6. the model zoo's serving slice, rwkv6-1.6b and hymba-1.5b, and
-   gemma2-2b, qwen2.5-14b and qwen2-moe-a2.7b (no kernel of the port:
-   their prefill and generate must launch none):
+   gemma2-2b, qwen2.5-14b, qwen2-moe-a2.7b, musicgen-medium,
+   internvl2-26b, qwen2-72b and llama4-maverick-400b-a17b (no kernel of
+   the port: their prefill and generate must launch none):
    - ``zoo_kernel_parity``: the wkv6 and ssm_scan CUDA kernels against
      their plain versions at the full-width serving shapes ((8, 2048, 32,
      64) and (8, 2048, 1600, 16)), at head dim 32, at T = 100 and T = 1,
      and (wkv6) at the model's strongest decay, which must stay finite and
      match the step recurrence;
-   - ``serve_path`` per arch at full width and depth, bf16 params and
-     compute, initialised on the card: the exact parameter count,
-     ``make_prefill_step`` on 8 x 2048 tokens (finite padded-vocab logits;
-     with the counts set to 0 just before and read just after, wkv6 24 or
-     ssm_scan 32 launches and nothing else), then ``generate`` on 8
-     prompts of 64 tokens plus 32 greedy tokens, twice (identical tokens in
-     range, no kernel launch); prefill wall time (median of 3) and decode
-     time per step;
+   - ``serve_path`` per arch at full width, bf16 params and compute,
+     initialised on the card, at full depth but qwen2-72b (SERVE_DEPTH's
+     33 of 80 layers) and llama4 (pattern positions 1 and 4: a chunked
+     MoE layer and a full dense one): the exact parameter count (at full
+     depth from ``meta`` tensors), ``make_prefill_step`` on 8 x 2048
+     tokens (musicgen-medium: 4 codebooks of them; internvl2-26b: after
+     256 prefix embeddings; llama4: 1 x 16,384, across the 8192-token
+     chunk boundary) with finite logits (padded vocab; audio (B, 4,
+     2048)); with the counts set to 0 just before and read just after,
+     wkv6 24 or ssm_scan 32 launches and nothing else; llama4's MoE
+     routing in that prefill against the CPU's on the same router inputs
+     (``card_routing``); then ``generate`` on 8 prompts of 64 tokens plus
+     32 greedy tokens, twice (identical tokens in range, no kernel
+     launch); prefill wall time (median of 3) and decode time per step;
    - ``serve_consistency`` per arch at full width in fp32: ``forward`` over
      160 tokens against 160 ``decode_step``s at every position, atol 2e-3 /
-     rtol 1e-3 (the reference's own check); not for the MoE, whose decode
+     rtol 1e-3 (the reference's own check); not for the MoEs, whose decode
      routes each step's tokens as one group of capacity 1 (qwen2.5-14b's
-     fp32 weights take 59.1 GB);
+     fp32 weights take 59.1 GB); internvl2-26b at 32 layers with a
+     zero-length prefix, qwen2-72b at 16 (CONSISTENCY_DEPTH);
    - ``moe_card_agreement``: reduced qwen2-moe-a2.7b (2 layers, top 4 of
      60 experts padded to 64, then of 37 padded to 48; fp32): ``forward``
      over 2 x 128 tokens in groups of 64 (capacity binds) and 16
      ``decode_step``s on the card and the CPU from the same weights:
      expert ids, capacity positions, keep masks and dropped counts equal
      call by call, no padded expert picked, logits within 1e-3 of their
-     largest magnitude; then ``moe_full_width_layer``: one full-width MoE
+     largest magnitude; the same for reduced llama4 (its 4-layer
+     pattern, top 1 of 4 experts and a shared expert on alternate layers,
+     groups of 16); then ``moe_full_width_layer``: one full-width MoE
      layer (d 2048, 60 experts padded to 64, the 5632-wide shared FFN;
      fp32) over 1 x 4096 tokens in groups of 512 (capacity 42) on the
      card and the CPU: ids, positions and keep mask equal, y and the aux
@@ -244,6 +254,15 @@ with a nonzero exit:
      section 7, 3 rounds): kernels 1-3 at 4 / 8 / 4 a round, round 1's
      first client's masks bit for bit against the plain versions, no
      trace;
+7d. musicgen-medium and internvl2-26b at full width:
+   - ``train_lm`` on musicgen-medium whole, on (1, 4, 4096) codebook
+     grids;
+   - ``fed_pod_path`` on musicgen-medium whole (the pod setup of section
+     7 on (C, E, 1, 4, T) batches, 10,210 segments, 3 rounds): kernels
+     1-3 at 4 / 8 / 4 a round, round 1's first client's masks bit for bit
+     against the plain versions, no trace;
+   - ``train_lm`` on internvl2-26b at TRAIN_DEPTH's layers, with 256
+     prefix embeddings before 4096 tokens;
 8. (``--profile`` only) ``torch.profiler`` over two more rounds of the
    fused LeNet path, of ``vgg-fig5``, of ``noniid-dyn`` and of the store
    path, and over one prefill and 11
@@ -376,19 +395,42 @@ WIRE_EDGE_ROWS = (1, 3, 5, 4095, 33 * 1024 + 5)   # 33797: 32-row blocks
 LARGE_COUNT_CANDIDATES = (32, 4096)   # timed at 2^26 beside the path's 16
 SMALL_RTOL = 1e-3                # card vs CPU: reduction order differs
 # The model zoo's serving slice: arch -> (its kernel, launches per prefill,
-# parameters at full width).  gemma2-2b, qwen2.5-14b and qwen2-moe-a2.7b
-# run no kernel of the port: attention, the MLPs and the MoE are torch ops.
+# parameters at full width and depth).  Every arch but rwkv6 and hymba runs
+# no kernel of the port: attention, the MLPs and the MoE are torch ops.
 ZOO_ARCHS = {"rwkv6-1.6b": ("wkv6", 24, 1_483_280_384),
              "hymba-1.5b": ("ssm_scan", 32, 1_403_905_600),
              "gemma2-2b": (None, 0, 2_614_222_080),
              "qwen2.5-14b": (None, 0, 14_770_033_664),
-             "qwen2-moe-a2.7b": (None, 0, 15_146_928_128)}
-# serve == prefill at full depth in fp32: not the MoE, whose decode routes
-# each step's B tokens as one group of capacity max(1, int(B * 4 / 60 *
-# 1.25)) = 1 and so drops picks the forward keeps (the reference's
-# tests/test_models.py leaves it out too; moe_card_agreement holds its
-# decode to the CPU's instead)
-CONSISTENCY_ARCHS = ("rwkv6-1.6b", "hymba-1.5b", "gemma2-2b", "qwen2.5-14b")
+             "qwen2-moe-a2.7b": (None, 0, 15_146_928_128),
+             "musicgen-medium": (None, 0, 1_384_418_304),
+             "internvl2-26b": (None, 0, 19_862_722_560),
+             "qwen2-72b": (None, 0, 72_706_203_648),
+             "llama4-maverick-400b-a17b": (None, 0, 400_713_815_040)}
+# Served at full width but cut where the bf16 weights do not fit the card
+# beside the prefill: qwen2-72b at SERVE_DEPTH's whole layers (1.76 GB a
+# layer, 4.98 GB of embedding and head), the most that fit after the
+# script's earlier phases (34 ran out of memory there); llama4 at
+# SERVE_PATTERN's pattern positions 1 and 4 (a chunked-attention MoE layer
+# of 128 experts and a full-attention dense layer, 18,681,062,400
+# parameters; one period of 4 layers is 70.6 GB).  llama4's prefill is
+# SERVE_SHAPE's 1 x 16,384 tokens, so it crosses the 8192-token chunk
+# boundary, and serve_path holds its MoE layer's routing on the card to
+# the CPU's (SERVE_ROUTING).
+SERVE_DEPTH = {"qwen2-72b": 33}
+SERVE_PATTERN = {"llama4-maverick-400b-a17b": (0, 3)}
+SERVE_SHAPE = {"llama4-maverick-400b-a17b": (1, 16_384)}
+SERVE_ROUTING = ("llama4-maverick-400b-a17b",)
+# serve == prefill in fp32: not the MoEs, whose decode routes each step's B
+# tokens as one group of capacity max(1, int(B * topk / E * 1.25)) = 1 and
+# so drops picks the forward keeps (the reference's tests/test_models.py
+# leaves them out too; moe_card_agreement holds their decode to the CPU's
+# instead).  Full depth but where CONSISTENCY_DEPTH cuts it: fp32 weights
+# of qwen2-72b take 3.51 GB a layer, of internvl2-26b 1.56 GB (79.5 GB
+# whole).  internvl2-26b runs with a zero-length prefix, which the
+# reference's forward accepts.
+CONSISTENCY_ARCHS = ("rwkv6-1.6b", "hymba-1.5b", "gemma2-2b", "qwen2.5-14b",
+                     "musicgen-medium", "internvl2-26b", "qwen2-72b")
+CONSISTENCY_DEPTH = {"internvl2-26b": 32, "qwen2-72b": 16}
 SERVE_B, SERVE_T = 8, 2048       # prefill: 8 prompts of 2048 tokens
 GEN_PROMPT, GEN_TOKENS = 64, 32  # generate: 64-token prompts, 32 greedy
 PREFILL_REPS = 3
@@ -415,7 +457,8 @@ POD_ARCHS = {"qwen2-1.5b": (POD_PARAMS, POD_SEGMENTS, {}),
              "rwkv6-1.6b": (1_483_280_384, 68_090,
                             {"wkv6": POD_C * POD_E * 48,
                              "wkv6_backward": POD_C * POD_E * 24}),
-             "gemma2-2b": (1_835_608_320, 256_145, {})}
+             "gemma2-2b": (1_835_608_320, 256_145, {}),
+             "musicgen-medium": (1_384_418_304, 10_210, {})}
 # Depth of a pod round where the whole model does not fit the card (whole
 # periods of the pattern), the most that fit after the script's earlier
 # phases, as TRAIN_DEPTH's.  gemma2-2b: 256,000 embedding rows make
@@ -448,10 +491,15 @@ ZOO_AGREE_ATOL = 1e-4            # of each leaf's largest magnitude
 # default groups of 512.
 MOE_AGREE_EXPERTS = (60, 37)
 MOE_AGREE_B, MOE_AGREE_T, MOE_AGREE_GROUP, MOE_AGREE_STEPS = 2, 128, 64, 16
-# Training at full width: layers of each run (gemma2-2b whole), the most
-# whose AdamW step (fp32 masters, 1 x 4096 tokens) fits after the
-# script's earlier phases: one layer more runs out of memory there.
-TRAIN_DEPTH = {"gemma2-2b": 26, "qwen2.5-14b": 6, "qwen2-moe-a2.7b": 4}
+# and reduced llama4 (its whole 4-layer pattern: top 1 of 4 experts and a
+# shared expert on the first and third layers) in groups of 16, capacity 5
+MOE_AGREE_LLAMA4_GROUP = 16
+# Training at full width: layers of each run (gemma2-2b and musicgen-medium
+# whole), the most whose AdamW step (fp32 masters, 1 x 4096 tokens; 256
+# prefix embeddings more for internvl2-26b) fits after the script's
+# earlier phases: one layer more runs out of memory there.
+TRAIN_DEPTH = {"gemma2-2b": 26, "qwen2.5-14b": 6, "qwen2-moe-a2.7b": 4,
+               "musicgen-medium": 48, "internvl2-26b": 6}
 ZOO_LIBRARY_NOTE = ("no single PyTorch call computes the RWKV6 wkv "
                     "recurrence or a selective-SSM scan")
 ZOO_BWD_LIBRARY_NOTE = ("no single PyTorch call computes the gradient of "
@@ -481,9 +529,14 @@ def fail(msg: str) -> None:
     raise SystemExit(f"FAIL: {msg}")
 
 
+STARTED = time.perf_counter()
+
+
 def phase(name: str, **fields) -> None:
-    """Print one phase's result as a JSON line."""
-    print(json.dumps({"phase": name, **fields}), flush=True)
+    """Print one phase's result as a JSON line, with the seconds since the
+    script started (``at_s``)."""
+    print(json.dumps({"phase": name, **fields,
+                      "at_s": time.perf_counter() - STARTED}), flush=True)
 
 
 def gpu_line() -> str:
@@ -924,12 +977,13 @@ def wire_identity(main: dict) -> None:
 def profile_device(label: str, fn, count: int, unit: str) -> None:
     """Trace one call of ``fn``, which runs ``count`` units of work (rounds,
     prefills): device time by kernel per unit and the device's idle share
-    of the wall time."""
+    of the wall time.  The device's activity only: its kernel and memcpy
+    records are all the result reads, and the host's operator records
+    (hundreds of thousands in a pod round) cost minutes to aggregate."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3188,36 +3242,88 @@ def zoo_kernel_parity() -> dict:
     return errs
 
 
+def is_audio(cfg) -> bool:
+    """Whether the config takes (B, K, T) codebook grids."""
+    from repro_torch.models.transformer import is_audio as audio
+    return audio(cfg)
+
+
+def serve_config(arch: str):
+    """The config serve_path runs: ``arch`` at full width, cut to
+    SERVE_DEPTH's layers or SERVE_PATTERN's pattern positions where the
+    whole model does not fit the card beside its prefill."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch)
+    if arch in SERVE_PATTERN:
+        pattern = tuple(cfg.layer_pattern[i] for i in SERVE_PATTERN[arch])
+        cfg = dataclasses.replace(cfg, layer_pattern=pattern,
+                                  num_layers=len(pattern))
+    if arch in SERVE_DEPTH:
+        cfg = dataclasses.replace(cfg, num_layers=SERVE_DEPTH[arch])
+    return cfg
+
+
+def token_batch(cfg, B: int, T: int, gen) -> dict:
+    """{"tokens"} of (B, T) ids, or (B, K, T) codebook grids for audio,
+    drawn on the card from ``gen``; a vision config's batch also holds (B,
+    P, d) prefix embeddings at the embedding's scale (d^-0.5), in bf16 as
+    the reference's ``batch_specs`` gives them."""
+    import torch
+    shape = (B, cfg.num_codebooks, T) if is_audio(cfg) else (B, T)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, shape,
+                                     generator=gen, device="cuda")}
+    if cfg.modality == "vision_stub":
+        batch["prefix_embeds"] = (torch.randn(
+            (B, cfg.num_prefix_embeddings, cfg.d_model), generator=gen,
+            device="cuda") * cfg.d_model ** -0.5).to(torch.bfloat16)
+    return batch
+
+
 def serve_path(arch: str, trace: bool = False) -> dict:
-    """The serving path of one arch at full width and depth with bf16
-    params and compute: init on the card, ``make_prefill_step`` on
-    8 x 2048 tokens (counts set to 0 just before, read just after: its
-    kernel once per layer, nothing else), then ``generate`` on 8 prompts of
-    64 tokens plus 32 greedy tokens twice (no kernel launch, identical
-    tokens).  With ``trace``, one more prefill and a short generate (11
-    decode steps) under the profiler.  Returns the launch counts and the
-    times."""
+    """The serving path of one arch at full width with bf16 params and
+    compute, at full depth unless serve_config cuts it: init on the card,
+    ``make_prefill_step`` on 8 x 2048 tokens (SERVE_SHAPE's otherwise;
+    audio: 4 codebooks of them; vision: with 256 prefix embeddings) with
+    the counts set to 0 just before and read just after (its kernel once
+    per layer, nothing else), then ``generate`` on 8 prompts of 64 tokens
+    plus 32 greedy tokens twice (no kernel launch, identical tokens; a
+    vision config decodes its text alone: ``generate`` takes no prefix, as
+    the reference's reads none).  For SERVE_ROUTING's archs the first
+    prefill's MoE routing is held to the CPU's (:func:`card_routing`).
+    With ``trace``, one more prefill and a short generate (11 decode steps)
+    under the profiler.  Returns the launch counts and the times."""
+    import contextlib
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.launch import serve, steps
     from repro_torch.models import transformer as tr
     kernel, layers, n_params = ZOO_ARCHS[arch]
-    cfg = get_arch(arch)
+    full = get_arch(arch)
+    full_count = tr.param_count(steps.params_specs(full))
+    if full_count != n_params:
+        fail(f"{arch}: {full_count} parameters at full depth, not "
+             f"{n_params}")
+    cfg = serve_config(arch)
+    want_count = tr.param_count(steps.params_specs(cfg))
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     params = tr.init_params(gen, cfg, cfg.param_dtype_serve, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     count = tr.param_count(params)
-    if count != n_params:
-        fail(f"{arch}: {count} parameters, not {n_params}")
-    prompts = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_T),
-                            generator=gen, device="cuda")
+    if count != want_count:
+        fail(f"{arch}: {count} parameters, not {want_count}")
+    B, T = SERVE_SHAPE.get(arch, (SERVE_B, SERVE_T))
+    batch = token_batch(cfg, B, T, gen)
     prefill = steps.make_prefill_step(cfg)
     torch.cuda.reset_peak_memory_stats()
     reset_all_counts()
+    routes = []
     t0 = time.perf_counter()
-    logits = prefill(params, {"tokens": prompts})
+    with (routing_log(routes) if arch in SERVE_ROUTING
+          else contextlib.nullcontext()):
+        logits = prefill(params, batch)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = zoo_counts()
@@ -3225,15 +3331,20 @@ def serve_path(arch: str, trace: bool = False) -> dict:
     if kernel:
         want[kernel] = layers
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    routing = card_routing(cfg, params, routes) if routes else None
+    del routes
     walls = []
     for _ in range(PREFILL_REPS):
         t0 = time.perf_counter()
-        prefill(params, {"tokens": prompts})
+        prefill(params, batch)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     finite = bool(logits.isfinite().all())
 
-    gen_prompts = prompts[:, :GEN_PROMPT].contiguous()
+    if B == SERVE_B:
+        gen_prompts = batch["tokens"][..., :GEN_PROMPT].contiguous()
+    else:
+        gen_prompts = token_batch(cfg, SERVE_B, GEN_PROMPT, gen)["tokens"]
     max_seq = GEN_PROMPT + GEN_TOKENS + 1
     reset_all_counts()
     runs, gen_walls = [], []
@@ -3247,46 +3358,96 @@ def serve_path(arch: str, trace: bool = False) -> dict:
     toks = runs[0]
     steps_per_run = GEN_PROMPT + GEN_TOKENS - 1
     decode_step_ms = gen_walls[1] / steps_per_run * 1e3
+    prefix = cfg.num_prefix_embeddings if "prefix_embeds" in batch else 0
     phase("serve_path", arch=arch, dtype=cfg.param_dtype_serve,
-          params=count, init_s=init_s, batch=SERVE_B, prompt_tokens=SERVE_T,
+          params=count, full_params=n_params, layers=cfg.num_layers,
+          full_layers=full.num_layers,
+          pattern=[f"{s.attn}/{s.mlp}" for s in cfg.layer_pattern],
+          init_s=init_s, batch=B, prompt_tokens=T,
+          codebooks=cfg.num_codebooks if is_audio(cfg) else 1,
+          prefix_embeddings=prefix,
           logits_shape=list(logits.shape), logits_finite=finite,
           logits_abs_max=float(logits.abs().max()),
           prefill_launches=launches, first_prefill_s=first_s,
           prefill_s=walls, prefill_s_median=statistics.median(walls),
-          prefill_tokens_per_s=SERVE_B * SERVE_T / statistics.median(walls),
-          prefill_peak_gb=peak_gb,
+          prefill_tokens_per_s=B * (T + prefix) / statistics.median(walls),
+          prefill_peak_gb=peak_gb, routing=routing,
           generate_prompt=GEN_PROMPT, generate_tokens=GEN_TOKENS,
           generate_launches=gen_launches, generate_wall_s=gen_walls,
           decode_step_ms=decode_step_ms,
           decode_ms_per_token=decode_step_ms / SERVE_B,
           tokens_first_row=toks[0].tolist())
-    if list(logits.shape) != [SERVE_B, tr.padded_vocab(cfg)] or not finite:
+    want_logits = [B, cfg.num_codebooks, cfg.vocab_size] if is_audio(cfg) \
+        else [B, tr.padded_vocab(cfg)]
+    if list(logits.shape) != want_logits or not finite:
         fail(f"{arch}: prefill logits {list(logits.shape)}, finite {finite}")
     if launches != want:
         fail(f"{arch}: prefill launches {launches}, expected {want}")
     if any(gen_launches.values()):
         fail(f"{arch}: generate launched kernels {gen_launches}")
-    if toks.shape != (SERVE_B, GEN_TOKENS) or int(toks.min()) < 0 or \
+    want_toks = (SERVE_B, cfg.num_codebooks, GEN_TOKENS) if is_audio(cfg) \
+        else (SERVE_B, GEN_TOKENS)
+    if toks.shape != want_toks or int(toks.min()) < 0 or \
             int(toks.max()) >= cfg.vocab_size:
         fail(f"{arch}: generated tokens {tuple(toks.shape)} out of range")
     if not torch.equal(runs[0], runs[1]):
         fail(f"{arch}: two generate runs differ")
     if trace:
         profile_device(f"{arch} prefill", lambda: prefill(
-            params, {"tokens": prompts}), 1, "prefill")
+            params, batch), 1, "prefill")
         profile_device(f"{arch} decode", lambda: serve.generate(
-            cfg, params, gen_prompts[:, :8], 4, 13), 11, "decode_step")
-    del params, logits
+            cfg, params, gen_prompts[..., :8], 4, 13), 11, "decode_step")
+    del params, logits, batch
     torch.cuda.empty_cache()
     return {"launches": launches, "prefill_s": statistics.median(walls),
             "decode_step_ms": decode_step_ms}
 
 
+def card_routing(cfg, params: dict, routes: list) -> dict:
+    """Every MoE layer's routing in one forward on the card (``routes``,
+    group-major as the layers run) against ``moe.route`` on the CPU over
+    the same grouped router inputs and the same router: expert ids,
+    capacity positions and keep masks must be equal, and no padded expert
+    picked."""
+    import torch
+    from repro_torch.models import moe
+    moe_positions = [p for p, spec in enumerate(cfg.layer_pattern)
+                     if spec.mlp == "moe"]
+    if len(routes) != len(moe_positions) * cfg.num_groups:
+        fail(f"{cfg.name}: {len(routes)} MoE routings in one forward")
+    same, dropped, max_id = True, [], 0
+    t0 = time.perf_counter()
+    for i, r in enumerate(routes):
+        g, p = divmod(i, len(moe_positions))
+        router = params[f"layers.{moe_positions[p]}.moe.router"][g].cpu()
+        cpu = moe.route(router, r.xg.cpu(), topk=cfg.moe_topk,
+                        real_experts=cfg.moe_experts)
+        same &= cpu.capacity == r.capacity and all(
+            torch.equal(a.cpu(), b) for a, b in (
+                (r.expert_ids, cpu.expert_ids), (r.positions, cpu.positions),
+                (r.keep, cpu.keep)))
+        dropped.append([int((~r.keep).sum()), int((~cpu.keep).sum())])
+        max_id = max(max_id, int(r.expert_ids.max()))
+    rec = {"layers": len(routes), "groups": int(routes[0].xg.shape[0]),
+           "group": int(routes[0].xg.shape[1]),
+           "capacity": routes[0].capacity, "experts": cfg.moe_experts,
+           "topk": cfg.moe_topk, "routing_equal": bool(same),
+           "dropped_card_cpu": dropped, "max_expert_id": max_id,
+           "cpu_s": time.perf_counter() - t0}
+    if not same:
+        fail(f"{cfg.name}: the MoE routing on the card differs from the "
+             f"CPU's: {rec}")
+    if max_id >= cfg.moe_experts:
+        fail(f"{cfg.name}: picked padded expert {max_id}")
+    return rec
+
+
 def serve_consistency(arch: str) -> dict:
-    """The reference's serve == prefill check at full width and depth in
-    fp32 (params and compute): ``forward`` over 160 tokens (2.5 wkv6
-    chunks, so the tail runs) and 160 ``decode_step``s agree at every
-    position within atol 2e-3, rtol 1e-3.  Not for the MoE
+    """The reference's serve == prefill check at full width in fp32 (params
+    and compute), at CONSISTENCY_DEPTH's layers where given: ``forward``
+    over 160 tokens (2.5 wkv6 chunks, so the tail runs; audio: 4 codebooks
+    of them; vision: after a zero-length prefix) and 160 ``decode_step``s
+    agree at every position within atol 2e-3, rtol 1e-3.  Not for the MoEs
     (CONSISTENCY_ARCHS says why); qwen2.5-14b's fp32 weights take 59.1 GB,
     so the card must hold nothing else."""
     import dataclasses
@@ -3294,16 +3455,25 @@ def serve_consistency(arch: str) -> dict:
     from repro_torch.configs import get_arch
     from repro_torch.models import transformer as tr
     kernel, layers, _ = ZOO_ARCHS[arch]
-    cfg = dataclasses.replace(get_arch(arch), compute_dtype="float32")
+    full = get_arch(arch)
+    cfg = dataclasses.replace(
+        full, compute_dtype="float32",
+        num_layers=CONSISTENCY_DEPTH.get(arch, full.num_layers))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda").manual_seed(1)
     params = tr.init_params(gen, cfg, "float32", device="cuda")
-    toks = torch.randint(0, cfg.vocab_size, (2, CONSISTENCY_T),
-                         generator=gen, device="cuda")
+    shape = (2, cfg.num_codebooks, CONSISTENCY_T) if is_audio(cfg) \
+        else (2, CONSISTENCY_T)
+    toks = torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                         device="cuda")
+    prefix = torch.zeros((2, 0, cfg.d_model), device="cuda") \
+        if cfg.modality == "vision_stub" else None
     with torch.no_grad():
         reset_all_counts()
-        fwd = tr.forward(params, cfg, toks)[0][..., :cfg.vocab_size]
+        fwd = tr.forward(params, cfg, toks, prefix)[0]
+        if not is_audio(cfg):
+            fwd = fwd[..., :cfg.vocab_size]
         launches = zoo_counts()[kernel] if kernel else \
             sum(zoo_counts().values())
         state = tr.init_decode_state(cfg, 2, CONSISTENCY_T + 1, "float32",
@@ -3311,14 +3481,18 @@ def serve_consistency(arch: str) -> dict:
         dec = []
         view = tr.layer_view(params, cfg)
         for t in range(CONSISTENCY_T):
-            lg, state = tr.decode_step(view, cfg, state, toks[:, t:t + 1])
+            lg, state = tr.decode_step(view, cfg, state, toks[..., t:t + 1])
             dec.append(lg)
         dec = torch.cat(dec, 1)
     err = (fwd - dec).abs()
     ok = bool(torch.allclose(dec, fwd, **CONSISTENCY_TOL))
     worst = (err - CONSISTENCY_TOL["rtol"] * fwd.abs()).max()
     phase("serve_consistency", arch=arch, dtype="float32",
-          tokens=CONSISTENCY_T, batch=2, launches={kernel or "all": launches},
+          layers=cfg.num_layers, full_layers=full.num_layers,
+          tokens=CONSISTENCY_T, batch=2,
+          codebooks=cfg.num_codebooks if is_audio(cfg) else 1,
+          prefix_embeddings=0 if prefix is not None else None,
+          launches={kernel or "all": launches},
           params_gb=4 * tr.param_count(params) / 1e9,
           peak_gb=torch.cuda.max_memory_allocated() / 1e9,
           max_abs_err=float(err.max()), logits_abs_max=float(fwd.abs().max()),
@@ -3541,18 +3715,40 @@ def pod_strategy():
 
 
 def pod_batches(cfg, rounds: int, seed: int = 0) -> list:
-    """Per round {"tokens", "labels"} of (C, E, 1, T): markov_text tokens,
-    as ``launch.train.synth_batches`` cuts them."""
+    """Per round {"tokens", "labels"} of (C, E, 1, T), or (C, E, 1, K, T)
+    for audio: markov_text tokens, as ``launch.train.synth_batches`` cuts
+    them."""
     import torch
     from repro_torch.launch import train
-    steps = train.synth_batches(cfg, POD_C * POD_B, POD_T, POD_E * rounds,
-                                seed)
+    K = cfg.num_codebooks if is_audio(cfg) else 1
+    steps = train.synth_batches(cfg, POD_C * POD_B * K, POD_T,
+                                POD_E * rounds, seed)
+    shape = (POD_E, POD_C, POD_B) + ((K,) if K > 1 else ()) + (POD_T,)
     out = []
     for t in range(rounds):
         sl = steps[t * POD_E:(t + 1) * POD_E]
-        out.append({k: torch.stack([b[k] for b in sl])
-                    .reshape(POD_E, POD_C, POD_B, POD_T).transpose(0, 1)
-                    .contiguous() for k in ("tokens", "labels")})
+        out.append({k: torch.stack([b[k] for b in sl]).reshape(shape)
+                    .transpose(0, 1).contiguous()
+                    for k in ("tokens", "labels")})
+    return out
+
+
+def lm_batches(cfg, steps: int, seed: int = 0) -> list:
+    """``steps`` training batches of 1 x 4096 markov_text tokens (audio:
+    (1, K, 4096) grids; vision: also (1, 256, d) prefix embeddings at the
+    embedding's scale from a CPU generator seeded ``seed``), CPU tensors."""
+    import torch
+    from repro_torch.launch import train
+    K = cfg.num_codebooks if is_audio(cfg) else 1
+    out = train.synth_batches(cfg, POD_B * K, POD_T, steps, seed)
+    gen = torch.Generator().manual_seed(seed)
+    for b in out:
+        if K > 1:
+            b.update({k: v.reshape(POD_B, K, POD_T) for k, v in b.items()})
+        if cfg.modality == "vision_stub":
+            b["prefix_embeds"] = torch.randn(
+                (POD_B, cfg.num_prefix_embeddings, cfg.d_model),
+                generator=gen) * cfg.d_model ** -0.5
     return out
 
 
@@ -4232,26 +4428,40 @@ def routing_log(log: list, group_size: int = 0):
     return patched()
 
 
+def moe_agreement_cases() -> dict:
+    """label -> (reduced config, routing group) of moe_card_agreement."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    fp32 = dict(compute_dtype="float32", param_dtype_serve="float32")
+    cases = {f"qwen2-moe-a2.7b/{real}": (dataclasses.replace(
+        get_arch("qwen2-moe-a2.7b").reduced(), num_layers=2,
+        moe_experts=real, moe_pad_experts=True, moe_topk=4, **fp32),
+        MOE_AGREE_GROUP) for real in MOE_AGREE_EXPERTS}
+    cases["llama4-maverick-400b-a17b"] = (dataclasses.replace(
+        get_arch("llama4-maverick-400b-a17b").reduced(), **fp32),
+        MOE_AGREE_LLAMA4_GROUP)
+    return cases
+
+
 def moe_card_agreement() -> dict:
     """Reduced qwen2-moe-a2.7b (d 256, 2 layers, top 4 over 60 experts
-    padded to 64, then 37 padded to 48; fp32, TF32 off): ``forward`` over
-    2 x 128 tokens in groups of 64 (capacity 5 slots an expert, so picks
-    are dropped) and 16 ``decode_step``s (groups of the 2 tokens, capacity
-    1) on the card and on the CPU from the same weights.  Every call's
-    expert ids, capacity positions and keep mask, and so the dropped
+    padded to 64, then 37 padded to 48), then reduced llama4 (its 4-layer
+    pattern: top 1 of 4 experts and a shared expert on alternating layers,
+    chunked attention in windows of 32), fp32, TF32 off: ``forward`` over
+    2 x 128 tokens in groups of 64 (llama4: 16; capacity 5 slots an expert,
+    so picks are dropped) and 16 ``decode_step``s (groups of the 2 tokens,
+    capacity 1) on the card and on the CPU from the same weights.  Every
+    call's expert ids, capacity positions and keep mask, and so the dropped
     counts, must be equal; no padded expert may be picked; the logits must
     agree within SMALL_RTOL of their largest magnitude; no kernel of the
     port launches.  Then :func:`moe_full_width_layer`."""
-    import dataclasses
     import torch
-    from repro_torch.configs import get_arch
     from repro_torch.models import transformer as tr
     out = {}
-    for real in MOE_AGREE_EXPERTS:
-        cfg = dataclasses.replace(
-            get_arch("qwen2-moe-a2.7b").reduced(), num_layers=2,
-            moe_experts=real, moe_pad_experts=True, moe_topk=4,
-            compute_dtype="float32", param_dtype_serve="float32")
+    for label, (cfg, group) in moe_agreement_cases().items():
+        real = cfg.moe_experts
+        moe_layers = cfg.num_groups * sum(s.mlp == "moe"
+                                          for s in cfg.layer_pattern)
         params = tr.init_params(torch.Generator().manual_seed(0), cfg,
                                 "float32", device="cpu")
         toks = torch.randint(0, cfg.vocab_size, (MOE_AGREE_B, MOE_AGREE_T),
@@ -4261,7 +4471,7 @@ def moe_card_agreement() -> dict:
             log = []
             on = {k: v.to(dev) for k, v in params.items()}
             reset_all_counts()
-            with torch.no_grad(), routing_log(log, MOE_AGREE_GROUP):
+            with torch.no_grad(), routing_log(log, group):
                 logits = tr.forward(on, cfg, toks.to(dev))[0]
                 state = tr.init_decode_state(cfg, MOE_AGREE_B,
                                              MOE_AGREE_STEPS + 1, "float32",
@@ -4280,13 +4490,13 @@ def moe_card_agreement() -> dict:
                 "launches": sum(zoo_counts().values())}
         card, cpu = runs["cuda"], runs["cpu"]
         same = len(card["routes"]) == len(cpu["routes"]) == \
-            cfg.num_layers * (1 + MOE_AGREE_STEPS)
+            moe_layers * (1 + MOE_AGREE_STEPS)
         gate_err = 0.0
         for a, b in zip(card["routes"], cpu["routes"]):
             same &= all(torch.equal(x, y) for x, y in zip(a[:3], b[:3]))
             same &= a[4] == b[4]
             gate_err = max(gate_err, float((a[3] - b[3]).abs().max()))
-        n_fwd = cfg.num_layers
+        n_fwd = moe_layers
         dropped = {dev: [int((~r[2]).sum()) for r in run["routes"]]
                    for dev, run in runs.items()}
         max_id = max(int(r[0].max()) for r in card["routes"])
@@ -4294,9 +4504,12 @@ def moe_card_agreement() -> dict:
         for key in ("logits", "decode"):
             scale = float(cpu[key].abs().max())
             errs[key] = float((card[key] - cpu[key]).abs().max()) / scale
-        rec = {"real_experts": real, "padded_experts": cfg.padded_experts,
+        rec = {"case": label, "real_experts": real,
+               "padded_experts": cfg.padded_experts,
                "topk": cfg.moe_topk, "layers": cfg.num_layers,
-               "tokens": MOE_AGREE_B * MOE_AGREE_T, "group": MOE_AGREE_GROUP,
+               "moe_layers": moe_layers,
+               "shared_d_ff": cfg.moe_shared_d_ff,
+               "tokens": MOE_AGREE_B * MOE_AGREE_T, "group": group,
                "forward_capacity": card["routes"][0][4],
                "decode_capacity": card["routes"][-1][4],
                "decode_steps": MOE_AGREE_STEPS,
@@ -4309,8 +4522,8 @@ def moe_card_agreement() -> dict:
                "launches": card["launches"]}
         phase("moe_card_agreement", **rec)
         if not (same and rec["dropped_equal"]):
-            fail(f"MoE routing on the card differs from the CPU's ({real} "
-                 f"real experts)")
+            fail(f"MoE routing on the card differs from the CPU's "
+                 f"({label})")
         if max_id >= real:
             fail(f"the MoE picked padded expert {max_id} of "
                  f"{cfg.padded_experts} ({real} real)")
@@ -4319,7 +4532,7 @@ def moe_card_agreement() -> dict:
         if max(errs.values()) > SMALL_RTOL or card["launches"]:
             fail(f"MoE logits on the card disagree with the CPU: {errs}, "
                  f"launches {card['launches']}")
-        out[real] = rec
+        out[label] = rec
     out["full_width"] = moe_full_width_layer()
     return out
 
@@ -4394,16 +4607,18 @@ def moe_full_width_layer() -> dict:
 
 
 def train_lm(arch: str) -> dict:
-    """``make_train_step`` (AdamW) for three steps of 1 x 4096 tokens on
-    ``arch`` at full width, at TRAIN_DEPTH[arch] layers (fp32 master
-    weights, bf16 compute): per step the loss, grad norm and wall time, no
-    launch of a kernel of the port (counts set to 0 just before each step
-    and read just after), the peak memory; then the forward's aux loss at
-    the trained weights and one ``lm_loss`` fwd+bwd's time."""
+    """``make_train_step`` (AdamW) for three steps of 1 x 4096 tokens
+    (:func:`lm_batches`: audio 4 codebooks of them, vision 256 prefix
+    embeddings before them) on ``arch`` at full width, at TRAIN_DEPTH[arch]
+    layers (fp32 master weights, bf16 compute): per step the loss, grad
+    norm and wall time, no launch of a kernel of the port (counts set to 0
+    just before each step and read just after), the peak memory; then the
+    forward's aux loss at the trained weights and one ``lm_loss`` fwd+bwd's
+    time."""
     import dataclasses
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.launch import steps, train
+    from repro_torch.launch import steps
     from repro_torch.models import transformer as tr
     full = get_arch(arch)
     layers = TRAIN_DEPTH[arch]
@@ -4415,7 +4630,7 @@ def train_lm(arch: str) -> dict:
                             cfg, device="cuda")
     n_params = tr.param_count(params)
     opt_state = step.optimizer.init(params)
-    batches = train.synth_batches(cfg, POD_B, POD_T, 3, seed=0)
+    batches = lm_batches(cfg, 3, seed=0)
     log = []
     for b in batches:
         b = {k: v.cuda() for k, v in b.items()}
@@ -4437,13 +4652,17 @@ def train_lm(arch: str) -> dict:
     torch.cuda.empty_cache()
     batch = {k: v.cuda() for k, v in batches[0].items()}
     with torch.no_grad():
-        aux = float(tr.forward(params, cfg, batch["tokens"])[1])
+        aux = float(tr.forward(params, cfg, batch["tokens"],
+                               batch.get("prefix_embeds"))[1])
     local_ms = step_time(cfg, params, batch)
     per_period = sum(v.numel() for k, v in params.items()
                      if k.startswith("layers.")) / cfg.num_groups
     phase("train_lm", arch=arch, params=n_params, layers=layers,
           full_layers=full.num_layers, optimizer="adamw",
           compute_dtype=cfg.compute_dtype, tokens_per_step=POD_B * POD_T,
+          tokens_shape=list(batch["tokens"].shape),
+          prefix_embeddings=(list(batch["prefix_embeds"].shape)
+                             if "prefix_embeds" in batch else None),
           steps=log, peak_gb=peak, aux_loss=aux,
           lm_loss_fwd_bwd_ms=local_ms,
           next_period_state_gb=16 * per_period / 1e9,
@@ -4783,13 +5002,23 @@ def main(argv) -> int:
     phase("zoo_training_section", seconds=time.perf_counter() - section_t0)
     # ---- 7c. gemma2-2b, qwen2.5-14b, qwen2-moe-a2.7b: training, pod round -
     section_t0 = time.perf_counter()
-    for arch in TRAIN_DEPTH:
+    for arch in ("gemma2-2b", "qwen2.5-14b", "qwen2-moe-a2.7b"):
         train_lm(arch)
     gemma_pod = fed_pod_path("gemma2-2b", trace=False)
     gemma_pod_launches = gemma_pod["launches"]
     del gemma_pod
     torch.cuda.empty_cache()
     phase("new_archs_training_section",
+          seconds=time.perf_counter() - section_t0)
+    # ---- 7d. musicgen-medium and internvl2-26b: training, the pod round ---
+    section_t0 = time.perf_counter()
+    train_lm("musicgen-medium")
+    music_pod = fed_pod_path("musicgen-medium", trace=False)
+    music_pod_launches = music_pod["launches"]
+    del music_pod
+    torch.cuda.empty_cache()
+    train_lm("internvl2-26b")
+    phase("last_archs_training_section",
           seconds=time.perf_counter() - section_t0)
     if trace:
         profile_rounds(fused, "fig5-fused-int8")
@@ -4821,6 +5050,9 @@ def main(argv) -> int:
             "gemma2_pod_path_launches": gemma_pod_launches.get(name, 0),
             "gemma2_pod_launches_per_round":
                 gemma_pod_launches.get(name, 0) / POD_ROUNDS,
+            "musicgen_pod_path_launches": music_pod_launches.get(name, 0),
+            "musicgen_pod_launches_per_round":
+                music_pod_launches.get(name, 0) / POD_ROUNDS,
             "max_abs_err": errs[name], "ms": rec["ms"],
             "warm_ms": rec["warm_ms"], "device_ms": rec["device_ms"],
             "device_source": rec.get("device_source", "trace"),

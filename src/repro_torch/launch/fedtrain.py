@@ -175,8 +175,9 @@ def mask_deltas(deltas: Tree, cfg: FedPodConfig,
 def _make_local_update(arch: ArchConfig, cfg: FedPodConfig) -> Callable:
     """``local_update(params, batches) -> (delta, mean loss)``: E SGD
     steps on ``lm_loss`` over ``batches`` ({"tokens", "labels"}, each (E,
-    b, T)), each ``x - lr * g`` in x's dtype.  One definition for both
-    round forms.  ``params`` is not modified."""
+    b, T), or (E, b, K, T) for audio; a vision config's also
+    ``"prefix_embeds"`` (E, b, P, d)), each ``x - lr * g`` in x's dtype.
+    One definition for both round forms.  ``params`` is not modified."""
     if cfg.local_steps < 1:
         raise ValueError(f"local_steps must be at least 1, got "
                          f"{cfg.local_steps}")
@@ -306,9 +307,12 @@ def make_fed_round(arch: ArchConfig, cfg: FedPodConfig,
     """Returns ``round(params, batches, n_samples, participation, key=(0,
     0), mask_scores=None) -> (new params, metrics)``.
 
-    batches: {"tokens", "labels"}, each (C, local_steps, b, T) int;
-    n_samples, participation: (C,).  Every client runs; participation
-    (or, with ``normalize=False``, the given weights) weights its upload.
+    batches: {"tokens", "labels"}, each (C, local_steps, b, T) int, or
+    (C, local_steps, b, K, T) for audio, and for a vision config
+    ``"prefix_embeds"`` (C, local_steps, b, P, d), the reference's
+    ``lower_fed_round`` layout; n_samples, participation: (C,).  Every
+    client runs; participation (or, with ``normalize=False``, the given
+    weights) weights its upload.
     ``key = (seed, t)`` keys random masking's scores; ``mask_scores(ids)
     -> {leaf: (len(ids), *shape)}`` replaces them.  ``observe(client,
     delta, masked)``, when given, sees each client's (1, ...)-stacked

@@ -26,9 +26,9 @@ __all__ = ["sample_tokens", "generate", "main"]
 def sample_tokens(logits: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
                   temperature: float = 0.0) -> torch.Tensor:
-    """logits (B, 1, V) -> next tokens (B, 1) int32: the argmax, or a draw
-    from softmax(logits / temperature) with ``generator`` (on the logits'
-    device)."""
+    """logits (B, 1, V) -> next tokens (B, 1) int32 (audio: (B, 1, K, V)
+    -> (B, 1, K)): the argmax, or a draw from softmax(logits /
+    temperature) with ``generator`` (on the logits' device)."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     probs = torch.softmax(logits.float() / temperature, dim=-1)
@@ -39,14 +39,21 @@ def sample_tokens(logits: torch.Tensor,
 
 def generate(cfg, params, prompts: torch.Tensor, gen_len: int, max_seq: int,
              temperature: float = 0.0, seed: int = 0) -> torch.Tensor:
-    """prompts: (B, P) int.  Returns (B, gen_len) int32 tokens.
+    """prompts: (B, P) int, or (B, K, P) codebook grids for audio.  Returns
+    (B, gen_len) int32 tokens, or (B, K, gen_len).
 
     As the reference does, the prompt goes through decode steps one token
     at a time (simple and exact: no blocked prefill carries state), then
-    ``gen_len`` tokens are sampled, each fed back.  Temperature sampling
-    draws from a ``torch.Generator`` seeded ``seed`` on the prompts'
-    device."""
-    B, P = prompts.shape
+    ``gen_len`` tokens are sampled, each fed back; an audio draw (B, 1, K)
+    is fed back as (B, K, 1).  Temperature sampling draws from a
+    ``torch.Generator`` seeded ``seed`` on the prompts' device.
+
+    There is no ``prefix_embeds`` argument: the reference's ``generate``
+    takes one and never reads it, so a VLM served through it never sees
+    its image (ROADMAP Queue 3).  Here a vision config decodes its text
+    tokens alone, as the reference's does, and says so by its signature."""
+    audio = tr.is_audio(cfg)
+    B, P = prompts.shape[0], prompts.shape[-1]
     device = prompts.device
     state = tr.init_decode_state(cfg, B, max_seq, device=device)
     generator = torch.Generator(device=device).manual_seed(seed)
@@ -55,11 +62,13 @@ def generate(cfg, params, prompts: torch.Tensor, gen_len: int, max_seq: int,
         logits = None
         for i in range(P):
             logits, state = tr.decode_step(params, cfg, state,
-                                           prompts[:, i:i + 1])
-        out = [sample_tokens(logits, generator, temperature)]
-        for _ in range(gen_len - 1):
-            logits, state = tr.decode_step(params, cfg, state, out[-1])
-            out.append(sample_tokens(logits, generator, temperature))
+                                           prompts[..., i:i + 1])
+        out = []
+        for i in range(gen_len):
+            if i:
+                logits, state = tr.decode_step(params, cfg, state, out[-1])
+            tok = sample_tokens(logits, generator, temperature)
+            out.append(tok.transpose(1, 2) if audio else tok)
     return torch.cat(out, dim=-1)
 
 
@@ -83,8 +92,11 @@ def main(argv=None) -> None:
         cfg = cfg.reduced()
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = tr.init_params(gen, cfg, cfg.param_dtype_serve, device=device)
-    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                            generator=gen, device=device)
+    shape = (args.batch, args.prompt_len)
+    if tr.is_audio(cfg):
+        shape = (args.batch, cfg.num_codebooks, args.prompt_len)
+    prompts = torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                            device=device)
 
     t0 = time.perf_counter()
     toks = generate(cfg, params, prompts, args.gen,
@@ -96,7 +108,7 @@ def main(argv=None) -> None:
     n_gen = args.batch * args.gen
     print(f"generated {tuple(toks.shape)} on {device} in {dt:.2f}s "
           f"({n_gen / dt:.1f} tok/s batch throughput)")
-    print(toks[0, :12].tolist())
+    print(toks[0, ..., :12].tolist())
 
 
 if __name__ == "__main__":

@@ -2,9 +2,13 @@
 step, the prefill step and the decode (serve) step, plus ``params_specs``,
 the parameters' shapes without allocating them.
 
+Every step takes the three modalities' batches: (B, T) text tokens, (B,
+K, T) audio codebook grids, and a vision config's ``"prefix_embeds"`` (B,
+P, d) beside its tokens.
+
 The reference's ``batch_specs``, ``decode_state_specs`` and ``mesh_hints``
 describe inputs and shardings for its XLA dry-run; one card lowers nothing
-ahead of time, so they have no counterpart (ROADMAP Queue 1 item 16).
+ahead of time, so they have no counterpart.
 """
 
 from __future__ import annotations
@@ -73,13 +77,10 @@ def make_train_step(cfg: ArchConfig, *, learning_rate: float = 3e-4,
     def train_step(params, opt_state, batch):
         leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
         with torch.enable_grad():
-            logits, aux = tr.forward({k: cast(p) for k, p in leaves.items()},
-                                     cfg, batch["tokens"],
-                                     batch.get("prefix_embeds"), remat=remat)
-            loss = tr.cross_entropy(logits, batch["labels"]) + \
-                cfg.router_aux_coef * aux
+            loss = tr.lm_loss({k: cast(p) for k, p in leaves.items()},
+                              cfg, batch, remat=remat)
             grads = torch.autograd.grad(loss, list(leaves.values()))
-        del leaves, logits
+        del leaves
         with torch.no_grad():
             grads = dict(zip(params, grads))
             scale, gnorm = global_norm_scale(grads, clip_norm)
@@ -110,8 +111,9 @@ def _leaf_state(state: dict, name: str, count: torch.Tensor) -> dict:
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:
     """``prefill(params, batch) -> (B, padded vocab) fp32``: the forward
-    over ``batch["tokens"]`` (B, T), returning the last position's logits
-    (what serving needs)."""
+    over ``batch["tokens"]`` (B, T) (and a vision config's
+    ``"prefix_embeds"``), returning the last position's logits (what
+    serving needs); audio: (B, K, T) tokens give (B, K, V)."""
     def prefill(params, batch):
         with torch.no_grad():
             logits, _ = tr.forward(params, cfg, batch["tokens"],
@@ -122,7 +124,8 @@ def make_prefill_step(cfg: ArchConfig) -> Callable:
 
 def make_serve_step(cfg: ArchConfig) -> Callable:
     """``serve_step(params, state, batch) -> (logits (B, 1, vocab) fp32,
-    new state)``: one decode step for ``batch["tokens"]`` (B, 1).  A loop
+    new state)``: one decode step for ``batch["tokens"]`` (B, 1), or (B,
+    K, 1) for audio, whose logits are (B, 1, K, V).  A loop
     passes ``transformer.layer_view(params, cfg)`` as ``params`` so that
     no step splits the flat dict again."""
     def serve_step(params, state, batch):

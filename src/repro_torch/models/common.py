@@ -133,9 +133,19 @@ def dense_init(generator: torch.Generator, shape: Tuple[int, ...], dtype,
     ``scale`` is given, fan_in being ``shape[-2]`` (or ``shape[-1]`` for a
     vector), so a stack of matrices (G, fan_in, fan_out) scales as each
     matrix does.  ``device``: ``cuda`` unless named (raises without a
-    card); a generator on a card draws on it."""
+    card); a generator on a card draws on it, and draws a stack (ndim >=
+    3) of a narrower dtype than fp32 one leading slice at a time into
+    ``dtype``, so init holds one slice's fp32 buffer beside the leaf
+    rather than the leaf's (qwen2-72b's (32, 8192, 29568) bf16 MLP stack
+    would need 31 GB more)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else fan_in ** -0.5
+    if generator.device.type != "cpu" and len(shape) >= 3 and \
+            dtype != torch.float32:
+        out = torch.empty(shape, dtype=dtype, device=generator.device)
+        for i in range(shape[0]):
+            out[i] = truncated_normal(generator, shape[1:]).mul_(std)
+        return out
     # scaled in place: one fp32 buffer of the leaf's size, not two
     return truncated_normal(generator, shape, device).mul_(std).to(dtype)
 

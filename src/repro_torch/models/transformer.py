@@ -10,8 +10,9 @@ Structure
   and the model walks the groups in a Python loop (group-major, as the
   reference's scan does).
 * ``forward``     -- train and prefill: tokens -> padded-vocab logits (B,
-  T, V), differentiable.  Under grad mode with ``remat`` every
-  ``remat_span`` groups run under ``torch.utils.checkpoint``, as the
+  T, V), or (B, T, K, V) for ``audio_stub``, differentiable.  Under grad
+  mode with ``remat`` every ``remat_span`` groups run under
+  ``torch.utils.checkpoint``, as the
   reference's ``jax.checkpoint(group_body)``: only the residual stream at
   the span boundaries is kept, and the spans are recomputed in the
   backward.  Attention keeps its output and log-sum-exp
@@ -35,12 +36,24 @@ mixture of experts of ``models/moe.py``; its aux loss adds to the
 forward's.  The forward and ``decode_step`` both pass the real expert
 count, so padded experts are never routed (the reference's forward
 omits it and routes them; ROADMAP Queue 3).  gemma2 archs scale the
-embeddings by sqrt(d_model), as the reference does.  Text modality only:
-``vision_stub``, ``audio_stub`` and prefix embeddings raise
-``NotImplementedError`` (ROADMAP Queue 1 item 16).  The wkv6 and
-ssm_scan recurrences are differentiable on both devices: their
-``torch.autograd.Function``s run the backward kernels on the card and
-the plain backwards on the CPU, and a remat span runs their forward
+embeddings by sqrt(d_model), as the reference does.
+
+Modalities, as the reference's stubs:
+* ``audio_stub`` (MusicGen, K codebooks of V tokens): tokens are (B, K, T)
+  grids; codebook k's ids are offset by k V into one K V-row embedding,
+  the K embeddings are summed, and the K V-wide head's logits come back
+  as (B, T, K, V), without vocab padding.  The loss is the mean over
+  codebooks too.
+* ``vision_stub`` (InternVL2): (B, P, d) precomputed patch embeddings are
+  prepended to the token embeddings in the compute dtype; their logits are
+  returned too, and ``lm_loss`` gives those positions weight 0 (masked,
+  not sliced).  A vision config without them raises ``ValueError``; a
+  config of another modality given them raises too, where the reference
+  drops them unread.
+
+The wkv6 and ssm_scan recurrences are differentiable on both devices:
+their ``torch.autograd.Function``s run the backward kernels on the card
+and the plain backwards on the CPU, and a remat span runs their forward
 again in the backward.
 """
 
@@ -62,13 +75,12 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (dense_init, embed_init, init_device,
                                        init_norm, norm_apply, softcap)
 
-__all__ = ["padded_vocab", "init_params", "param_count", "LayerView",
+__all__ = ["padded_vocab", "is_audio", "init_params", "param_count", "LayerView",
            "layer_view", "embed_tokens", "forward", "cross_entropy",
            "lm_loss", "DecodeState", "init_decode_state", "decode_step",
            "Decoder"]
 
 Params = Dict[str, torch.Tensor]
-_NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 16)"
 
 
 def _dt(name: str) -> torch.dtype:
@@ -82,9 +94,14 @@ def padded_vocab(cfg: ArchConfig) -> int:
     return -(-cfg.vocab_size // 256) * 256
 
 
+def is_audio(cfg: ArchConfig) -> bool:
+    """Whether the config takes (B, K, T) codebook grids."""
+    return cfg.modality == "audio_stub" and cfg.num_codebooks > 1
+
+
 def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.modality != "text":
-        raise NotImplementedError(f"modality {cfg.modality!r} {_NOT_PORTED}")
+    if cfg.modality not in ("text", "audio_stub", "vision_stub"):
+        raise ValueError(f"unknown modality {cfg.modality!r}")
     for spec in cfg.layer_pattern:
         if spec.kind not in ("rwkv", "hymba", "attn"):
             raise ValueError(f"unknown layer kind {spec.kind!r}")
@@ -152,7 +169,9 @@ def init_params(generator: Optional[torch.Generator], cfg: ArchConfig,
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     dtype = _dt(dtype_name or cfg.param_dtype_train)
-    pv = padded_vocab(cfg)
+    # audio: K codebooks of V rows and columns, unpadded
+    pv = cfg.num_codebooks * cfg.vocab_size if is_audio(cfg) \
+        else padded_vocab(cfg)
     stack = (cfg.num_groups,)
     tree: Dict[str, Any] = {
         "embed": embed_init(generator, pv, cfg.d_model, dtype, device=device)}
@@ -293,12 +312,17 @@ def _init_recur_state(cfg: ArchConfig, spec: LayerSpec, batch: int,
 # ===========================================================================
 def embed_tokens(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                  cdt) -> torch.Tensor:
-    """(B, T) int token ids -> (B, T, d) embeddings in ``cdt``; gemma2
-    archs (by name, as the reference keys it) scale them by sqrt(d_model),
-    held in the compute dtype."""
-    if cfg.modality != "text":
-        raise NotImplementedError(f"modality {cfg.modality!r} {_NOT_PORTED}")
-    e = params["embed"][tokens.long()].to(cdt)
+    """(B, T) int token ids -> (B, T, d) embeddings in ``cdt``; audio: (B,
+    K, T) -> the K codebooks' embeddings summed in ``cdt``.  gemma2 archs
+    (by name, as the reference keys it) scale them by sqrt(d_model), held
+    in the compute dtype."""
+    if is_audio(cfg):
+        B, K, T = tokens.shape
+        offsets = torch.arange(K, device=tokens.device) * cfg.vocab_size
+        ids = (tokens.long() + offsets[None, :, None]).reshape(B, K * T)
+        e = params["embed"][ids].to(cdt).reshape(B, K, T, -1).sum(1)
+    else:
+        e = params["embed"][tokens.long()].to(cdt)
     if cfg.name.startswith("gemma2"):
         e = e * torch.tensor(cfg.d_model ** 0.5, dtype=cdt, device=e.device)
     return e
@@ -311,24 +335,36 @@ def _logits(tree: dict, cfg: ArchConfig, x: torch.Tensor,
     logits = x.to(cdt) @ head.to(cdt)
     if cfg.logit_softcap > 0:
         logits = softcap(logits, cfg.logit_softcap)
+    if is_audio(cfg):
+        logits = logits.reshape(logits.shape[:2] + (cfg.num_codebooks,
+                                                    cfg.vocab_size))
     return logits
 
 
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
             prefix_embeds: Optional[torch.Tensor] = None,
             *, remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B, T, padded vocab) in the compute dtype, aux loss).
+    """Returns (logits (B, T, padded vocab) in the compute dtype, or (B, T,
+    K, V) for audio, and the aux loss).
 
-    params: the flat dict or its :func:`layer_view`.  tokens: (B, T) int.
-    Every recurrent layer starts from a zero state.  With ``remat`` and
-    grad mode on, each span of ``cfg.remat_span`` groups (1 unless it
-    divides the group count, as in the reference) is checkpointed."""
+    params: the flat dict or its :func:`layer_view`.  tokens: (B, T) int,
+    or (B, K, T) for audio.  prefix_embeds: (B, P, d), required by
+    ``vision_stub`` and refused otherwise; prepended, so T counts P + the
+    tokens.  Every recurrent layer starts from a zero state.  With
+    ``remat`` and grad mode on, each span of ``cfg.remat_span`` groups (1
+    unless it divides the group count, as in the reference) is
+    checkpointed."""
     _check_supported(cfg)
-    if prefix_embeds is not None:
-        raise NotImplementedError(f"prefix embeddings {_NOT_PORTED}")
     cdt = _dt(cfg.compute_dtype)
     view = layer_view(params, cfg)
     x = embed_tokens(view.top, cfg, tokens, cdt)
+    if cfg.modality == "vision_stub":
+        if prefix_embeds is None:
+            raise ValueError(f"{cfg.name} requires prefix_embeds")
+        x = torch.cat([prefix_embeds.to(cdt), x], dim=1)
+    elif prefix_embeds is not None:
+        raise ValueError(f"{cfg.name} ({cfg.modality}) takes no "
+                         f"prefix_embeds")
     B, T = x.shape[:2]
     positions = torch.arange(T, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -373,14 +409,27 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
 
 
-def lm_loss(params, cfg: ArchConfig, batch: dict) -> torch.Tensor:
-    """Training loss of a text batch ``{"tokens": (B, T), "labels": (B,
-    T)}``: the mean cross entropy over every token, plus
-    ``cfg.router_aux_coef`` times the forward's aux loss.  The forward
-    runs with ``remat`` on, as the reference's ``lm_loss``."""
+def lm_loss(params, cfg: ArchConfig, batch: dict, *,
+            remat: bool = True) -> torch.Tensor:
+    """Training loss of a batch ``{"tokens": (B, T), "labels": (B, T)}``
+    (audio: both (B, K, T); vision: also ``"prefix_embeds"`` (B, P, d)):
+    the mean cross entropy over every token (and codebook), the prefix
+    positions masked with label 0 and weight 0, plus
+    ``cfg.router_aux_coef`` times the forward's aux loss.  The forward runs
+    with ``remat`` on by default, as the reference's ``lm_loss``."""
     logits, aux = forward(params, cfg, batch["tokens"],
-                          batch.get("prefix_embeds"))
-    return cross_entropy(logits, batch["labels"]) + cfg.router_aux_coef * aux
+                          batch.get("prefix_embeds"), remat=remat)
+    labels = batch["labels"]
+    weights = None
+    if cfg.modality == "vision_stub":
+        B, P = batch["prefix_embeds"].shape[:2]
+        labels = torch.cat([labels.new_zeros((B, P)), labels], dim=1)
+        weights = torch.ones(labels.shape, device=labels.device)
+        weights[:, :P] = 0.0
+    if is_audio(cfg):                 # logits (B, T, K, V); labels (B, K, T)
+        labels = labels.transpose(1, 2)
+    return cross_entropy(logits, labels, weights) + \
+        cfg.router_aux_coef * aux
 
 
 # ===========================================================================
@@ -493,8 +542,9 @@ def _advance(cache, position: int):
 def decode_step(params, cfg: ArchConfig, state: DecodeState,
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, DecodeState]:
     """One decode step.  params: the flat dict or, in a loop, its
-    :func:`layer_view`.  tokens: (B, 1) int.  Returns (logits (B, 1,
-    vocab) fp32 without the vocab padding, the new state)."""
+    :func:`layer_view`.  tokens: (B, 1) int, or (B, K, 1) for audio.
+    Returns (logits (B, 1, vocab) fp32 without the vocab padding, or (B,
+    1, K, V) for audio, the new state)."""
     cdt = _dt(cfg.compute_dtype)
     view = layer_view(params, cfg)
     x = embed_tokens(view.top, cfg, tokens, cdt)
@@ -506,7 +556,9 @@ def decode_step(params, cfg: ArchConfig, state: DecodeState,
             x, new = _decode_layer(cfg, spec, p_g, x,
                                    _group(caches[p_idx], gi), pos, cdt)
             _store(caches[p_idx], gi, new)
-    logits = _logits(view.top, cfg, x, cdt)[..., :cfg.vocab_size]
+    logits = _logits(view.top, cfg, x, cdt)
+    if not is_audio(cfg):
+        logits = logits[..., :cfg.vocab_size]     # drop the vocab padding
     new_caches = tuple(_advance(c, pos + 1) for c in caches)
     return logits.float(), DecodeState(new_caches, pos + 1)
 
@@ -538,9 +590,12 @@ class Decoder(nn.Module):
         """The parameters as a flat dict in the reference's leaf order."""
         return dict(zip(self._names, self.leaves))
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Padded-vocab logits (B, T, V) of a prompt batch."""
-        return forward(self._view, self.cfg, tokens, remat=False)[0]
+    def forward(self, tokens: torch.Tensor,
+                prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Padded-vocab logits (B, T, V) of a prompt batch ((B, T, K, V)
+        for audio; a vision config takes its (B, P, d) prefix too)."""
+        return forward(self._view, self.cfg, tokens, prefix_embeds,
+                       remat=False)[0]
 
     def decode_step(self, state: DecodeState, tokens: torch.Tensor):
         """(logits (B, 1, vocab) fp32, new state) for one token."""

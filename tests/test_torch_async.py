@@ -56,6 +56,18 @@ LEDGER = ("num_sampled", "cohort_size", "transport_bytes", "arrivals",
 
 
 # ---------------------------------------------------------------- problem
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small tensors: with several test workers on one machine, torch's
+    intra-op threads only contend (six workers with torch's default
+    threads made the port's files more than ten times slower).  Restored
+    after the module."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 @functools.lru_cache()
 def _data(num_clients, dim, classes, seed=0):
     rng = np.random.default_rng(seed)

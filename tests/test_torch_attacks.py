@@ -52,6 +52,18 @@ KINDS = ("sign_flip", "scale", "gauss", "zero", "nan")
 M, DIM, CLASSES, ROUNDS, SEED = 12, 32, 10, 5, 5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small tensors: with several test workers on one machine, torch's
+    intra-op threads only contend (six workers with torch's default
+    threads made the port's files more than ten times slower).  Restored
+    after the module."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _np_uploads(rows, seed, sparse=True):
     rng = np.random.default_rng(seed)
     w = rng.standard_normal((rows, 6, 5)).astype(np.float32)

@@ -23,6 +23,18 @@ M, RETENTION = 10, 4
 SHAPES = {"a.w": (3, 2), "b": (4,), "c": ()}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small tensors: with several test workers on one machine, torch's
+    intra-op threads only contend (six workers with torch's default
+    threads made the port's files more than ten times slower).  Restored
+    after the module."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _templates():
     rng = np.random.default_rng(0)
     arrays = {k: rng.standard_normal(s).astype(np.float32)

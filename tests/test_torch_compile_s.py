@@ -19,6 +19,18 @@ M, ROUNDS = 8, 6
 BUCKETS = [8] * 5 + [4]          # the fig5 ladder at M = 8: 8 -> 4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small tensors: with several test workers on one machine, torch's
+    intra-op threads only contend (six workers with torch's default
+    threads made the port's files more than ten times slower).  Restored
+    after the module."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _run(rounds: int = ROUNDS, eval_every: int = 0):
     ds = class_gaussian_images(num_train=256, image_size=12, seed=0)
     xs, ys, ns = iid_partition_images(ds.train_x, ds.train_y, M, 16, seed=0)

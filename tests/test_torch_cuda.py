@@ -7,7 +7,7 @@ ssm_scan kernels) against the same paths on the CPU (plain versions), the
 wkv6 and ssm_scan backward kernels against their plain backwards, and
 the sharded client-state store's gather and scatter on the card against
 the CPU's, the MoE's routing on the card against the CPU's, reduced
-gemma2's decode against its forward on the card, and the new archs'
+gemma2's decode against its forward on the card, and the zoo archs'
 parameter trees initialised on the card.  They skip without a card.  This file
 imports no JAX, so on a machine without it run it alone:
 
@@ -33,6 +33,17 @@ from repro_torch.models import paper_models as pm
 from repro_torch.models import transformer as tr
 
 pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def one_torch_thread():
+    """For the tests that run a CPU half beside the card's: one intra-op
+    thread, as the CPU-only port files pin it, so several test workers on
+    one machine do not contend.  Restored after the test."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
 
 
 @pytest.fixture
@@ -273,6 +284,7 @@ def test_stacked_masking_on_card_matches_cpu(cuda):
                            want[k].view(torch.int32)), k
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("preset,error_feedback",
                          [("fig5", False), ("fig5-fused-int8", True)])
 def test_fig5_round_on_card_matches_cpu(cuda, preset, error_feedback):
@@ -536,6 +548,7 @@ def test_topk_wrappers_count_their_launches(cuda):
                                   "apply_threshold": 1}
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 def test_gru_random_round_on_card_matches_cpu(cuda):
     """The same injected mask scores on both devices: participants, kept
     counts and bytes exact; losses and parameters within 1e-4 (the
@@ -651,6 +664,7 @@ def test_ssm_scan_kernel_refuses_other_state_dims(cuda):
                      torch.zeros((1, 3, 3), device=cuda))
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
 def test_reduced_serving_on_card_matches_cpu(cuda, arch):
     """fp32 prefill and greedy generate of the reduced config on the card
@@ -697,6 +711,7 @@ def _store_script(store, device):
             for tree in ("residuals", "drift")}
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 def test_sharded_store_on_card_matches_cpu(cuda):
     """Gather, commit-masked scatter, eviction and the fresh slots' zeroing
     on the card against the same sequence on the CPU: pools, gathered rows
@@ -735,6 +750,7 @@ def test_row_l2_on_card_has_the_cpu_bits(cuda):
     assert torch.equal(got, _row_l2(tree))
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 def test_attack_noise_on_card_is_within_an_ulp_of_the_cpu(cuda):
     from repro_torch.core.attacks import client_attack_noise
     leaves = {"w": (300, 7), "b": (5,)}
@@ -786,6 +802,7 @@ def test_robust_rules_on_card_match_cpu(cuda, rule):
                            .cpu() <= 6.0, _row_l2(up) <= 6.0)
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("kind", ["sign_flip", "scale", "gauss", "zero",
                                   "nan"])
 def test_attacked_forms_on_card_are_bit_identical(cuda, kind):
@@ -960,6 +977,7 @@ def test_ssm_scan_checkpointing_forward_matches_plain(cuda, T):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("kind", ["full", "sliding", "chunked"])
 def test_flash_attention_backward_on_card_matches_cpu(cuda, kind):
     """fp32, GQA 4/2, softcap, q_offset: output and (dq, dk, dv) on the
@@ -980,6 +998,7 @@ def test_flash_attention_backward_on_card_matches_cpu(cuda, kind):
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 def test_pod_round_on_card_matches_cpu(cuda):
     """The reduced pod round (fig5 on the kernels, axis-0 wire) on the
     card; the CPU masks each card delta on the plain versions (masks bit
@@ -1060,6 +1079,7 @@ def _routed_run(cfg, params, toks, device, steps_: int, monkeypatch):
              for r in log])
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("real", [13, 60])
 def test_moe_routing_on_card_matches_cpu(cuda, real, monkeypatch):
     """The MoE through forward (2 x 64 tokens in groups of 32: capacity
@@ -1111,7 +1131,9 @@ def test_gemma2_decode_agrees_with_forward_on_card(cuda):
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "qwen2.5-14b",
-                                  "qwen2-moe-a2.7b"])
+                                  "qwen2-moe-a2.7b", "musicgen-medium",
+                                  "internvl2-26b", "qwen2-72b",
+                                  "llama4-maverick-400b-a17b"])
 def test_new_arch_init_on_card_matches_the_specs(cuda, arch):
     """``init_params`` on the card (bf16) has the names, shapes and dtypes
     of ``steps.params_specs`` (which the CPU tests hold to the reference's
@@ -1127,3 +1149,25 @@ def test_new_arch_init_on_card_matches_the_specs(cuda, arch):
         assert t.dtype == (torch.float32 if name.endswith(".router")
                            else torch.bfloat16), name
         assert bool(t.isfinite().all()), name
+
+
+def test_stacked_init_on_card_draws_one_slice_at_a_time(cuda):
+    """``dense_init`` from a card generator draws a stack one leading slice
+    at a time into its dtype: each slice at the fan-in scale, and the peak
+    beside the bf16 leaf is one slice's fp32 buffer, not the leaf's."""
+    from repro_torch.models.common import dense_init
+    shape = (8, 512, 2048)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    w = dense_init(gen, shape, torch.bfloat16)
+    peak = torch.cuda.max_memory_allocated() - base
+    leaf = w.numel() * 2
+    assert w.dtype == torch.bfloat16 and tuple(w.shape) == shape
+    assert peak <= leaf + 2 * 4 * w[0].numel()
+    stds = w.float().std(dim=(1, 2))
+    assert torch.allclose(stds, torch.full_like(stds, 0.88 * 512 ** -0.5),
+                          rtol=0.05)
+    assert not torch.equal(w[0], w[1])

@@ -37,6 +37,18 @@ M, ROUNDS, BATCH = 8, 6, 16
 
 
 # ------------------------------------------------------------- the fleet
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small tensors: with several test workers on one machine, torch's
+    intra-op threads only contend (six workers with torch's default
+    threads made the port's files more than ten times slower).  Restored
+    after the module."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 @pytest.mark.parametrize("profile", ["ideal", "mobile", "flaky-mobile"])
 @pytest.mark.parametrize("seed,M_", [(0, 8), (3, 100), (11, 1000)])
 def test_traits_and_drop_rates_identical(profile, seed, M_):

@@ -43,6 +43,18 @@ M, ROUNDS = 8, 6
 SAMPLED = [7, 7, 6, 5, 5, 4]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small tensors: with several test workers on one machine, torch's
+    intra-op threads only contend (six workers with torch's default
+    threads made the port's files more than ten times slower).  Restored
+    after the module."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _round_sub(t: int, seed: int = 0):
     key = jax.random.PRNGKey(seed)
     for _ in range(t):

@@ -38,6 +38,18 @@ from test_torch_slice import recording_sampler, reference_scores
 M, ROUNDS, BATCH = 8, 6, 16
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small tensors: with several test workers on one machine, torch's
+    intra-op threads only contend (six workers with torch's default
+    threads made the port's files more than ten times slower).  Restored
+    after the module."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _tree(seed: int, params, scale: float):
     gen = torch.Generator().manual_seed(seed)
     return {k: scale * torch.randn(v.shape, generator=gen)

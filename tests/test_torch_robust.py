@@ -52,6 +52,18 @@ RULES = {
 EXACT = ("coordinate_median", "krum(1)", "norm_filter(6.0)+median")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small tensors: with several test workers on one machine, torch's
+    intra-op threads only contend (six workers with torch's default
+    threads made the port's files more than ten times slower).  Restored
+    after the module."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _case(name):
     """``(global, uploads, weights, normalize)`` as numpy arrays."""
     rng = np.random.default_rng(CASES.index(name))

@@ -44,12 +44,13 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from repro.configs import ARCH_IDS as REF_ARCH_IDS
 from repro.configs import get_arch as ref_get_arch
 from repro.launch import serve as ref_serve
 from repro.launch import steps as ref_steps
 from repro.models import transformer as ref_tr
 from repro_torch import bridge
-from repro_torch.configs import ARCH_IDS, get_arch
+from repro_torch.configs import ARCH_IDS, all_archs, get_arch
 from repro_torch.launch import serve, steps
 from repro_torch.models import transformer as tr
 
@@ -61,7 +62,11 @@ BF16_TOL = dict(rtol=0.0, atol=0.125)
 FULL_PARAMS = {"rwkv6-1.6b": 1_483_280_384, "hymba-1.5b": 1_403_905_600,
                "qwen2-1.5b": 1_543_910_912, "gemma2-2b": 2_614_222_080,
                "qwen2.5-14b": 14_770_033_664,
-               "qwen2-moe-a2.7b": 15_146_928_128}
+               "qwen2-moe-a2.7b": 15_146_928_128,
+               "musicgen-medium": 1_384_418_304,
+               "internvl2-26b": 19_862_722_560,
+               "qwen2-72b": 72_706_203_648,
+               "llama4-maverick-400b-a17b": 400_713_815_040}
 CASE_ARCH = {"rwkv": "rwkv6-1.6b", "hymba": "hymba-1.5b",
              "hymba-gqa": "hymba-1.5b", "gemma2": "gemma2-2b",
              "moe": "qwen2-moe-a2.7b"}
@@ -108,14 +113,18 @@ def test_config_fields_match_reference(arch, reduced):
         (ref.resolved_head_dim, ref.num_groups)
 
 
-def test_unported_archs_raise_naming_the_roadmap():
-    with pytest.raises(KeyError, match="item 16"):
-        get_arch("musicgen-medium")
+def test_every_reference_arch_registers():
+    """All ten of the reference's archs, in its order; an unknown id and
+    an unknown modality still raise."""
+    assert ARCH_IDS == REF_ARCH_IDS and len(ARCH_IDS) == 10
+    archs = all_archs()
+    assert list(archs) == list(REF_ARCH_IDS)
+    assert all(cfg.name == arch for arch, cfg in archs.items())
     with pytest.raises(KeyError, match="unknown"):
         get_arch("gpt-5")
     cfg = dataclasses.replace(get_arch("hymba-1.5b").reduced(),
-                              modality="audio_stub")
-    with pytest.raises(NotImplementedError, match="item 16"):
+                              modality="video_stub")
+    with pytest.raises(ValueError, match="unknown modality"):
         tr.init_params(None, cfg, device="cpu")
 
 

@@ -34,6 +34,18 @@ ROOT = Path(__file__).resolve().parents[1]
 M, ROUNDS, BATCH = 8, 6, 16
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small tensors: with several test workers on one machine, torch's
+    intra-op threads only contend (six workers with torch's default
+    threads made the port's files more than ten times slower).  Restored
+    after the module."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def reference_draws(t: int, num_clients: int, seed: int = 0,
                     hetero: bool = False):
     """Round t's uniform draws as the reference server makes them from

@@ -56,6 +56,18 @@ M, ROUNDS, BATCH = 8, 6, 16
 PARITY = {"fig5": ("iid", 7), "noniid-dyn": ("dirichlet", 6)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small tensors: with several test workers on one machine, torch's
+    intra-op threads only contend (six workers with torch's default
+    threads made the port's files more than ten times slower).  Restored
+    after the module."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 @pytest.fixture(scope="module", params=sorted(PARITY))
 def parity_runs(request):
     """The reference's server and the port's on one preset, both on a
