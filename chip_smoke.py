@@ -4,7 +4,8 @@
     python3 chip_smoke.py           # every phase, one card
     python3 chip_smoke.py --profile # also trace two more rounds of the
                                     # fused LeNet path, vgg-fig5,
-                                    # noniid-dyn and the store path, and
+                                    # noniid-dyn and the store path, one
+                                    # more qwen2-1.5b pod round, and
                                     # one prefill and 11
                                     # decode steps of each served arch
 
@@ -69,6 +70,20 @@ with a nonzero exit:
    fig3-importance and noniid-dyn; and each of the four at the small size
    on the card against the CPU (participants, arrived masks, bytes,
    ``sim_round_s`` and ``dropped`` exact);
+3a. the scan form: ``scan_path`` for ``fig5``, ``fig5-fused-int8``,
+   ``vgg-fig5``, ``gru-fig5``, ``fig3-importance`` and ``hetero-dropout``
+   (M = 32, 8 rounds, full width): two fresh servers from one seed,
+   ``scan_rounds=True`` (each bucket's round captured into a CUDA graph
+   once and replayed every round) and ``False`` (the eager loop), under
+   deterministic cuDNN, counts set to 0 just before each run and read
+   just after: parameters, residuals, drift, norms, every round's loss
+   bits and discrete record and the launch counts bit for bit, one graph
+   a bucket and one replay a round, each replay and capture under
+   ``set_sync_debug_mode("error")``; per round ``wall_s`` of both forms,
+   the capture seconds and each run's peak memory over what was held
+   before it.  Every other phase runs its dense servers with the
+   default ``scan_rounds=True`` too, but ``attack_agreement``, whose
+   sweep tap needs each round's Python call;
 3b. the client-state store: kernels 1-5 against their plain versions on
    the store path's own full-width VGG cohort buffer (its bucket of 256
    clients from the strategy's plan: 158,334,976 elements, 2,816
@@ -146,7 +161,9 @@ with a nonzero exit:
    and ``compile_s`` of every main path and adaptive path; and ``fresh_process_round_time``:
    the fig5 path in a fresh process with an empty build directory, whose
    round 1 ``compile_s`` takes the kernel library's nvcc build;
-6. the model zoo's serving slice, rwkv6-1.6b and hymba-1.5b, and
+6. (first, ``graphs_released``: the main, LM and adaptive paths' servers
+   drop their CUDA graphs, whose memory pools the zoo needs) the model
+   zoo's serving slice, rwkv6-1.6b and hymba-1.5b, and
    gemma2-2b, qwen2.5-14b, qwen2-moe-a2.7b, musicgen-medium,
    internvl2-26b, qwen2-72b and llama4-maverick-400b-a17b (no kernel of
    the port: their prefill and generate must launch none):
@@ -211,7 +228,8 @@ with a nonzero exit:
      wall time, ``mean_loss``, ``num_sampled``, launches and peak memory;
      round 1's first client's masks on the kernels against the plain
      versions on the card, bit for bit, with every slice's kept count
-     within its wire slots; then one traced round (device idle share);
+     within its wire slots; then, with ``--profile``, one traced round
+     (device idle share);
    - ``fed_pod_cohort``: ``make_cohort_fed_round`` on NCCL, world size 1,
      against ``make_fed_round`` from the same state (``num_sampled``
      exact, loss rtol 1e-6, parameters rtol 1e-3 / atol 1e-4);
@@ -265,9 +283,9 @@ with a nonzero exit:
      prefix embeddings before 4096 tokens;
 8. (``--profile`` only) ``torch.profiler`` over two more rounds of the
    fused LeNet path, of ``vgg-fig5``, of ``noniid-dyn`` and of the store
-   path, and over one prefill and 11
-   decode steps of each served arch: device busy time by kernel and the
-   device's idle share of the wall time.
+   path, one more qwen2-1.5b pod round (section 7), and over one prefill
+   and 11 decode steps of each served arch: device busy time by kernel
+   and the device's idle share of the wall time.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -276,8 +294,10 @@ repository beside it, the script exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -823,15 +843,16 @@ def time_kernels(label: str, x2d, seg_ids, k, count_candidates=()) -> dict:
 # ---------------------------------------------------------------------------
 def fig5_server(M: int, image_size: int, num_train: int, batch: int,
                 device: str, preset: str = "fig5",
-                error_feedback: bool = False):
+                error_feedback: bool = False, **server_kw):
     """A server for ``preset`` (kernel masking, LeNet at ``image_size``)
     over M clients' synthetic shards, with its batches, sizes and test
-    set."""
+    set; ``server_kw`` go to ``from_strategy``."""
     from repro_torch.core import strategy
     st = strategy.get(preset, error_feedback=error_feedback,
                       masking=strategy.MaskPolicy.selective(
                           0.5, backend="kernel"))
-    return lenet_server(st, M, image_size, num_train, batch, device)
+    return lenet_server(st, M, image_size, num_train, batch, device,
+                        **server_kw)
 
 
 def adaptive_strategy(name: str):
@@ -1256,9 +1277,10 @@ def model_setup(model: str, full: bool = True):
 
 
 def lm_server(model: str, policy: str, device: str, full: bool = True,
-              mask_scores=None):
+              mask_scores=None, **server_kw):
     """A ``fig5`` server for ``model`` with kernel selective masking or
-    random masking (``policy``), with its batches, sizes and eval data."""
+    random masking (``policy``), with its batches, sizes and eval data;
+    ``server_kw`` go to ``from_strategy``."""
     import torch
     from repro_torch.core import strategy
     from repro_torch.core.server import FederatedServer
@@ -1267,7 +1289,8 @@ def lm_server(model: str, policy: str, device: str, full: bool = True,
                strategy.MaskPolicy.selective(0.5, backend="kernel"))
     server = FederatedServer.from_strategy(
         strategy.get("fig5", masking=masking), loss_fn, init(device), M,
-        eval_fn=eval_fn, seed=0, device=device, mask_scores=mask_scores)
+        eval_fn=eval_fn, seed=0, device=device, mask_scores=mask_scores,
+        **server_kw)
     eval_data = tuple(torch.as_tensor(a).to(device) for a in evald)
     return server, batches, ns, eval_data
 
@@ -1750,6 +1773,101 @@ class deterministic_cudnn:
         import torch
         (torch.backends.cudnn.deterministic,
          torch.backends.cudnn.benchmark) = self.saved
+
+
+# ---------------------------------------------------------------------------
+# The scan form: a bucket's round captured once and replayed
+# ---------------------------------------------------------------------------
+SCAN_PATHS = ("fig5", "fig5-fused-int8", "vgg-fig5", "gru-fig5",
+              "fig3-importance", "hetero-dropout")
+RECORD_FIELDS = ("round", "transport_units", "flop_proxy", "quarantined",
+                 "sim_round_s", "straggler_s", "dropped", "adversarial")
+
+
+def scan_server(name: str, scan: bool):
+    """A fresh full-width server of one ``SCAN_PATHS`` path (M = 32, seed
+    0), with ``scan_rounds=scan``."""
+    if name in MAIN_PATHS:
+        return fig5_server(MAIN_M, 28, MAIN_M * 8 * MAIN_BATCH, MAIN_BATCH,
+                           "cuda", name, scan_rounds=scan)
+    if name in LM_PATHS:
+        model, policy = LM_PATHS[name][:2]
+        return lm_server(model, policy, "cuda", scan_rounds=scan)
+    return lenet_server(adaptive_strategy(name), MAIN_M, 28,
+                        MAIN_M * 8 * MAIN_BATCH, MAIN_BATCH, "cuda",
+                        ADAPTIVE_PATHS[name][0], scan_rounds=scan)
+
+
+def run_scan_path(name: str) -> dict:
+    """``scan_path``: one path's 8 rounds on two fresh servers from one
+    seed, ``scan_rounds=True`` (graph replays) and ``False`` (the eager
+    loop), under deterministic cuDNN, the launch counts set to 0 just
+    before each run and read just after.  Parameters, residuals, drift,
+    norms, every round's ``mean_loss`` and record fields (``same_run`` and
+    RECORD_FIELDS) and the launch counts must be equal; the scan run must
+    have captured one graph per bucket and replayed it once a round.  The
+    replayed rounds run under ``torch.cuda.set_sync_debug_mode("error")``
+    (``graphs.py``), so a host sync inside the captured part fails the
+    run.  Returns the scan run's launch counts."""
+    import torch
+    runs = {}
+    with deterministic_cudnn():
+        for scan in (True, False):
+            server, batches, ns, eval_data = scan_server(name, scan)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            reset_all_counts()
+            t0 = time.perf_counter()
+            server.run(batches, ns, MAIN_ROUNDS, eval_every=MAIN_ROUNDS,
+                       eval_data=eval_data)
+            torch.cuda.synchronize()
+            runs[scan] = {
+                "server": server, "run_s": time.perf_counter() - t0,
+                "launches": {k: v for m in kernel_modules()
+                             for k, v in m.launch_counts().items() if v},
+                "peak": torch.cuda.max_memory_allocated() - held}
+    scan, eager = runs[True], runs[False]
+    a, b = scan["server"], eager["server"]
+    ha, hb = a.history, b.history
+    exact = same_run(a, b, ha, hb)
+    exact["records"] = [[getattr(r, f) for f in RECORD_FIELDS]
+                        for r in ha] == [[getattr(r, f) for f in
+                                          RECORD_FIELDS] for r in hb]
+    exact["eval_metric"] = ha[-1].eval_metric == hb[-1].eval_metric
+    stats = a.graph_stats()
+    buckets = sorted({r.cohort_size for r in ha})
+    phase("scan_path", preset=name, params=a._num_params,
+          rounds=len(ha), buckets=[r.cohort_size for r in ha],
+          num_sampled=[r.num_sampled for r in ha],
+          graphs=stats["graphs"], replays=stats["replays"],
+          capture_s=stats["capture_s"],
+          graphs_replays_capture_s_per_bucket=stats["per_bucket"],
+          scan_wall_s=[r.wall_s for r in ha],
+          eager_wall_s=[r.wall_s for r in hb],
+          scan_compile_s=[r.compile_s for r in ha],
+          eager_compile_s=[r.compile_s for r in hb],
+          scan_run_s=scan["run_s"], eager_run_s=eager["run_s"],
+          scan_peak_bytes_over_held=scan["peak"],
+          eager_peak_bytes_over_held=eager["peak"],
+          launches=scan["launches"],
+          launches_equal=scan["launches"] == eager["launches"],
+          bit_identical=exact, sync_debug_mode_in_replay="error")
+    if not all(exact.values()):
+        fail(f"scan_path {name}: scan and eager differ: {exact}")
+    if scan["launches"] != eager["launches"]:
+        fail(f"scan_path {name}: launches {scan['launches']} != eager "
+             f"{eager['launches']}")
+    if stats["graphs"] != len(buckets) or stats["replays"] != len(ha):
+        fail(f"scan_path {name}: {stats} for buckets {buckets} and "
+             f"{len(ha)} rounds")
+    if b.graph_stats()["graphs"] != 0:
+        fail(f"scan_path {name}: the eager server captured a graph")
+    launches = scan["launches"]
+    del runs, scan, eager, a, b
+    torch.cuda.empty_cache()
+    return launches
 
 
 class recorded_importance_draws:
@@ -2837,10 +2955,13 @@ def attack_runs(kind: str, device: str, logs: dict,
         for form in ("full", "cohort", "store"):
             make = ((lambda p: ShardedStore(ATTACK_M, p, ATTACK_M))
                     if form == "store" else None)
+            # The round loop: ``fed_sweeps`` taps each round's Python call
+            # of the sweep, which a replayed graph does not make.
             server, batches, ns, _ = lenet_server(
                 st, ATTACK_M, 28, ATTACK_M * 8 * MAIN_BATCH, MAIN_BATCH,
                 device, make_store=make,
-                engine="full" if form == "full" else "cohort")
+                engine="full" if form == "full" else "cohort",
+                scan_rounds=False)
             if form == "store":
                 xs, ys = (torch.as_tensor(a).to(device) for a in batches)
 
@@ -3672,10 +3793,9 @@ def time_zoo_kernels() -> dict:
 def fresh_process_compile_s() -> dict:
     """The fig5 path (LeNet-28, M = 32, 8 rounds) in a fresh process with an
     empty build directory (``python -m repro_torch.launch.round_time``):
-    the kernel library's nvcc build lands in round 1's ``compile_s``, the
-    first-call setup of eager PyTorch in its ``wall_s``.  ``compile_s``
-    must be nonzero exactly where the bucket changes."""
-    import os
+    the kernel library's nvcc build and the CUDA graph's warm-up and
+    capture land in round 1's ``compile_s``.  ``compile_s`` must be
+    nonzero exactly where the bucket changes."""
     import shutil
     build_dir = ROOT / "build" / "compile_s_probe"
     shutil.rmtree(build_dir, ignore_errors=True)
@@ -4829,6 +4949,13 @@ def at_large(rec: dict) -> dict:
 def main(argv) -> int:
     """Run the phases; returns the exit code."""
     trace = "--profile" in argv
+    # The zoo's training phases run within a few GB of the card's memory,
+    # and fragmentation, not their work, ran them out of it (16-22 GiB
+    # reserved but unallocated). Segments that grow in place keep freed
+    # memory usable for a request of any size (CUDA graphs' private pools
+    # keep fixed segments).
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     try:
         import torch
     except ImportError:
@@ -4886,6 +5013,10 @@ def main(argv) -> int:
     adaptive = {name: run_adaptive_path(name) for name in ADAPTIVE_PATHS}
     for name in ADAPTIVE_PATHS:
         small_adaptive_agreement(name)
+    # ---- 3a. the scan form: graph replays against the eager loop ----------
+    section_t0 = time.perf_counter()
+    scans = {name: run_scan_path(name) for name in SCAN_PATHS}
+    phase("scan_section", seconds=time.perf_counter() - section_t0)
     # ---- 3b. the client-state store --------------------------------------
     for clients in sorted(set(store_buckets()) | {STORE_STRESS_CLIENTS}):
         store_kernel_parity(clients)
@@ -4966,7 +5097,13 @@ def main(argv) -> int:
 
     # ---- 6. the model zoo's serving slice ---------------------------------
     del main_in, large_in
+    graph_bytes = torch.cuda.memory_reserved()
+    for run in (*mains.values(), *lms.values(), *adaptive.values()):
+        run["server"].release_graphs()
+    gc.collect()
     torch.cuda.empty_cache()
+    phase("graphs_released", reserved_before=graph_bytes,
+          reserved_after=torch.cuda.memory_reserved())
     zoo_errs = zoo_kernel_parity()
     section_t0 = time.perf_counter()
     serves = {arch: serve_path(arch, trace) for arch in ZOO_ARCHS}
@@ -4979,7 +5116,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     section_t0 = time.perf_counter()
     zoo_grad_errs = zoo_grad_parity()
-    pod = fed_pod_path()
+    pod = fed_pod_path(trace=trace)
     fed_pod_cohort(pod)
     pod_launches = pod["launches"]
     del pod
@@ -5044,6 +5181,8 @@ def main(argv) -> int:
             "async_path_launches": async_run["launches"][name],
             "robust_path_launches": {p: r["launches"][name]
                                      for p, r in robust.items()},
+            "scan_path_launches": {p: launches.get(name, 0)
+                                   for p, launches in scans.items()},
             "fed_pod_path_launches": pod_launches.get(name, 0),
             "fed_pod_launches_per_round": pod_launches.get(name, 0)
             / POD_ROUNDS,

@@ -155,8 +155,8 @@ class AttackModel:
         for k, u in uploads.items():
             rows = adv.to(u.device).reshape((-1,) + (1,) * (u.dim() - 1)) > 0
             if self.kind in ("sign_flip", "scale"):
-                s = torch.tensor(self.strength, dtype=torch.float32,
-                                 device=u.device)
+                s = torch.full((), self.strength, dtype=torch.float32,
+                               device=u.device)
                 bad = ((-s if self.kind == "sign_flip" else s) * u).to(
                     u.dtype)
             elif self.kind == "zero":
@@ -164,8 +164,8 @@ class AttackModel:
             elif self.kind == "nan":
                 bad = torch.full_like(u, float("nan"))
             else:
-                sigma = torch.tensor(self.sigma, dtype=torch.float32,
-                                     device=u.device)
+                sigma = torch.full((), self.sigma, dtype=torch.float32,
+                                   device=u.device)
                 bad = (sigma * noise[k].to(u.device)).to(u.dtype)
             out[k] = torch.where(rows, bad, u)
         return out

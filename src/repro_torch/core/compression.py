@@ -222,16 +222,15 @@ def decode_sparse(payload: Dict[str, Any]) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Bitmap
 # ---------------------------------------------------------------------------
-_BIT_WEIGHTS = (1 << torch.arange(8, dtype=torch.int32))
-
-
 def pack_bits_rows(bits: torch.Tensor) -> torch.Tensor:
     """(C, n) bool -> (C, ceil(n / 8)) uint8, LSB-first, trailing padding
-    bits zero (``np.packbits(..., bitorder="little")``)."""
+    bits zero (``np.packbits(..., bitorder="little")``).  Nothing is copied
+    from the host, so a captured round may pack bits."""
     pad = (-bits.shape[1]) % 8
     b = torch.nn.functional.pad(bits.to(torch.int32), (0, pad))
     b = b.reshape(bits.shape[0], -1, 8)
-    return (b * _BIT_WEIGHTS.to(b.device)).sum(2).to(torch.uint8)
+    shifts = torch.arange(8, dtype=torch.int32, device=b.device)
+    return (b << shifts).sum(2).to(torch.uint8)
 
 
 def unpack_bits_rows(bitmap: torch.Tensor, size: int) -> torch.Tensor:

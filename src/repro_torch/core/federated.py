@@ -9,7 +9,7 @@ client bodies:
   3. every upload crosses the wire codec, and
   4. weighted FedAvg (Eq. 2): Θ_{t+1} = Θ_t + Σ_i w_i · upload_i.
 
-Three execution forms of the same round:
+Three execution forms of the same round, and a fourth over rounds:
 
 * **oracle** (``make_federated_round``): ALL registered clients run,
   non-participants are zero-weighted;
@@ -21,6 +21,10 @@ Three execution forms of the same round:
   client-state boundary, its state rows gathered and scattered by a
   :class:`~repro_torch.core.client_store.ClientStateStore` outside it (the
   layout is in the comment above :func:`make_store_selection`).
+
+The **scan** form (``make_cohort_scan``) runs a segment of rounds of one
+bucket in one call, the oracle or the cohort body; on a card it replays a
+CUDA graph of the bucket's round (the comment above :class:`RoundParts`).
 
 Every form aggregates over the participants' rows only, so the same
 participants give the same parameters bit for bit whichever clients pad
@@ -78,6 +82,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
@@ -86,13 +91,15 @@ from repro_torch.core.client import ClientConfig, stacked_client_update
 from repro_torch.core.codecs import roundtrip_stacked
 from repro_torch.core.sampling import (SamplingSchedule, UniformSampler,
                                        participation_mask)
+from repro_torch.kernels.packing import device_constant
 
 Tree = Dict[str, torch.Tensor]
 
 __all__ = ["FederatedConfig", "fedavg_aggregate", "cohort_select",
            "make_federated_round", "make_cohort_round",
            "make_store_selection", "make_store_compute", "StoreRound",
-           "Dispatch", "store_dispatch", "make_store_round"]
+           "Dispatch", "store_dispatch", "make_store_round",
+           "RoundParts", "make_cohort_scan", "CohortScan"]
 
 @dataclasses.dataclass(frozen=True)
 class FederatedConfig:
@@ -183,6 +190,13 @@ def _adversaries(attack, num_clients: int) -> Optional[torch.Tensor]:
     if attack is None:
         return None
     return torch.from_numpy(attack.adversary_mask(num_clients))
+
+
+def _adversaries_on(attack, num_clients: int, device) -> torch.Tensor:
+    """:func:`_adversaries` on ``device``, a
+    :func:`~repro_torch.kernels.packing.device_constant`."""
+    return device_constant(("adversaries", attack, num_clients),
+                           lambda: _adversaries(attack, num_clients), device)
 
 
 def _aggregator(aggregator, normalize: bool) -> Callable:
@@ -354,6 +368,187 @@ def _metrics(losses, rows, valid, finite) -> Dict[str, torch.Tensor]:
             "quarantined": (valid * (1.0 - finite)).sum()}
 
 
+# Every oracle and cohort body is three parts, so that the scan form
+# (``make_cohort_scan``) can capture the middle one into a CUDA graph and
+# replay it:
+#
+#     prepare(state, n_samples, t, scores, drop_scores)  [CPU]
+#         -> inputs (bucket-shaped device tensors), host (the rest)
+#     compute(params, carried, client_batches, n_samples, inputs,
+#             mask_scores, attack_noise)                  [device, bucket]
+#         -> new carried state, outs (payload, finite, weights, losses)
+#     finish(params, outs, host)                          [device, m_t rows]
+#         -> new_params, metrics
+#
+# ``prepare`` is the selection, which stays on the CPU.  ``compute`` is
+# the work whose shapes the bucket fixes: the gathers, local SGD, masking,
+# the wire round trip, the attack, the finite flags and the commit of the
+# per-client state it carries (``RoundParts.carried``).  ``finish`` is the
+# aggregation and the mean loss over the m_t participant rows, whose count
+# changes from round to round inside a bucket.  The eager round runs the
+# three in a row; the scan form runs the same ``prepare`` and ``finish``
+# around a replay of ``compute``, so both give the same bits.
+
+
+@dataclasses.dataclass(frozen=True)
+class RoundParts:
+    """One oracle or cohort body split where a CUDA graph can hold it (see
+    the comment above); ``carried`` names the state trees ``compute`` reads
+    and returns: ``residuals`` with error feedback, ``drift`` under FedDyn
+    and ``norms`` for an adaptive sampler."""
+
+    prepare: Callable
+    compute: Callable
+    finish: Callable
+    carried: tuple
+
+
+def _carried(cfg: FederatedConfig, adaptive: bool) -> tuple:
+    return tuple(name for name, on in (
+        ("residuals", cfg.error_feedback),
+        ("drift", cfg.client.objective.uses_drift),
+        ("norms", adaptive)) if on)
+
+
+def _eager(parts: RoundParts, name: str) -> Callable:
+    """The round (signature in the module docstring): the three parts in a
+    row."""
+    def round_fn(params: Tree, state: Dict[str, Any],
+                 client_batches: Sequence[torch.Tensor],
+                 n_samples: torch.Tensor, t, scores: torch.Tensor,
+                 mask_scores: Optional[Tree] = None,
+                 drop_scores: Optional[torch.Tensor] = None,
+                 attack_noise: Optional[Tree] = None):
+        inputs, host = parts.prepare(state, n_samples, t, scores,
+                                     drop_scores)
+        carried, outs = parts.compute(
+            params, {k: state[k] for k in parts.carried}, client_batches,
+            n_samples, inputs, mask_scores, attack_noise)
+        new_params, metrics = parts.finish(params, outs, host)
+        return new_params, {**state, **carried}, metrics
+
+    round_fn.__name__ = round_fn.__qualname__ = name
+    return round_fn
+
+
+def _gather(tree: Optional[Tree], ids) -> Optional[Tree]:
+    return None if tree is None else {
+        k: v.index_select(0, ids) for k, v in tree.items()}
+
+
+def _scatter(full: Tree, ids, rows: Tree) -> Tree:
+    return {k: v.index_copy(0, ids, rows[k]) for k, v in full.items()}
+
+
+def _plain_finish(agg_fn, upload: str) -> Callable:
+    def finish(params, outs, host):
+        rows = host["rows"]
+        new_params = _aggregate(agg_fn, params, outs["payload"],
+                                outs["finite"], outs["weights"], rows, upload)
+        return new_params, _metrics(outs["losses"], rows, host["valid"],
+                                    outs["finite"])
+
+    return finish
+
+
+def _general_finish(agg_fn, upload: str, dropout: bool, adv) -> Callable:
+    def finish(params, outs, host):
+        rows, part = host["rows"], host["part"]
+        new_params = _aggregate(agg_fn, params, outs["payload"],
+                                outs["finite"], outs["weights"], rows, upload)
+        metrics = _general_metrics(
+            outs["losses"], rows, part, host["arrived"],
+            (host["arrived_d"] * (1.0 - outs["finite"])).sum(), dropout)
+        if adv is not None:
+            metrics["num_adversarial"] = (part * adv).sum()
+        return new_params, metrics
+
+    return finish
+
+
+def _federated_parts(loss_fn: Callable, schedule: SamplingSchedule,
+                     cfg: FederatedConfig, *, codec=None, aggregator=None,
+                     sampler=None, hetero=None, attack=None) -> RoundParts:
+    """The oracle body's parts (every registered client runs)."""
+    attack = _active_attack(attack)
+    uses_drift = cfg.client.objective.uses_drift
+    upload = cfg.client.upload
+    if _is_plain(sampler, hetero, attack):
+        def prepare(state, n_samples, t, scores, drop_scores):
+            part = participation_mask(scores.cpu(), schedule, t,
+                                      cfg.num_clients)
+            device = n_samples.device
+            valid = part.to(device)
+            return {"valid": valid}, {
+                "rows": _participant_rows(part, device), "valid": valid}
+
+        def compute(params, carried, client_batches, n_samples, inputs,
+                    mask_scores, attack_noise):
+            residuals, drift = carried.get("residuals"), carried.get("drift")
+            part = inputs["valid"]
+            uploads, new_res, new_drift, losses = stacked_client_update(
+                loss_fn, params, client_batches, cfg.client, residuals,
+                cfg.error_feedback, mask_scores, drift)
+            wired = roundtrip_stacked(codec, uploads)
+            finite = _finite_rows(wired)
+            out = {}
+            if cfg.error_feedback:
+                out["residuals"] = _residual_update(
+                    cfg, residuals, new_res, uploads, wired, part * finite)
+            if uses_drift:
+                out["drift"] = _commit_rows(drift, new_drift, part * finite)
+            return out, {"payload": wired, "finite": finite,
+                         "weights": part * n_samples * finite,
+                         "losses": losses}
+
+        return RoundParts(prepare, compute,
+                          _plain_finish(_aggregator(aggregator, True), upload),
+                          _carried(cfg, False))
+
+    smp, drop = _round_extras(sampler, hetero, cfg)
+    adv = _adversaries(attack, cfg.num_clients)
+
+    def prepare(state, n_samples, t, scores, drop_scores):
+        device = n_samples.device
+        part, weights, arrived = _select(smp, schedule, t, cfg, scores,
+                                         n_samples, state.get("norms"), drop,
+                                         drop_scores)
+        arrived_d = arrived.to(device)
+        return ({"arrived": arrived_d, "weights": weights.to(device)},
+                {"rows": _participant_rows(part, device), "part": part,
+                 "arrived": arrived, "arrived_d": arrived_d})
+
+    def compute(params, carried, client_batches, n_samples, inputs,
+                mask_scores, attack_noise):
+        residuals, drift = carried.get("residuals"), carried.get("drift")
+        uploads, new_res, new_drift, losses = stacked_client_update(
+            loss_fn, params, client_batches, cfg.client, residuals,
+            cfg.error_feedback, mask_scores, drift)
+        wired = roundtrip_stacked(codec, uploads)
+        # What the server decodes: the adversary rows transformed.
+        payload = (wired if attack is None else attack.apply_stacked(
+            wired, _adversaries_on(attack, cfg.num_clients,
+                                   n_samples.device), attack_noise))
+        finite = _finite_rows(payload)
+        commit = inputs["arrived"] * finite
+        out = {}
+        if cfg.error_feedback:
+            out["residuals"] = _residual_update(cfg, residuals, new_res,
+                                                uploads, wired, commit)
+        if uses_drift:
+            out["drift"] = _commit_rows(drift, new_drift, commit)
+        if smp.adaptive:
+            out["norms"] = _norm_ema(smp, carried["norms"],
+                                     _row_l2(payload), commit)
+        return out, {"payload": payload, "finite": finite,
+                     "weights": inputs["weights"] * finite, "losses": losses}
+
+    return RoundParts(prepare, compute,
+                      _general_finish(_aggregator(aggregator, smp.normalize),
+                                      upload, drop is not None, adv),
+                      _carried(cfg, smp.adaptive))
+
+
 def make_federated_round(loss_fn: Callable, schedule: SamplingSchedule,
                          cfg: FederatedConfig, *, codec=None,
                          aggregator=None, sampler=None, hetero=None,
@@ -368,81 +563,11 @@ def make_federated_round(loss_fn: Callable, schedule: SamplingSchedule,
     ``hetero`` adds in-round upload dropout; ``attack`` perturbs the
     adversary rows of the decoded payload.
     """
-    attack = _active_attack(attack)
-    uses_drift = cfg.client.objective.uses_drift
-    if _is_plain(sampler, hetero, attack):
-        agg_fn = _aggregator(aggregator, True)
-
-        def plain_fn(params: Tree, state: Dict[str, Any],
-                     client_batches: Sequence[torch.Tensor],
-                     n_samples: torch.Tensor, t, scores: torch.Tensor,
-                     mask_scores: Optional[Tree] = None, drop_scores=None,
-                     attack_noise=None):
-            residuals, drift = state["residuals"], state.get("drift")
-            part_cpu = participation_mask(scores.cpu(), schedule, t,
-                                          cfg.num_clients)
-            device = n_samples.device
-            part = part_cpu.to(device)
-            rows = _participant_rows(part_cpu, device)
-            uploads, new_res, new_drift, losses = stacked_client_update(
-                loss_fn, params, client_batches, cfg.client, residuals,
-                cfg.error_feedback, mask_scores, drift)
-            wired = roundtrip_stacked(codec, uploads)
-            finite = _finite_rows(wired)
-            new_params = _aggregate(agg_fn, params, wired, finite,
-                                    part * n_samples * finite, rows,
-                                    cfg.client.upload)
-            out = {"residuals": _residual_update(
-                cfg, residuals, new_res, uploads, wired, part * finite)}
-            if uses_drift:
-                out["drift"] = _commit_rows(drift, new_drift, part * finite)
-            return new_params, out, _metrics(losses, rows, part, finite)
-
-        return plain_fn
-
-    smp, drop = _round_extras(sampler, hetero, cfg)
-    agg_fn = _aggregator(aggregator, smp.normalize)
-    adv = _adversaries(attack, cfg.num_clients)
-
-    def round_fn(params: Tree, state: Dict[str, Any],
-                 client_batches: Sequence[torch.Tensor],
-                 n_samples: torch.Tensor, t, scores: torch.Tensor,
-                 mask_scores: Optional[Tree] = None,
-                 drop_scores: Optional[torch.Tensor] = None,
-                 attack_noise: Optional[Tree] = None):
-        residuals, drift = state["residuals"], state.get("drift")
-        norms = state.get("norms")
-        device = n_samples.device
-        part, weights, arrived = _select(smp, schedule, t, cfg, scores,
-                                         n_samples, norms, drop, drop_scores)
-        arrived_d = arrived.to(device)
-        weights = weights.to(device)
-        rows = _participant_rows(part, device)
-        uploads, new_res, new_drift, losses = stacked_client_update(
-            loss_fn, params, client_batches, cfg.client, residuals,
-            cfg.error_feedback, mask_scores, drift)
-        wired = roundtrip_stacked(codec, uploads)
-        # What the server decodes: the adversary rows transformed.
-        payload = (wired if attack is None
-                   else attack.apply_stacked(wired, adv, attack_noise))
-        finite = _finite_rows(payload)
-        new_params = _aggregate(agg_fn, params, payload, finite,
-                                weights * finite, rows, cfg.client.upload)
-        commit = arrived_d * finite
-        out = {"residuals": _residual_update(cfg, residuals, new_res,
-                                             uploads, wired, commit)}
-        if uses_drift:
-            out["drift"] = _commit_rows(drift, new_drift, commit)
-        if smp.adaptive:
-            out["norms"] = _norm_ema(smp, norms, _row_l2(payload), commit)
-        metrics = _general_metrics(
-            losses, rows, part, arrived, (arrived_d * (1.0 - finite)).sum(),
-            drop is not None)
-        if attack is not None:
-            metrics["num_adversarial"] = (part * adv).sum()
-        return new_params, out, metrics
-
-    return round_fn
+    parts = _federated_parts(loss_fn, schedule, cfg, codec=codec,
+                             aggregator=aggregator, sampler=sampler,
+                             hetero=hetero, attack=attack)
+    plain = _is_plain(sampler, hetero, _active_attack(attack))
+    return _eager(parts, "plain_fn" if plain else "round_fn")
 
 
 # The store form splits the round at the client-state boundary, so a
@@ -503,10 +628,10 @@ def make_store_compute(loss_fn: Callable, cfg: FederatedConfig, *,
     ``new_drift`` (post-round state candidates) and ``losses``.
     ``mask_scores`` and ``attack_noise`` are the cohort's rows of the
     round's random-mask scores and attack noise, so client i draws what
-    any other form gives it; ``cohort_ids`` (CPU) place the adversaries
-    and are needed under an attack."""
+    any other form gives it; ``cohort_ids`` place the adversaries and are
+    needed under an attack (the rows are picked on the ids' device, so
+    ids on the card copy nothing to or from the host)."""
     attack = _active_attack(attack)
-    adv = _adversaries(attack, cfg.num_clients)
 
     def compute(params, cohort_res, cohort_batches, mask_scores=None,
                 cohort_drift=None, cohort_ids=None, attack_noise=None):
@@ -515,7 +640,9 @@ def make_store_compute(loss_fn: Callable, cfg: FederatedConfig, *,
             cfg.error_feedback, mask_scores, cohort_drift)
         wired = roundtrip_stacked(codec, uploads)
         attacked = wired if attack is None else attack.apply_stacked(
-            wired, adv.index_select(0, cohort_ids.cpu()), attack_noise)
+            wired, _adversaries_on(attack, cfg.num_clients,
+                                   cohort_ids.device).index_select(
+                                       0, cohort_ids), attack_noise)
         return {"uploads": uploads, "wired": wired, "attacked": attacked,
                 "new_res": new_res, "new_drift": new_drift, "losses": losses}
 
@@ -533,6 +660,53 @@ class StoreRound:
     adaptive: bool        # body reads the norm EMA and returns its rows
     error_feedback: bool  # residual rows need scattering back
     uses_drift: bool = False  # body reads and returns FedDyn drift rows
+
+
+def _store_body_parts(loss_fn: Callable, cfg: FederatedConfig, smp, drop,
+                      agg_fn, *, codec=None, attack=None):
+    """The generalized cohort body on gathered rows, in three parts:
+    ``head(part, weights, cohort_ids, drop_scores, device) -> (inputs,
+    host)`` on the CPU (the upload losses folded in, the cohort's rows of
+    the weights and of the arrived mask sent to the device), ``sweep(params,
+    cohort_res, cohort_drift, cohort_batches, inputs, norms, mask_scores,
+    attack_noise) -> (new_rows, drift_rows, commit, norm_upd, outs)`` on the
+    cohort's rows, and ``tail`` (:func:`_general_finish`)."""
+    compute = make_store_compute(loss_fn, cfg, codec=codec, attack=attack)
+    adv = _adversaries(attack, cfg.num_clients)
+
+    def head(part, weights, cohort_ids, drop_scores, device):
+        arrived, weights = _apply_dropout(part, weights, drop, drop_scores,
+                                          smp.normalize)
+        arrived_d = arrived.index_select(0, cohort_ids).to(device)
+        inputs = {"ids": cohort_ids.to(device), "arrived": arrived_d,
+                  "weights": weights.index_select(0, cohort_ids).to(device)}
+        return inputs, {
+            "rows": _participant_rows(part.index_select(0, cohort_ids),
+                                      device),
+            "part": part, "arrived": arrived, "arrived_d": arrived_d}
+
+    def sweep(params, cohort_res, cohort_drift, cohort_batches, inputs,
+              norms, mask_scores=None, attack_noise=None):
+        ids = inputs["ids"]
+        c = compute(params, cohort_res, cohort_batches, mask_scores,
+                    cohort_drift, ids, attack_noise)
+        uploads, wired, payload = c["uploads"], c["wired"], c["attacked"]
+        finite = _finite_rows(payload)
+        commit = inputs["arrived"] * finite
+        new_rows = c["new_res"]
+        if cfg.error_feedback and wired is not uploads:
+            new_rows = _wire_feedback(new_rows, uploads, wired)
+        norm_upd = None
+        if smp.adaptive:
+            norm_upd = _norm_ema(smp, norms.index_select(0, ids),
+                                 _row_l2(payload), commit)
+        outs = {"payload": payload, "finite": finite,
+                "weights": inputs["weights"] * finite,
+                "losses": c["losses"]}
+        return new_rows, c["new_drift"], commit, norm_upd, outs
+
+    tail = _general_finish(agg_fn, cfg.client.upload, drop is not None, adv)
+    return compute, head, sweep, tail
 
 
 def make_store_round(loss_fn: Callable, schedule: SamplingSchedule,
@@ -561,10 +735,10 @@ def make_store_round(loss_fn: Callable, schedule: SamplingSchedule,
             f"cohort_size {cohort_size} not in (0, {cfg.num_clients}]")
     attack = _active_attack(attack)
     smp, drop = _round_extras(sampler, hetero, cfg)
-    agg_fn = _aggregator(aggregator, smp.normalize)
-    compute = make_store_compute(loss_fn, cfg, codec=codec, attack=attack)
+    compute, head, sweep, tail = _store_body_parts(
+        loss_fn, cfg, smp, drop, _aggregator(aggregator, smp.normalize),
+        codec=codec, attack=attack)
     select = make_store_selection(schedule, cfg, cohort_size, sampler=smp)
-    adv = _adversaries(attack, cfg.num_clients)
 
     def body(params, cohort_res, cohort_drift, cohort_batches, cohort_ids,
              part, weights, norms, mask_scores=None, drop_scores=None,
@@ -572,33 +746,12 @@ def make_store_round(loss_fn: Callable, schedule: SamplingSchedule,
         # Everything the host sends the device goes before the sweep is
         # queued, so no copy waits for it.
         device = next(iter(params.values())).device
-        arrived, weights = _apply_dropout(part, weights, drop, drop_scores,
-                                          smp.normalize)
-        rows = _participant_rows(part.index_select(0, cohort_ids), device)
-        arr_c = arrived.index_select(0, cohort_ids).to(device)
-        w_c = weights.index_select(0, cohort_ids).to(device)
-        ids = cohort_ids.to(device)
-        c = compute(params, cohort_res, cohort_batches, mask_scores,
-                    cohort_drift, cohort_ids, attack_noise)
-        uploads, wired, payload = c["uploads"], c["wired"], c["attacked"]
-        finite = _finite_rows(payload)
-        new_params = _aggregate(agg_fn, params, payload, finite,
-                                w_c * finite, rows, cfg.client.upload)
-        commit = arr_c * finite
-        new_rows = c["new_res"]
-        if cfg.error_feedback and wired is not uploads:
-            new_rows = _wire_feedback(new_rows, uploads, wired)
-        norm_upd = None
-        if smp.adaptive:
-            norm_upd = _norm_ema(smp, norms.index_select(0, ids),
-                                 _row_l2(payload), commit)
-        metrics = _general_metrics(c["losses"], rows, part, arrived,
-                                   (arr_c * (1.0 - finite)).sum(),
-                                   drop is not None)
-        if attack is not None:
-            metrics["num_adversarial"] = (part * adv).sum()
-        return new_params, new_rows, c["new_drift"], commit, norm_upd, \
-            metrics
+        inputs, host = head(part, weights, cohort_ids, drop_scores, device)
+        new_rows, drift_rows, commit, norm_upd, outs = sweep(
+            params, cohort_res, cohort_drift, cohort_batches, inputs, norms,
+            mask_scores, attack_noise)
+        new_params, metrics = tail(params, outs, host)
+        return new_params, new_rows, drift_rows, commit, norm_upd, metrics
 
     return StoreRound(select=select, body=body, compute=compute,
                       adaptive=smp.adaptive,
@@ -641,6 +794,92 @@ def store_dispatch(prog: StoreRound, store, n_samples: torch.Tensor, t,
                     res=res, drift=drift, batches=batches)
 
 
+def _cohort_parts(loss_fn: Callable, schedule: SamplingSchedule,
+                  cfg: FederatedConfig, cohort_size: int, *, codec=None,
+                  aggregator=None, sampler=None, hetero=None,
+                  attack=None) -> RoundParts:
+    """The cohort body's parts: the plain body's, or the generalized body's
+    (the store form's body with its gather and scatter done on the dense
+    state)."""
+    if not 0 < cohort_size <= cfg.num_clients:
+        raise ValueError(
+            f"cohort_size {cohort_size} not in (0, {cfg.num_clients}]")
+    attack = _active_attack(attack)
+    uses_drift = cfg.client.objective.uses_drift
+    if _is_plain(sampler, hetero, attack):
+        def prepare(state, n_samples, t, scores, drop_scores):
+            cohort_ids, valid = cohort_select(
+                scores.cpu(), schedule, t, cfg.num_clients, cohort_size)
+            device = n_samples.device
+            valid_d = valid.to(device)
+            return {"ids": cohort_ids.to(device), "valid": valid_d}, {
+                "rows": _participant_rows(valid, device), "valid": valid_d}
+
+        def compute(params, carried, client_batches, n_samples, inputs,
+                    mask_scores, attack_noise):
+            residuals, drift = carried.get("residuals"), carried.get("drift")
+            ids, valid = inputs["ids"], inputs["valid"]
+            cohort_res = _gather(residuals, ids)
+            cohort_drift = _gather(drift, ids)
+            uploads, new_res, new_drift, losses = stacked_client_update(
+                loss_fn, params, [x.index_select(0, ids)
+                                  for x in client_batches],
+                cfg.client, cohort_res, cfg.error_feedback,
+                _gather(mask_scores, ids), cohort_drift)
+            wired = roundtrip_stacked(codec, uploads)
+            finite = _finite_rows(wired)
+            out = {}
+            if cfg.error_feedback:
+                out["residuals"] = _scatter(residuals, ids, _residual_update(
+                    cfg, cohort_res, new_res, uploads, wired, valid * finite))
+            if uses_drift:
+                out["drift"] = _scatter(drift, ids, _commit_rows(
+                    cohort_drift, new_drift, valid * finite))
+            weights = valid * n_samples.index_select(0, ids) * finite
+            return out, {"payload": wired, "finite": finite,
+                         "weights": weights, "losses": losses}
+
+        return RoundParts(prepare, compute,
+                          _plain_finish(_aggregator(aggregator, True),
+                                        cfg.client.upload),
+                          _carried(cfg, False))
+
+    smp, drop = _round_extras(sampler, hetero, cfg)
+    _, head, sweep, tail = _store_body_parts(
+        loss_fn, cfg, smp, drop, _aggregator(aggregator, smp.normalize),
+        codec=codec, attack=attack)
+    select = make_store_selection(schedule, cfg, cohort_size, sampler=smp)
+
+    def prepare(state, n_samples, t, scores, drop_scores):
+        part, weights, cohort_ids = select(state.get("norms"), n_samples, t,
+                                           scores)
+        return head(part, weights, cohort_ids, drop_scores, n_samples.device)
+
+    def compute(params, carried, client_batches, n_samples, inputs,
+                mask_scores, attack_noise):
+        residuals, drift = carried.get("residuals"), carried.get("drift")
+        norms = carried.get("norms")
+        ids = inputs["ids"]
+        cohort_res = _gather(residuals, ids)
+        cohort_drift = _gather(drift, ids)
+        new_rows, drift_rows, commit, norm_upd, outs = sweep(
+            params, cohort_res, cohort_drift,
+            [x.index_select(0, ids) for x in client_batches], inputs, norms,
+            _gather(mask_scores, ids), _gather(attack_noise, ids))
+        out = {}
+        if cfg.error_feedback:
+            out["residuals"] = _scatter(residuals, ids, _commit_rows(
+                cohort_res, new_rows, commit))
+        if uses_drift:
+            out["drift"] = _scatter(drift, ids, _commit_rows(
+                cohort_drift, drift_rows, commit))
+        if smp.adaptive:
+            out["norms"] = norms.index_copy(0, ids, norm_upd)
+        return out, outs
+
+    return RoundParts(prepare, compute, tail, _carried(cfg, smp.adaptive))
+
+
 def make_cohort_round(loss_fn: Callable, schedule: SamplingSchedule,
                       cfg: FederatedConfig, cohort_size: int, *,
                       codec=None, aggregator=None, sampler=None, hetero=None,
@@ -652,92 +891,128 @@ def make_cohort_round(loss_fn: Callable, schedule: SamplingSchedule,
     oracle's client-id order.  The generalized body is the store form
     (:func:`make_store_round`) with its gather and scatter done on the
     dense state."""
-    if not 0 < cohort_size <= cfg.num_clients:
-        raise ValueError(
-            f"cohort_size {cohort_size} not in (0, {cfg.num_clients}]")
-    attack = _active_attack(attack)
-    uses_drift = cfg.client.objective.uses_drift
+    parts = _cohort_parts(loss_fn, schedule, cfg, cohort_size, codec=codec,
+                          aggregator=aggregator, sampler=sampler,
+                          hetero=hetero, attack=attack)
+    plain = _is_plain(sampler, hetero, _active_attack(attack))
+    return _eager(parts, "plain_fn" if plain else "round_fn")
 
-    def scatter(full: Tree, cohort_ids, rows: Tree) -> Tree:
-        return {k: v.index_copy(0, cohort_ids, rows[k])
-                for k, v in full.items()}
 
-    def gather(tree: Optional[Tree], ids) -> Optional[Tree]:
-        return None if tree is None else {
-            k: v.index_select(0, ids) for k, v in tree.items()}
+def make_cohort_scan(loss_fn: Callable, schedule: SamplingSchedule,
+                     cfg: FederatedConfig, cohort_size: int, *,
+                     codec=None, aggregator=None, sampler=None, hetero=None,
+                     attack=None) -> "CohortScan":
+    """The scan form: a segment of rounds that share a cohort bucket in one
+    call, the oracle body when ``cohort_size == num_clients`` and the
+    cohort body otherwise (as the reference's ``lax.scan`` fast path).
 
-    if _is_plain(sampler, hetero, attack):
-        agg_fn = _aggregator(aggregator, True)
+    Returns ``scan_fn(params, state, client_batches, n_samples, ts, scores,
+    mask_scores=None, drop_scores=None, attack_noise=None) -> (params,
+    state, metrics)``: the round's signature with a leading segment axis
+    on ``ts`` and on each round's draws (``scores`` and ``drop_scores``
+    (S, M), ``mask_scores`` and ``attack_noise`` ``{leaf: (S, M,
+    *shape)}``), and every metric stacked per round.  On the CPU it runs
+    the eager round in a loop.  On a card it captures the bucket's
+    ``compute`` part into a CUDA graph once and replays it for every round,
+    with selection on the CPU and the aggregation over the m_t participant
+    rows eager between replays (:class:`CohortScan`), so its results equal
+    the eager loop's bit for bit."""
+    kw = dict(codec=codec, aggregator=aggregator, sampler=sampler,
+              hetero=hetero, attack=attack)
+    if cohort_size == cfg.num_clients:
+        parts = _federated_parts(loss_fn, schedule, cfg, **kw)
+    else:
+        parts = _cohort_parts(loss_fn, schedule, cfg, cohort_size, **kw)
+    return CohortScan(parts)
 
-        def plain_fn(params: Tree, state: Dict[str, Any],
-                     client_batches: Sequence[torch.Tensor],
-                     n_samples: torch.Tensor, t, scores: torch.Tensor,
-                     mask_scores: Optional[Tree] = None, drop_scores=None,
-                     attack_noise=None):
-            residuals, drift = state["residuals"], state.get("drift")
-            cohort_ids, valid_cpu = cohort_select(
-                scores.cpu(), schedule, t, cfg.num_clients, cohort_size)
-            device = n_samples.device
-            cohort_ids, valid = cohort_ids.to(device), valid_cpu.to(device)
-            rows = _participant_rows(valid_cpu, device)
-            cohort_res = (gather(residuals, cohort_ids)
-                          if cfg.error_feedback else None)
-            cohort_drift = gather(drift, cohort_ids) if uses_drift else None
-            uploads, new_res, new_drift, losses = stacked_client_update(
-                loss_fn, params, [x.index_select(0, cohort_ids)
-                                  for x in client_batches],
-                cfg.client, cohort_res, cfg.error_feedback,
-                gather(mask_scores, cohort_ids), cohort_drift)
-            wired = roundtrip_stacked(codec, uploads)
-            finite = _finite_rows(wired)
-            weights = valid * n_samples.index_select(0, cohort_ids) * finite
-            new_params = _aggregate(agg_fn, params, wired, finite, weights,
-                                    rows, cfg.client.upload)
-            out = {"residuals": residuals}
-            if cfg.error_feedback:
-                out["residuals"] = scatter(residuals, cohort_ids,
-                                           _residual_update(
-                                               cfg, cohort_res, new_res,
-                                               uploads, wired,
-                                               valid * finite))
-            if uses_drift:
-                out["drift"] = scatter(drift, cohort_ids, _commit_rows(
-                    cohort_drift, new_drift, valid * finite))
-            return new_params, out, _metrics(losses, rows, valid, finite)
 
-        return plain_fn
+def _draw(tree, i: int):
+    """Round i's rows of a segment's stacked draws (a tensor, a tree or
+    None)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: v[i] for k, v in tree.items()}
+    return tree[i]
 
-    prog = make_store_round(loss_fn, schedule, cfg, cohort_size, codec=codec,
-                            aggregator=aggregator, sampler=sampler,
-                            hetero=hetero, attack=attack)
 
-    def round_fn(params: Tree, state: Dict[str, Any],
+def _stack_metrics(metrics: list) -> Dict[str, torch.Tensor]:
+    return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
+
+
+class CohortScan:
+    """The scan form of one bucket's round (:func:`make_cohort_scan`).
+
+    On a card the first call captures the round's ``compute`` part into a
+    :class:`~repro_torch.core.graphs.CapturedRound` (warm-up on copies,
+    then capture, in the graph memory pool ``pool`` when the caller sets
+    one) and every round of every later call replays it; arguments of
+    other shapes (another run's batches) capture a graph of their own, as
+    the reference compiles again for other input shapes.  The round's
+    selection and draws are copied into the graph's input buffers, the
+    graph runs, and the aggregation and mean loss over the round's m_t
+    participant rows run eagerly on its outputs.  The server's state is
+    copied into the graph's buffers when a call starts and out when it
+    ends.  A failed capture raises; nothing falls back to the eager round.
+
+    ``last_capture_s`` is the seconds the last call spent on warm-up and
+    capture (0.0 when the graph was already built), ``capture_s`` their
+    sum over calls; ``graphs`` and ``replays`` count captures and
+    replays."""
+
+    def __init__(self, parts: RoundParts):
+        self.parts = parts
+        self.round_fn = _eager(parts, "round_fn")
+        self.pool = None
+        self._captured: Dict[Any, Any] = {}
+        self.graphs = self.replays = 0
+        self.last_capture_s = self.capture_s = 0.0
+
+    def __call__(self, params: Tree, state: Dict[str, Any],
                  client_batches: Sequence[torch.Tensor],
-                 n_samples: torch.Tensor, t, scores: torch.Tensor,
+                 n_samples: torch.Tensor, ts, scores: torch.Tensor,
                  mask_scores: Optional[Tree] = None,
                  drop_scores: Optional[torch.Tensor] = None,
                  attack_noise: Optional[Tree] = None):
-        norms = state.get("norms")
-        part, weights, cohort_ids = prog.select(norms, n_samples, t, scores)
-        ids = cohort_ids.to(n_samples.device)
-        cohort_res = (gather(state["residuals"], ids) if cfg.error_feedback
-                      else None)
-        cohort_drift = gather(state.get("drift"), ids)
-        new_params, new_rows, drift_rows, commit, norm_upd, metrics = \
-            prog.body(params, cohort_res, cohort_drift,
-                      [x.index_select(0, ids) for x in client_batches],
-                      cohort_ids, part, weights, norms,
-                      gather(mask_scores, ids), drop_scores,
-                      gather(attack_noise, ids))
-        out = {"residuals": state["residuals"]}
-        if cfg.error_feedback:
-            out["residuals"] = scatter(state["residuals"], ids, _commit_rows(
-                cohort_res, new_rows, commit))
-        if uses_drift:
-            out["drift"] = scatter(state["drift"], ids, _commit_rows(
-                cohort_drift, drift_rows, commit))
-        if prog.adaptive:
-            out["norms"] = norms.index_copy(0, ids, norm_upd)
-        return new_params, out, metrics
-
-    return round_fn
+        self.last_capture_s = 0.0
+        if n_samples.device.type != "cuda":
+            metrics = []
+            for i, t in enumerate(ts):
+                params, state, m = self.round_fn(
+                    params, state, client_batches, n_samples, t, scores[i],
+                    _draw(mask_scores, i), _draw(drop_scores, i),
+                    _draw(attack_noise, i))
+                metrics.append(m)
+            return params, state, _stack_metrics(metrics)
+        from repro_torch.core.graphs import CapturedRound, signature
+        parts = self.parts
+        carried = {k: state[k] for k in parts.carried}
+        batches = list(client_batches)
+        metrics = []
+        for i, t in enumerate(ts):
+            inputs, host = parts.prepare({**state, **carried}, n_samples, t,
+                                         scores[i], _draw(drop_scores, i))
+            draws = (_draw(mask_scores, i), _draw(attack_noise, i))
+            if i == 0:
+                args = (params, carried, batches, n_samples, inputs) + draws
+                key = signature(args)
+                graph = self._captured.get(key)
+                if graph is None:
+                    t0 = time.perf_counter()
+                    graph = CapturedRound(parts.compute, args, self.pool)
+                    self._captured[key] = graph
+                    self.graphs += 1
+                    self.last_capture_s = time.perf_counter() - t0
+                    self.capture_s += self.last_capture_s
+                graph.load(params, carried, batches, n_samples)
+                carried = graph.carried
+            else:
+                graph.set_params(params)
+            outs = graph.replay(inputs, *draws)
+            self.replays += 1
+            params, m = parts.finish(params, outs, host)
+            metrics.append(m)
+        out = {k: (v.clone() if isinstance(v, torch.Tensor) else
+                   {n: x.clone() for n, x in v.items()})
+               for k, v in carried.items()}
+        return params, {**state, **out}, _stack_metrics(metrics)

@@ -111,7 +111,8 @@ def threshold_for_topk(mag: torch.Tensor, k, iters: int = 24) -> torch.Tensor:
     mag = mag.to(torch.float32)
     hi = mag.amax(-1) + 1e-12
     lo = torch.zeros_like(hi)
-    k = torch.as_tensor(k, device=mag.device)
+    if isinstance(k, torch.Tensor):      # an int is compared as it is
+        k = k.to(mag.device)
     for _ in range(iters):
         mid = 0.5 * (lo + hi)
         raise_lo = (mag >= mid[..., None]).sum(-1) > k

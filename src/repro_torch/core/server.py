@@ -5,19 +5,36 @@ counterpart of ``repro/core/server.py``).
 meters transport bytes and evaluates on held-out data.  Its scenario is one
 :class:`repro_torch.core.strategy.FedStrategy`.
 
-The loop is eager: every round picks its cohort bucket on the host and calls
-the matching round (``engine="cohort"``: the bucketed cohort body, or the
-oracle body when the bucket is the whole population; ``engine="full"``:
-always the oracle; ``engine="async"``: one buffered round of
+Every round picks its cohort bucket on the host and runs the matching round
+(``engine="cohort"``: the bucketed cohort body, or the oracle body when the
+bucket is the whole population; ``engine="full"``: always the oracle;
+``engine="async"``: one buffered round of
 :class:`~repro_torch.core.async_engine.AsyncRoundRunner` on the store,
 configured by ``strategy.async_cfg``, whose fault ledger fills the async
-fields of :class:`RoundRecord`).  The reference's AOT compilation and
-``lax.scan`` segments are XLA dispatch machinery and have no counterpart
-here.  What is
-a build here (a bucket's round construction and, for a round that launches
-kernels, the kernel library's ``nvcc`` build or load) is timed apart as
-``RoundRecord.compile_s`` on the round that first needs it, outside
-``wall_s``.
+fields of :class:`RoundRecord`).
+
+With ``scan_rounds=True`` (the default, as in the reference) the dense store
+on the ``cohort`` and ``full`` engines runs segment by segment, as the
+reference does (:meth:`FederatedServer._segments`): consecutive rounds that
+share a bucket, broken after an eval round, go through one call of the
+scan form (``build_round(form="scan")``, a
+:class:`~repro_torch.core.federated.CohortScan`).  On a card its rounds
+replay a CUDA graph of the bucket's round; on the CPU it runs the eager
+round in a loop.  Either way the results equal the per-round loop's bit
+for bit.  A segment's records carry ``wall_s`` = the segment's wall time
+over its length, ``compile_s`` on its first round, and the eval metric
+on its last round only.  ``scan_rounds=False`` runs the per-round loop.
+The store and async engines always run round by round, as in the
+reference.
+
+What is a build here is timed apart as ``RoundRecord.compile_s`` on the
+round that first needs it, outside ``wall_s``: a bucket's round
+construction, for a round that launches kernels the kernel library's
+``nvcc`` build or load, and on the scan form the CUDA graph's warm-up and
+capture.  The port keys a built round by (form, bucket); the reference
+keys its compiled programs by (bucket, segment length), so it compiles
+again where an eval round splits a bucket into segments of another length
+and the port does not.  A server's graphs share one memory pool.
 
 Per-client server state lives in a
 :class:`~repro_torch.core.client_store.ClientStateStore`: the error-feedback
@@ -128,7 +145,8 @@ class FederatedServer:
 
     def __init__(self, strategy, loss_fn: Callable, init_params: Tree,
                  num_clients: int, *, eval_fn: Optional[Callable] = None,
-                 seed: int = 0, engine: str = "cohort", device=None,
+                 seed: int = 0, engine: str = "cohort",
+                 scan_rounds: bool = True, device=None,
                  scores: Optional[Callable[[int, int], Any]] = None,
                  mask_scores: Optional[Callable[[int, int], Any]] = None,
                  drop_scores: Optional[Callable[[int, int], Any]] = None,
@@ -143,6 +161,7 @@ class FederatedServer:
         self.cfg = strategy.federated_config(num_clients)
         self.schedule = strategy.sampling
         self.engine = engine
+        self.scan_rounds = scan_rounds
         self.eval_fn = eval_fn
         self.params = {k: v.to(self.device) for k, v in init_params.items()}
         self._adaptive = strategy.sampler.adaptive
@@ -182,6 +201,7 @@ class FederatedServer:
                                            store=self.store)
             self._event_generator = torch.Generator().manual_seed(seed + 3)
         self._rounds: Dict[tuple, Any] = {}
+        self._graph_pool = None
         self._round = 0
         self.history: List[RoundRecord] = []
         self._num_params = pytree_num_params(self.params)
@@ -217,7 +237,8 @@ class FederatedServer:
     @classmethod
     def from_strategy(cls, strategy, loss_fn: Callable, init_params: Tree,
                       num_clients: int, eval_fn: Optional[Callable] = None,
-                      seed: int = 0, engine: str = "cohort", *, device=None,
+                      seed: int = 0, engine: str = "cohort",
+                      scan_rounds: bool = True, *, device=None,
                       scores: Optional[Callable[[int, int], Any]] = None,
                       mask_scores: Optional[Callable[[int, int], Any]] = None,
                       drop_scores: Optional[Callable[[int, int], Any]] = None,
@@ -225,7 +246,9 @@ class FederatedServer:
                       event_seed: Optional[Callable[[int], Any]] = None,
                       attack_noise: Optional[Callable[[int, Any], Any]]
                       = None) -> "FederatedServer":
-        """Build a server from one strategy record.  ``device``: ``cuda``
+        """Build a server from one strategy record.  ``scan_rounds`` runs
+        the dense store's rounds segment by segment through the scan form
+        (the module docstring).  ``device``: ``cuda``
         unless named (raises without a card).  ``scores(t, M)``, when given,
         supplies round t's (M,) uniform participant scores instead of the
         server's generator; ``mask_scores(t, M)`` supplies round t's random
@@ -240,7 +263,8 @@ class FederatedServer:
         (``repro_torch.core.client_store``), on the server's device; None
         builds a :class:`DenseStore`."""
         return cls(strategy, loss_fn, init_params, num_clients,
-                   eval_fn=eval_fn, seed=seed, engine=engine, device=device,
+                   eval_fn=eval_fn, seed=seed, engine=engine,
+                   scan_rounds=scan_rounds, device=device,
                    scores=scores, mask_scores=mask_scores,
                    drop_scores=drop_scores, store=store,
                    event_seed=event_seed, attack_noise=attack_noise)
@@ -252,17 +276,23 @@ class FederatedServer:
         the kernel library's ``nvcc`` build or load (cached for the process
         after its first use); 0.0 for a round already built.  ``form`` is
         ``"dense"`` (the oracle when the bucket is the whole population,
-        else the cohort round) or ``"store"``.  The counterpart of the
-        reference's ``_get_compiled``.  A build failure raises."""
+        else the cohort round), ``"scan"`` (the scan form of either, its
+        graph captured at its first call, in the server's graph memory
+        pool) or ``"store"``.  The counterpart of the reference's
+        ``_get_compiled``.  A build failure raises."""
         fn = self._rounds.get((form, bucket))
         if fn is not None:
             return fn, 0.0
         from repro_torch.core.strategy import build_round, launches_kernels
         t0 = time.perf_counter()
         M = self.cfg.num_clients
-        if form == "store":
-            fn = build_round(self.strategy, self._loss_fn, M, form="store",
+        if form in ("store", "scan"):
+            fn = build_round(self.strategy, self._loss_fn, M, form=form,
                              cohort_size=bucket)
+            if form == "scan" and self.device.type == "cuda":
+                if self._graph_pool is None:
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                fn.pool = self._graph_pool
         elif bucket >= M:
             fn = build_round(self.strategy, self._loss_fn, M, form="full")
         else:
@@ -405,11 +435,15 @@ class FederatedServer:
             step = self._async_round
         elif self.store.kind == "dense":
             step, n_samples = self._dense_round, n_samples.to(self.device)
+            if self.scan_rounds:
+                return self._run_segments(batches, n_samples, rounds,
+                                          self._eval_rounds(rounds,
+                                                            eval_every),
+                                          eval_data, gamma, flops)
         else:
             step = self._store_round
-        start = self._round
-        last = start + rounds
-        for t in range(start + 1, last + 1):
+        eval_rounds = self._eval_rounds(rounds, eval_every)
+        for t in range(self._round + 1, self._round + rounds + 1):
             scores = self._uniforms(t, self._scores, self._generator,
                                     "scores")
             m = self.schedule.num_clients_host(t, M)
@@ -417,12 +451,114 @@ class FederatedServer:
             bucket = bucket if self.engine != "full" else M
             rec = step(t, bucket, batches, provider, n_samples, scores, gamma,
                        flops)
-            if self.eval_fn is not None and eval_every and (
-                    t % eval_every == 0 or t == last):
+            if t in eval_rounds:
                 rec.eval_metric = float(self.eval_fn(self.params, eval_data))
             self.history.append(rec)
             self._round = t
         return self.history
+
+    def _eval_rounds(self, rounds: int, eval_every: int) -> set:
+        """The rounds of the next ``rounds`` that evaluate: every
+        ``eval_every``-th and the last (none without an ``eval_fn``)."""
+        start = self._round
+        if not (eval_every and self.eval_fn is not None):
+            return set()
+        return {t for t in range(start + 1, start + rounds + 1)
+                if t % eval_every == 0 or t == start + rounds}
+
+    def _segments(self, rounds: int, eval_rounds, start: int = 0
+                  ) -> List[tuple]:
+        """Split start+1..start+rounds into ``(bucket, [t, ...])`` segments,
+        as the reference does: consecutive rounds that share a cohort
+        bucket, broken after each eval round (the host needs Θ_t there).
+        ``engine="full"`` pins every bucket to the whole population; the
+        sampler sizes the buckets (``ClientSampler.cohort_bucket``).
+        Without ``scan_rounds`` every round is a segment of its own."""
+        M = self.cfg.num_clients
+        sampler = self.strategy.sampler
+        plan = self.schedule.round_buckets(rounds, M, start=start)
+        segments: List[tuple] = []
+        for t, (m, _bucket) in zip(range(start + 1, start + rounds + 1),
+                                   plan):
+            bucket = sampler.cohort_bucket(self.schedule, m, M)
+            b_eff = bucket if self.engine == "cohort" else M
+            if (segments and self.scan_rounds
+                    and segments[-1][0] == b_eff
+                    and (t - 1) not in eval_rounds):
+                segments[-1][1].append(t)
+            else:
+                segments.append((b_eff, [t]))
+        return segments
+
+    def _stacked(self, draw: Callable, ts) -> Any:
+        """A segment's draws stacked per round: ``draw(t)`` is None, a
+        tensor or a ``{leaf: tensor}`` tree."""
+        rounds = [draw(t) for t in ts]
+        if rounds[0] is None:
+            return None
+        if isinstance(rounds[0], dict):
+            return {k: torch.stack([r[k] for r in rounds])
+                    for k in rounds[0]}
+        return torch.stack(rounds)
+
+    def _run_segments(self, batches, n_samples, rounds: int, eval_rounds,
+                      eval_data, gamma, flops) -> List[RoundRecord]:
+        """The dense store's rounds segment by segment through the scan
+        form (the module docstring): one call per segment, its records
+        from the stacked metrics as the reference writes them."""
+        M = self.cfg.num_clients
+        everyone = np.arange(M)
+        for bucket, ts in self._segments(rounds, eval_rounds, self._round):
+            scores = self._stacked(
+                lambda t: self._uniforms(t, self._scores, self._generator,
+                                         "scores"), ts)
+            drop_scores = self._stacked(self._drop_uniforms, ts)
+            scan_fn, compile_s = self._round_fn(bucket, "scan")
+            self._sync()
+            t0 = time.perf_counter()
+            mask = self._stacked(self.round_mask_scores, ts)
+            noise = self._stacked(
+                lambda t: self._cohort_attack_noise(t, everyone), ts)
+            self.params, state, metrics = scan_fn(
+                self.params, self._state(), batches, n_samples, ts, scores,
+                mask, drop_scores, noise)
+            self._commit_state(state)
+            self._sync()
+            wall = time.perf_counter() - t0 - scan_fn.last_capture_s
+            compile_s += scan_fn.last_capture_s
+            for i, t in enumerate(ts):
+                rec = self._sync_record(
+                    t, bucket, {k: v[i] for k, v in metrics.items()},
+                    wall / len(ts), compile_s if i == 0 else 0.0, gamma,
+                    flops)
+                if t in eval_rounds and t == ts[-1]:
+                    rec.eval_metric = float(self.eval_fn(self.params,
+                                                         eval_data))
+                self.history.append(rec)
+            self._round = ts[-1]
+        return self.history
+
+    def release_graphs(self) -> None:
+        """Drop the scan form's CUDA graphs and their memory pool, whose
+        blocks stay reserved for the graphs while they live; the next
+        ``run`` captures again (and times it in ``compile_s``).  Follow
+        with ``gc.collect()`` and ``torch.cuda.empty_cache()`` to hand the
+        memory back to the card."""
+        for key in [k for k in self._rounds if k[0] == "scan"]:
+            del self._rounds[key]
+        self._graph_pool = None
+
+    def graph_stats(self) -> Dict[str, Any]:
+        """The scan form's CUDA graphs: ``graphs`` captured, ``replays``
+        run and ``capture_s`` (warm-up and capture seconds), in all and
+        per bucket as ``[graphs, replays, capture_s]``."""
+        scans = {b: fn for (form, b), fn in self._rounds.items()
+                 if form == "scan"}
+        return {"graphs": sum(fn.graphs for fn in scans.values()),
+                "replays": sum(fn.replays for fn in scans.values()),
+                "capture_s": sum(fn.capture_s for fn in scans.values()),
+                "per_bucket": {b: [fn.graphs, fn.replays, fn.capture_s]
+                               for b, fn in sorted(scans.items())}}
 
     def _sync_record(self, t, bucket, metrics, wall, compile_s, gamma,
                      flops) -> RoundRecord:

@@ -39,6 +39,7 @@ from repro_torch.core.codecs import (BitmapCodec, ChainCodec,
                                      Int8Codec, SparseCodec, UploadCodec)
 from repro_torch.core.federated import (FederatedConfig, _row_l2,
                                         fedavg_aggregate, make_cohort_round,
+                                        make_cohort_scan,
                                         make_federated_round,
                                         make_store_round)
 from repro_torch.core.hetero import HeteroModel
@@ -300,17 +301,16 @@ class FedStrategy:
 def build_round(strategy: FedStrategy, loss_fn: Callable, num_clients: int,
                 form: str = "full", cohort_size: int | None = None):
     """Build the round a strategy describes: ``form="full"`` (every client
-    runs), ``form="cohort"`` (a bucketed cohort of ``cohort_size``) or
-    ``form="store"`` (the cohort round split at the client-state store
-    boundary: a :class:`~repro_torch.core.federated.StoreRound`)."""
-    if form == "scan":
-        raise ValueError(
-            "form='scan' (the reference's rounds folded into one lax.scan "
-            "program) has no port yet: its counterpart, a CUDA graph of a "
-            "bucket's round replayed, is queued in ROADMAP Queue 1 step D")
-    if form not in ("full", "cohort", "store"):
+    runs), ``form="cohort"`` (a bucketed cohort of ``cohort_size``),
+    ``form="scan"`` (a segment of rounds of one bucket in one call, the
+    oracle when ``cohort_size == num_clients``: a
+    :class:`~repro_torch.core.federated.CohortScan`, whose rounds replay a
+    CUDA graph on a card) or ``form="store"`` (the cohort round split at
+    the client-state store boundary: a
+    :class:`~repro_torch.core.federated.StoreRound`)."""
+    if form not in ("full", "cohort", "scan", "store"):
         raise ValueError(f"unknown round form {form!r} (the port builds "
-                         "'full', 'cohort' and 'store')")
+                         "'full', 'cohort', 'scan' and 'store')")
     cfg = strategy.federated_config(num_clients)
     kw = dict(codec=strategy.codec, aggregator=strategy.aggregator,
               sampler=strategy.sampler, hetero=strategy.hetero,
@@ -319,7 +319,8 @@ def build_round(strategy: FedStrategy, loss_fn: Callable, num_clients: int,
         return make_federated_round(loss_fn, strategy.sampling, cfg, **kw)
     if cohort_size is None:
         raise ValueError(f"form={form!r} requires cohort_size")
-    make = make_cohort_round if form == "cohort" else make_store_round
+    make = {"cohort": make_cohort_round, "scan": make_cohort_scan,
+            "store": make_store_round}[form]
     return make(loss_fn, strategy.sampling, cfg, cohort_size, **kw)
 
 

@@ -133,11 +133,17 @@ def _packed_cohort(tree: Tree, min_leaf_size: int,
 
 def _segment_k(spec: pk.PackSpec, gamma: float, num_clients: int,
                device) -> torch.Tensor:
-    """(C * S,) int32 k = max(1, round(gamma * size)) of every segment."""
-    sizes, inverse = torch.unique(spec.segment_sizes(), return_inverse=True)
-    ks = torch.tensor([max(1, int(round(gamma * int(n)))) for n in sizes],
-                      dtype=torch.int32)
-    return ks[inverse].repeat(num_clients).to(device)
+    """(C * S,) int32 k = max(1, round(gamma * size)) of every segment, a
+    :func:`~repro_torch.kernels.packing.device_constant`."""
+    def build():
+        sizes, inverse = torch.unique(spec.segment_sizes(),
+                                      return_inverse=True)
+        ks = torch.tensor([max(1, int(round(gamma * int(n))))
+                           for n in sizes], dtype=torch.int32)
+        return ks[inverse].repeat(num_clients)
+
+    return pk.device_constant(("segment_k", spec, gamma, num_clients),
+                              build, device)
 
 
 def _refine_taus(x2d, seg_ids, hist, k, refine_sweeps: int,

@@ -21,16 +21,49 @@ tensor ops, so a leaf of 152,064 slices costs no Python loop over them.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import torch
 
 __all__ = ["SEG_LANE", "LeafSpec", "PackSpec", "build_pack_spec",
-           "pack_leaves", "unpack_leaves", "pack_stacked", "unpack_stacked"]
+           "pack_leaves", "unpack_leaves", "pack_stacked", "unpack_stacked",
+           "keep_device_constants", "device_constant"]
 
 # Lane width of the packed buffer; also the per-leaf padding granularity.
 SEG_LANE = 1024
+
+# The stores of the enclosing ``keep_device_constants`` blocks, innermost
+# last.
+_STORES: List[Dict[Any, torch.Tensor]] = []
+
+
+@contextlib.contextmanager
+def keep_device_constants(store: Dict[Any, torch.Tensor]):
+    """Within the block, :func:`device_constant` builds each constant once
+    into ``store`` and hands out that tensor after.  A round captured into
+    a CUDA graph warms up and is captured inside one block with the graph's
+    own store: the capture then copies nothing from the host, and the
+    constants live as long as the graph that reads them."""
+    _STORES.append(store)
+    try:
+        yield store
+    finally:
+        _STORES.pop()
+
+
+def device_constant(key, build: Callable[[], torch.Tensor],
+                    device) -> torch.Tensor:
+    """``build()``, a tensor made on the host, on ``device``: built anew on
+    each call, or once per (key, device) inside
+    :func:`keep_device_constants`, where callers must not write into it."""
+    if not _STORES:
+        return build().to(device)
+    store, key = _STORES[-1], (key, torch.device(device))
+    if key not in store:
+        store[key] = build().to(device)
+    return store[key]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,15 +122,19 @@ class PackSpec:
     def seg_ids(self, num_clients: int = 1, device=None) -> torch.Tensor:
         """(rows * num_clients,) int32 row -> segment map.  With
         ``num_clients`` > 1 it describes the stacked layout, where client
-        c's leaf l is segment ``c * num_segments + l``."""
+        c's leaf l is segment ``c * num_segments + l``.  On a ``device``
+        it is a :func:`device_constant`."""
+        if device is not None:
+            return device_constant(("seg_ids", self, num_clients),
+                                   lambda: self.seg_ids(num_clients), device)
         rows = torch.cat([torch.full((ls.slices,), ls.slice_rows,
                                      dtype=torch.int64)
                           for ls in self.leaves])
         one = torch.repeat_interleave(
             torch.arange(self.num_segments, dtype=torch.int32), rows)
         shift = torch.arange(num_clients, dtype=torch.int32)[:, None]
-        out = (one[None, :] + shift * self.num_segments).reshape(-1)
-        return out if device is None else out.to(device)
+        return (one[None, :] + shift * self.num_segments).reshape(-1)
+
 
 
 def build_pack_spec(leaves: Sequence[torch.Tensor],

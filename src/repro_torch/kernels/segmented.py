@@ -36,7 +36,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.core.compression import int8_codes, pack_bits_rows
-from repro_torch.kernels.packing import SEG_LANE
+from repro_torch.kernels.packing import SEG_LANE, device_constant
 from repro_torch.kernels.ref import EXPO_MIN, NBINS
 
 __all__ = [
@@ -83,10 +83,13 @@ def reset_launch_counts() -> None:
 
 
 def bin_edges(device=None) -> torch.Tensor:
-    """(SEG_NBINS,) fp32 bin-edge magnitudes 2^(EXPO_MIN + 4 j)."""
+    """(SEG_NBINS,) fp32 bin-edge magnitudes 2^(EXPO_MIN + 4 j): a new CPU
+    tensor without ``device``, a
+    :func:`~repro_torch.kernels.packing.device_constant` with one."""
+    if device is not None:
+        return device_constant(("bin_edges",), bin_edges, device)
     j = torch.arange(SEG_NBINS, dtype=torch.float32)
-    return torch.ldexp(torch.ones(SEG_NBINS), j * OCTAVES_PER_BIN + EXPO_MIN
-                       ).to(device)
+    return torch.ldexp(torch.ones(SEG_NBINS), j * OCTAVES_PER_BIN + EXPO_MIN)
 
 
 # --------------------------------------------------------------------------

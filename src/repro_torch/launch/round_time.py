@@ -9,10 +9,12 @@ clock (``sim_total_s``) and the lost uploads.
     PYTHONPATH=src python -m repro_torch.launch.round_time --preset noniid-dyn
 
 Prints one JSON line.  On a card the kernel library's ``nvcc`` build (or
-the load of a library already built) lands in round 1's ``compile_s``;
+the load of a library already built) lands in round 1's ``compile_s``,
+and so do the scan form's CUDA-graph warm-up and capture, which take
 eager PyTorch's first-call setup (cuDNN and cuBLAS handles, the first
-``vmap``) is execution and stays in round 1's ``wall_s``.  Without
-``--device`` it runs on ``cuda`` and raises when there is no card.
+``vmap``) with them; each round's ``wall_s`` is its segment's mean
+(``FederatedServer``'s ``scan_rounds``).  Without ``--device`` it runs on
+``cuda`` and raises when there is no card.
 """
 
 from __future__ import annotations

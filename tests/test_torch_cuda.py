@@ -7,9 +7,11 @@ ssm_scan kernels) against the same paths on the CPU (plain versions), the
 wkv6 and ssm_scan backward kernels against their plain backwards, and
 the sharded client-state store's gather and scatter on the card against
 the CPU's, the MoE's routing on the card against the CPU's, reduced
-gemma2's decode against its forward on the card, and the zoo archs'
-parameter trees initialised on the card.  They skip without a card.  This file
-imports no JAX, so on a machine without it run it alone:
+gemma2's decode against its forward on the card, the zoo archs'
+parameter trees initialised on the card, and the scan form's graph
+replays against the eager round loop, bit for bit.  They skip without a
+card.  This file imports no JAX, so on a machine without it run it
+alone:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -316,6 +318,116 @@ def test_fig5_round_on_card_matches_cpu(cuda, preset, error_feedback):
     res = cpu.store.residuals_dense()
     for k, v in gpu.store.residuals_dense().items():
         torch.testing.assert_close(v.cpu(), res[k], rtol=1e-4, atol=1e-4)
+
+
+SCAN_CASES = [("fig5", {}), ("fig5-fused-int8", {"error_feedback": True}),
+              ("fig3-importance", {}), ("hetero-dropout", {}),
+              ("noniid-dyn", {}), ("byzantine-signflip", {})]
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    yield
+    (torch.backends.cudnn.deterministic,
+     torch.backends.cudnn.benchmark) = saved
+
+
+def _scan_run(st, scan: bool, rounds: int = 6):
+    ds = class_gaussian_images(num_train=256, image_size=12, seed=0)
+    xs, ys, ns = iid_partition_images(ds.train_x, ds.train_y, 8, 16, seed=0)
+    params = pm.init_lenet(torch.Generator().manual_seed(0), image_size=12,
+                           device="cuda")
+    server = FederatedServer.from_strategy(
+        st, pm.classifier_loss(pm.lenet_forward), params, 8, seed=0,
+        device="cuda", scan_rounds=scan,
+        eval_fn=pm.classifier_accuracy(pm.lenet_forward))
+    seg.reset_launch_counts()
+    server.run((xs, ys), ns, rounds, eval_every=3,
+               eval_data=(torch.as_tensor(ds.test_x).cuda(),
+                          torch.as_tensor(ds.test_y).cuda()))
+    return server, seg.launch_counts()
+
+
+@pytest.mark.parametrize("preset,over", SCAN_CASES)
+def test_scan_rounds_replay_equals_the_eager_loop_bit_for_bit(
+        cuda, deterministic_cudnn, preset, over):
+    """The scan form's graph replays against the per-round loop on the
+    card (LeNet-12, M = 8, 6 rounds, eval every 3): parameters, every
+    store tree, norms, each round's loss bits and record, and the launch
+    counts equal; one graph per bucket, one replay a round."""
+    st = strategy.get(preset, **over)
+    if st.masking.mode == "selective":
+        st = st.with_masking(strategy.MaskPolicy.selective(
+            st.masking.gamma, backend="kernel"))
+    (scan, scan_counts), (loop, loop_counts) = (_scan_run(st, True),
+                                                _scan_run(st, False))
+    assert scan_counts == loop_counts
+    if st.masking.mode == "selective":
+        assert scan_counts["segmented_histogram"] == 6
+    for k, v in scan.params.items():
+        assert torch.equal(v, loop.params[k]), k
+    for tree in scan.store.trees:
+        want = loop.store.dense_view(tree)
+        for k, v in scan.store.dense_view(tree).items():
+            assert torch.equal(v, want[k]), (tree, k)
+    if scan.store.norms is not None:
+        assert torch.equal(scan.store.norms, loop.store.norms)
+    for a, b in zip(scan.history, loop.history):
+        assert (a.num_sampled, a.cohort_size, a.transport_bytes,
+                a.quarantined, a.dropped, a.adversarial, a.sim_round_s) == \
+            (b.num_sampled, b.cohort_size, b.transport_bytes, b.quarantined,
+             b.dropped, b.adversarial, b.sim_round_s)
+        assert a.mean_loss == b.mean_loss or (a.mean_loss != a.mean_loss
+                                              and b.mean_loss != b.mean_loss)
+        assert a.eval_metric == b.eval_metric
+    stats = scan.graph_stats()
+    assert stats["graphs"] == len({r.cohort_size for r in scan.history})
+    assert stats["replays"] == 6
+    assert loop.graph_stats()["graphs"] == 0
+
+
+def test_scan_captures_again_for_batches_of_another_shape(
+        cuda, deterministic_cudnn):
+    """A later run with another batch size captures a graph of its own for
+    the same bucket (the reference compiles again for new input shapes),
+    and still equals the eager loop bit for bit."""
+    st = strategy.get("fig5", masking=strategy.MaskPolicy.selective(
+        0.5, backend="kernel"))
+    runs = []
+    for scan in (True, False):
+        server, _ = _scan_run(st, scan, rounds=2)
+        ds = class_gaussian_images(num_train=256, image_size=12, seed=1)
+        xs, ys, ns = iid_partition_images(ds.train_x, ds.train_y, 8, 8,
+                                          seed=1)
+        server.run((xs, ys), ns, 2)
+        runs.append(server)
+    scan, loop = runs
+    assert scan.graph_stats()["graphs"] == 2
+    assert scan.graph_stats()["replays"] == 4
+    for k, v in scan.params.items():
+        assert torch.equal(v, loop.params[k]), k
+
+
+def test_a_sync_inside_the_captured_round_raises(cuda):
+    """A host sync in the part a graph captures fails the capture; nothing
+    falls back to the eager round."""
+    from repro_torch.core.graphs import CapturedRound
+
+    def compute(params, carried, batches, n, inputs, mask, noise):
+        x = params["w"] * 2.0
+        if float(x.sum()) > 0:         # a device-to-host read
+            x = x + 1.0
+        return {}, {"x": x}
+
+    args = ({"w": torch.ones(4, device=cuda)}, {}, [], torch.ones(
+        2, device=cuda), {}, None, None)
+    with pytest.raises(RuntimeError):
+        CapturedRound(compute, args)
+    assert torch.cuda.get_sync_debug_mode() == 0
 
 
 @pytest.mark.parametrize("n", [1, 3001, 147_456, 1 << 20])

@@ -600,8 +600,10 @@ def test_build_round_forms_and_legacy_shims():
     dyn = tst.build_round(tst.get("noniid-dyn"), _loss, MS, form="store",
                           cohort_size=4)
     assert dyn.adaptive and dyn.uses_drift
-    with pytest.raises(ValueError, match="CUDA graph"):
-        tst.build_round(st, _loss, MS, form="scan", cohort_size=4)
+    assert isinstance(tst.build_round(st, _loss, MS, form="scan",
+                                      cohort_size=4), tfed.CohortScan)
+    with pytest.raises(ValueError, match="unknown round form"):
+        tst.build_round(st, _loss, MS, form="bogus", cohort_size=4)
     with pytest.raises(ValueError, match="requires cohort_size"):
         tst.build_round(st, _loss, MS, form="store")
     cfg = MaskingConfig(gamma=0.3, mode="selective", use_kernel=True,
