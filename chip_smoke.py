@@ -174,7 +174,7 @@ with a nonzero exit:
      match the step recurrence;
    - ``serve_path`` per arch at full width, bf16 params and compute,
      initialised on the card, at full depth but qwen2-72b (SERVE_DEPTH's
-     33 of 80 layers) and llama4 (pattern positions 1 and 4: a chunked
+     12 of 80 layers) and llama4 (pattern positions 1 and 4: a chunked
      MoE layer and a full dense one): the exact parameter count (at full
      depth from ``meta`` tensors), ``make_prefill_step`` on 8 x 2048
      tokens (musicgen-medium: 4 codebooks of them; internvl2-26b: after
@@ -189,9 +189,9 @@ with a nonzero exit:
    - ``serve_consistency`` per arch at full width in fp32: ``forward`` over
      160 tokens against 160 ``decode_step``s at every position, atol 2e-3 /
      rtol 1e-3 (the reference's own check); not for the MoEs, whose decode
-     routes each step's tokens as one group of capacity 1 (qwen2.5-14b's
-     fp32 weights take 59.1 GB); internvl2-26b at 32 layers with a
-     zero-length prefix, qwen2-72b at 16 (CONSISTENCY_DEPTH);
+     routes each step's tokens as one group of capacity 1; qwen2.5-14b
+     and musicgen-medium at 24 layers, internvl2-26b at 16 with a
+     zero-length prefix, qwen2-72b at 8 (CONSISTENCY_DEPTH);
    - ``moe_card_agreement``: reduced qwen2-moe-a2.7b (2 layers, top 4 of
      60 experts padded to 64, then of 37 padded to 48; fp32): ``forward``
      over 2 x 128 tokens in groups of 64 (capacity binds) and 16
@@ -244,6 +244,17 @@ with a nonzero exit:
      bytes each keeps for its backward, fwd+bwd times beside
      ``scaled_dot_product_attention`` as a yardstick) and attention's
      share of a local step (28 layers);
+7a. ``sharded_path``: the sharded layer (DTensor weights, optimizer
+   state, batches and caches laid out by ``launch/shardings.py``,
+   ``mesh_hints``, the silo pod round) on a 1 x 1 ("data", "model") mesh
+   over NCCL at world size 1, each part against its unsharded run on the
+   card from the same weights, bit for bit: three AdamW steps of
+   qwen2-1.5b at 1 x 4096 tokens (losses, grad norms, every parameter);
+   one of rwkv6-1.6b, whose wkv6 forward and backward launch under
+   ``local_map`` as often as in the plain step (48 and 24); round 1 of
+   the silo pod round (C = 4, fig5, kernel masking over the silo's
+   shards: client 0's keep bits, kernels 1-3's launches); a prefill of 2
+   x 512 tokens and 8 decode steps in bf16 (every logit);
 7b. the zoo's training path, rwkv6-1.6b and hymba-1.5b at full width and
    depth (fp32 master weights, bf16 compute), through the backward
    kernels:
@@ -428,15 +439,16 @@ ZOO_ARCHS = {"rwkv6-1.6b": ("wkv6", 24, 1_483_280_384),
              "llama4-maverick-400b-a17b": (None, 0, 400_713_815_040)}
 # Served at full width but cut where the bf16 weights do not fit the card
 # beside the prefill: qwen2-72b at SERVE_DEPTH's whole layers (1.76 GB a
-# layer, 4.98 GB of embedding and head), the most that fit after the
-# script's earlier phases (34 ran out of memory there); llama4 at
+# layer, 4.98 GB of embedding and head); 33 fitted after the script's
+# earlier phases (34 ran out of memory there), 12 keep the whole script
+# inside its time with the sharded path beside it; llama4 at
 # SERVE_PATTERN's pattern positions 1 and 4 (a chunked-attention MoE layer
 # of 128 experts and a full-attention dense layer, 18,681,062,400
 # parameters; one period of 4 layers is 70.6 GB).  llama4's prefill is
 # SERVE_SHAPE's 1 x 16,384 tokens, so it crosses the 8192-token chunk
 # boundary, and serve_path holds its MoE layer's routing on the card to
 # the CPU's (SERVE_ROUTING).
-SERVE_DEPTH = {"qwen2-72b": 33}
+SERVE_DEPTH = {"qwen2-72b": 12}
 SERVE_PATTERN = {"llama4-maverick-400b-a17b": (0, 3)}
 SERVE_SHAPE = {"llama4-maverick-400b-a17b": (1, 16_384)}
 SERVE_ROUTING = ("llama4-maverick-400b-a17b",)
@@ -446,11 +458,14 @@ SERVE_ROUTING = ("llama4-maverick-400b-a17b",)
 # leaves them out too; moe_card_agreement holds their decode to the CPU's
 # instead).  Full depth but where CONSISTENCY_DEPTH cuts it: fp32 weights
 # of qwen2-72b take 3.51 GB a layer, of internvl2-26b 1.56 GB (79.5 GB
-# whole).  internvl2-26b runs with a zero-length prefix, which the
-# reference's forward accepts.
+# whole); each check is per layer, and half the depth of the four deepest
+# keeps the script inside its time beside the sharded path.
+# internvl2-26b runs with a zero-length prefix, which the reference's
+# forward accepts.
 CONSISTENCY_ARCHS = ("rwkv6-1.6b", "hymba-1.5b", "gemma2-2b", "qwen2.5-14b",
                      "musicgen-medium", "internvl2-26b", "qwen2-72b")
-CONSISTENCY_DEPTH = {"internvl2-26b": 32, "qwen2-72b": 16}
+CONSISTENCY_DEPTH = {"qwen2.5-14b": 24, "musicgen-medium": 24,
+                     "internvl2-26b": 16, "qwen2-72b": 8}
 SERVE_B, SERVE_T = 8, 2048       # prefill: 8 prompts of 2048 tokens
 GEN_PROMPT, GEN_TOKENS = 64, 32  # generate: 64-token prompts, 32 greedy
 PREFILL_REPS = 3
@@ -4143,6 +4158,246 @@ def step_time(cfg, params, batch) -> float:
     return cuda_ms([once], reps=3)
 
 
+# ---- the sharded layer on a 1 x 1 mesh -----------------------------------
+SHARDED_PROMPT = (2, 512)        # prefill: 2 prompts of 512 tokens
+SHARDED_DECODE = 8               # decode steps from an empty 64-slot cache
+
+
+def bit_equal_trees(a: dict, b: dict) -> list:
+    """Names of the leaves whose bits differ (DTensors read whole)."""
+    import torch
+    return [k for k in b if not torch.equal(
+        a[k].full_tensor() if hasattr(a[k], "full_tensor") else a[k], b[k])]
+
+
+def sharded_train(arch: str, n_steps: int, mesh) -> dict:
+    """``make_train_step`` (AdamW) for ``n_steps`` steps of 1 x 4096 tokens
+    at full width, plain and then through DTensor parameters, optimizer
+    state and batches on ``mesh`` with ``mesh_hints``, from the same
+    weights: losses, grad norms and every parameter bit for bit; the
+    kernels' launch counts, set to 0 before each run, equal."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tr
+    cfg = get_arch(arch)
+    params0 = tr.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             cfg, device="cuda")
+    batches = [{k: v.cuda() for k, v in b.items()}
+               for b in lm_batches(cfg, n_steps)]
+    runs = {}
+    for label in ("plain", "sharded"):
+        hints = steps.mesh_hints(mesh) if label == "sharded" else None
+        step = steps.make_train_step(cfg, learning_rate=3e-4, hints=hints)
+        params = dict(params0)
+        opt = step.optimizer.init(params)
+        feed = batches
+        if hints is not None:
+            psh = sh.params_shardings(params, mesh)
+            params = sh.distribute_tree(params, psh)
+            opt = sh.distribute_tree(
+                opt, sh.params_shardings_like(opt, psh, mesh))
+            feed = [sh.distribute_tree(b, sh.batch_shardings(b, mesh))
+                    for b in batches]
+        torch.cuda.synchronize()
+        reset_all_counts()
+        t0 = time.perf_counter()
+        log = []
+        for b in feed:
+            params, opt, m = step(params, opt, b)
+            log.append([float(bit_whole(m["loss"])),
+                        float(bit_whole(m["grad_norm"]))])
+        torch.cuda.synchronize()
+        runs[label] = {"wall_s": time.perf_counter() - t0, "log": log,
+                       "launches": {k: v for k, v in zoo_counts().items()
+                                    if v},
+                       "params": params}
+        del opt
+    diff = bit_equal_trees(runs["sharded"]["params"], runs["plain"]["params"])
+    rec = {"arch": arch, "steps": n_steps, "tokens_per_step": POD_B * POD_T,
+           "loss_grad_norm": {k: r["log"] for k, r in runs.items()},
+           "wall_s": {k: r["wall_s"] for k, r in runs.items()},
+           "launches": {k: r["launches"] for k, r in runs.items()},
+           "params_differing": diff[:8], "params": len(params0)}
+    del runs["plain"]["params"], runs["sharded"]["params"], params0
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sharded_pod(mesh) -> dict:
+    """Round 1 of the pod round on qwen2-1.5b (C = 4, fig5, kernel
+    masking): ``make_fed_round`` and then ``make_silo_fed_round`` on
+    ``mesh`` (one silo: its four clients in turn, masked over the silo's
+    shards), from the same weights and batches; client 0's keep bits,
+    the launches and the new parameters."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.sampling import participation_mask
+    from repro_torch.launch import fedtrain as ft
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models import transformer as tr
+    cfg = get_arch("qwen2-1.5b")
+    st = pod_strategy()
+    fed_cfg = ft.FedPodConfig.from_strategy(st, POD_C, local_steps=POD_E)
+    state = tr.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg, device="cuda")
+    batches = pod_batches(cfg, 1)[0]
+    part = participation_mask(torch.rand(POD_C,
+                                         generator=torch.Generator()
+                                         .manual_seed(0)),
+                              st.sampling, 1, POD_C)
+    bits, runs = {}, {}
+
+    def observe(label):
+        def hook(client, delta, masked):
+            if client == 0:
+                bits[label] = torch.cat([
+                    (v.full_tensor() if hasattr(v, "full_tensor") else v)
+                    .ne(0).reshape(-1) for v in masked.values()])
+        return hook
+
+    for label in ("plain", "silo"):
+        if label == "plain":
+            fed_round = ft.make_fed_round(cfg, fed_cfg,
+                                          observe=observe(label))
+            params = state
+        else:
+            fed_round = ft.make_silo_fed_round(cfg, fed_cfg, mesh,
+                                               observe=observe(label))
+            params = sh.distribute_tree(dict(state),
+                                        ft.silo_shardings(state, mesh))
+        torch.cuda.synchronize()
+        reset_all_counts()
+        t0 = time.perf_counter()
+        new, m = fed_round(params, batches, torch.ones(POD_C), part,
+                           key=(1, 1))
+        torch.cuda.synchronize()
+        runs[label] = {"wall_s": time.perf_counter() - t0,
+                       "mean_loss": float(m["mean_loss"]),
+                       "num_sampled": float(m["num_sampled"]),
+                       "launches": {k: v for k, v in zoo_counts().items()
+                                    if v},
+                       "params": new}
+    diff = bit_equal_trees(runs["silo"]["params"], runs["plain"]["params"])
+    rec = {"clients": POD_C, "local_steps": POD_E,
+           "keep_bits_equal": bool(torch.equal(bits["silo"], bits["plain"])),
+           "kept": int(bits["plain"].sum()), "entries": bits["plain"].numel(),
+           "params_differing": diff[:8],
+           **{f"{k}_{label}": r[k] for label, r in runs.items()
+              for k in ("wall_s", "mean_loss", "num_sampled", "launches")}}
+    del runs, bits, state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sharded_serve(mesh) -> dict:
+    """qwen2-1.5b in its serving dtype: a prefill of SHARDED_PROMPT and
+    SHARDED_DECODE decode steps from an empty cache, plain and through
+    ``make_prefill_step`` / ``make_serve_step`` with ``mesh_hints`` on
+    DTensor weights, caches and tokens: logits bit for bit."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tr
+    cfg = get_arch("qwen2-1.5b")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    params = tr.init_params(gen, cfg, cfg.param_dtype_serve, device="cuda")
+    B, P = SHARDED_PROMPT
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    out = {}
+    for label in ("plain", "sharded"):
+        hints = steps.mesh_hints(mesh) if label == "sharded" else None
+        prefill = steps.make_prefill_step(cfg, hints=hints)
+        serve_step = steps.make_serve_step(cfg, hints=hints)
+        state = tr.init_decode_state(cfg, B, 64, device="cuda")
+        weights, batch = params, {"tokens": prompts}
+
+        def put(tree):
+            return sh.distribute_tree(tree, sh.batch_shardings(tree, mesh)) \
+                if hints is not None else tree
+        if hints is not None:
+            weights = sh.distribute_tree(dict(params),
+                                         sh.params_shardings(params, mesh))
+            state = sh.distribute_tree(
+                state, sh.decode_state_shardings(state, mesh))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = [bit_whole(prefill(weights, put(batch)))]
+        view = tr.layer_view(weights, cfg)
+        for i in range(SHARDED_DECODE):
+            step_logits, state = serve_step(
+                view, state, put({"tokens": prompts[:, i:i + 1]
+                                  .contiguous()}))
+            logits.append(bit_whole(step_logits))
+        torch.cuda.synchronize()
+        out[label] = {"wall_s": time.perf_counter() - t0, "logits": logits}
+    same = [bool(torch.equal(a, b)) for a, b in
+            zip(out["sharded"]["logits"], out["plain"]["logits"])]
+    return {"prompt": [B, P], "decode_steps": SHARDED_DECODE,
+            "prefill_equal": same[0], "decode_equal": same[1:],
+            "wall_s": {k: v["wall_s"] for k, v in out.items()}}
+
+
+def bit_whole(x):
+    """A DTensor's whole value; a plain tensor as it is."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def sharded_path() -> dict:
+    """The sharded layer (``launch/shardings.py``, ``models/hints.py``,
+    ``launch/steps.mesh_hints``, the silo pod round) on a 1 x 1 ("data",
+    "model") mesh over NCCL at world size 1, each part bit for bit
+    against its unsharded run on the card: three AdamW steps of
+    qwen2-1.5b, one of rwkv6-1.6b (wkv6 forward and backward launched
+    under ``local_map``, as often as the plain step launches them), round
+    1 of the silo pod round, and a prefill and decode."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        rec = {"train": sharded_train("qwen2-1.5b", 3, mesh),
+               "train_rwkv6": sharded_train("rwkv6-1.6b", 1, mesh),
+               "pod": sharded_pod(mesh), "serve": sharded_serve(mesh)}
+    finally:
+        dist.destroy_process_group()
+    phase("sharded_path", mesh={"data": 1, "model": 1}, backend="nccl",
+          **rec)
+    problems = []
+    for key in ("train", "train_rwkv6"):
+        r = rec[key]
+        logs = r["loss_grad_norm"]
+        if logs["plain"] != logs["sharded"] or r["params_differing"]:
+            problems.append(f"{r['arch']} steps differ: {logs} "
+                            f"{r['params_differing']}")
+        if r["launches"]["plain"] != r["launches"]["sharded"]:
+            problems.append(f"{r['arch']} launches {r['launches']}")
+    _, fwd, bwd = ZOO_TRAIN["rwkv6-1.6b"]
+    if rec["train_rwkv6"]["launches"]["sharded"] != {"wkv6": fwd,
+                                                      "wkv6_backward": bwd}:
+        problems.append(f"rwkv6 sharded step launched "
+                        f"{rec['train_rwkv6']['launches']['sharded']}")
+    pod = rec["pod"]
+    if not pod["keep_bits_equal"]:
+        problems.append("silo round 1: client 0's keep bits differ")
+    if pod["launches_silo"] != pod["launches_plain"] or \
+            pod["launches_silo"] != POD_LAUNCHES:
+        problems.append(f"silo round launches {pod['launches_silo']} "
+                        f"against {pod['launches_plain']}")
+    if not math.isfinite(pod["mean_loss_silo"]):
+        problems.append(f"silo round loss {pod['mean_loss_silo']}")
+    serve = rec["serve"]
+    if not (serve["prefill_equal"] and all(serve["decode_equal"])):
+        problems.append(f"sharded serving differs: {serve}")
+    if problems:
+        fail("sharded_path: " + "; ".join(problems))
+    return rec
+
+
 def train_standard() -> dict:
     """``make_train_step`` (AdamW) for three steps at full width on 1 x
     4096 tokens a step; then one local step's time."""
@@ -5126,6 +5381,12 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     flash_vjp_phase(trained["local_step_ms"])
     phase("pod_and_training_section", seconds=time.perf_counter() - section_t0)
+    # ---- 7a. the sharded layer on a 1 x 1 mesh ----------------------------
+    section_t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    sharded = sharded_path()
+    torch.cuda.empty_cache()
+    phase("sharded_section", seconds=time.perf_counter() - section_t0)
     # ---- 7b. the zoo's training path: rwkv6-1.6b and hymba-1.5b ----------
     section_t0 = time.perf_counter()
     torch.cuda.empty_cache()
@@ -5192,6 +5453,8 @@ def main(argv) -> int:
             "musicgen_pod_path_launches": music_pod_launches.get(name, 0),
             "musicgen_pod_launches_per_round":
                 music_pod_launches.get(name, 0) / POD_ROUNDS,
+            "sharded_path_launches":
+                sharded["pod"]["launches_silo"].get(name, 0),
             "max_abs_err": errs[name], "ms": rec["ms"],
             "warm_ms": rec["warm_ms"], "device_ms": rec["device_ms"],
             "device_source": rec.get("device_source", "trace"),
@@ -5265,6 +5528,8 @@ def main(argv) -> int:
                if "kernel_exponentials" in rec else {}),
             "launches_per_train_step":
                 zoo_train[arch]["launches_per_step"][name],
+            "sharded_path_launches": sharded["train_rwkv6"]["launches"]
+            ["sharded"].get(name, 0),
             "library_note": ZOO_LIBRARY_NOTE})
     for name, arch in (("wkv6_backward", "rwkv6-1.6b"),
                        ("ssm_scan_backward", "hymba-1.5b")):
@@ -5280,6 +5545,8 @@ def main(argv) -> int:
             "launches": zoo_train[arch]["launches"][name],
             "launches_per_train_step":
                 zoo_train[arch]["launches_per_step"][name],
+            "sharded_path_launches": sharded["train_rwkv6"]["launches"]
+            ["sharded"].get(name, 0),
             **({"fed_pod_path_launches": zoo_pod_launches[name],
                 "fed_pod_launches_per_round": zoo_pod_launches[name]
                 / POD_ROUNDS} if name in zoo_pod_launches else {}),

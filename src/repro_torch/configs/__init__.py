@@ -1,5 +1,6 @@
 """Config registry of the port: ``get_arch(id)`` and ``all_archs()`` for
-the reference's ten architectures, in the reference's order."""
+the reference's ten architectures, in the reference's order, and the
+input shapes (``get_shape``, ``supports_shape``) the dry run lowers."""
 
 from __future__ import annotations
 
@@ -9,8 +10,9 @@ from typing import Dict
 from repro_torch.configs.base import (INPUT_SHAPES, ArchConfig, InputShape,
                                       LayerSpec)
 
-__all__ = ["ARCH_IDS", "get_arch", "all_archs", "ArchConfig", "InputShape",
-           "LayerSpec", "INPUT_SHAPES"]
+__all__ = ["ARCH_IDS", "get_arch", "all_archs", "get_shape",
+           "supports_shape", "ArchConfig", "InputShape", "LayerSpec",
+           "INPUT_SHAPES"]
 
 _ARCH_MODULES = {
     "internvl2-26b": "internvl2_26b",
@@ -40,3 +42,16 @@ def get_arch(arch_id: str) -> ArchConfig:
 def all_archs() -> Dict[str, ArchConfig]:
     """Every registered arch's config, in ``ARCH_IDS`` order."""
     return {a: get_arch(a) for a in ARCH_IDS}
+
+
+def get_shape(name: str) -> InputShape:
+    """The named input shape of ``INPUT_SHAPES``."""
+    return INPUT_SHAPES[name]
+
+
+def supports_shape(cfg: ArchConfig, shape: InputShape) -> bool:
+    """long_500k only for sub-quadratic archs; every other shape for
+    every arch, as the reference."""
+    if shape.name == "long_500k":
+        return cfg.sub_quadratic
+    return True

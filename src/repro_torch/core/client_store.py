@@ -30,8 +30,16 @@ slot directory stays on the host as numpy.  A sharded gather is one
 ``index_select`` per leaf at the slot indices, a scatter one in-place
 ``index_copy_`` per leaf.  ``state()`` / ``load_state()`` use the
 reference's keys, and ``memory_bytes()`` counts as the reference counts.
-The reference's ``shard_over`` places arrays over a device mesh and has no
-counterpart on one card.
+
+``shard_over(mesh)`` places the norm vector and the backing over the mesh's
+data axes as the reference does: the client (or slot) axis as a DTensor
+``Shard(0)`` over them where it divides (the sharded pool zero-padded up to
+a multiple first, the pad rows never addressed), the rest replicated.
+Each rank then holds its rows: a gather reads the ids its rows hold and
+sums the (zero elsewhere) result over the data axes, exactly; a scatter
+writes the rows it holds.  ``memory_bytes()`` keeps the reference's global
+counts and adds ``residual_bytes_per_device``; ``state()`` gives whole
+tensors, and ``load_state`` lays them out again.
 """
 
 from __future__ import annotations
@@ -92,6 +100,69 @@ def _load(value, rows: int, spec: Spec, device, what: str) -> Tree:
     return out
 
 
+def _is_sharded(v) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(v, DTensor)
+
+
+def _local_range(v) -> Tuple[int, int]:
+    """The rows [lo, hi) of a dim-0-sharded DTensor this rank holds."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape, off = compute_local_shape_and_global_offset(
+        tuple(v.shape), v.device_mesh, v.placements)
+    return off[0], off[0] + shape[0]
+
+
+def _rows(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``v.index_select(0, idx)`` as a plain tensor; for a sharded ``v`` each
+    rank fills the rows it holds and the zeros elsewhere sum over the mesh
+    (exact: one nonzero term a row)."""
+    import torch.distributed as dist
+    if not _is_sharded(v):
+        return v.index_select(0, idx)
+    lo, hi = _local_range(v)
+    local = v.to_local()
+    mine = (idx >= lo) & (idx < hi)
+    out = torch.zeros((idx.numel(),) + tuple(v.shape[1:]), dtype=v.dtype,
+                      device=local.device)
+    out[mine] = local.index_select(0, idx[mine] - lo)
+    mesh = v.device_mesh
+    for d, p in enumerate(v.placements):
+        if not p.is_replicate() and mesh.size(d) > 1:
+            dist.all_reduce(out, group=mesh.get_group(d))
+    return out
+
+
+def _write_rows(v: torch.Tensor, idx: torch.Tensor,
+                rows: Optional[torch.Tensor]) -> None:
+    """``v.index_copy_(0, idx, rows)`` (``index_fill_`` with zeros when
+    ``rows`` is None), in place; a sharded ``v`` writes the rows it holds."""
+    if _is_sharded(v):
+        lo, hi = _local_range(v)
+        mine = (idx >= lo) & (idx < hi)
+        local, at = v.to_local(), idx[mine] - lo
+        if rows is None:
+            local.index_fill_(0, at, 0)
+        else:
+            local.index_copy_(0, at, rows[mine].to(v.dtype))
+    elif rows is None:
+        v.index_fill_(0, idx, 0)
+    else:
+        v.index_copy_(0, idx, rows.to(v.dtype))
+
+
+def _whole(v):
+    return v.full_tensor() if _is_sharded(v) else v
+
+
+def _nbytes(v: torch.Tensor, local: bool) -> int:
+    """Bytes of ``v`` (its whole size), or of this rank's shard."""
+    if local and _is_sharded(v):
+        v = v.to_local()
+    return v.numel() * v.element_size()
+
+
 def _vector(value, num: int, what: str) -> np.ndarray:
     out = np.array(_host(value), dtype=np.int64)
     if out.shape != (num,):
@@ -127,6 +198,7 @@ class ClientStateStore:
             if track_norms else None)
         # The round each client last pulled Θ in (0 = never dispatched).
         self.versions = np.zeros((num_clients,), np.int64)
+        self._mesh = None           # set by shard_over
 
     @property
     def trees(self) -> Tuple[str, ...]:
@@ -163,7 +235,7 @@ class ClientStateStore:
     @property
     def norms(self) -> Optional[torch.Tensor]:
         """The per-client update-norm EMA, or None without tracking."""
-        return self._norms
+        return None if self._norms is None else _whole(self._norms)
 
     def _check_norms(self) -> None:
         if self._norms is None:
@@ -173,16 +245,16 @@ class ClientStateStore:
     def set_norms(self, norms) -> None:
         """Replace the whole norm-EMA vector."""
         self._check_norms()
-        self._norms = torch.as_tensor(norms, dtype=torch.float32).to(
-            self.device)
+        self._norms = self._place(torch.as_tensor(
+            norms, dtype=torch.float32).to(self.device))
 
     def update_norms(self, ids, values) -> None:
         """Set the norm rows at ``ids`` to ``values``."""
         self._check_norms()
         idx = torch.from_numpy(_ids_array(ids)).to(self.device)
-        self._norms = self._norms.index_copy(
+        self._norms = self._place(self.norms.index_copy(
             0, idx, torch.as_tensor(values, dtype=torch.float32).to(
-                self.device))
+                self.device)))
 
     def mark_dispatched(self, ids, round: int) -> None:
         """Record that ``ids`` pulled Θ in ``round``."""
@@ -219,8 +291,48 @@ class ClientStateStore:
         out: Dict[str, Any] = {"versions": torch.from_numpy(
             self.versions.copy())}
         if self._norms is not None:
-            out["norms"] = self._norms
+            out["norms"] = self.norms
         return out
+
+    # ---- placement over a mesh ---------------------------------------------
+    def _data_size(self) -> int:
+        from repro_torch.launch.mesh import axis_size, data_axes
+        return axis_size(self._mesh, data_axes(self._mesh))
+
+    def _place(self, v: torch.Tensor, pad: bool = False) -> torch.Tensor:
+        """``v`` (whole, on every rank) as a DTensor with dim 0 over the
+        data axes; left whole where they do not divide it (zero-padded to
+        a multiple first with ``pad``)."""
+        from torch.distributed.tensor import Replicate, Shard, \
+            distribute_tensor
+
+        from repro_torch.launch.mesh import data_axes
+        if self._mesh is None or v is None:
+            return v
+        size = self._data_size()
+        if size <= 1:
+            return v
+        if v.shape[0] % size:
+            if not pad:
+                return v
+            extra = -(-v.shape[0] // size) * size - v.shape[0]
+            v = torch.cat([v, v.new_zeros((extra,) + tuple(v.shape[1:]))])
+        axes = data_axes(self._mesh)
+        placements = [Shard(0) if n in axes else Replicate()
+                      for n in self._mesh.mesh_dim_names]
+        return distribute_tensor(v, self._mesh, placements)
+
+    def shard_over(self, mesh) -> None:
+        """Distribute the norm vector and the backing over ``mesh``'s data
+        axes (``launch.mesh.data_axes``), as the module docstring says.
+        Every rank of the mesh calls it, holding the same store."""
+        self._mesh = mesh
+        if self._norms is not None:
+            self._norms = self._place(_whole(self._norms))
+        self._shard_backing()
+
+    def _shard_backing(self) -> None:
+        """Backend hook of :meth:`shard_over`: place the backing."""
 
     def memory_bytes(self) -> Dict[str, Any]:
         """The client-state footprint: every tree's backing, the O(M)
@@ -229,12 +341,15 @@ class ClientStateStore:
         vectors = int(self.versions.nbytes)
         if self._norms is not None:
             vectors += 4 * self.num_clients
-        return {"backend": self.kind, "client_bytes": client,
-                "vector_bytes": vectors,
-                "residual_bytes": self._backing_bytes(),
-                "dense_equiv_bytes": client * self.num_clients}
+        out = {"backend": self.kind, "client_bytes": client,
+               "vector_bytes": vectors,
+               "residual_bytes": self._backing_bytes(),
+               "dense_equiv_bytes": client * self.num_clients}
+        if self._mesh is not None:      # after shard_over: this rank's part
+            out["residual_bytes_per_device"] = self._backing_bytes(local=True)
+        return out
 
-    def _backing_bytes(self) -> int:
+    def _backing_bytes(self, local: bool = False) -> int:
         raise NotImplementedError
 
 
@@ -255,7 +370,7 @@ class DenseStore(ClientStateStore):
     def gather(self, ids, tree: str = "residuals") -> Tree:
         """Stacked ``tree`` rows for ``ids``."""
         idx = torch.from_numpy(_ids_array(ids)).to(self.device)
-        return {k: v.index_select(0, idx)
+        return {k: _rows(v, idx)
                 for k, v in self._data[self._check_tree(tree)].items()}
 
     def scatter(self, ids, rows: Tree, commit, round: int,
@@ -269,23 +384,34 @@ class DenseStore(ClientStateStore):
         out = {}
         for k, old in data.items():
             mask = keep.reshape((-1,) + (1,) * (old.dim() - 1))
-            out[k] = old.index_copy(0, idx, torch.where(
-                mask > 0, rows[k], old.index_select(0, idx)))
+            new = torch.where(mask > 0, rows[k], _rows(old, idx))
+            if _is_sharded(old):
+                _write_rows(old, idx, new)
+                out[k] = old
+            else:
+                out[k] = old.index_copy(0, idx, new)
         self._data[tree] = out
 
     def dense_view(self, tree: str = "residuals") -> Tree:
-        """The stacked backing of one tree itself (no copy)."""
-        return self._data[self._check_tree(tree)]
+        """The stacked backing of one tree itself (no copy; gathered whole
+        after :meth:`shard_over`)."""
+        data = self._data[self._check_tree(tree)]
+        if self._mesh is None:
+            return data
+        return {k: _whole(v) for k, v in data.items()}
 
     def set_dense(self, value: Tree, tree: str = "residuals") -> None:
         """Replace a whole stacked tree (the in-program round bodies gather
         and scatter rows themselves)."""
-        self._data[self._check_tree(tree)] = value
+        self._data[self._check_tree(tree)] = {
+            k: self._place(v) for k, v in value.items()}
 
     def state(self) -> Dict[str, Any]:
         """``residuals`` and every extra tree under its own name, stacked;
         ``versions``; ``norms`` when tracked."""
-        return {**self._data, **self._vector_state()}
+        return {**{name: {k: _whole(v) for k, v in data.items()}
+                   for name, data in self._data.items()},
+                **self._vector_state()}
 
     def load_state(self, tree: Dict[str, Any]) -> None:
         """Restore :meth:`state`'s tree."""
@@ -294,10 +420,16 @@ class DenseStore(ClientStateStore):
                 for name, spec in self.templates.items()}
         self._load_vectors(tree)
         self._data = data
+        if self._mesh is not None:
+            self.shard_over(self._mesh)
 
-    def _backing_bytes(self) -> int:
-        return int(sum(v.numel() * v.element_size()
-                       for data in self._data.values()
+    def _shard_backing(self) -> None:
+        self._data = {name: {k: self._place(_whole(v))
+                             for k, v in data.items()}
+                      for name, data in self._data.items()}
+
+    def _backing_bytes(self, local: bool = False) -> int:
+        return int(sum(_nbytes(v, local) for data in self._data.values()
                        for v in data.values()))
 
 
@@ -386,7 +518,7 @@ class ShardedStore(ClientStateStore):
         """One ``index_select`` a leaf; misses read the zero sentinel."""
         idx = torch.from_numpy(self._slot_index(_ids_array(ids))).to(
             self.device)
-        return {k: v.index_select(0, idx)
+        return {k: _rows(v, idx)
                 for k, v in self._pools[self._check_tree(tree)].items()}
 
     def scatter(self, ids, rows: Tree, commit, round: int,
@@ -403,12 +535,11 @@ class ShardedStore(ClientStateStore):
             fresh_t = torch.from_numpy(fresh).to(self.device)
             for pool in self._pools.values():
                 for v in pool.values():
-                    v.index_fill_(0, fresh_t, 0)
+                    _write_rows(v, fresh_t, None)
         pos_t = torch.from_numpy(pos).to(self.device)
         slot_t = torch.from_numpy(slot_idx).to(self.device)
         for k, v in self._pools[tree].items():
-            v.index_copy_(0, slot_t, rows[k].index_select(0, pos_t).to(
-                v.dtype))
+            _write_rows(v, slot_t, rows[k].index_select(0, pos_t))
 
     def dense_view(self, tree: str = "residuals") -> Tree:
         """The full ``(M, …)`` view, zeros but the occupied slots.  O(M ×
@@ -419,7 +550,7 @@ class ShardedStore(ClientStateStore):
         slot = torch.from_numpy(occupied).to(self.device)
         out = _zeros(self.num_clients, self.templates[tree], self.device)
         for k, v in out.items():
-            v.index_copy_(0, owner, self._pools[tree][k].index_select(0, slot))
+            v.index_copy_(0, owner, _rows(self._pools[tree][k], slot))
         return out
 
     def state(self) -> Dict[str, Any]:
@@ -427,13 +558,16 @@ class ShardedStore(ClientStateStore):
         tree, ``slot_ids``, ``slot_round``, ``versions`` and, when tracked,
         ``norms``.  The ``evictions`` counter is not state, as in the
         reference."""
+        rows = self.retention + 1
+        pools = {name: {k: _whole(v)[:rows] for k, v in pool.items()}
+                 for name, pool in self._pools.items()}
         out: Dict[str, Any] = {
-            "slots": self._pools["residuals"],
+            "slots": pools["residuals"],
             "slot_ids": torch.from_numpy(self._slot_ids.copy()),
             "slot_round": torch.from_numpy(self._slot_round.copy())}
         for name in self.templates:
             if name != "residuals":
-                out[f"slots_{name}"] = self._pools[name]
+                out[f"slots_{name}"] = pools[name]
         return {**out, **self._vector_state()}
 
     def load_state(self, tree: Dict[str, Any]) -> None:
@@ -450,6 +584,8 @@ class ShardedStore(ClientStateStore):
         self._slot_ids, self._slot_round = slot_ids, slot_round
         self._slot_of = {int(cid): s for s, cid in enumerate(slot_ids)
                          if cid >= 0}
+        if self._mesh is not None:
+            self.shard_over(self._mesh)
 
     def memory_bytes(self) -> Dict[str, Any]:
         """The base accounting plus the slot directory, the window and the
@@ -461,9 +597,17 @@ class ShardedStore(ClientStateStore):
         out["evictions"] = self.evictions
         return out
 
-    def _backing_bytes(self) -> int:
-        return int(sum(v.numel() * v.element_size()
-                       for pool in self._pools.values()
+    def _shard_backing(self) -> None:
+        # The slot axis has retention + 1 rows (the zero sentinel), which
+        # seldom divides the data axes: padded up to a multiple, as the
+        # reference pads; the pad rows are never addressed.
+        self._pools = {name: {k: self._place(_whole(v)[:self.retention + 1],
+                                             pad=True)
+                              for k, v in pool.items()}
+                       for name, pool in self._pools.items()}
+
+    def _backing_bytes(self, local: bool = False) -> int:
+        return int(sum(_nbytes(v, local) for pool in self._pools.values()
                        for v in pool.values()))
 
 

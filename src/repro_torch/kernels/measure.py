@@ -177,6 +177,9 @@ def cuda_loop_ms(fns, launches: int = 50, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+SESSIONS = 6     # profiler sessions device_ms tries before it gives up
+
+
 def device_ms(fns, symbol: str, launches: int = 50,
               events_fallback: bool = False) -> dict:
     """``launches`` calls back to back, as in :func:`cuda_loop_ms`, under
@@ -189,7 +192,8 @@ def device_ms(fns, symbol: str, launches: int = 50,
     kernel on the stream shows as more records than kernel records.  A
     call that returns a nonzero error code raises.  A session whose trace
     lost every record of the kernel (it happens on the card now and then)
-    is run again, three sessions at the most.  When all three lost them,
+    is run again, SESSIONS at the most (a whole session can come back
+    empty, and three in a row have).  When all of them lost it,
     it raises, naming the records the last trace held; or, with
     ``events_fallback``, it returns the time a call between two CUDA
     events (:func:`cuda_loop_ms`, launch gaps included) as ``device_ms``,
@@ -207,7 +211,7 @@ def device_ms(fns, symbol: str, launches: int = 50,
     with profile(activities=[ProfilerActivity.CUDA]):
         call(0)
         torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(SESSIONS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for i in range(launches):
                 call(i)
@@ -222,9 +226,10 @@ def device_ms(fns, symbol: str, launches: int = 50,
             return {"device_ms": cuda_loop_ms(fns, launches=launches),
                     "device_records": None, "kernel_records": None,
                     "calls": launches, "device_source": "cuda_events",
-                    "lost_sessions": 3}
+                    "lost_sessions": SESSIONS}
         seen = sorted({e.name for e in events})
-        raise RuntimeError(f"the trace holds no record of {symbol} in 3 "
+        raise RuntimeError(f"the trace holds no record of {symbol} in "
+                           f"{SESSIONS} "
                            f"sessions; the last held {len(events)} device "
                            f"records: {seen[:8]}")
     return {"device_ms": sum(e.time_range.elapsed_us() for e in mine)

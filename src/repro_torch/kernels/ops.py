@@ -23,6 +23,18 @@ masked values (int8 codes against per-segment scales from one
 compaction batched over clients turns those narrow outputs into COO or
 bitmap payloads without re-reading the fp32 data.
 
+Sharded masking: given ``group`` (a ``DeviceMesh``), ``topk_mask_pytree``
+and ``topk_mask_stacked`` mask clients whose leaves are DTensors on that
+mesh (the client axis whole; plain tensors count as replicated) through
+the same packer and passes.  Each rank packs its local shards, its
+segments numbered as the whole clients' (a first-axis slice split over
+ranks is one segment on each of them); the histogram and each count
+sweep run on the local shard and their integer counts are summed over
+the mesh between passes, a replicated shard counted by one rank only; so
+every rank derives the same thresholds, equal to the whole client's,
+and the apply runs on its shard.  The masks are the unsharded masks bit
+for bit: the counts are exact integer sums.
+
 ``ssm_scan(a, bx, c, h0)`` and ``wkv6(r, k, v, logw, u, s0)`` are the two
 recurrences of the model zoo (``kernels.ssm_scan``, ``kernels.wkv6``) in the
 models' own layouts, any T, no padding; both are differentiable, through
@@ -117,11 +129,13 @@ def _packed_cohort(tree: Tree, min_leaf_size: int,
     """Pack the maskable leaves of a client-stacked tree: ``(names, spec,
     x2d, seg_ids, num_clients)``, or None when no leaf is maskable.  With
     ``axis0_slices`` each first-axis slice of a leaf of ndim >= 2 (per
-    client) is a segment of its own."""
-    names = [n for n, leaf in tree.items() if leaf[0].numel() >= min_leaf_size]
+    client) is a segment of its own.  A DTensor leaf packs its local
+    shard (the client axis whole), its size per client the whole leaf's."""
+    names = [n for n, leaf in tree.items()
+             if leaf.numel() // leaf.shape[0] >= min_leaf_size]
     if not names:
         return None
-    leaves = [tree[n] for n in names]
+    leaves = [_local(tree[n]) for n in names]
     num_clients = leaves[0].shape[0]
     slices = [leaf.shape[1] if axis0_slices and leaf.dim() >= 3 else 1
               for leaf in leaves]
@@ -129,6 +143,54 @@ def _packed_cohort(tree: Tree, min_leaf_size: int,
     x2d = pk.pack_stacked(leaves, spec)
     seg_ids = spec.seg_ids(num_clients, device=x2d.device)
     return names, spec, x2d, seg_ids, num_clients
+
+
+def _local(x: torch.Tensor) -> torch.Tensor:
+    return x.to_local() if hasattr(x, "to_local") else x
+
+
+def _shard_segments(tree: Tree, names, seg_ids, gamma: float,
+                    num_clients: int, axis0_slices: bool, mesh):
+    """The local pack's segments renumbered as the whole clients' on
+    ``mesh`` (the module docstring's sharded masking): ``(apply ids,
+    count ids, k)``.  A first-axis slice split over ranks is one segment
+    on each; a leaf replicated over a mesh dim is counted by that dim's
+    rank 0 only, the other ranks' counts going to a dump segment past the
+    last (k 1, never read)."""
+    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    coord = mesh.get_coordinate()
+    remap, counted, ks = [], [], []
+    for n in names:
+        leaf = tree[n]
+        shape = tuple(leaf.shape)
+        if isinstance(leaf, DTensor):
+            local, off = compute_local_shape_and_global_offset(
+                shape, mesh, leaf.placements)
+            owner = all(c == 0 for c, p in zip(coord, leaf.placements)
+                        if not isinstance(p, Shard))
+        else:
+            local, off = shape, (0,) * len(shape)
+            owner = all(c == 0 for c in coord)
+        cut = axis0_slices and len(shape) >= 3
+        parts = shape[1] if cut else 1
+        k = max(1, int(round(gamma * (leaf.numel() // shape[0] // parts))))
+        mine = local[1] if cut else 1
+        remap += [len(ks) + (off[1] if cut else 0) + j for j in range(mine)]
+        counted += [owner] * mine
+        ks += [k] * parts
+    segments = len(ks)
+    dump = num_clients * segments
+    whole = [c * segments + r for c in range(num_clients) for r in remap]
+    dev = seg_ids.device
+    rows = seg_ids.long()
+    apply_ids = torch.tensor(whole, dtype=torch.int32, device=dev)[rows]
+    count_ids = torch.tensor([w if own else dump for w, own in
+                              zip(whole, counted * num_clients)],
+                             dtype=torch.int32, device=dev)[rows]
+    k = torch.tensor(ks * num_clients + [1], dtype=torch.int32, device=dev)
+    return apply_ids.contiguous(), count_ids.contiguous(), k
 
 
 def _segment_k(spec: pk.PackSpec, gamma: float, num_clients: int,
@@ -147,25 +209,40 @@ def _segment_k(spec: pk.PackSpec, gamma: float, num_clients: int,
 
 
 def _refine_taus(x2d, seg_ids, hist, k, refine_sweeps: int,
-                 candidates: int) -> torch.Tensor:
+                 candidates: int, reduce=None) -> torch.Tensor:
     """Per-segment final thresholds from the suffix histogram: bracket the
     k-th magnitude, refine it with ``refine_sweeps`` count sweeps and take
-    the conservative endpoint (lo when hi would keep nothing)."""
+    the conservative endpoint (lo when hi would keep nothing).
+    ``reduce``, when given, sums each sweep's counts over the ranks."""
     lo, hi, cnt_lo, cnt_hi = seg.select_thresholds(hist, k)
     for sweep in range(refine_sweeps):
         # Sweep 0 subdivides the histogram's 16x bracket geometrically;
         # later sweeps refine the now-narrow bracket linearly.
         cand = seg.candidate_taus(lo, hi, candidates, geometric=(sweep == 0))
         counts = seg.segmented_count(x2d, seg_ids, cand)
+        if reduce is not None:
+            counts = reduce(counts)
         lo, hi, cnt_lo, cnt_hi = seg.shrink_brackets(
             lo, hi, cnt_lo, cnt_hi, cand, counts, k)
     return torch.where(cnt_hi >= 1, hi, lo)
 
 
+def _sum_over(mesh):
+    """In-place sum of a tensor over every dim of ``mesh``."""
+    import torch.distributed as dist
+
+    def reduce(t: torch.Tensor) -> torch.Tensor:
+        for d in range(mesh.ndim):
+            if mesh.size(d) > 1:
+                dist.all_reduce(t, group=mesh.get_group(d))
+        return t
+    return reduce
+
+
 def topk_mask_stacked(tree: Tree, gamma: float, *, min_leaf_size: int = 256,
                       refine_sweeps: int = DEFAULT_REFINE_SWEEPS,
                       candidates: int = DEFAULT_CANDIDATES,
-                      axis0_slices: bool = False) -> Tree:
+                      axis0_slices: bool = False, group=None) -> Tree:
     """Selective masking of a client-stacked tree (leading client axis on
     every leaf) in ``refine_sweeps + 2`` kernel launches for the whole
     cohort.  Leaves with fewer than ``min_leaf_size`` elements per client
@@ -177,35 +254,61 @@ def topk_mask_stacked(tree: Tree, gamma: float, *, min_leaf_size: int = 256,
     ``axis0_slices``: a maskable leaf of ndim >= 2 is masked per
     first-axis slice (each slice its own segment, k from the slice's
     size), as the pod round's kernel route masks; vectors stay whole.
+
+    ``group``: a ``DeviceMesh`` over which the leaves are DTensors (the
+    client axis whole); each client is masked over its shards (module
+    docstring).  None: plain tensors, one device.
     """
     packed = None if gamma >= 1.0 else _packed_cohort(tree, min_leaf_size,
                                                       axis0_slices)
     if packed is None:
         return tree
     names, spec, x2d, seg_ids, num_clients = packed
-    k = _segment_k(spec, gamma, num_clients, x2d.device)
+    if group is None:
+        count_ids, reduce = seg_ids, None
+        k = _segment_k(spec, gamma, num_clients, x2d.device)
+    else:
+        seg_ids, count_ids, k = _shard_segments(
+            tree, names, seg_ids, gamma, num_clients, axis0_slices, group)
+        reduce = _sum_over(group)
 
-    hist = seg.segmented_histogram(x2d, seg_ids, k.numel())
-    tau = _refine_taus(x2d, seg_ids, hist, k, refine_sweeps, candidates)
+    hist = seg.segmented_histogram(x2d, count_ids, k.numel())
+    if reduce is not None:
+        hist = reduce(hist)
+    tau = _refine_taus(x2d, count_ids, hist, k, refine_sweeps, candidates,
+                       reduce)
     out2d, _kept = seg.segmented_apply(x2d, seg_ids, tau)
 
     out = dict(tree)
     for name, masked in zip(names, pk.unpack_stacked(out2d, spec)):
-        out[name] = masked
+        leaf = tree[name]
+        out[name] = masked if group is None else _like(masked, leaf)
     return out
+
+
+def _like(local: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """``local`` as the shard of a tensor laid out as ``leaf`` (a DTensor),
+    or ``local`` itself for a plain ``leaf``."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(leaf, DTensor):
+        return local
+    return DTensor.from_local(local, leaf.device_mesh, leaf.placements,
+                              shape=leaf.shape, stride=leaf.stride(),
+                              run_check=False)
 
 
 def topk_mask_pytree(tree: Tree, gamma: float, *, min_leaf_size: int = 256,
                      refine_sweeps: int = DEFAULT_REFINE_SWEEPS,
                      candidates: int = DEFAULT_CANDIDATES,
-                     axis0_slices: bool = False) -> Tree:
+                     axis0_slices: bool = False, group=None) -> Tree:
     """Whole-model selective masking of ONE client's delta tree in
-    ``refine_sweeps + 2`` sweeps (see :func:`topk_mask_stacked`)."""
+    ``refine_sweeps + 2`` sweeps (see :func:`topk_mask_stacked`); with
+    ``group`` (a ``DeviceMesh``) over the client's DTensor shards."""
     stacked = topk_mask_stacked({n: leaf[None] for n, leaf in tree.items()},
                                 gamma, min_leaf_size=min_leaf_size,
                                 refine_sweeps=refine_sweeps,
                                 candidates=candidates,
-                                axis0_slices=axis0_slices)
+                                axis0_slices=axis0_slices, group=group)
     return {n: leaf[0] for n, leaf in stacked.items()}
 
 

@@ -31,6 +31,14 @@ running adjoint of h, per (b, c, n):
 Each wrapper takes its plain version only for a tensor on the CPU; for a
 CUDA tensor it launches its kernel or raises.  Every launch adds one to
 the wrapper's count (:func:`launch_counts`).
+
+The forward (with and without checkpoints) and the backward are also
+``torch.library`` custom ops (``repro_torch::ssm_scan_forward``,
+``ssm_scan_forward_checkpoints``, ``ssm_scan_backward``), which
+:func:`ssm_scan` and :class:`SsmScanFunction` call: their fake
+implementations give the output shapes without running anything, so
+``FakeTensorMode`` (the dry run) traces a step through them as one op
+each.
 """
 
 from __future__ import annotations
@@ -245,6 +253,47 @@ def ssm_scan_backward(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
     return da, dbx, dc, dh0
 
 
+@torch.library.custom_op("repro_torch::ssm_scan_forward", mutates_args=())
+def _forward_op(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
+                h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _forward(a, bx, c, h0)
+
+
+@_forward_op.register_fake
+def _(a, bx, c, h0):
+    return a.new_empty(a.shape[:3]), torch.empty_like(h0)
+
+
+@torch.library.custom_op("repro_torch::ssm_scan_forward_checkpoints",
+                         mutates_args=())
+def _forward_checkpoints_op(a: torch.Tensor, bx: torch.Tensor,
+                            c: torch.Tensor, h0: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    return _forward(a, bx, c, h0, checkpoints=True)
+
+
+@_forward_checkpoints_op.register_fake
+def _(a, bx, c, h0):
+    B, T, d, N = a.shape
+    return (a.new_empty((B, T, d)), torch.empty_like(h0),
+            a.new_empty((B, -(-T // CHECKPOINT), d, N)))
+
+
+@torch.library.custom_op("repro_torch::ssm_scan_backward", mutates_args=())
+def _backward_op(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
+                 h0: torch.Tensor, dy: torch.Tensor, dhT: torch.Tensor,
+                 hk: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    return ssm_scan_backward(a, bx, c, h0, dy, dhT, hk=hk)
+
+
+@_backward_op.register_fake
+def _(a, bx, c, h0, dy, dhT, hk):
+    return tuple(torch.empty_like(x) for x in (a, bx, c, h0))
+
+
 class SsmScanFunction(torch.autograd.Function):
     """:func:`ssm_scan` with its gradient: the forward kernel (or plain
     version) forward, :func:`ssm_scan_backward` backward.  Keeps the
@@ -255,8 +304,8 @@ class SsmScanFunction(torch.autograd.Function):
     def forward(ctx, a, bx, c, h0):
         if a.device.type == "cpu":
             ctx.save_for_backward(a, bx, c, h0)
-            return _forward(a, bx, c, h0)
-        y, hT, hk = _forward(a, bx, c, h0, checkpoints=True)
+            return _forward_op(a, bx, c, h0)
+        y, hT, hk = _forward_checkpoints_op(a, bx, c, h0)
         ctx.save_for_backward(a, bx, c, h0, hk)
         return y, hT
 
@@ -269,8 +318,7 @@ class SsmScanFunction(torch.autograd.Function):
             dy.float().contiguous()
         dhT = torch.zeros_like(h0) if dhT is None else \
             dhT.float().contiguous()
-        grads = ssm_scan_backward(a, bx, c, h0, dy, dhT,
-                                  hk=hk[0] if hk else None)
+        grads = _backward_op(a, bx, c, h0, dy, dhT, hk[0] if hk else None)
         return tuple(g if need else None
                      for g, need in zip(grads, ctx.needs_input_grad))
 
@@ -288,4 +336,4 @@ def ssm_scan(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (a, bx, c, h0)):
         return SsmScanFunction.apply(a, bx, c, h0)
-    return _forward(a, bx, c, h0)
+    return _forward_op(a, bx, c, h0)

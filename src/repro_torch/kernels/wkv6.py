@@ -89,6 +89,12 @@ the CPU for the tests.
 Each wrapper takes its plain version only for a tensor on the CPU; for a
 CUDA tensor it launches its kernel or raises.  Every launch adds one to
 the wrapper's count (:func:`launch_counts`).
+
+Both directions are also ``torch.library`` custom ops,
+``repro_torch::wkv6_forward`` and ``repro_torch::wkv6_backward``, which
+:class:`Wkv6Function` calls: their fake implementations give the output
+shapes without running anything, so ``FakeTensorMode`` (the dry run,
+``launch/dryrun.py``) traces a step through them as one op each.
 """
 
 from __future__ import annotations
@@ -491,6 +497,32 @@ def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dr, dk, dv, dlogw, du, ds0
 
 
+@torch.library.custom_op("repro_torch::wkv6_forward", mutates_args=())
+def _wkv6_forward_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     logw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _forward(r, k, v, logw, u, s0)
+
+
+@_wkv6_forward_op.register_fake
+def _(r, k, v, logw, u, s0):
+    return torch.empty_like(r), torch.empty_like(s0)
+
+
+@torch.library.custom_op("repro_torch::wkv6_backward", mutates_args=())
+def _wkv6_backward_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      logw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+                      dy: torch.Tensor, dsT: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor, torch.Tensor, torch.Tensor]:
+    return wkv6_backward(r, k, v, logw, u, s0, dy, dsT)
+
+
+@_wkv6_backward_op.register_fake
+def _(r, k, v, logw, u, s0, dy, dsT):
+    return tuple(torch.empty_like(x) for x in (r, k, v, logw, u, s0))
+
+
 class Wkv6Function(torch.autograd.Function):
     """:func:`wkv6` with its gradient: the forward kernel (or plain
     version) forward, :func:`wkv6_backward` backward.  Keeps the inputs
@@ -499,7 +531,7 @@ class Wkv6Function(torch.autograd.Function):
     @staticmethod
     def forward(ctx, r, k, v, logw, u, s0):
         ctx.save_for_backward(r, k, v, logw, u, s0)
-        return _forward(r, k, v, logw, u, s0)
+        return _wkv6_forward_op(r, k, v, logw, u, s0)
 
     @staticmethod
     @once_differentiable
@@ -508,7 +540,7 @@ class Wkv6Function(torch.autograd.Function):
         dy = torch.zeros_like(r) if dy is None else dy.float().contiguous()
         dsT = torch.zeros_like(s0) if dsT is None else \
             dsT.float().contiguous()
-        grads = wkv6_backward(r, k, v, logw, u, s0, dy, dsT)
+        grads = _wkv6_backward_op(r, k, v, logw, u, s0, dy, dsT)
         return tuple(g if need else None
                      for g, need in zip(grads, ctx.needs_input_grad))
 
@@ -527,4 +559,4 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (r, k, v, logw, u, s0)):
         return Wkv6Function.apply(r, k, v, logw, u, s0)
-    return _forward(r, k, v, logw, u, s0)
+    return _wkv6_forward_op(r, k, v, logw, u, s0)

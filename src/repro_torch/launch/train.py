@@ -25,9 +25,21 @@ width, e.g. ``--arch rwkv6-1.6b --mode federated --clients 4 --gamma 0.5
 --nproc_per_node 1 -m repro_torch.launch.train ... --mode federated``.
 Every arch of the port trains on both devices: rwkv6-1.6b's wkv6 and
 hymba-1.5b's ssm_scan run their backward kernels on the card.
-``--mesh`` is accepted for the reference's command lines: it must be
-``1x1``, or for a federated run under ``torchrun`` name as many devices
-as there are ranks.
+
+Sharded standard training (``--mesh DxM`` or ``PxDxM``) runs under
+``torchrun`` with as many ranks as the mesh has, NCCL on cards, gloo on
+the CPU:
+
+  torchrun --nproc_per_node 4 -m repro_torch.launch.train --arch \
+      qwen2-1.5b --reduced --device cpu --mesh 2x2 --steps 3 --batch 4
+
+The parameters, optimizer state and batches are laid out as the
+reference's ``run_standard`` lays them out (``launch/shardings.py``:
+FSDP over "data", tensor parallel over "model") and the step runs with
+``mesh_hints``.  Each rank draws the whole model from the seed and keeps
+its shards, so a model must fit one device to start.  A federated run
+under ``torchrun`` takes a mesh naming as many devices as there are
+ranks.
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ import argparse
 import math
 import os
 import time
+from typing import Optional
 
 import torch
 
@@ -46,12 +59,25 @@ from repro_torch.core.sampling import (DynamicSampling, StaticSampling,
                                        participation_mask)
 from repro_torch.data.synthetic import markov_text
 from repro_torch.device import resolve_device
+from repro_torch.launch import shardings as sh
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.fedtrain import (FedPodConfig, make_cohort_fed_round,
                                          make_fed_round)
 from repro_torch.models import transformer as tr
 
-__all__ = ["synth_batches", "run_standard", "run_federated", "main"]
+__all__ = ["make_mesh_arg", "synth_batches", "run_standard",
+           "run_federated", "main"]
+
+
+def make_mesh_arg(spec: str, device_type: Optional[str] = None):
+    """The ``DeviceMesh`` of a ``--mesh`` string: "M" -> ("model",), "DxM"
+    -> ("data", "model"), "PxDxM" -> ("pod", "data", "model"), over the
+    default process group's ranks."""
+    from repro_torch.launch.mesh import make_mesh
+    dims = tuple(int(x) for x in spec.split("x"))
+    names = {1: ("model",), 2: ("data", "model"),
+             3: ("pod", "data", "model")}[len(dims)]
+    return make_mesh(dims, names, device_type)
 
 
 def synth_batches(cfg, batch: int, seq: int, steps: int, seed: int = 0):
@@ -84,24 +110,54 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
+def _init_distributed(device):
+    """The default process group from ``torchrun``'s environment (NCCL on
+    a card, gloo on the CPU) and this rank's device."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+    return device
+
+
 def run_standard(args, cfg, device):
-    """``args.steps`` training steps; prints one line a step."""
-    if _mesh_devices(args.mesh) != 1:
-        raise ValueError(f"--mesh {args.mesh}: standard training runs on "
-                         f"one device (1x1)")
-    step = steps_lib.make_train_step(cfg, learning_rate=args.lr)
+    """``args.steps`` training steps; prints one line a step.  Under
+    ``torchrun`` the step is sharded over ``--mesh``."""
+    distributed = "WORLD_SIZE" in os.environ
+    if not distributed and _mesh_devices(args.mesh) != 1:
+        raise ValueError(f"--mesh {args.mesh}: a sharded run starts under "
+                         f"torchrun with one rank a device")
+    mesh = None
+    if distributed:
+        device = _init_distributed(device)
+        mesh = make_mesh_arg(args.mesh, device.type)
+    hints = steps_lib.mesh_hints(mesh)
+    step = steps_lib.make_train_step(cfg, learning_rate=args.lr, hints=hints)
     params = _init(args, cfg, device)
     opt_state = step.optimizer.init(params)
     batches = synth_batches(cfg, args.batch, args.seq, args.steps, args.seed)
+    if mesh is not None:
+        psh = sh.params_shardings(params, mesh)
+        params = sh.distribute_tree(params, psh)
+        opt_state = sh.distribute_tree(
+            opt_state, sh.params_shardings_like(opt_state, psh, mesh))
+        bsh = sh.batch_shardings(batches[0], mesh)
     for i, b in enumerate(batches):
+        b = {k: v.to(device) for k, v in b.items()}
+        if mesh is not None:
+            b = sh.distribute_tree(b, bsh)
         t0 = time.time()
-        params, opt_state, m = step(
-            params, opt_state, {k: v.to(device) for k, v in b.items()})
-        print(f"step {i}: loss={float(m['loss']):.4f} "
-              f"gnorm={float(m['grad_norm']):.3f} "
+        params, opt_state, m = step(params, opt_state, b)
+        print(f"step {i}: loss={float(sh.whole(m['loss'])):.4f} "
+              f"gnorm={float(sh.whole(m['grad_norm'])):.3f} "
               f"dt={time.time() - t0:.2f}s", flush=True)
-    if args.ckpt:
+    if mesh is not None:
+        params = {k: sh.whole(v) for k, v in params.items()}
+    if args.ckpt and (mesh is None or torch.distributed.get_rank() == 0):
         save_checkpoint(args.ckpt, args.steps, unflatten_tree(params))
+    if distributed:
+        torch.distributed.destroy_process_group()
     return params
 
 
@@ -119,10 +175,7 @@ def run_federated(args, cfg, device):
     distributed = "WORLD_SIZE" in os.environ
     if distributed:
         import torch.distributed as dist
-        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
-        if device.type == "cuda":
-            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
-            torch.cuda.set_device(device)
+        device = _init_distributed(device)
         world = dist.get_world_size()
         cohort = make_cohort_fed_round(cfg, fed_cfg, cohort_size=C)
     else:

@@ -13,6 +13,15 @@ plain PyTorch too:
   place* (the reference returns a new cache; the port updates the tensor
   and returns the cache with its index advanced) and attends one token.
 
+Under ``hints`` (``models/hints.py``; DTensor inputs on a mesh) both run
+on each rank's shard through ``local_map``, in the reference's layouts:
+training and prefill attention head-sharded over "model" where the heads
+divide it (each rank attends its heads against the KV heads they read),
+else sequence-sharded (each rank's query rows against every key, from
+their offset); decode against a cache whose slots are sharded over
+"model", the ranks' partial softmax sums combined by all-reduce.  With
+one rank on "model" both call the plain function on the whole tensors.
+
 Products whose reference output is fp32 from bf16 inputs
 (``preferred_element_type``) upcast both inputs to fp32 first: the product
 of two bf16 values is exact in fp32, so only the summation order differs.
@@ -55,7 +64,8 @@ def _scaled(q: torch.Tensor, scale: float) -> torch.Tensor:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     *, attn: str = "full", window: int = 0,
                     softcap_val: float = 0.0, scale: Optional[float] = None,
-                    q_offset: int = 0, block_q: int = 512) -> torch.Tensor:
+                    q_offset: int = 0, block_q: int = 512,
+                    hints=None) -> torch.Tensor:
     """q: (B, T, H, D); k, v: (B, S, KV, D) with H a multiple of KV (GQA).
     Returns (B, T, H, D) in q's dtype.  Causal; query positions are
     ``q_offset + [0..T)`` and key positions ``[0..S)``.
@@ -65,6 +75,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probabilities; otherwise the same forward without saving anything."""
     from repro_torch.models import flash_vjp
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    if hints is not None:
+        return _sharded_flash(q, k, v, hints, attn=attn, window=window,
+                              softcap_val=softcap_val, scale=scale,
+                              q_offset=q_offset, block_q=block_q)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return flash_vjp.FlashAttention.apply(q, k, v, attn, window,
                                               softcap_val, scale, q_offset,
@@ -72,6 +86,58 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_vjp.flash_forward(q, k, v, attn=attn, window=window,
                                    softcap_val=softcap_val, scale=scale,
                                    q_offset=q_offset, block_q=block_q)[0]
+
+
+def _model_layout(hints, mesh):
+    """(index of the "model" mesh dim, its size, this rank's coordinate
+    on it)."""
+    mi = mesh.mesh_dim_names.index(hints.model)
+    return mi, mesh.shape[mi], mesh.get_local_rank(hints.model)
+
+
+def _sharded_flash(q, k, v, hints, *, attn, window, softcap_val, scale,
+                   q_offset, block_q):
+    """:func:`flash_attention` on DTensors, through ``local_map``: heads
+    over "model" where they divide it, else query rows, else whole."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = hints.mesh
+    B, T, H, D = q.shape
+    KV = k.shape[2]
+    groups = H // KV
+    mi, m, r = _model_layout(hints, mesh)
+    if m > 1 and H % m == 0:
+        mode, q_dim = "heads", 2
+    elif m > 1 and T % m == 0:
+        mode, q_dim = "rows", 1
+    else:
+        mode, q_dim = "whole", None
+    batch = Shard(0) if hints.splits_batch(B) else None
+    q_pl = hints.layout(batch, None if q_dim is None else Shard(q_dim))
+    kv_pl = hints.layout(batch)
+    kv_grad = hints.layout(batch, None if mode == "whole" else Partial())
+
+    def local(ql, kl, vl):
+        off = q_offset
+        if mode == "heads":
+            hl = H // m
+            if hl % groups == 0:          # whole KV groups: slice them
+                lo = r * hl // groups
+                kl = kl[:, :, lo:lo + hl // groups]
+                vl = vl[:, :, lo:lo + hl // groups]
+            else:                         # each local head's KV head
+                idx = (r * hl + torch.arange(hl, device=kl.device)) // groups
+                kl, vl = kl[:, :, idx], vl[:, :, idx]
+        elif mode == "rows":
+            off = q_offset + r * ql.shape[1]
+        return flash_attention(ql, kl, vl, attn=attn, window=window,
+                               softcap_val=softcap_val, scale=scale,
+                               q_offset=off, block_q=block_q)
+
+    return local_map(local, out_placements=q_pl,
+                     in_placements=(q_pl, kv_pl, kv_pl),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
 
 
 class KVCache(NamedTuple):
@@ -97,12 +163,17 @@ def init_kv_cache(batch: int, max_seq: int, kv_heads: int, head_dim: int,
                    torch.zeros(shape, dtype=dtype, device=device), 0)
 
 
-def cache_positions(cache: KVCache, attn: str, window: int) -> torch.Tensor:
+def cache_positions(cache: KVCache, attn: str, window: int, *,
+                    slots: Optional[int] = None,
+                    offset: int = 0) -> torch.Tensor:
     """Logical position held by each cache slot *after* the current token
-    (at position ``cache.index``) has been written; empty slots -> -1."""
-    slots = cache.k.shape[-3]
+    (at position ``cache.index``) has been written; empty slots -> -1.
+    ``slots`` / ``offset``: ``cache`` holds the slots from ``offset`` on
+    of a cache of ``slots`` slots (all of them by default)."""
+    local = cache.k.shape[-3]
+    slots = local if slots is None else slots
     pos = cache.index
-    slot_ids = torch.arange(slots, device=cache.k.device)
+    slot_ids = torch.arange(offset, offset + local, device=cache.k.device)
     if attn in ("sliding", "chunked") and window:
         logical = pos - ((pos - slot_ids) % slots)
         return torch.where(logical >= 0, logical, -1)
@@ -113,21 +184,34 @@ def decode_attention(q: torch.Tensor, k_new: torch.Tensor,
                      v_new: torch.Tensor, cache: KVCache, *,
                      attn: str = "full", window: int = 0,
                      softcap_val: float = 0.0,
-                     scale: Optional[float] = None
-                     ) -> Tuple[torch.Tensor, KVCache]:
+                     scale: Optional[float] = None, hints=None,
+                     slots: Optional[int] = None, offset: int = 0,
+                     reduce=None) -> Tuple[torch.Tensor, KVCache]:
     """One-token attention.  q: (B, 1, H, D); k_new, v_new: (B, 1, KV, D);
-    cache k, v: (B, S, KV, D), written in place at slot ``index % S``."""
+    cache k, v: (B, S, KV, D), written in place at slot ``index % S``.
+
+    A shard of the slots: ``cache`` holds the ``offset``-th on of
+    ``slots`` slots, the new row is written only where its slot is held,
+    and ``reduce(t, op)`` ("max" or "sum" over the shards) combines the
+    softmax max, sum and products (the probabilities rounded to the cache
+    dtype as one rank rounds them)."""
+    if hints is not None:
+        return _sharded_decode(q, k_new, v_new, cache, hints, attn=attn,
+                               window=window, softcap_val=softcap_val,
+                               scale=scale)
     B, _, H, D = q.shape
     KV = k_new.shape[2]
     groups = H // KV
     scale = scale if scale is not None else D ** -0.5
-    slots = cache.k.shape[1]
+    local = cache.k.shape[1]
+    slots = local if slots is None else slots
     pos = cache.index
-    slot = pos % slots               # full cache: pos < slots
-    cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
+    slot = pos % slots - offset      # full cache: pos < slots
+    if 0 <= slot < local:
+        cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
+        cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
 
-    k_pos = cache_positions(cache, attn, window)
+    k_pos = cache_positions(cache, attn, window, slots=slots, offset=offset)
     vis = visibility(torch.tensor([pos], device=q.device), k_pos, attn,
                      window)[0]                              # (S,)
     qf = _scaled(q, scale).reshape(B, KV, groups, D).to(cache.k.dtype)
@@ -135,10 +219,47 @@ def decode_attention(q: torch.Tensor, k_new: torch.Tensor,
     if softcap_val > 0.0:
         logits = softcap_val * torch.tanh(logits / softcap_val)
     logits = torch.where(vis, logits, NEG_INF)
-    p = torch.softmax(logits, dim=-1)
-    out = p.to(cache.v.dtype).float() @ cache.v.permute(0, 2, 1, 3).float()
+    vf = cache.v.permute(0, 2, 1, 3).float()
+    if reduce is None:
+        p = torch.softmax(logits, dim=-1)
+        out = p.to(cache.v.dtype).float() @ vf
+    else:
+        e = torch.exp(logits - reduce(logits.amax(-1, keepdim=True), "max"))
+        p = e / reduce(e.sum(-1, keepdim=True), "sum")
+        out = reduce(p.to(cache.v.dtype).float() @ vf, "sum")
     out = out.reshape(B, 1, H, D).to(q.dtype)
     return out, KVCache(cache.k, cache.v, pos + 1)
+
+
+def _sharded_decode(q, k_new, v_new, cache: KVCache, hints, *, attn, window,
+                    softcap_val, scale):
+    """:func:`decode_attention` on DTensors: the plain function on each
+    rank's shard of the cache, with q and the new rows whole over
+    "model".  With the slots over "model" each rank attends its slots
+    (writing the new row where its slot is held) and the ranks' softmax
+    max, sum and products are all-reduced over "model"."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = hints.mesh
+    ck, cv = cache.k, cache.v
+    mi, m, r = _model_layout(hints, mesh)
+    split = isinstance(ck.placements[mi], Shard) and m > 1
+    # q and the new rows: the cache's batch layout, whole over "model"
+    rows = tuple(Replicate() if i == mi else p
+                 for i, p in enumerate(ck.placements))
+    ql, kl_new, vl_new = (x.redistribute(mesh, rows).to_local()
+                          for x in (q, k_new, v_new))
+    local = KVCache(ck.to_local(), cv.to_local(), cache.index)
+    shard = {}
+    if split:
+        shard = {"slots": ck.shape[1], "offset": r * local.k.shape[1],
+                 "reduce": lambda t, op: funcol.all_reduce(t, op,
+                                                           (mesh, mi))}
+    out, _ = decode_attention(ql, kl_new, vl_new, local, attn=attn,
+                              window=window, softcap_val=softcap_val,
+                              scale=scale, **shard)
+    return (DTensor.from_local(out, mesh, rows, run_check=False),
+            KVCache(ck, cv, cache.index + 1))
 
 
 def init_attn_params(generator: torch.Generator, d_model: int,
@@ -167,9 +288,11 @@ def init_attn_params(generator: torch.Generator, d_model: int,
 
 def project_qkv(params: dict, x: torch.Tensor, num_heads: int, num_kv: int,
                 head_dim: int, positions: torch.Tensor, rope_theta: float,
-                compute_dtype):
+                compute_dtype, hints=None):
     """x: (B, T, d) -> q (B, T, H, D), k and v (B, T, KV, D), RoPE applied
-    at ``positions`` (T,)."""
+    at ``positions`` (T,).  Under hints a projection whose heads "model"
+    does not divide is gathered over it before it is split into heads (its
+    column shards would cut heads apart)."""
     B, T, _ = x.shape
     xc = x.to(compute_dtype)
     q = xc @ params["wq"].to(compute_dtype)
@@ -179,6 +302,10 @@ def project_qkv(params: dict, x: torch.Tensor, num_heads: int, num_kv: int,
         q = q + params["bq"].to(compute_dtype)
         k = k + params["bk"].to(compute_dtype)
         v = v + params["bv"].to(compute_dtype)
+    if hints is not None:
+        from repro_torch.models.hints import apply_batch
+        q, k, v = (t if hints._ok(n) else apply_batch(hints, t) for t, n in
+                   ((q, num_heads), (k, num_kv), (v, num_kv)))
     q = q.reshape(B, T, num_heads, head_dim)
     k = k.reshape(B, T, num_kv, head_dim)
     v = v.reshape(B, T, num_kv, head_dim)
@@ -189,8 +316,18 @@ def project_qkv(params: dict, x: torch.Tensor, num_heads: int, num_kv: int,
 
 
 def out_proj(params: dict, attn_out: torch.Tensor,
-             compute_dtype) -> torch.Tensor:
-    """(B, T, H, D) -> (B, T, d) through ``wo``."""
+             compute_dtype, hints=None) -> torch.Tensor:
+    """(B, T, H, D) -> (B, T, d) through ``wo``.  Under hints a
+    sequence-sharded output (heads that "model" does not divide) is
+    gathered over "model" first; a head-sharded one feeds the
+    row-parallel product as it is."""
     B, T, H, D = attn_out.shape
-    return (attn_out.reshape(B, T, H * D).to(compute_dtype)
-            @ params["wo"].to(compute_dtype))
+    gather = hints is not None and not hints._ok(H)
+    if gather:
+        from repro_torch.models.hints import apply_batch
+        attn_out = apply_batch(hints, attn_out)
+    flat = attn_out.reshape(B, T, H * D)
+    if gather:      # the backward gathers the gradient before the split
+        from repro_torch.models.hints import batch_grad
+        flat = batch_grad(hints, flat)
+    return flat.to(compute_dtype) @ params["wo"].to(compute_dtype)

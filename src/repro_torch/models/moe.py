@@ -27,6 +27,16 @@ einsums:
 Autograd reaches the gates through the softmax and the experts through the
 products; the keep mask and the one-hot term carry no gradient, as in the
 reference.
+
+Under ``hints`` (``models/hints.py``; DTensor parameters on a mesh) the
+routing, dispatch and combine are plain tensor code (their index ops have
+no DTensor rules).  Where the data axes split the batch and each rank's
+rows hold whole groups, each data rank routes its own rows' groups
+through ``local_map`` (``_local_moe``); else (a group spans data ranks, as
+decode's one group of the batch does) the whole batch is routed, the
+same on every rank.  The expert and shared products run on DTensors:
+experts over "model" where E divides it (expert parallel), else the ff
+dim, as ``launch/shardings.param_spec`` lays the weights out.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from repro_torch.models import hints as hints_lib
 from repro_torch.models.common import dense_init
 
 __all__ = ["init_moe_params", "Routing", "route", "moe_ffn"]
@@ -78,6 +89,8 @@ class Routing(NamedTuple):
     keep: torch.Tensor          # (G, g, k) bool, positions < capacity
     aux: torch.Tensor           # () fp32 load-balance loss
     capacity: int               # slots an expert holds a group
+    mean_probs: torch.Tensor    # (E,) fp32 the aux loss's mean router probs
+    mean_top1: torch.Tensor     # (E,) fp32 its mean top-1 one-hot
 
 
 def _top_k(probs: torch.Tensor, k: int):
@@ -113,57 +126,131 @@ def route(router: torch.Tensor, x: torch.Tensor, *, topk: int,
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
 
     me = probs.mean(dim=(0, 1))
-    top1 = torch.nn.functional.one_hot(ids[..., 0], E).float()
-    aux = E * torch.sum(me * top1.mean(dim=(0, 1)))
+    top1 = torch.nn.functional.one_hot(ids[..., 0], E).float().mean(
+        dim=(0, 1))
+    aux = E * torch.sum(me * top1)
 
     cap = max(1, int(g * topk / (real_experts or E) * capacity_factor))
     picks = torch.nn.functional.one_hot(ids.reshape(n_groups, g * topk), E)
     pos = ((picks.cumsum(1) * picks).sum(-1) - 1).reshape(ids.shape)
     keep = pos < cap
-    return Routing(xg, ids, gates * keep, pos, keep, aux.float(), cap)
+    return Routing(xg, ids, gates * keep, pos, keep, aux.float(), cap, me,
+                   top1)
 
 
-def moe_ffn(params: dict, x: torch.Tensor, *, topk: int, act: str = "silu",
-            gated: bool = True, capacity_factor: float = 1.25,
-            group_size: int = 512,
-            real_experts: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, T, d) -> (out (B, T, d) in x's dtype, aux loss () fp32).
-
-    Routing in fp32; the experts and the shared FFN in x's dtype."""
-    B, T, d = x.shape
-    dt = x.dtype
-    r = route(params["router"], x, topk=topk,
-              capacity_factor=capacity_factor, group_size=group_size,
-              real_experts=real_experts)
-    G, g, _ = r.xg.shape
-    E = params["router"].shape[-1]
-    cap = r.capacity
+def _dispatch(r: Routing, num_experts: int) -> Tuple[torch.Tensor,
+                                                      torch.Tensor]:
+    """(xe (E, G * cap, d): each expert's slots, empty ones zero; slot (G,
+    g, k): where each pick's row sits in ``ye``'s (G, E, cap) order, the
+    zero row G * E * cap for a dropped pick)."""
+    G, g, d = r.xg.shape
+    E, cap = num_experts, r.capacity
     rows = G * g
-
-    # slot (group, expert, place) of every kept pick; the rest read the
-    # zero row at the end
-    slot = (torch.arange(G, device=x.device)[:, None, None] * (E * cap)
+    dev = r.xg.device
+    slot = (torch.arange(G, device=dev)[:, None, None] * (E * cap)
             + r.expert_ids * cap + r.positions)
     empty = G * E * cap
     slot = torch.where(r.keep, slot, empty)
-    token = torch.arange(rows, device=x.device).view(G, g, 1).expand_as(slot)
-    src = torch.full((empty + 1,), rows, dtype=torch.long, device=x.device)
+    token = torch.arange(rows, device=dev).view(G, g, 1).expand_as(slot)
+    src = torch.full((empty + 1,), rows, dtype=torch.long, device=dev)
     src[slot.reshape(-1)] = token.reshape(-1)
     src = src[:empty]
-
-    xz = torch.cat([r.xg.reshape(rows, d), x.new_zeros(1, d)])
+    xz = torch.cat([r.xg.reshape(rows, d), r.xg.new_zeros(1, d)])
     xe = xz[src].view(G, E, cap, d).transpose(0, 1).reshape(E, G * cap, d)
+    return xe, slot
+
+
+def _combine(ye: torch.Tensor, slot: torch.Tensor,
+             gates: torch.Tensor) -> torch.Tensor:
+    """Each kept pick's expert row back at its token, weighted by its gate
+    (in ye's dtype, summed in fp32): (G * g, d)."""
+    E, _, d = ye.shape
+    G, g, _ = slot.shape
+    dt = ye.dtype
+    ye = ye.view(E, G, -1, d).transpose(0, 1).reshape(-1, d)
+    yz = torch.cat([ye, ye.new_zeros(1, d)])
+    picked = yz[slot]                                        # (G, g, k, d)
+    y = (gates.to(dt).float()[..., None] * picked.float()).sum(-2)
+    return y.to(dt).reshape(G * g, d)
+
+
+def _experts(params: dict, xe: torch.Tensor, act: str,
+             gated: bool) -> torch.Tensor:
+    """The batched expert FFNs on (E, N, d) slots, in xe's dtype."""
+    dt = xe.dtype
     h = torch.matmul(xe, params["wi"].to(dt))
     if gated:
         h = _act(h, act) * torch.matmul(xe, params["wg"].to(dt))
     else:
         h = _act(h, act)
-    ye = torch.matmul(h, params["wo"].to(dt))                # (E, G*cap, d)
-    ye = ye.view(E, G, cap, d).transpose(0, 1).reshape(empty, d)
-    yz = torch.cat([ye, ye.new_zeros(1, d)])
-    picked = yz[slot]                                        # (G, g, k, d)
-    y = (r.gates.to(dt).float()[..., None] * picked.float()).sum(-2)
-    y = y.to(dt).reshape(rows, d)[:B * T]
+    return torch.matmul(h, params["wo"].to(dt))              # (E, N, d)
+
+
+def _local_moe(params: dict, x: torch.Tensor, hints, *, topk: int,
+               act: str, gated: bool, capacity_factor: float, g: int,
+               real_experts: int):
+    """The routed experts under hints with each data rank routing its own
+    rows' groups (``local_map``): the slots of every rank's groups, in
+    rank order, are the whole batch's slots in group order, so the expert
+    products see the unsharded (E, G * cap, d) layout.  Returns (y, aux),
+    the aux loss from the ranks' mean probs and top-1 shares (averaged
+    over the data ranks, where the whole batch takes one mean)."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = hints.mesh
+    E = params["router"].shape[-1]
+    rows, whole = hints.layout(Shard(0)), hints.layout()
+    slots, mean = hints.layout(Shard(1)), hints.layout(Partial("avg"))
+
+    def route_local(xl, router):
+        r = route(router, xl, topk=topk, capacity_factor=capacity_factor,
+                  group_size=g, real_experts=real_experts)
+        xe, slot = _dispatch(r, E)
+        return xe, slot, r.gates, r.mean_probs, r.mean_top1
+
+    xe, slot, gates, me, top1 = local_map(
+        route_local,
+        out_placements=(slots, rows, rows, mean, mean),
+        in_placements=(rows, whole),
+        in_grad_placements=(rows, hints.layout(Partial())),
+        device_mesh=mesh, redistribute_inputs=True)(x, params["router"])
+    ye = _experts(params, xe, act, gated)
+    B, T, d = x.shape
+    y = local_map(lambda a, b, c: _combine(a, b, c).reshape(-1, T, d),
+                  out_placements=rows,
+                  in_placements=(slots, rows, rows),
+                  in_grad_placements=(slots, rows, rows),
+                  device_mesh=mesh, redistribute_inputs=True)(ye, slot, gates)
+    return y, (E * torch.sum(me * top1)).float()
+
+
+def moe_ffn(params: dict, x: torch.Tensor, *, topk: int, act: str = "silu",
+            gated: bool = True, capacity_factor: float = 1.25,
+            group_size: int = 512, real_experts: int = 0,
+            hints=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, T, d) -> (out (B, T, d) in x's dtype, aux loss () fp32).
+
+    Routing in fp32; the experts and the shared FFN in x's dtype."""
+    B, T, d = x.shape
+    dt = x.dtype
+    E = params["router"].shape[-1]
+    g = min(group_size, B * T)
+    if hints is not None and hints.splits_batch(B) and \
+            (B // hints._dp_size() * T) % g == 0:
+        y, aux = _local_moe(params, x, hints, topk=topk, act=act,
+                            gated=gated, capacity_factor=capacity_factor,
+                            g=g, real_experts=real_experts)
+        y = y.reshape(B * T, d)
+    else:       # one device, or rows whose groups straddle data ranks
+        xin = hints_lib.whole(hints, x)
+        r = route(hints_lib.whole(hints, params["router"]), xin, topk=topk,
+                  capacity_factor=capacity_factor, group_size=group_size,
+                  real_experts=real_experts)
+        xe, slot = _dispatch(r, E)
+        ye = hints_lib.whole(hints, _experts(
+            params, hints_lib.replicated(hints, xe), act, gated))
+        y = hints_lib.replicated(hints, _combine(ye, slot, r.gates)[:B * T])
+        aux = hints_lib.replicated(hints, r.aux)
 
     if "shared_wi" in params:
         xs = x.reshape(B * T, d)
@@ -173,4 +260,4 @@ def moe_ffn(params: dict, x: torch.Tensor, *, topk: int, act: str = "silu",
         else:
             hs = _act(hs, act)
         y = y + hs @ params["shared_wo"].to(dt)
-    return y.reshape(B, T, d).to(dt), r.aux
+    return y.reshape(B, T, d).to(dt), aux

@@ -15,9 +15,14 @@ form overflows (ROADMAP Queue 3).
 
 dtypes follow the reference's promotion exactly: the token-shift state is
 fp32, so ``_token_shift`` and every lerp, projection and block output after
-it are fp32 even when the parameters and the stream are bf16.  The
-reference's ``hints`` argument (sharding anchors) has no counterpart on
-one card and is dropped.
+it are fp32 even when the parameters and the stream are bf16.
+
+Under ``hints`` (``models/hints.py``; DTensor parameters on a mesh) r, k,
+v and the log decay take the reference's head-sharded layout, and the
+wkv6 kernel runs on each rank's local heads and batch rows through
+``local_map``: the recurrence is per (batch row, head), so a shard's
+launch is exact.  The bonus u's gradient is a partial sum over the data
+ranks' rows.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.models import hints as hints_lib
+from repro_torch.models.hints import apply_feature
 from repro_torch.models.common import (dense_init, init_device,
                                        standard_normal)
 
@@ -95,6 +102,41 @@ def wkv6_chunked(r, k, v, logw, u, state):
     return ops.wkv6(r, k, v, logw, u, state)
 
 
+def _heads(hints, x: torch.Tensor, H: int, head_dim: int) -> torch.Tensor:
+    """(B, T, H * head_dim) -> (B, T, H, head_dim); under hints the heads
+    over "model" where it divides them, the features gathered first where
+    it does not."""
+    B, T, _ = x.shape
+    if hints is not None:       # whole heads on each rank before the split
+        x = (apply_feature(hints, x, 2) if hints._ok(H)
+             else hints_lib.apply_batch(hints, x))
+    return apply_feature(hints, x.reshape(B, T, H, head_dim), 2)
+
+
+def _sharded_wkv6(fn, r, k, v, logw, u, state, hints):
+    """``fn`` (:func:`wkv6_chunked`, or :func:`wkv6_step` in decode) on
+    DTensors: each rank's (batch, head) shard through ``local_map``; heads
+    over "model" where they divide it."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+    B, _, H, _ = r.shape
+    rows = Shard(0) if hints.splits_batch(B) else None
+    heads = hints._ok(H)
+
+    def pl(batch, head_dim):
+        return hints.layout(batch, Shard(head_dim) if heads else None)
+
+    x4, st = pl(rows, 2), pl(rows, 1)
+    # u's gradient: each data rank's rows' partial sum
+    u_grad = pl(Partial() if rows is not None else None, 0)
+    state = hints_lib.replicated(hints, state)
+    return local_map(fn, out_placements=(x4, st),
+                     in_placements=(x4, x4, x4, x4, pl(None, 0), st),
+                     in_grad_placements=(x4, x4, x4, x4, u_grad, st),
+                     device_mesh=hints.mesh,
+                     redistribute_inputs=True)(r, k, v, logw, u, state)
+
+
 def wkv6_step(r, k, v, logw, u, state):
     """Single-token recurrence (decode).  r, k, v, logw: (B, 1, H, D)."""
     rb = r[:, 0].float()
@@ -109,7 +151,7 @@ def wkv6_step(r, k, v, logw, u, state):
 
 def rwkv_time_mix(params: dict, x: torch.Tensor, head_dim: int,
                   state: torch.Tensor, shift_prev: torch.Tensor,
-                  *, decode: bool = False):
+                  *, decode: bool = False, hints=None):
     """x: (B, T, d).  Returns (out, new_state, new_shift_prev)."""
     B, T, d = x.shape
     H = d // head_dim
@@ -120,19 +162,22 @@ def rwkv_time_mix(params: dict, x: torch.Tensor, head_dim: int,
     xw = _lerp(x, xs, params["mu_w"])
     xg = _lerp(x, xs, params["mu_g"])
 
-    r = _matmul(xr, params["wr"]).reshape(B, T, H, head_dim)
-    k = _matmul(xk, params["wk"]).reshape(B, T, H, head_dim)
-    v = _matmul(xv, params["wv"]).reshape(B, T, H, head_dim)
+    r, k, v = (_heads(hints, _matmul(xi, params[w]), H, head_dim)
+               for xi, w in ((xr, "wr"), (xk, "wk"), (xv, "wv")))
     g = torch.nn.functional.silu(_matmul(xg, params["wg"]))
     # Finch decay: w = exp(-exp(bias + tanh(x ww1) ww2)) in (0, 1)
     wexp = params["w_bias"].float() + \
         torch.tanh(xw.float() @ params["ww1"].float()) @ \
         params["ww2"].float()
-    logw = -torch.exp(torch.clamp(wexp, -12.0, 4.0)).reshape(
-        B, T, H, head_dim)
+    # the row-parallel ww2 leaves wexp partial over "model": whole first
+    logw = _heads(hints, -torch.exp(torch.clamp(
+        hints_lib.apply_batch(hints, wexp), -12.0, 4.0)), H, head_dim)
 
     u = params["u"].float()
-    if decode:
+    if hints is not None:
+        y, state = _sharded_wkv6(wkv6_step if decode else wkv6_chunked,
+                                 r, k, v, logw, u, state, hints)
+    elif decode:
         y, state = wkv6_step(r, k, v, logw, u, state)
     else:
         y, state = wkv6_chunked(r, k, v, logw, u, state)

@@ -10,6 +10,12 @@ with data-dependent B_t, C_t, dt_t.  Over a whole prompt the recurrence runs
 on the CUDA kernel ``ops.ssm_scan`` (:func:`ssm_forward`); decode is one
 plain step per token (:func:`ssm_step`).  Everything after the input
 projection is fp32, as in the reference.
+
+Under ``hints`` (``models/hints.py``; DTensor parameters on a mesh) the
+scan runs on each rank's channels and batch rows through ``local_map``,
+channels over "model" where they divide it: the recurrence is per
+(batch row, channel), so a shard's launch is exact, and C's gradient is a
+partial sum over the channel ranks.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.models import hints as hints_lib
+from repro_torch.models.hints import apply_feature
 from repro_torch.models.common import dense_init, init_device
 
 __all__ = ["init_ssm_params", "ssm_forward", "ssm_step"]
@@ -67,11 +75,37 @@ def _selective_terms(params, xz):
     return x, z, a, bx, Cm
 
 
-def ssm_forward(params: dict, xz: torch.Tensor, h0: torch.Tensor):
+def _sharded_scan(a, bx, c, h0, hints):
+    """``ops.ssm_scan`` on DTensors through ``local_map``."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+    B, _, d, _ = a.shape
+    rows = Shard(0) if hints.splits_batch(B) else None
+    chans = hints._ok(d)
+
+    def pl(chan_dim):
+        return hints.layout(rows, Shard(chan_dim) if chans else None)
+
+    # C's gradient: each channel rank's partial sum
+    c_grad = hints.layout(rows, Partial() if chans else None)
+    h0 = hints_lib.replicated(hints, h0)
+    return local_map(ops.ssm_scan, out_placements=(pl(2), pl(1)),
+                     in_placements=(pl(2), pl(2), hints.layout(rows), pl(1)),
+                     in_grad_placements=(pl(2), pl(2), c_grad, pl(1)),
+                     device_mesh=hints.mesh,
+                     redistribute_inputs=True)(a, bx, c, h0)
+
+
+def ssm_forward(params: dict, xz: torch.Tensor, h0: torch.Tensor,
+                hints=None):
     """xz: (B, T, 2 * d_inner), already projected; h0: (B, d_inner, N).
     Returns (y (B, T, d_inner) in xz's dtype, before ``w_out``; hT)."""
     x, z, a, bx, Cm = _selective_terms(params, xz)      # a, bx: (B,T,d,N)
-    y, hT = ops.ssm_scan(a, bx, Cm, h0)
+    if hints is not None:
+        y, hT = _sharded_scan(apply_feature(hints, a, 2),
+                              apply_feature(hints, bx, 2), Cm, h0, hints)
+    else:
+        y, hT = ops.ssm_scan(a, bx, Cm, h0)
     y = y + params["d_skip"].float() * x.float()
     y = y * torch.nn.functional.silu(z.float())
     return y.to(xz.dtype), hT

@@ -63,12 +63,14 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.bridge import flatten_tree, tree_map, unflatten_tree
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import hints as hints_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
@@ -232,55 +234,74 @@ def _mlp_apply(p: dict, x: torch.Tensor, act: str, gated: bool,
 
 
 def _ffn_apply(cfg: ArchConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
-               cdt):
+               cdt, hints=None):
     """The layer's MLP on ``x``: (y, aux loss); the dense MLP's aux is
     None."""
-    h = norm_apply(x, p["norm2"], cfg.norm)
+    h = _block_in(hints, x, p["norm2"], cfg)
     if spec.mlp == "moe":
         return moe_lib.moe_ffn(p["moe"], h.to(cdt), topk=cfg.moe_topk,
                                act=cfg.act, gated=cfg.gated_mlp,
-                               real_experts=cfg.moe_experts)
+                               real_experts=cfg.moe_experts, hints=hints)
     return _mlp_apply(p["mlp"], h, cfg.act, cfg.gated_mlp, cdt), None
 
 
+def _block_in(hints, x: torch.Tensor, norm: dict,
+              cfg: ArchConfig) -> torch.Tensor:
+    """A block's normed input.  Under hints the sequence-sharded residual
+    is gathered over "model" first (sequence parallelism's all-gather),
+    so that the block's products see whole rows."""
+    return norm_apply(hints_lib.apply_batch(hints, x), norm, cfg.norm)
+
+
+def _residual(hints, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x + y`` in x's dtype; under hints y first takes the sequence-sharded
+    residual layout (so a row-parallel product's partial sums reduce-scatter)
+    and its gradient is rounded to bf16, as the reference's."""
+    if hints is not None:
+        y = hints_lib.apply_grad_bf16(hints, hints_lib.apply_seq(hints, y, 1))
+    return x + y.to(x.dtype)
+
+
 def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
-                 positions: torch.Tensor, recur_state, cdt):
+                 positions: torch.Tensor, recur_state, cdt, hints=None):
     """Returns (x, new_recur_state, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = hints_lib.apply_seq(hints, x, 1)
     if spec.kind == "rwkv":
-        h = norm_apply(x, p["norm1"], cfg.norm)
+        h = _block_in(hints, x, p["norm1"], cfg)
         y, wkv_state, shift1 = rwkv_lib.rwkv_time_mix(
             p["time_mix"], h, cfg.rwkv_head_dim,
-            recur_state["wkv"], recur_state["shift1"])
-        x = x + y.to(x.dtype)
-        h = norm_apply(x, p["norm2"], cfg.norm)
+            recur_state["wkv"], recur_state["shift1"], hints=hints)
+        x = _residual(hints, x, y)
+        h = _block_in(hints, x, p["norm2"], cfg)
         y, shift2 = rwkv_lib.rwkv_channel_mix(
             p["time_mix"], h, recur_state["shift2"])
-        x = x + y.to(x.dtype)
+        x = _residual(hints, x, y)
         return x, {"wkv": wkv_state, "shift1": shift1, "shift2": shift2}, aux
 
-    h = norm_apply(x, p["norm1"], cfg.norm)
+    h = _block_in(hints, x, p["norm1"], cfg)
     q, k, v = attn_lib.project_qkv(
         p["attn"], h, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
-        positions, cfg.rope_theta, cdt)
+        positions, cfg.rope_theta, cdt, hints)
     a = attn_lib.flash_attention(q, k, v, attn=spec.attn, window=spec.window,
-                                 softcap_val=cfg.attn_softcap)
-    y = attn_lib.out_proj(p["attn"], a, cdt)
+                                 softcap_val=cfg.attn_softcap, hints=hints)
+    y = attn_lib.out_proj(p["attn"], a, cdt, hints)
 
     new_state = recur_state
     if spec.kind == "hymba":
         xz = h.to(cdt) @ p["ssm"]["w_in"].to(cdt)
-        s, hT = ssm_lib.ssm_forward(p["ssm"], xz, recur_state["ssm"])
+        s, hT = ssm_lib.ssm_forward(p["ssm"], xz, recur_state["ssm"],
+                                    hints=hints)
         s = s.to(cdt) @ p["ssm"]["w_out"].to(cdt)
         y = 0.5 * (y + s)
         new_state = {"ssm": hT}
-    x = x + y.to(x.dtype)
+    x = _residual(hints, x, y)
 
     if spec.mlp != "none":
-        y, moe_aux = _ffn_apply(cfg, spec, p, x, cdt)
+        y, moe_aux = _ffn_apply(cfg, spec, p, x, cdt, hints)
         if moe_aux is not None:
             aux = aux + moe_aux
-        x = x + y.to(x.dtype)
+        x = _residual(hints, x, y)
     return x, new_state, aux
 
 
@@ -310,8 +331,46 @@ def _init_recur_state(cfg: ArchConfig, spec: LayerSpec, batch: int,
 # ===========================================================================
 # forward, loss
 # ===========================================================================
+def _lookup(embed: torch.Tensor, ids: torch.Tensor, hints) -> torch.Tensor:
+    """Rows ``ids`` of ``embed``.  Under hints (a DTensor table, vocab over
+    "model") each rank looks up the ids its vocab shard holds, through
+    ``local_map``, and the partial rows sum over "model" (Megatron's
+    vocab-parallel embedding; the reference's XLA path contracts a one-hot
+    for the same layout).  The table's FSDP shards are gathered first."""
+    if hints is None:
+        return embed[ids]
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = hints.mesh
+    split = hints._ok(embed.shape[0])
+    batch = Shard(0) if hints.splits_batch(ids.shape[0]) else None
+    rows = Shard(0) if split else None
+
+    def local(table, idx):
+        lo = mesh.get_local_rank(hints.model) * table.shape[0] if split \
+            else 0
+        at = idx - lo
+        mine = (at >= 0) & (at < table.shape[0])
+        got = table[torch.where(mine, at, 0)]
+        return torch.where(mine[..., None], got, torch.zeros(
+            (), dtype=got.dtype, device=got.device))
+
+    out = local_map(local,
+                    out_placements=hints.layout(batch,
+                                                Partial() if split else None),
+                    in_placements=(hints.layout(None, rows),
+                                   hints.layout(batch)),
+                    in_grad_placements=(hints.layout(
+                        Partial() if batch is not None else None, rows),
+                        hints.layout(batch)),
+                    device_mesh=mesh, redistribute_inputs=True)(
+        embed, hints_lib.replicated(hints, ids) if not
+        isinstance(ids, DTensor) else ids)
+    return hints_lib.apply_batch(hints, out)
+
+
 def embed_tokens(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
-                 cdt) -> torch.Tensor:
+                 cdt, hints=None) -> torch.Tensor:
     """(B, T) int token ids -> (B, T, d) embeddings in ``cdt``; audio: (B,
     K, T) -> the K codebooks' embeddings summed in ``cdt``.  gemma2 archs
     (by name, as the reference keys it) scale them by sqrt(d_model), held
@@ -320,30 +379,35 @@ def embed_tokens(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
         B, K, T = tokens.shape
         offsets = torch.arange(K, device=tokens.device) * cfg.vocab_size
         ids = (tokens.long() + offsets[None, :, None]).reshape(B, K * T)
-        e = params["embed"][ids].to(cdt).reshape(B, K, T, -1).sum(1)
+        e = _lookup(params["embed"], ids, hints).to(cdt).reshape(
+            B, K, T, -1).sum(1)
     else:
-        e = params["embed"][tokens.long()].to(cdt)
+        e = _lookup(params["embed"], tokens.long(), hints).to(cdt)
     if cfg.name.startswith("gemma2"):
         e = e * torch.tensor(cfg.d_model ** 0.5, dtype=cdt, device=e.device)
     return e
 
 
 def _logits(tree: dict, cfg: ArchConfig, x: torch.Tensor,
-            cdt) -> torch.Tensor:
+            cdt, hints=None) -> torch.Tensor:
+    x = hints_lib.apply_batch(hints, x)   # T whole before the vocab head
     x = norm_apply(x, tree["final_norm"], cfg.norm)
     head = tree["embed"].T if cfg.tie_embeddings else tree["lm_head"]
-    logits = x.to(cdt) @ head.to(cdt)
+    logits = hints_lib.apply_feature(hints, x.to(cdt) @ head.to(cdt), 2)
     if cfg.logit_softcap > 0:
         logits = softcap(logits, cfg.logit_softcap)
     if is_audio(cfg):
-        logits = logits.reshape(logits.shape[:2] + (cfg.num_codebooks,
-                                                    cfg.vocab_size))
+        # codebooks whole before the split (under hints)
+        logits = hints_lib.batch_grad(hints, hints_lib.apply_batch(
+            hints, logits)).reshape(logits.shape[:2] + (cfg.num_codebooks,
+                                                        cfg.vocab_size))
     return logits
 
 
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
             prefix_embeds: Optional[torch.Tensor] = None,
-            *, remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+            *, remat: bool = True,
+            hints=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, T, padded vocab) in the compute dtype, or (B, T,
     K, V) for audio, and the aux loss).
 
@@ -353,11 +417,12 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     tokens.  Every recurrent layer starts from a zero state.  With
     ``remat`` and grad mode on, each span of ``cfg.remat_span`` groups (1
     unless it divides the group count, as in the reference) is
-    checkpointed."""
+    checkpointed.  ``hints`` (``models/hints.py``) anchor a sharded run's
+    layouts (DTensor parameters and inputs); None is the plain run."""
     _check_supported(cfg)
     cdt = _dt(cfg.compute_dtype)
     view = layer_view(params, cfg)
-    x = embed_tokens(view.top, cfg, tokens, cdt)
+    x = embed_tokens(view.top, cfg, tokens, cdt, hints)
     if cfg.modality == "vision_stub":
         if prefix_embeds is None:
             raise ValueError(f"{cfg.name} requires prefix_embeds")
@@ -377,32 +442,97 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
             for spec, lp in zip(cfg.layer_pattern, group):
                 rc = _init_recur_state(cfg, spec, B, stacked=False,
                                        device=x.device)
-                x, _, a = _apply_layer(cfg, spec, lp, x, positions, rc, cdt)
+                x, _, a = _apply_layer(cfg, spec, lp, x, positions, rc, cdt,
+                                       hints)
                 aux = aux + a
         return x, aux
 
+    x = hints_lib.apply_seq(hints, x, 1)
     for g0 in range(0, len(view.layers), span):
         groups = view.layers[g0:g0 + span]
         if remat and torch.is_grad_enabled():
             x, aux = checkpoint(body, groups, x, aux, use_reentrant=False)
         else:
             x, aux = body(groups, x, aux)
-    return _logits(view.top, cfg, x, cdt), aux
+    return _logits(view.top, cfg, x, cdt, hints), aux
+
+
+class _VocabParallelNll(torch.autograd.Function):
+    """The per-position loss of :func:`cross_entropy` on one rank's vocab
+    shard (b, t, V / m) of logits: the row max, the exp sum and the label's
+    logit all-reduced over "model"; the backward is softmax minus the
+    label's one-hot, with the two terms rounded to the logits' dtype and
+    added as autograd adds them in the whole-vocab form."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, offset: int, group):
+        import torch.distributed._functional_collectives as funcol
+        m = funcol.all_reduce(logits.amax(-1), "max", group)
+        e = torch.exp((logits - m[..., None]).float())
+        se = funcol.all_reduce(e.sum(-1), "sum", group)
+        idx = labels.long() - offset
+        mine = (idx >= 0) & (idx < logits.shape[-1])
+        at = torch.where(mine, idx, 0)
+        picked = logits.gather(-1, at[..., None])[..., 0]
+        correct = funcol.all_reduce(torch.where(
+            mine, picked, torch.zeros((), dtype=logits.dtype,
+                                      device=logits.device)).float(),
+            "sum", group)
+        ctx.save_for_backward(e, se, at, mine)
+        ctx.dtype = logits.dtype
+        return m.float() + torch.log(se) - correct
+
+    @staticmethod
+    def backward(ctx, g):
+        e, se, at, mine = ctx.saved_tensors
+        grad = e.div_(se[..., None]).mul_(g[..., None]).to(ctx.dtype)
+        hit = torch.where(mine, -g, torch.zeros_like(g)).to(ctx.dtype)
+        grad.scatter_add_(-1, at[..., None], hit[..., None])
+        return grad, None, None, None
+
+
+def _vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor,
+                        hints) -> torch.Tensor:
+    """Per-position loss of vocab-sharded DTensor logits (B, ..., V), the
+    vocab over "model", through ``local_map``: no rank gathers the
+    vocab."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = hints.mesh
+    mi = mesh.mesh_dim_names.index(hints.model)
+    batch = Shard(0) if hints.splits_batch(logits.shape[0]) else None
+    vocab = hints.layout(batch, Shard(logits.dim() - 1))
+
+    def local(lg, lb):
+        offset = mesh.get_local_rank(hints.model) * lg.shape[-1]
+        return _VocabParallelNll.apply(lg, lb, offset, (mesh, mi))
+
+    return local_map(local, out_placements=hints.layout(batch),
+                     in_placements=(vocab, hints.layout(batch)),
+                     in_grad_placements=(vocab, hints.layout(batch)),
+                     device_mesh=mesh,
+                     redistribute_inputs=True)(logits, labels)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  weights: Optional[torch.Tensor] = None,
+                  hints=None) -> torch.Tensor:
     """Weighted mean cross entropy over the last axis, as the reference's:
     the row max is a constant (``stop_gradient``) subtracted in the logits'
     dtype, the log-sum-exp is summed in fp32, the correct-class logit is
     read in the logits' dtype and widened, and weight-0 positions count
     for nothing (masked, never sliced).  Without weights: the plain
-    mean."""
-    m = logits.detach().amax(-1)
-    shifted = (logits - m[..., None]).float()
-    lse = m.float() + torch.log(torch.exp(shifted).sum(-1))
-    correct = logits.gather(-1, labels.long()[..., None])[..., 0].float()
-    nll = lse - correct
+    mean.  Under hints with the vocab over "model" the per-position loss
+    is vocab parallel (:class:`_VocabParallelNll`)."""
+    if hints is not None and hints._ok(logits.shape[-1]):
+        nll = _vocab_parallel_nll(logits, labels, hints)
+    else:
+        m = logits.detach().amax(-1)
+        shifted = (logits - m[..., None]).float()
+        lse = m.float() + torch.log(torch.exp(shifted).sum(-1))
+        labels = hints_lib.apply_batch(hints, labels)
+        correct = logits.gather(-1, labels.long()[..., None])[..., 0]
+        nll = lse - correct.float()
     if weights is None:
         return nll.mean()
     w = weights.float()
@@ -410,7 +540,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def lm_loss(params, cfg: ArchConfig, batch: dict, *,
-            remat: bool = True) -> torch.Tensor:
+            remat: bool = True, hints=None) -> torch.Tensor:
     """Training loss of a batch ``{"tokens": (B, T), "labels": (B, T)}``
     (audio: both (B, K, T); vision: also ``"prefix_embeds"`` (B, P, d)):
     the mean cross entropy over every token (and codebook), the prefix
@@ -418,7 +548,8 @@ def lm_loss(params, cfg: ArchConfig, batch: dict, *,
     ``cfg.router_aux_coef`` times the forward's aux loss.  The forward runs
     with ``remat`` on by default, as the reference's ``lm_loss``."""
     logits, aux = forward(params, cfg, batch["tokens"],
-                          batch.get("prefix_embeds"), remat=remat)
+                          batch.get("prefix_embeds"), remat=remat,
+                          hints=hints)
     labels = batch["labels"]
     weights = None
     if cfg.modality == "vision_stub":
@@ -428,7 +559,7 @@ def lm_loss(params, cfg: ArchConfig, batch: dict, *,
         weights[:, :P] = 0.0
     if is_audio(cfg):                 # logits (B, T, K, V); labels (B, K, T)
         labels = labels.transpose(1, 2)
-    return cross_entropy(logits, labels, weights) + \
+    return cross_entropy(logits, labels, weights, hints) + \
         cfg.router_aux_coef * aux
 
 
@@ -471,13 +602,13 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
 
 
 def _decode_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
-                  cache, pos: int, cdt):
+                  cache, pos: int, cdt, hints=None):
     if spec.kind == "rwkv":
         # the shift buffers hold the previous token's normed layer inputs
         h1 = norm_apply(x, p["norm1"], cfg.norm)
         y, wkv, _ = rwkv_lib.rwkv_time_mix(
             p["time_mix"], h1, cfg.rwkv_head_dim, cache["wkv"],
-            cache["shift1"], decode=True)
+            cache["shift1"], decode=True, hints=hints)
         x = x + y.to(x.dtype)
         h2 = norm_apply(x, p["norm2"], cfg.norm)
         y, _ = rwkv_lib.rwkv_channel_mix(
@@ -490,11 +621,11 @@ def _decode_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
     kv_cache = cache["kv"] if spec.kind == "hymba" else cache
     q, k, v = attn_lib.project_qkv(
         p["attn"], h, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
-        torch.tensor([pos], device=x.device), cfg.rope_theta, cdt)
+        torch.tensor([pos], device=x.device), cfg.rope_theta, cdt, hints)
     a, kv_cache = attn_lib.decode_attention(
         q, k, v, kv_cache, attn=spec.attn, window=spec.window,
-        softcap_val=cfg.attn_softcap)
-    y = attn_lib.out_proj(p["attn"], a, cdt)
+        softcap_val=cfg.attn_softcap, hints=hints)
+    y = attn_lib.out_proj(p["attn"], a, cdt, hints)
 
     if spec.kind == "hymba":
         xz = h.to(cdt) @ p["ssm"]["w_in"].to(cdt)
@@ -507,7 +638,7 @@ def _decode_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
     x = x + y.to(x.dtype)
 
     if spec.mlp != "none":
-        y, _ = _ffn_apply(cfg, spec, p, x, cdt)
+        y, _ = _ffn_apply(cfg, spec, p, x, cdt, hints)
         x = x + y.to(x.dtype)
     return x, new_cache
 
@@ -528,6 +659,10 @@ def _store(cache, gi: int, new) -> None:
     for key, sub in cache.items():
         if isinstance(sub, (dict, attn_lib.KVCache)):
             _store(sub, gi, new[key])
+        elif isinstance(sub, DTensor):
+            # the group axis is whole: write this rank's shard
+            sub.to_local()[gi] = new[key].redistribute(
+                sub.device_mesh, sub[gi].placements).to_local()
         else:
             sub[gi] = new[key]
 
@@ -540,23 +675,27 @@ def _advance(cache, position: int):
 
 
 def decode_step(params, cfg: ArchConfig, state: DecodeState,
-                tokens: torch.Tensor) -> Tuple[torch.Tensor, DecodeState]:
+                tokens: torch.Tensor,
+                hints=None) -> Tuple[torch.Tensor, DecodeState]:
     """One decode step.  params: the flat dict or, in a loop, its
     :func:`layer_view`.  tokens: (B, 1) int, or (B, K, 1) for audio.
     Returns (logits (B, 1, vocab) fp32 without the vocab padding, or (B,
-    1, K, V) for audio, the new state)."""
+    1, K, V) for audio, the new state).  Under ``hints`` the caches are
+    DTensors laid out as ``launch/shardings.decode_state_shardings``
+    says, written shard by shard."""
     cdt = _dt(cfg.compute_dtype)
     view = layer_view(params, cfg)
-    x = embed_tokens(view.top, cfg, tokens, cdt)
+    x = embed_tokens(view.top, cfg, tokens, cdt, hints)
     pos = state.position
     caches = state.caches
     # group-major, as the reference's unrolled loop
     for gi, group in enumerate(view.layers):
         for p_idx, (spec, p_g) in enumerate(zip(cfg.layer_pattern, group)):
             x, new = _decode_layer(cfg, spec, p_g, x,
-                                   _group(caches[p_idx], gi), pos, cdt)
+                                   _group(caches[p_idx], gi), pos, cdt,
+                                   hints)
             _store(caches[p_idx], gi, new)
-    logits = _logits(view.top, cfg, x, cdt)
+    logits = _logits(view.top, cfg, x, cdt, hints)
     if not is_audio(cfg):
         logits = logits[..., :cfg.vocab_size]     # drop the vocab padding
     new_caches = tuple(_advance(c, pos + 1) for c in caches)
