@@ -4175,13 +4175,18 @@ def sharded_train(arch: str, n_steps: int, mesh) -> dict:
     at full width, plain and then through DTensor parameters, optimizer
     state and batches on ``mesh`` with ``mesh_hints``, from the same
     weights: losses, grad norms and every parameter bit for bit; the
-    kernels' launch counts, set to 0 before each run, equal."""
+    kernels' launch counts, set to 0 before each run, equal; and the
+    sharded run's gradients that reach ``global_norm_scale`` (the
+    optimizer's first reader), each against its parameter's placements
+    ("grad_layout_differing": those that were not)."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.launch import shardings as sh
     from repro_torch.launch import steps
     from repro_torch.models import transformer as tr
     cfg = get_arch(arch)
+    real_norm_scale = steps.global_norm_scale
+    grad_layout = {"checked": 0, "differing": []}
     params0 = tr.init_params(torch.Generator(device="cuda").manual_seed(0),
                              cfg, device="cuda")
     batches = [{k: v.cuda() for k, v in b.items()}
@@ -4200,14 +4205,26 @@ def sharded_train(arch: str, n_steps: int, mesh) -> dict:
                 opt, sh.params_shardings_like(opt, psh, mesh))
             feed = [sh.distribute_tree(b, sh.batch_shardings(b, mesh))
                     for b in batches]
+
+            def check(grads, clip_norm, psh=psh):
+                for k, g in grads.items():
+                    grad_layout["checked"] += 1
+                    if tuple(g.placements) != tuple(psh[k].placements):
+                        grad_layout["differing"].append(
+                            [k, str(g.placements), str(psh[k].placements)])
+                return real_norm_scale(grads, clip_norm)
+            steps.global_norm_scale = check
         torch.cuda.synchronize()
         reset_all_counts()
         t0 = time.perf_counter()
         log = []
-        for b in feed:
-            params, opt, m = step(params, opt, b)
-            log.append([float(bit_whole(m["loss"])),
-                        float(bit_whole(m["grad_norm"]))])
+        try:
+            for b in feed:
+                params, opt, m = step(params, opt, b)
+                log.append([float(bit_whole(m["loss"])),
+                            float(bit_whole(m["grad_norm"]))])
+        finally:
+            steps.global_norm_scale = real_norm_scale
         torch.cuda.synchronize()
         runs[label] = {"wall_s": time.perf_counter() - t0, "log": log,
                        "launches": {k: v for k, v in zoo_counts().items()
@@ -4219,7 +4236,9 @@ def sharded_train(arch: str, n_steps: int, mesh) -> dict:
            "loss_grad_norm": {k: r["log"] for k, r in runs.items()},
            "wall_s": {k: r["wall_s"] for k, r in runs.items()},
            "launches": {k: r["launches"] for k, r in runs.items()},
-           "params_differing": diff[:8], "params": len(params0)}
+           "params_differing": diff[:8], "params": len(params0),
+           "grad_layout_checked": grad_layout["checked"],
+           "grad_layout_differing": grad_layout["differing"][:8]}
     del runs["plain"]["params"], runs["sharded"]["params"], params0
     torch.cuda.empty_cache()
     return rec
@@ -4352,7 +4371,8 @@ def sharded_path() -> dict:
     "model") mesh over NCCL at world size 1, each part bit for bit
     against its unsharded run on the card: three AdamW steps of
     qwen2-1.5b, one of rwkv6-1.6b (wkv6 forward and backward launched
-    under ``local_map``, as often as the plain step launches them), round
+    under ``local_map``, as often as the plain step launches them; every
+    gradient reaching the optimizer in its parameter's placements), round
     1 of the silo pod round, and a prefill and decode."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
@@ -4376,6 +4396,12 @@ def sharded_path() -> dict:
                             f"{r['params_differing']}")
         if r["launches"]["plain"] != r["launches"]["sharded"]:
             problems.append(f"{r['arch']} launches {r['launches']}")
+        if r["grad_layout_differing"] or \
+                r["grad_layout_checked"] != r["params"] * r["steps"]:
+            problems.append(f"{r['arch']} gradients outside their "
+                            f"parameters' placements: "
+                            f"{r['grad_layout_differing']} "
+                            f"({r['grad_layout_checked']} checked)")
     _, fwd, bwd = ZOO_TRAIN["rwkv6-1.6b"]
     if rec["train_rwkv6"]["launches"]["sharded"] != {"wkv6": fwd,
                                                       "wkv6_backward": bwd}:

@@ -16,6 +16,7 @@ The roofline constants are the NVIDIA H100 SXM5 data sheet's, per card.
 
 from __future__ import annotations
 
+import itertools
 from typing import Optional, Tuple
 
 import torch
@@ -42,9 +43,20 @@ def mesh_device_type() -> str:
 def make_mesh(shape: Tuple[int, ...], names: Tuple[str, ...],
               device_type: Optional[str] = None) -> DeviceMesh:
     """A ``DeviceMesh`` of ``shape`` over the default group's ranks, its
-    dims named ``names``."""
-    return init_device_mesh(device_type or mesh_device_type(), tuple(shape),
+    dims named ``names``, with every set of two or more dims of more than
+    one rank also flattened into one dim (``DeviceMesh._flatten``, named
+    by joining the names with "_").  DTensor then reduces a sum partial
+    over several dims in one collective over their flattened group (one
+    all-reduce for (Partial, Partial) -> (Replicate, Replicate)) where it
+    would otherwise issue one a dim, one after another.  Every rank makes
+    the same groups in the same order, here, before any step runs."""
+    mesh = init_device_mesh(device_type or mesh_device_type(), tuple(shape),
                             mesh_dim_names=tuple(names))
+    wide = [n for n, k in zip(names, shape) if k > 1]
+    for r in range(2, len(wide) + 1):
+        for dims in itertools.combinations(wide, r):
+            mesh[dims]._flatten()
+    return mesh
 
 
 def make_production_mesh(*, multi_pod: bool = False,

@@ -26,11 +26,18 @@ global product instead.  Every count is PER DEVICE:
 Under ``FakeTensorMode`` on the fake process group (``launch/dryrun.py``)
 nothing runs and nothing is allocated: shapes, dtypes and placements are
 all the counts need.
+
+DTensor's sharding propagation runs ops of its own to learn an output's
+shape or placement: on fake stand-ins of the GLOBAL shapes (from the
+dry run's own fake mode, so their mode does not tell them apart), or
+through an op's decomposition on meta stand-ins (``softplus_backward``).
+No rank computes them.  While the mode is on it wraps the propagator's
+two entry points (``_PROPAGATION``) and counts nothing dispatched inside
+them (``propagation_ops`` says how many it left out).
 """
 
 from __future__ import annotations
 
-import sys
 import weakref
 from collections import defaultdict
 from typing import Dict
@@ -62,36 +69,25 @@ def _nbytes(ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-_PROPAGATION = ("_propagate_tensor_meta_non_cached", "_propagate_tensor_meta")
+# The two entry points through which DTensor's dispatcher runs sharding
+# propagation (the cached one and the one it wraps); every path of it,
+# fake tensors of the global shapes or a decomposition traced on meta
+# stand-ins, runs inside one of them.
+_PROPAGATION = ("propagate_op_sharding", "propagate_op_sharding_non_cached")
 
 
-def _check_propagation_names() -> None:
-    """DTensor's sharding propagation is recognised by the names of the
-    ``ShardingPropagator`` methods that run it; if this torch has none of
-    them, every op's global stand-in would be counted again, so refuse."""
-    from torch.distributed.tensor._sharding_prop import ShardingPropagator
-    if not any(hasattr(ShardingPropagator, n) for n in _PROPAGATION):
+def _propagator():
+    """DTensor's ``ShardingPropagator``, refused if it lacks either entry
+    point: every op of its propagation would then be counted as a rank's."""
+    from torch.distributed.tensor import DTensor
+    prop = DTensor._op_dispatcher.sharding_propagator
+    missing = [n for n in _PROPAGATION if not callable(getattr(prop, n, None))]
+    if missing:
         raise ImportError(
-            f"torch {torch.__version__}: ShardingPropagator has none of "
-            f"{_PROPAGATION}; op_stats cannot tell DTensor's shape "
-            f"propagation from the ops a rank runs")
-
-
-_check_propagation_names()
-
-
-def _shape_propagation() -> bool:
-    """Whether DTensor's sharding propagation is running this op: it runs
-    each new op once on fake stand-ins of the GLOBAL shapes to learn the
-    output's shape, which no rank computes."""
-    frame = sys._getframe(2)
-    for _ in range(12):
-        if frame is None:
-            return False
-        if frame.f_code.co_name in _PROPAGATION:
-            return True
-        frame = frame.f_back
-    return False
+            f"torch {torch.__version__}: ShardingPropagator lacks {missing}; "
+            f"op_stats cannot tell DTensor's sharding propagation from the "
+            f"ops a rank runs")
+    return prop
 
 
 def kernel_work(name: str, args) -> Dict[str, float]:
@@ -136,8 +132,39 @@ class OpStats(TorchDispatchMode):
         self.live_bytes = 0
         self.peak_bytes = 0
         self.dot_flops: Dict[str, float] = defaultdict(float)
-        # ops of DTensor's shape propagation seen and left out
+        # ops of DTensor's sharding propagation seen and left out
         self.propagation_ops = 0
+        self._inside = 0            # depth of propagation calls running
+        self._patched: Dict[str, object] = {}
+
+    def __enter__(self):
+        """Wrap the propagator's entry points (on the instance, restored
+        on exit): an op dispatched while one of them runs is one of
+        propagation's stand-ins, which no rank computes."""
+        prop = _propagator()
+        for name in _PROPAGATION:
+            self._patched[name] = prop.__dict__.get(name)
+            prop.__dict__[name] = self._guarded(getattr(prop, name))
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        prop = _propagator()
+        for name, saved in self._patched.items():
+            if saved is None:
+                del prop.__dict__[name]
+            else:
+                prop.__dict__[name] = saved
+        self._patched = {}
+        return super().__exit__(*exc)
+
+    def _guarded(self, fn):
+        def propagate(*args, **kwargs):
+            self._inside += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self._inside -= 1
+        return propagate
 
     @property
     def collective_bytes(self) -> float:
@@ -170,7 +197,7 @@ class OpStats(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented          # let DTensor desugar to local ops
         out = func(*args, **kwargs)
-        if _shape_propagation():
+        if self._inside:
             self.propagation_ops += 1
             return out
         packet = func._overloadpacket

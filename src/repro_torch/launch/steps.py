@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.models import transformer as tr
+from repro_torch.models.hints import grad_layout
 from repro_torch.optim import (adafactor, adamw, apply_updates,
                                global_norm_scale, sgd)
 
@@ -91,16 +92,6 @@ def _sharded(hints):
     return implicit_replication()
 
 
-def _relayout(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
-    """``new`` in ``old``'s DTensor layout (a no-op for plain tensors or
-    a matching layout)."""
-    from torch.distributed.tensor import DTensor
-    if isinstance(old, DTensor) and isinstance(new, DTensor) and \
-            tuple(new.placements) != tuple(old.placements):
-        return new.redistribute(old.device_mesh, old.placements)
-    return new
-
-
 def make_train_step(cfg: ArchConfig, *, learning_rate: float = 3e-4,
                     optimizer: str = "auto", clip_norm: float = 1.0,
                     remat: bool = True, hints=None) -> Callable:
@@ -129,9 +120,24 @@ def make_train_step(cfg: ArchConfig, *, learning_rate: float = 3e-4,
     pre-step weights keeps ``dict(params)``, at the cost of holding both.
 
     With ``hints`` (sharded execution) the leaves are DTensors; the loss
-    runs with the hints, and each new leaf and state leaf takes back the
+    runs with the hints, and each new leaf and state leaf comes out in the
     layout its old one had (``launch/shardings.params_shardings_like``'s
-    for the factored moments)."""
+    for the factored moments, which Adafactor reduces to it before it
+    uses them), so nothing moves after the update.  Each layer gathers its weights' compute
+    dtype casts over the data axes just before use (``hints.gathered``:
+    FSDP's gather, bf16 under a bf16 compute dtype) and lets them go after
+    it; remat gathers them again in the backward.  The gradients are
+    reduced where the backward makes them, before ``autograd.grad``
+    returns: an FSDP weight's is reduce-scattered over the data axes in
+    the compute dtype (the gather's backward), as the reference's HLO
+    reduces the bf16 gradient of the cast; a replicated leaf's (a norm
+    scale, fp32) is all-reduced, once over the flattened mesh dims where
+    it is partial over several (``hints.grad_layout`` on every leaf).  So
+    every gradient reaches ``global_norm_scale`` and the optimizer in its
+    parameter's placements, and at the step's peak a rank holds its
+    shards of the weights, gradients and moments, its rows' activations
+    saved at the remat boundaries, and one layer's gathered weights and
+    their whole gradient before it is reduce-scattered."""
     if optimizer == "auto":
         big = cfg.num_layers * cfg.d_model ** 2 > 3e10 or \
             cfg.moe_experts >= 64
@@ -152,7 +158,8 @@ def make_train_step(cfg: ArchConfig, *, learning_rate: float = 3e-4,
     def _step(params, opt_state, batch):
         leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
         with torch.enable_grad():
-            loss = tr.lm_loss({k: cast(p) for k, p in leaves.items()},
+            loss = tr.lm_loss({k: grad_layout(hints, cast(p))
+                               for k, p in leaves.items()},
                               cfg, batch, remat=remat, hints=hints)
             grads = torch.autograd.grad(loss, list(leaves.values()))
         del leaves
@@ -164,15 +171,10 @@ def make_train_step(cfg: ArchConfig, *, learning_rate: float = 3e-4,
                 updates, new = opt.update({k: grads.pop(k) * scale},
                                           _leaf_state(opt_state, k, count),
                                           {k: params[k]})
-                params[k] = _relayout(
-                    apply_updates({k: params[k]}, updates)[k], params[k])
+                params[k] = apply_updates({k: params[k]}, updates)[k]
                 for name, tree in new.items():
                     if isinstance(tree, dict):
-                        old = opt_state[name][k]
-                        opt_state[name][k] = (
-                            {f: _relayout(t, old[f]) for f, t in
-                             tree[k].items()} if isinstance(old, dict)
-                            else _relayout(tree[k], old))
+                        opt_state[name][k] = tree[k]
                     else:               # the step count, the same each leaf
                         opt_state[name] = tree
         return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}

@@ -18,6 +18,12 @@ reference's ``with_sharding_constraint`` leaves the collectives to XLA,
 DTensor issues them here.  ``hints=None`` (the default everywhere) makes
 every ``apply_*`` the identity: the single-device paths never touch
 ``torch.distributed``.
+
+Weights and gradients: ``gathered`` is FSDP's gather of a layer's
+weights over the data axes just before use, whose backward
+reduce-scatters the gradient to the weight's shards; ``grad_layout``
+brings any other leaf's gradient to its parameter's placements, so one
+rank only ever holds its share of a step's work and gradients.
 """
 
 from __future__ import annotations
@@ -28,8 +34,8 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = ["Hints", "apply_qkv", "apply_seq", "apply_batch",
-           "apply_feature", "whole", "replicated", "batch_grad", "grad_bf16",
-           "apply_grad_bf16"]
+           "apply_feature", "whole", "replicated", "zeros", "gathered",
+           "grad_layout", "batch_grad", "grad_bf16", "apply_grad_bf16"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,6 +148,49 @@ def replicated(hints: Optional[Hints], x: torch.Tensor) -> torch.Tensor:
     return DTensor.from_local(x, hints.mesh, whole, run_check=False)
 
 
+def zeros(hints: Optional[Hints], shape: Tuple[int, ...], dtype,
+          device=None) -> torch.Tensor:
+    """Zeros of ``shape`` whose leading dim is a batch: under hints that
+    split it, a DTensor made of each rank's rows alone (batch over the data
+    axes, replicated over "model"), so that no rank makes the global
+    batch's zeros; else a plain tensor."""
+    from torch.distributed.tensor import DTensor, Shard
+    if hints is None or not hints.splits_batch(shape[0]):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    local = torch.zeros((shape[0] // hints._dp_size(),) + tuple(shape[1:]),
+                        dtype=dtype, device=device)
+    return DTensor.from_local(local, hints.mesh, hints.layout(Shard(0)),
+                              run_check=False)
+
+
+def gathered(hints: Optional[Hints], tree, batch: int):
+    """Under hints whose data axes split ``batch`` (the rows the weights
+    will meet), each DTensor leaf of ``tree`` (a layer's parameters, or
+    the embedding and head) whole over the data axes, its "model"
+    placement kept: FSDP's gather just before the products use it, so
+    that they run on the rank's rows.  (Left to itself, DTensor may
+    instead move the rows onto the weight's FSDP shards, a contraction
+    split whose partial sums then run on the whole batch.)  The gradient
+    comes back in the leaf's placements, reduce-scattered over the data
+    axes where the backward makes it (``Redistribute``'s backward), in
+    the leaf's dtype.  Rows that every data rank holds whole (a batch of
+    one) keep the split contraction.  Else ``tree``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.utils._pytree import tree_map
+    if hints is None or not hints.splits_batch(batch):
+        return tree
+    names = hints.mesh.mesh_dim_names
+
+    def gather(x):
+        if not isinstance(x, DTensor):
+            return x
+        want = tuple(Replicate() if names[i] in hints.dp else p
+                     for i, p in enumerate(x.placements))
+        return x if want == tuple(x.placements) else \
+            x.redistribute(x.device_mesh, want)
+    return tree_map(gather, tree)
+
+
 class _GradLayout(torch.autograd.Function):
     """Identity whose gradient takes the given DTensor placements."""
 
@@ -156,6 +205,19 @@ class _GradLayout(torch.autograd.Function):
         if tuple(g.placements) != tuple(placements):
             g = g.redistribute(mesh, placements)
         return g, None, None
+
+
+def grad_layout(hints: Optional[Hints], x: torch.Tensor) -> torch.Tensor:
+    """Under hints, the DTensor ``x`` whose gradient is brought to ``x``'s
+    own placements as the backward leaves it: on a parameter, every rank
+    then holds only its shard of the gradient, and a sum partial over
+    several mesh dims is reduced in one all-reduce over them flattened
+    (``launch/mesh.make_mesh`` registers the flattened dims).  Else
+    ``x``."""
+    from torch.distributed.tensor import DTensor
+    if hints is None or not isinstance(x, DTensor):
+        return x
+    return _GradLayout.apply(x, x.device_mesh, tuple(x.placements))
 
 
 def batch_grad(hints: Optional[Hints], x: torch.Tensor) -> torch.Tensor:

@@ -102,9 +102,11 @@ def _top_k(probs: torch.Tensor, k: int):
 
 def route(router: torch.Tensor, x: torch.Tensor, *, topk: int,
           capacity_factor: float = 1.25, group_size: int = 512,
-          real_experts: int = 0) -> Routing:
+          real_experts: int = 0, logits=None) -> Routing:
     """Group ``x`` (..., d) into rows of ``min(group_size, n)`` tokens and
-    route them through ``router`` (d, E) as the module docstring says."""
+    route them through ``router`` (d, E) as the module docstring says.
+    ``logits`` (..., E) fp32, where given, are ``x @ router`` made by the
+    caller (each rank's rows under hints)."""
     d = x.shape[-1]
     E = router.shape[-1]
     xf = x.reshape(-1, d)
@@ -116,7 +118,13 @@ def route(router: torch.Tensor, x: torch.Tensor, *, topk: int,
         xf = torch.cat([xf, xf.new_zeros(pad, d)])
     xg = xf.reshape(n_groups, g, d)
 
-    logits = xg.float() @ router.float()                     # (G, g, E)
+    if logits is None:
+        logits = xg.float() @ router.float()                 # (G, g, E)
+    else:
+        logits = logits.reshape(n_tok, E)
+        if pad:
+            logits = torch.cat([logits, logits.new_zeros(pad, E)])
+        logits = logits.reshape(n_groups, g, E)
     if real_experts and real_experts < E:
         routable = torch.arange(E, device=x.device) < real_experts
         logits = torch.where(routable, logits,
@@ -224,6 +232,18 @@ def _local_moe(params: dict, x: torch.Tensor, hints, *, topk: int,
     return y, (E * torch.sum(me * top1)).float()
 
 
+def _slots_over_data(hints, xe: torch.Tensor) -> torch.Tensor:
+    """Under hints, the (E, slots, d) buffer that every rank holds whole,
+    as a DTensor whose slots are split over the data axes (each rank
+    takes its chunk; nothing moves), so that the expert products run on
+    one rank's share of the slots.  Else ``xe``."""
+    if hints is None:
+        return xe
+    from torch.distributed.tensor import Shard
+    return hints_lib.replicated(hints, xe).redistribute(
+        hints.mesh, hints.layout(Shard(1)))
+
+
 def moe_ffn(params: dict, x: torch.Tensor, *, topk: int, act: str = "silu",
             gated: bool = True, capacity_factor: float = 1.25,
             group_size: int = 512, real_experts: int = 0,
@@ -243,12 +263,14 @@ def moe_ffn(params: dict, x: torch.Tensor, *, topk: int, act: str = "silu",
         y = y.reshape(B * T, d)
     else:       # one device, or rows whose groups straddle data ranks
         xin = hints_lib.whole(hints, x)
+        logits = None if hints is None else hints_lib.whole(
+            hints, x.float() @ params["router"].float())
         r = route(hints_lib.whole(hints, params["router"]), xin, topk=topk,
                   capacity_factor=capacity_factor, group_size=group_size,
-                  real_experts=real_experts)
+                  real_experts=real_experts, logits=logits)
         xe, slot = _dispatch(r, E)
         ye = hints_lib.whole(hints, _experts(
-            params, hints_lib.replicated(hints, xe), act, gated))
+            params, _slots_over_data(hints, xe), act, gated))
         y = hints_lib.replicated(hints, _combine(ye, slot, r.gates)[:B * T])
         aux = hints_lib.replicated(hints, r.aux)
 

@@ -117,7 +117,7 @@ def _sharded_wkv6(fn, r, k, v, logw, u, state, hints):
     """``fn`` (:func:`wkv6_chunked`, or :func:`wkv6_step` in decode) on
     DTensors: each rank's (batch, head) shard through ``local_map``; heads
     over "model" where they divide it."""
-    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor import DTensor, Partial, Shard
     from torch.distributed.tensor.experimental import local_map
     B, _, H, _ = r.shape
     rows = Shard(0) if hints.splits_batch(B) else None
@@ -129,7 +129,8 @@ def _sharded_wkv6(fn, r, k, v, logw, u, state, hints):
     x4, st = pl(rows, 2), pl(rows, 1)
     # u's gradient: each data rank's rows' partial sum
     u_grad = pl(Partial() if rows is not None else None, 0)
-    state = hints_lib.replicated(hints, state)
+    if not isinstance(state, DTensor):     # a plain state: every rank's whole
+        state = hints_lib.replicated(hints, state)
     return local_map(fn, out_placements=(x4, st),
                      in_placements=(x4, x4, x4, x4, pl(None, 0), st),
                      in_grad_placements=(x4, x4, x4, x4, u_grad, st),

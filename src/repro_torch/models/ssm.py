@@ -77,7 +77,7 @@ def _selective_terms(params, xz):
 
 def _sharded_scan(a, bx, c, h0, hints):
     """``ops.ssm_scan`` on DTensors through ``local_map``."""
-    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor import DTensor, Partial, Shard
     from torch.distributed.tensor.experimental import local_map
     B, _, d, _ = a.shape
     rows = Shard(0) if hints.splits_batch(B) else None
@@ -88,7 +88,8 @@ def _sharded_scan(a, bx, c, h0, hints):
 
     # C's gradient: each channel rank's partial sum
     c_grad = hints.layout(rows, Partial() if chans else None)
-    h0 = hints_lib.replicated(hints, h0)
+    if not isinstance(h0, DTensor):     # a plain state: every rank's whole
+        h0 = hints_lib.replicated(hints, h0)
     return local_map(ops.ssm_scan, out_placements=(pl(2), pl(1)),
                      in_placements=(pl(2), pl(2), hints.layout(rows), pl(1)),
                      in_grad_placements=(pl(2), pl(2), c_grad, pl(1)),

@@ -306,31 +306,38 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
 
 
 def _init_recur_state(cfg: ArchConfig, spec: LayerSpec, batch: int,
-                      stacked: bool = True, device=None) -> dict:
+                      stacked: bool = True, device=None, hints=None) -> dict:
     """Per-layer recurrent state (zeros, fp32); leading group axis if
-    ``stacked``."""
+    ``stacked``.  Under ``hints`` (unstacked) each rank makes only its
+    batch rows (``hints.zeros``)."""
     g = (cfg.num_groups,) if stacked else ()
     f32 = torch.float32
+
+    def zeros(*shape):
+        if stacked:
+            return torch.zeros(g + shape, dtype=f32, device=device)
+        return hints_lib.zeros(hints, shape, f32, device)
     if spec.kind == "rwkv":
         H = cfg.d_model // cfg.rwkv_head_dim
         hd = cfg.rwkv_head_dim
-        return {
-            "wkv": torch.zeros(g + (batch, H, hd, hd), dtype=f32,
-                               device=device),
-            "shift1": torch.zeros(g + (batch, 1, cfg.d_model), dtype=f32,
-                                  device=device),
-            "shift2": torch.zeros(g + (batch, 1, cfg.d_model), dtype=f32,
-                                  device=device),
-        }
+        return {"wkv": zeros(batch, H, hd, hd),
+                "shift1": zeros(batch, 1, cfg.d_model),
+                "shift2": zeros(batch, 1, cfg.d_model)}
     if spec.kind == "hymba":
-        return {"ssm": torch.zeros(g + (batch, cfg.d_model, cfg.ssm_state),
-                                   dtype=f32, device=device)}
+        return {"ssm": zeros(batch, cfg.d_model, cfg.ssm_state)}
     return {}
 
 
 # ===========================================================================
 # forward, loss
 # ===========================================================================
+def _rows(hints, x: torch.Tensor):
+    """The placement of a DTensor's leading dim under hints: over the data
+    axes where they split it, else None."""
+    from torch.distributed.tensor import Shard
+    return Shard(0) if hints.splits_batch(x.shape[0]) else None
+
+
 def _lookup(embed: torch.Tensor, ids: torch.Tensor, hints) -> torch.Tensor:
     """Rows ``ids`` of ``embed``.  Under hints (a DTensor table, vocab over
     "model") each rank looks up the ids its vocab shard holds, through
@@ -342,8 +349,12 @@ def _lookup(embed: torch.Tensor, ids: torch.Tensor, hints) -> torch.Tensor:
     from torch.distributed.tensor import Partial, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = hints.mesh
-    split = hints._ok(embed.shape[0])
-    batch = Shard(0) if hints.splits_batch(ids.shape[0]) else None
+    # the table's own layout: its vocab over "model" even where that axis
+    # has one rank, so that local_map moves nothing, and the gradient is
+    # reduce-scattered to the table's FSDP shards, not all-reduced first
+    split = embed.placements[mesh.mesh_dim_names.index(hints.model)] \
+        == Shard(0)
+    batch = _rows(hints, ids)
     rows = Shard(0) if split else None
 
     def local(table, idx):
@@ -418,11 +429,14 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     ``remat`` and grad mode on, each span of ``cfg.remat_span`` groups (1
     unless it divides the group count, as in the reference) is
     checkpointed.  ``hints`` (``models/hints.py``) anchor a sharded run's
-    layouts (DTensor parameters and inputs); None is the plain run."""
+    layouts (DTensor parameters and inputs), and each layer's weights and
+    the embedding and head are gathered over the data axes where they are
+    used (``hints.gathered``); None is the plain run."""
     _check_supported(cfg)
     cdt = _dt(cfg.compute_dtype)
     view = layer_view(params, cfg)
-    x = embed_tokens(view.top, cfg, tokens, cdt, hints)
+    top = hints_lib.gathered(hints, view.top, tokens.shape[0])
+    x = embed_tokens(top, cfg, tokens, cdt, hints)
     if cfg.modality == "vision_stub":
         if prefix_embeds is None:
             raise ValueError(f"{cfg.name} requires prefix_embeds")
@@ -441,9 +455,10 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
         for group in groups:
             for spec, lp in zip(cfg.layer_pattern, group):
                 rc = _init_recur_state(cfg, spec, B, stacked=False,
-                                       device=x.device)
-                x, _, a = _apply_layer(cfg, spec, lp, x, positions, rc, cdt,
-                                       hints)
+                                       device=x.device, hints=hints)
+                x, _, a = _apply_layer(cfg, spec,
+                                       hints_lib.gathered(hints, lp, B), x,
+                                       positions, rc, cdt, hints)
                 aux = aux + a
         return x, aux
 
@@ -454,7 +469,7 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
             x, aux = checkpoint(body, groups, x, aux, use_reentrant=False)
         else:
             x, aux = body(groups, x, aux)
-    return _logits(view.top, cfg, x, cdt, hints), aux
+    return _logits(top, cfg, x, cdt, hints), aux
 
 
 class _VocabParallelNll(torch.autograd.Function):
@@ -500,7 +515,7 @@ def _vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor,
     from torch.distributed.tensor.experimental import local_map
     mesh = hints.mesh
     mi = mesh.mesh_dim_names.index(hints.model)
-    batch = Shard(0) if hints.splits_batch(logits.shape[0]) else None
+    batch = _rows(hints, logits)
     vocab = hints.layout(batch, Shard(logits.dim() - 1))
 
     def local(lg, lb):
@@ -514,25 +529,80 @@ def _vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor,
                      redistribute_inputs=True)(logits, labels)
 
 
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-position loss on whole-vocab logits, as the reference's: the
+    row max is a constant (``stop_gradient``) subtracted in the logits'
+    dtype, the log-sum-exp is summed in fp32, the correct-class logit is
+    read in the logits' dtype and widened."""
+    m = logits.detach().amax(-1)
+    shifted = (logits - m[..., None]).float()
+    lse = m.float() + torch.log(torch.exp(shifted).sum(-1))
+    correct = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return lse - correct.float()
+
+
+def _row_nll(logits: torch.Tensor, labels: torch.Tensor,
+             hints) -> torch.Tensor:
+    """:func:`_nll` on each rank's rows of DTensor logits whose vocab is
+    whole (through ``local_map``), so that neither it nor its backward
+    makes a tensor of the global batch."""
+    from torch.distributed.tensor.experimental import local_map
+    batch = hints.layout(_rows(hints, logits))
+    return local_map(_nll, out_placements=batch,
+                     in_placements=(batch, batch),
+                     in_grad_placements=(batch, batch),
+                     device_mesh=hints.mesh, redistribute_inputs=True)(
+        logits, hints_lib.replicated(hints, labels) if not
+        isinstance(labels, DTensor) else labels)
+
+
+def _sharded_mean(nll: torch.Tensor, weights: Optional[torch.Tensor],
+                  hints) -> torch.Tensor:
+    """The (weighted) mean of the rows-sharded DTensor ``nll`` as the
+    plain path takes it, each rank's rows reduced where they lie
+    (``local_map``) and the partial sums then added over the data axes:
+    the backward of a mean taken on the DTensor would spread the loss's
+    gradient over the global batch on every rank first.  Unweighted, each
+    rank's mean over its R-th of the rows divided by R (the rows split
+    evenly), so that one rank (R = 1) takes exactly the plain mean."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    rows = _rows(hints, nll)
+    batch = hints.layout(rows)
+    part = hints.layout(Partial() if rows is not None else None)
+    shards = hints._dp_size() if rows is not None else 1
+    if weights is None:
+        return local_map(torch.mean, out_placements=part,
+                         in_placements=(batch,), in_grad_placements=(batch,),
+                         device_mesh=hints.mesh, redistribute_inputs=True)(
+            nll) / shards
+
+    def local(n, w):
+        w = w.float()
+        return (n * w).sum(), w.sum()
+    total, count = local_map(
+        local, out_placements=(part, part), in_placements=(batch, batch),
+        in_grad_placements=(batch, batch), device_mesh=hints.mesh,
+        redistribute_inputs=True)(
+        nll, hints_lib.replicated(hints, weights) if not
+        isinstance(weights, DTensor) else weights)
+    return total / torch.clamp(count, min=1.0)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   weights: Optional[torch.Tensor] = None,
                   hints=None) -> torch.Tensor:
-    """Weighted mean cross entropy over the last axis, as the reference's:
-    the row max is a constant (``stop_gradient``) subtracted in the logits'
-    dtype, the log-sum-exp is summed in fp32, the correct-class logit is
-    read in the logits' dtype and widened, and weight-0 positions count
-    for nothing (masked, never sliced).  Without weights: the plain
-    mean.  Under hints with the vocab over "model" the per-position loss
-    is vocab parallel (:class:`_VocabParallelNll`)."""
-    if hints is not None and hints._ok(logits.shape[-1]):
-        nll = _vocab_parallel_nll(logits, labels, hints)
-    else:
-        m = logits.detach().amax(-1)
-        shifted = (logits - m[..., None]).float()
-        lse = m.float() + torch.log(torch.exp(shifted).sum(-1))
-        labels = hints_lib.apply_batch(hints, labels)
-        correct = logits.gather(-1, labels.long()[..., None])[..., 0]
-        nll = lse - correct.float()
+    """Weighted mean cross entropy over the last axis, as the reference's
+    (:func:`_nll`); weight-0 positions count for nothing (masked, never
+    sliced).  Without weights: the plain mean.  Under hints the
+    per-position loss and the mean run on each rank's rows, vocab parallel
+    (:class:`_VocabParallelNll`) where the vocab is over "model"."""
+    if hints is not None:
+        nll = (_vocab_parallel_nll(logits, labels, hints)
+               if hints._ok(logits.shape[-1]) else
+               _row_nll(logits, labels, hints))
+        return _sharded_mean(nll, weights, hints)
+    nll = _nll(logits, labels)
     if weights is None:
         return nll.mean()
     w = weights.float()

@@ -124,6 +124,19 @@ def clip_by_global_norm(grads: Tree, max_norm: float):
     return {k: g * scale for k, g in grads.items()}, gnorm
 
 
+def _in_layout(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """``new`` in the DTensor placements of ``old`` (its state leaf); a
+    no-op for plain tensors.  A factored moment's mean over a dim that a
+    mesh axis shards comes out partial over that axis: reduced here,
+    before the update uses it, it is a row or column of numbers, where
+    the partial product of the two moments would be the whole gradient's
+    size on every rank."""
+    placements = getattr(old, "placements", None)
+    if placements is None or tuple(new.placements) == tuple(placements):
+        return new
+    return new.redistribute(old.device_mesh, placements)
+
+
 def adafactor(learning_rate: Schedule, decay: float = 0.8,
               eps: float = 1e-30, clip_threshold: float = 1.0) -> Optimizer:
     """Adafactor (Shazeer and Stern, 2018): factored second moments for
@@ -153,8 +166,10 @@ def adafactor(learning_rate: Schedule, decay: float = 0.8,
             g32 = g.float()
             g2 = torch.square(g32) + eps
             if g.dim() >= 2:
-                vr = beta * v["vr"] + (1 - beta) * g2.mean(-1)
-                vc = beta * v["vc"] + (1 - beta) * g2.mean(-2)
+                vr = _in_layout(beta * v["vr"] + (1 - beta) * g2.mean(-1),
+                                v["vr"])
+                vc = _in_layout(beta * v["vc"] + (1 - beta) * g2.mean(-2),
+                                v["vc"])
                 denom = (vr[..., None] * vc[..., None, :]
                          / torch.clamp(vr.mean(-1, keepdim=True)[..., None],
                                        min=eps))

@@ -3,11 +3,12 @@ CPU, and the sharded layer's 1 x 1 mesh bit for bit.
 
 - The reduced qwen2-1.5b train step (8 x 64 tokens), traced on fake
   process groups of 1, 8 and 8 ranks ((1, 1), (8, 1) and (2, 4) meshes):
-  on (8, 1) the per-device FLOPs are exactly an eighth of (1, 1)'s; the
-  (1, 1) count is within 2% of the reference's (``hlo.analyze`` of the
-  same step compiled on an Auto-axis ``jax.sharding.Mesh`` in a
+  the (1, 1) count is within 2% of the reference's (``hlo.analyze`` of
+  the same step compiled on an Auto-axis ``jax.sharding.Mesh`` in a
   subprocess); (2, 4) moves collective bytes; on every mesh the ops of
-  DTensor's shape propagation were seen and left out.
+  DTensor's shape propagation were seen and left out.  The exact split
+  over eight data ranks, every arch's, and the gradients' layouts are
+  ``tests/test_torch_grad_layout.py``'s.
 - One full-width combo, qwen2-1.5b x train_4k on the 16 x 16 mesh,
   written as its JSON.
 - ``OpStats`` counts what one rank runs: a DTensor product's local FLOPs
@@ -102,11 +103,6 @@ def mini_counts():
         finally:
             dist.destroy_process_group()
     return out
-
-
-def test_mini_step_flops_split_exactly_over_eight_data_ranks(mini_counts):
-    assert mini_counts[(8, 1)]["flops"] * 8 == mini_counts[(1, 1)]["flops"]
-    assert mini_counts[(1, 1)]["collective_bytes"] == 0
 
 
 def test_mini_step_flops_match_the_reference_hlo_count(mini_counts):

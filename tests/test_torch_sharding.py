@@ -459,6 +459,18 @@ def test_sharded_step_keeps_every_leaf_in_its_layout(gloo, arch):
     assert got["sharded_leaves"] > 0
 
 
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_sharded_step_gradients_reach_the_optimizer_in_their_parameters_layout(
+        gloo, arch):
+    """Every gradient that reaches ``global_norm_scale`` in the three 2 x 2
+    steps has its parameter's placements: the backward has already
+    reduce-scattered (or all-reduced) it."""
+    inputs, out, _ = gloo
+    kept = out["train"][arch]["sharded"]["grad_layout_kept"]
+    assert set(kept) == set(inputs["train"][arch]["params"])
+    assert all(kept.values()), [k for k, v in kept.items() if not v]
+
+
 def test_sharded_prefill_and_decode_match_the_unsharded_port(gloo):
     _, out, _ = gloo
     got, plain = out["serve"]["sharded"], out["serve"]["plain"]

@@ -64,6 +64,9 @@ def train(arch: str, case: dict, mesh, lr: float, solo) -> dict:
 
 
 def train_on(arch: str, case: dict, mesh, lr: float) -> dict:
+    """Three steps on ``mesh``; "grad_layout_kept": per leaf, whether every
+    gradient that reached ``global_norm_scale`` had its parameter's
+    placements."""
     cfg = arch_cfg(arch)
     step = steps.make_train_step(cfg, learning_rate=lr,
                                  hints=steps.mesh_hints(mesh))
@@ -73,18 +76,30 @@ def train_on(arch: str, case: dict, mesh, lr: float) -> dict:
     params = sh.distribute_tree(params, psh)
     opt = sh.distribute_tree(opt, sh.params_shardings_like(opt, psh, mesh))
     losses, norms = [], []
-    for b in case["batches"]:
-        b = sh.distribute_tree(b, sh.batch_shardings(b, mesh))
-        params, opt, m = step(params, opt, b)
-        losses.append(float(whole(m["loss"])))
-        norms.append(float(whole(m["grad_norm"])))
+    grad_kept = dict.fromkeys(params, True)
+    real = steps.global_norm_scale
+
+    def check(grads, clip_norm):
+        for k, g in grads.items():
+            grad_kept[k] &= tuple(g.placements) == tuple(psh[k].placements)
+        return real(grads, clip_norm)
+    steps.global_norm_scale = check
+    try:
+        for b in case["batches"]:
+            b = sh.distribute_tree(b, sh.batch_shardings(b, mesh))
+            params, opt, m = step(params, opt, b)
+            losses.append(float(whole(m["loss"])))
+            norms.append(float(whole(m["grad_norm"])))
+    finally:
+        steps.global_norm_scale = real
     kept = {k: tuple(v.placements) == tuple(psh[k].placements)
             for k, v in params.items()}
     split = sum(any(p.is_shard() for p in v.placements)
                 for v in params.values())
     return {"loss": losses, "grad_norm": norms,
             "params": {k: whole(v) for k, v in params.items()},
-            "layout_kept": kept, "sharded_leaves": split}
+            "layout_kept": kept, "grad_layout_kept": grad_kept,
+            "sharded_leaves": split}
 
 
 def serve(case: dict, mesh):
